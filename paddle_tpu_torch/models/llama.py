@@ -1,0 +1,316 @@
+"""Llama functional core for serving: the port of the serving half of
+``paddle_tpu/models/llama.py``.
+
+Parameters are a plain dict of tensors in the reference's stacked
+layout: every per-layer leaf carries a leading layer axis ``L``, and an
+int8 weight is a ``{"q": int8 [L, K, N], "scale": f32 [L, 1, N]}`` leaf
+(``quantize_params``).  ``forward_paged`` is the serving step: one
+ragged batch of prefill chunks and decode tokens over paged K/V pools,
+with attention in the ragged-paged-attention kernel and every matmul of
+a quantized model in the int8 matmul kernel.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..ops.int8_matmul import int8_matmul, quantize_int8
+from ..ops.ragged_paged_attention import ragged_paged_attention
+
+__all__ = ["LlamaConfig", "PRESETS", "preset", "init_params",
+           "quantize_params", "forward_paged"]
+
+
+@dataclasses.dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    dtype: Any = torch.bfloat16
+    # MoE is not ported yet: any value > 0 makes forward_paged raise
+    moe_num_experts: int = 0
+    # int8 weight path: "auto" (or None) = on CUDA only, "on" =
+    # everywhere (the CPU runs the plain int8 version, what parity tests
+    # use), "off" = dense weights
+    quantized: Optional[str] = None
+
+    def __post_init__(self):
+        if self.quantized not in (None, "auto", "on", "off"):
+            raise ValueError(f"quantized must be None, 'auto', 'on' or "
+                             f"'off', got {self.quantized!r}")
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_attention_heads
+
+
+# The LlamaConfig defaults ARE the 7B shape, so llama7b overrides nothing.
+PRESETS: Dict[str, Dict[str, Any]] = {
+    "llama7b": {},
+    "llama1b": dict(hidden_size=2048, intermediate_size=5504,
+                    num_hidden_layers=16, num_attention_heads=16,
+                    num_key_value_heads=16),
+    "llama-debug": dict(vocab_size=256, hidden_size=64,
+                        intermediate_size=128, num_hidden_layers=2,
+                        num_attention_heads=4, num_key_value_heads=4,
+                        max_position_embeddings=256),
+}
+
+
+def preset(name: str, **overrides) -> LlamaConfig:
+    """LlamaConfig from a named preset, with field overrides on top."""
+    if name not in PRESETS:
+        raise KeyError(f"unknown llama preset {name!r}; "
+                       f"available: {sorted(PRESETS)}")
+    kw = dict(PRESETS[name])
+    kw.update(overrides)
+    return LlamaConfig(**kw)
+
+
+def init_params(cfg: LlamaConfig, seed: int = 0, *,
+                device=None) -> Dict[str, Any]:
+    """Stacked parameter dict (layer axis L leads every per-layer
+    tensor), drawn N(0, 0.02) from a ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (the card unless the caller names another).
+    Layer leaves are drawn one layer at a time, so the float32 draw never
+    holds more than one layer's weight."""
+    if cfg.moe_num_experts > 0:
+        raise NotImplementedError(
+            "MoE layers are not ported yet (ROADMAP A: distributed train "
+            "runtime, _moe_mlp)")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    V = cfg.vocab_size
+    KV = cfg.num_key_value_heads * cfg.head_dim
+    std = 0.02
+
+    def init(shape):
+        out = torch.empty(shape, dtype=cfg.dtype, device=dev)
+        for part in (out if len(shape) == 3 else [out]):
+            part.copy_(torch.randn(part.shape, generator=gen, device=dev,
+                                   dtype=torch.float32) * std)
+        return out
+
+    def ones(shape):
+        return torch.ones(shape, dtype=cfg.dtype, device=dev)
+
+    return {
+        "embed": init((V, H)),
+        "layers": {
+            "ln1": ones((L, H)),
+            "wq": init((L, H, H)),
+            "wk": init((L, H, KV)),
+            "wv": init((L, H, KV)),
+            "wo": init((L, H, H)),
+            "ln2": ones((L, H)),
+            "w_gate": init((L, H, I)),
+            "w_up": init((L, H, I)),
+            "w_down": init((L, I, H)),
+        },
+        "norm_f": ones((H,)),
+        "lm_head": init((H, V)),
+    }
+
+
+# ---------------------------------------------------------------------------
+# pure forward pieces
+# ---------------------------------------------------------------------------
+
+def _rope_tables(cfg: LlamaConfig, seq_len: int, device):
+    half = cfg.head_dim // 2
+    inv_freq = 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, half, dtype=torch.float32, device=device) / half))
+    t = torch.arange(seq_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)                       # [S, half]
+    emb = torch.cat([freqs, freqs], dim=-1)                # [S, D]
+    return torch.sin(emb), torch.cos(emb)
+
+
+def _rms_norm(x, w, eps):
+    # normalise in fp32, cast to the activation dtype, THEN scale: the
+    # reference's order, which bf16 parity depends on
+    x32 = x.float()
+    ms = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps)).to(x.dtype) * w
+
+
+def _qmm(x, w):
+    """x @ w, where ``w`` is a dense tensor or a ``quantize_params`` leaf
+    ``{"q": int8 [K, N], "scale": f32 [1, N]}`` that goes through the
+    int8 matmul."""
+    if isinstance(w, dict):
+        return int8_matmul(x, w["q"], w["scale"])
+    return x @ w
+
+
+def _dense_mlp(lp, x):
+    gate = F.silu(_qmm(x, lp["w_gate"]))
+    up = _qmm(x, lp["w_up"])
+    return _qmm(gate * up, lp["w_down"])
+
+
+def _quantized_mode(cfg: LlamaConfig, device) -> bool:
+    """Resolved int8-weight policy: "auto" (the default) quantizes on
+    CUDA only; "on" everywhere; "off" never."""
+    mode = cfg.quantized or "auto"
+    if mode == "off":
+        return False
+    if mode == "auto":
+        return torch.device(device).type == "cuda"
+    return True
+
+
+# weight leaves quantize_params converts (per-layer stacked [L, K, N]);
+# norms and embed stay dense
+_QUANT_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _quantize_stacked(w):
+    """quantize_int8 one layer at a time (same result as the whole
+    stack: the absmax runs over K within each layer)."""
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty((*w.shape[:-2], 1, w.shape[-1]),
+                        dtype=torch.float32, device=w.device)
+    for l in range(w.shape[0]):
+        q[l], scale[l] = quantize_int8(w[l])
+    return {"q": q, "scale": scale}
+
+
+def quantize_params(cfg: LlamaConfig, params):
+    """PTQ the serving weight path to int8: each matmul weight in
+    ``_QUANT_WEIGHTS`` plus ``lm_head`` becomes a ``{"q", "scale"}``
+    leaf (per-output-channel absmax, ``quantize_int8``).  Idempotent:
+    already-quantized leaves pass through."""
+    if cfg.moe_num_experts > 0:
+        raise NotImplementedError("MoE layers are not ported yet")
+    out = dict(params)
+    layers = dict(params["layers"])
+    for nm in _QUANT_WEIGHTS:
+        w = layers.get(nm)
+        if w is not None and not isinstance(w, dict):
+            layers[nm] = _quantize_stacked(w)
+    out["layers"] = layers
+    head = out.get("lm_head")
+    if head is not None and not isinstance(head, dict):
+        q, scale = quantize_int8(head)
+        out["lm_head"] = {"q": q, "scale": scale}
+    return out
+
+
+def _layer(leaf, l):
+    if isinstance(leaf, dict):
+        return {k: v[l] for k, v in leaf.items()}
+    return leaf[l]
+
+
+def forward_paged(cfg: LlamaConfig, params, tokens, k_pages, v_pages,
+                  block_tables, seq_lens, q_lens, *,
+                  k_scales=None, v_scales=None):
+    """Ragged mixed prefill + decode forward over a paged KV cache (the
+    serving engine's step function).
+
+    tokens        [R, Tc] int     current-chunk token slots; request r
+                                  uses tokens[r, :q_lens[r]]
+    k/v_pages     [L, nkv, P, page, d] per-layer pools, UPDATED IN PLACE
+    block_tables  [R, Bmax] int32 pool page of each logical kv block
+                                  (page 0 = reserved null page, absorbs
+                                  padding-token writes)
+    seq_lens      [R] int32       total kv length incl. this chunk
+    q_lens        [R] int32       chunk lengths (0 = inactive slot)
+
+    Rope runs at each token's absolute position (seq_lens - q_lens + t),
+    the new k/v are written into the pools through the block table, and
+    attention is ``ragged_paged_attention``.  Returns (logits [R, Tc, V]
+    fp32, (k_pages, v_pages)); the pools are the same tensors the caller
+    passed.  Logits in padding rows are garbage by contract: callers
+    read row q_lens[r] - 1.
+
+    The reference returns new pools (JAX arrays are immutable); here the
+    step writes into the pools in place, which halves the pool memory a
+    step needs.  Quantized (int8) KV pools are not ported yet."""
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError(
+            "int8 KV pools are not ported yet (ROADMAP A: int8-KV serving "
+            "path, kernel row 12 _rpa_kernel_quant)")
+    if cfg.moe_num_experts > 0:
+        raise NotImplementedError(
+            "MoE layers are not ported yet (ROADMAP A: distributed train "
+            "runtime, _moe_mlp)")
+    R, Tc = tokens.shape
+    nh, nkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    H = cfg.hidden_size
+    rep = nh // nkv
+    L, _, num_pages, page, _ = k_pages.shape
+    dev = k_pages.device
+    Bmax = block_tables.shape[1]
+
+    # absolute position of each token slot, clipped for the rope gather
+    lens = seq_lens.long()
+    start = lens - q_lens.long()                             # [R]
+    t_off = torch.arange(Tc, dtype=torch.long, device=dev)
+    qpos = start[:, None] + t_off[None, :]                   # [R, Tc]
+    valid = t_off[None, :] < q_lens.long()[:, None]          # [R, Tc]
+    qpos_c = qpos.clamp(0, cfg.max_position_embeddings - 1)
+    sin_full, cos_full = _rope_tables(cfg, cfg.max_position_embeddings, dev)
+    sin = sin_full[qpos_c]                                   # [R, Tc, D]
+    cos = cos_full[qpos_c]
+
+    def rope(x):
+        # per-token tables (ragged positions), neox style
+        half = x.shape[-1] // 2
+        rot = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+        return (x * cos[:, :, None, :].to(x.dtype)
+                + rot * sin[:, :, None, :].to(x.dtype))
+
+    # flat pool slot of each new token, through the block table; padding
+    # tokens land on the null page, which the kernel never reads (it
+    # reads only pages with j * page < kvlen)
+    blk = (qpos_c // page).clamp(0, Bmax - 1)
+    phys = block_tables.long().gather(1, blk)                # [R, Tc]
+    dest = torch.where(valid, phys * page + qpos_c % page,
+                       torch.zeros_like(phys)).reshape(-1)
+
+    h = params["embed"][tokens.long()]                       # [R, Tc, H]
+    layers = params["layers"]
+    for l in range(L):
+        lp = {k: _layer(v, l) for k, v in layers.items()}
+        xn = _rms_norm(h, lp["ln1"], cfg.rms_norm_eps)
+        q = rope(_qmm(xn, lp["wq"]).reshape(R, Tc, nh, d))
+        k = rope(_qmm(xn, lp["wk"]).reshape(R, Tc, nkv, d))
+        v = _qmm(xn, lp["wv"]).reshape(R, Tc, nkv, d)
+        kp, vp = k_pages[l], v_pages[l]                      # [nkv, P, page, d]
+        # write the new k/v into the pools in place: [R, Tc, nkv, d] ->
+        # [nkv, R*Tc, d] at the flat slots of the [nkv, P*page, d] view
+        kp.view(nkv, num_pages * page, d).index_copy_(
+            1, dest, k.permute(2, 0, 1, 3).reshape(nkv, R * Tc, d)
+            .to(kp.dtype))
+        vp.view(nkv, num_pages * page, d).index_copy_(
+            1, dest, v.permute(2, 0, 1, 3).reshape(nkv, R * Tc, d)
+            .to(vp.dtype))
+        # kernel layout [R, nkv, Tc*rep, d]: row t*rep + j = q head
+        # k*rep + j of token t (the h // rep GQA mapping)
+        qk = q.reshape(R, Tc, nkv, rep, d).permute(0, 2, 1, 3, 4).reshape(
+            R, nkv, Tc * rep, d)
+        out = ragged_paged_attention(qk, kp, vp, block_tables, seq_lens,
+                                     q_lens, rep=rep)
+        out = out.reshape(R, nkv, Tc, rep, d).permute(0, 2, 1, 3, 4).reshape(
+            R, Tc, H)
+        h = h + _qmm(out.to(h.dtype), lp["wo"])
+        hn = _rms_norm(h, lp["ln2"], cfg.rms_norm_eps)
+        h = h + _dense_mlp(lp, hn)
+    x = _rms_norm(h, params["norm_f"], cfg.rms_norm_eps)
+    logits = _qmm(x, params["lm_head"]).float()
+    return logits, (k_pages, v_pages)
