@@ -5,18 +5,26 @@ NVIDIA card.  Run from the repository root:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``paddle_tpu_torch/ops/csrc``
-with nvcc, holds each kernel against its plain PyTorch version at the
-serving path's shapes and times both (plus one PyTorch library call for
-the same function as a yardstick the port never calls), checks a small
-model's serving step on the card against the CPU, then serves 16
-requests through ``LLMEngine`` at the full width and depth of the
-``llama7b`` preset (random weights from a seed, int8 weights, bf16 KV
-pages) and checks that every launch of the path went through the two
-kernels.  Any failure exits non-zero.
+with nvcc (one nvcc per source, started together), holds each kernel
+against its plain PyTorch version at its main path's shapes and times
+both (plus one PyTorch library call for the same function as a
+yardstick the port never calls), then drives the two main paths:
 
-The last two lines of standard output are the card's name and power
-limit (from nvidia-smi) and, last, ``{"ok": true, "device": {...}}``;
-the line before them is the ``kernels`` JSON object.
+- serving: a small model's serving step on the card against the CPU,
+  then 16 requests through ``LLMEngine`` at the full width and depth of
+  the ``llama7b`` preset (random weights from a seed, int8 weights, bf16
+  KV pages), every launch counted through the int8 matmul and ragged
+  paged attention kernels;
+- training: a small bf16 train step on the card against the CPU in
+  f32, then ``paddle_tpu_torch.bench``'s train step at bench.py's
+  ~0.95B shape (S = 2048, AdamW) for warmup + 5 timed steps, every
+  launch counted through the three flash attention kernels, and one
+  profiled step.
+
+Any failure exits non-zero.  The last two lines of standard output are
+the card's name and power limit (from nvidia-smi) and, last,
+``{"ok": true, "device": {...}}``; the line before them is the
+``kernels`` JSON object.
 """
 import json
 import math
@@ -400,17 +408,345 @@ def profile_steps(torch, eng, prompts, card):
             steps += 1
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    print_profile(prof, wall_us, f"profile [{card}]: {steps} steps", 10)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (the train path's kernels)
+# ---------------------------------------------------------------------------
+
+# (B, S, H, D): tails (S = 1, 17, 200), both head dims, the bench shape last
+FLASH_CASES = [(1, 1, 2, 128), (2, 17, 3, 64), (1, 200, 2, 128),
+               (4, 2048, 16, 128)]
+
+
+def flash_bounds(B, S, H, D):
+    """(bytes, ops) each flash function must move and do: every input read
+    once and every output written once; the causal pairs only
+    (S (S + 1) / 2 per head), 2 D ops per pair per matmul product (fwd
+    2: s, p.v; dq 3: s, dp, ds.k; dkv 4: s, dp, p^T.do, ds^T.q).  The
+    backward as one function (dq, dk, dv from q, k, v, o, do, lse) needs
+    5 products; "pair_split" counts the 7 that the dq/dkv split
+    computes, s and dp twice."""
+    x, rows = 2 * B * S * H * D, 4 * B * H * S
+    pairs = B * H * S * (S + 1) // 2
+    return {"fwd": (3 * x + x + rows, 4 * D * pairs),
+            "dq": (5 * x + rows + x + rows, 6 * D * pairs),
+            "dkv": (4 * x + 2 * rows + 2 * x, 8 * D * pairs),
+            "pair": (5 * x + rows + 3 * x, 10 * D * pairs),
+            "pair_split": (5 * x + rows + 3 * x, 14 * D * pairs)}
+
+
+def rel_err(got, ref):
+    """max |diff| / max |ref|, the scale floored at 1e-3: at S = 1 a row's
+    softmax has one key, so dq and dk are exactly 0 and both sides hold
+    rounding noise of ~1e-7."""
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-3)).item()
+
+
+def rms_rel(got, ref, per_row):
+    """RMS of the error over the reference's RMS (floored at 1e-3, for
+    the exact zeros of S = 1): over each row of D and the worst row
+    taken (``per_row``), or over the whole tensor.  Per row, a late
+    query row of o, whose values are ~20x smaller than an early one's at
+    S = 2048, is held to its own scale."""
+    d, r = got.float() - ref.float(), ref.float()
+    if per_row:
+        return (d.pow(2).mean(-1).sqrt()
+                / r.pow(2).mean(-1).sqrt().clamp_min(1e-3)).max().item()
+    return (d.pow(2).mean().sqrt()
+            / r.pow(2).mean().sqrt().clamp_min(1e-3)).item()
+
+
+# per-row and whole-tensor RMS limits on o, dq, dk and dv: ~5x the
+# kernels' readings, below a kernel that drops one far-diagonal k tile
+# (``flash_control``)
+ROW_REL_MAX, NORM_REL_MAX = 2e-2, 1e-2
+
+
+def _attention_f32(torch, q, k, v, do, mask):
+    """o, dq, dk, dv in f32 by autograd, the scores under ``mask``."""
+    q, k, v = (t.float().requires_grad_() for t in (q, k, v))
+    s = torch.einsum("bshd,bthd->bhst", q, k) / math.sqrt(q.shape[-1])
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    o = torch.einsum("bhst,bthd->bshd", p, v)
+    return [o.detach(), *torch.autograd.grad(o, (q, k, v), do.float())]
+
+
+def flash_control(torch, q, k, v, do):
+    """The limits against a wrong kernel: attention that drops k tile 0
+    (keys 0-63) for the last q tile only, a fault that only long S
+    reaches, run in f32 and read against f32 causal attention.  It fails
+    unless every one of o, dq, dk, dv breaks the per-row limit."""
+    S = q.shape[1]
+    causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    wrong = causal.clone()
+    wrong[S - 64:, :64] = False
+    ref = _attention_f32(torch, q, k, v, do, causal)
+    bad = _attention_f32(torch, q, k, v, do, wrong)
+    names = ("o", "dq", "dk", "dv")
+    row = {n: rms_rel(b, r, True) for n, b, r in zip(names, bad, ref)}
+    norm = {n: rms_rel(b, r, False) for n, b, r in zip(names, bad, ref)}
+    old = {n: ((b - r).abs().max().item() if n == "o" else rel_err(b, r))
+           for n, b, r in zip(names, bad, ref)}
+    print("flash control (k tile 0 dropped for the last q tile): row rel "
+          + "  ".join(f"{n} {row[n]:.3g}" for n in names) + "; norm rel "
+          + "  ".join(f"{n} {norm[n]:.3g}" for n in names)
+          + "; o max |diff| / grad max-rel "
+          + "  ".join(f"{n} {old[n]:.3g}" for n in names))
+    for n in names:
+        check(row[n] > ROW_REL_MAX, f"flash control: {n} row rel {row[n]} "
+              f"passes the limit {ROW_REL_MAX}: the check cannot see a "
+              f"dropped tile")
+    return row
+
+
+def flash_phase(torch, fa):
+    """Each flash kernel against its plain version (run in f32 on the same
+    bf16 inputs): o max |diff| <= 2e-2 (bf16 output, values ~1); each
+    gradient max |diff| / max |ref| <= 2e-2 (bf16 p and ds feed the
+    tensor cores); lse max |diff| <= 1e-3; and o, dq, dk, dv each within
+    ``ROW_REL_MAX`` per row and ``NORM_REL_MAX`` over the tensor
+    (``rms_rel``).  Controlled and timed at the bench shape."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    row_errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    timing = control = None
+    for B, S, H, D in FLASH_CASES:
+        rng = np.random.RandomState(S + D)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            (B, S, H, D)).astype(np.float32)).to(dev, torch.bfloat16)
+            for _ in range(4))
+        o, lse = fa.flash_fwd(q, k, v)
+        dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta)
+        f32 = [t.float() for t in (q, k, v, do)]
+        o_ref, lse_ref = fa._flash_fwd_plain(*f32[:3])
+        # the backward's reference runs on the kernel's own o and lse
+        dq_ref, dk_ref, dv_ref = fa._flash_bwd_plain(
+            *f32[:3], o.float(), lse, f32[3])
+        torch.cuda.synchronize()
+        e_o = (o.float() - o_ref).abs().max().item()
+        e_lse = (lse - lse_ref).abs().max().item()
+        e_g = {n: rel_err(g, r) for n, g, r in
+               (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))}
+        shape = f"B={B} S={S} H={H} D={D}"
+        check(e_o <= 2e-2, f"flash_fwd {shape}: o max |diff| {e_o} > 2e-2")
+        check(e_lse <= 1e-3, f"flash_fwd {shape}: lse max |diff| {e_lse}")
+        for n, e in e_g.items():
+            check(e <= 2e-2, f"flash_bwd {shape}: {n} rel err {e} > 2e-2")
+        got = {"o": (o, o_ref), "dq": (dq, dq_ref), "dk": (dk, dk_ref),
+               "dv": (dv, dv_ref)}
+        e_row = {n: rms_rel(g, r, True) for n, (g, r) in got.items()}
+        e_norm = {n: rms_rel(g, r, False) for n, (g, r) in got.items()}
+        for n in got:
+            check(e_row[n] <= ROW_REL_MAX, f"flash {shape}: {n} row rel "
+                  f"{e_row[n]} > {ROW_REL_MAX}")
+            check(e_norm[n] <= NORM_REL_MAX, f"flash {shape}: {n} norm rel "
+                  f"{e_norm[n]} > {NORM_REL_MAX}")
+        for key, ns in (("fwd", ("o",)), ("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+            row_errs[key] = max([row_errs[key]] + [e_row[n] for n in ns])
+        errs["fwd"] = max(errs["fwd"], e_o)
+        errs["dq"] = max(errs["dq"], (dq.float() - dq_ref).abs().max().item())
+        errs["dkv"] = max(errs["dkv"], (dk.float() - dk_ref).abs().max()
+                          .item(), (dv.float() - dv_ref).abs().max().item())
+        print(f"flash {shape}: o {e_o:.3g}  lse {e_lse:.3g}  rel dq "
+              f"{e_g['dq']:.3g} dk {e_g['dk']:.3g} dv {e_g['dv']:.3g}; row "
+              "rel " + "  ".join(f"{n} {e_row[n]:.3g}" for n in got)
+              + "; norm rel " + "  ".join(f"{n} {e_norm[n]:.3g}"
+                                          for n in got))
+        del f32, o_ref, lse_ref, dq_ref, dk_ref, dv_ref, got
+        if (B, S, H, D) == FLASH_CASES[-1]:
+            control = flash_control(torch, q, k, v, do)
+            timing = flash_timing(torch, F, fa, q, k, v, do, o, lse, delta)
+    return timing, errs, row_errs, control
+
+
+def flash_timing(torch, F, fa, q, k, v, do, o, lse, delta):
+    B, S, H, D = q.shape
+    ms = {
+        "fwd": time_ms(torch, lambda i: fa.flash_fwd(q, k, v), calls=20),
+        "dq": time_ms(torch, lambda i: fa.flash_bwd_dq(q, k, v, o, lse, do),
+                      calls=20),
+        "dkv": time_ms(torch, lambda i: fa.flash_bwd_dkv(
+            q, k, v, do, lse, delta), calls=20),
+        "pair": time_ms(torch, lambda i: fa.flash_bwd_dkv(
+            q, k, v, do, lse, fa.flash_bwd_dq(q, k, v, o, lse, do)[1]),
+            calls=10),
+    }
+    plain = {
+        "fwd": time_ms(torch, lambda i: fa._flash_fwd_plain(q, k, v),
+                       calls=2, replays=2),
+        "dq": time_ms(torch, lambda i: fa._flash_bwd_dq_plain(
+            q, k, v, o, lse, do), calls=2, replays=2),
+        "dkv": time_ms(torch, lambda i: fa._flash_bwd_dkv_plain(
+            q, k, v, do, lse, delta), calls=2, replays=2),
+        "pair": time_ms(torch, lambda i: fa._flash_bwd_plain(
+            q, k, v, o, lse, do), calls=2, replays=2),
+    }
+    # yardstick: SDPA on [B, H, S, D], timed as the kernels are (CUDA-graph
+    # replay); its backward is its forward + backward less its forward
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    lib = {"fwd": time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), calls=20)}
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+
+    def fwd_bwd(i):
+        y = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        return torch.autograd.grad(y, (qg, kg, vg), dot)
+
+    lib["fwd_bwd"] = time_ms(torch, fwd_bwd, calls=10)
+    lib["pair"] = lib["fwd_bwd"] - lib["fwd"]
+    bounds = {n: bound_ms(*flash_bounds(B, S, H, D)[n], "bf16")
+              for n in ("fwd", "dq", "dkv", "pair", "pair_split")}
+    shape = f"B={B} S={S} H={H} D={D}"
+    for n in ("fwd", "dq", "dkv", "pair"):
+        sdpa = (f"{lib[n]:.4f} ms" if n in lib
+                else "n/a (no one call computes it alone)")
+        print(f"flash {n} {shape}: kernel {ms[n]:.4f} ms  plain "
+              f"{plain[n]:.4f} ms  sdpa {sdpa}  bound "
+              f"{bounds[n][0]:.4f} ms ({bounds[n][1]})")
+    print(f"flash pair {shape}: bound of the split's 7 products "
+          f"{bounds['pair_split'][0]:.4f} ms (the function needs 5)")
+    print(f"flash fwd+bwd {shape}: kernels {ms['fwd'] + ms['pair']:.4f} ms"
+          f"  sdpa {lib['fwd_bwd']:.4f} ms")
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bounds": bounds}
+
+
+# ---------------------------------------------------------------------------
+# the train path
+# ---------------------------------------------------------------------------
+
+def _tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def small_train_check(torch, tllama):
+    """One train step's loss and gradients of a small GQA model (head dim
+    128): the card in bf16 (flash kernels, "dots" remat) against the CPU
+    in f32 on the same (bf16-valued) weights.  bf16 rounds every
+    activation (8 mantissa bits); the same comparison made on the CPU
+    alone (bf16 vs f32) gives loss |diff| ~1e-4 and gradient errors
+    ~1e-2 of each gradient's max, hence loss atol 1e-2 and gradient
+    max |diff| / max |ref| <= 5e-2."""
+    kw = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+              num_hidden_layers=2, num_attention_heads=2,
+              num_key_value_heads=1, max_position_embeddings=128,
+              remat_policy="dots")
+    base = tllama.init_params(tllama.LlamaConfig(dtype=torch.bfloat16, **kw),
+                              0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": torch.from_numpy(rng.integers(0, 512, (2, 64))),
+             "labels": torch.from_numpy(rng.integers(0, 512, (2, 64)))}
+    outs = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        cfg = tllama.LlamaConfig(dtype=dtype, **kw)
+        params = _tree(base, lambda t: t.to(dev, dtype).requires_grad_())
+        total, ce = tllama.loss_fn(cfg, params, _tree(
+            batch, lambda t: t.to(dev)))
+        total.backward()
+        outs[dev] = (ce.item(), {n: t.grad.float().cpu()
+                                 for n, t in _flat(params).items()})
+    loss_err = abs(outs["cpu"][0] - outs["cuda"][0])
+    grad_err = max(rel_err(outs["cuda"][1][n], g)
+                   for n, g in outs["cpu"][1].items())
+    check(math.isfinite(outs["cuda"][0]), "small train step: loss not finite")
+    check(loss_err <= 1e-2, f"small train step: loss |diff| {loss_err}")
+    check(grad_err <= 5e-2, f"small train step: grad rel err {grad_err}")
+    print(f"small train step (bf16 card vs f32 CPU): loss "
+          f"{outs['cuda'][0]:.6f} vs {outs['cpu'][0]:.6f} (|diff| "
+          f"{loss_err:.3g}, atol 1e-2), worst grad rel err {grad_err:.3g} "
+          f"(<= 5e-2) over {len(outs['cpu'][1])} leaves")
+
+
+def train_phase(torch, tbench, fa, card):
+    """The train path: ``paddle_tpu_torch.bench.measure`` (the entry point
+    of ``python -m paddle_tpu_torch.bench``) at bench.py's shape, 2
+    warmup + 5 timed steps, with the flash launches counted."""
+    for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        w.launches = 0
+    res = tbench.measure(iters=5, warmup=2)
+    launches = {"flash_fwd": fa.flash_fwd.launches,
+                "flash_bwd_dq": fa.flash_bwd_dq.launches,
+                "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+    steps = res["iters"] + res["warmup"]
+    L = tbench.MODEL["num_hidden_layers"]
+    fwd_per = 2 * L if res["remat_policy"] != "none" else L
+    check(not res["oom_rungs"], f"a ladder rung ran out of memory: "
+          f"{res['oom_rungs']}")
+    check(launches == {"flash_fwd": fwd_per * steps,
+                       "flash_bwd_dq": L * steps,
+                       "flash_bwd_dkv": L * steps},
+          f"flash launches {launches} over {steps} steps, expected "
+          f"{fwd_per} fwd (remat {res['remat_policy']}), {L} dq, {L} dkv "
+          f"per step")
+    ln_v = math.log(tbench.MODEL["vocab_size"])
+    check(all(math.isfinite(res[k]) for k in ("loss_step0", "loss_last")),
+          "train loss not finite")
+    check(abs(res["loss_step0"] - ln_v) <= 0.5,
+          f"step-0 loss {res['loss_step0']} not within 0.5 of ln V {ln_v}")
+    print(f"train [{card}]: {json.dumps(res)}")
+    print(f"train [{card}]: launches {launches} over {steps} steps = per "
+          f"step {fwd_per} flash_fwd ({res['remat_policy']} remat "
+          f"recomputes it), {L} flash_bwd_dq, {L} flash_bwd_dkv")
+    return launches, res
+
+
+def train_profile(torch, tbench, tllama, card):
+    """Where a train step's time goes: one warmup step, then one step
+    under torch.profiler at the bench's first rung; device time by
+    kernel and the device's busy share of the profiled wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    policy, B = tbench.LADDER[0]
+    cfg = tllama.LlamaConfig(remat_policy=policy, **tbench.MODEL)
+    params = tllama.init_params(cfg, 0, device="cuda")
+    for t in tbench.leaves(params):
+        t.requires_grad_(True)
+    opt = tbench.make_optimizer(params)
+    batch = tbench.make_batch(cfg, B, tbench.SEQ, "cuda")
+    tbench.train_step(cfg, params, opt, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tbench.train_step(cfg, params, opt, batch)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    print_profile(prof, wall_us, f"profile train [{card}]: 1 step", 15)
+
+
+def print_profile(prof, wall_us, head, top):
+    """Device time by kernel and the busy share.  Only kernels and copies
+    count: a CPU op's row repeats the device time of the kernels it
+    launched, and a user annotation's device row (``Optimizer.step``)
+    spans kernels that have rows of their own."""
+    from torch.autograd import DeviceType
 
     def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
+        return e.self_device_time_total
 
-    rows = sorted(prof.key_averages(), key=dev_us, reverse=True)
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU
+                   and not e.is_user_annotation),
+                  key=dev_us, reverse=True)
     busy_us = sum(dev_us(e) for e in rows)
-    print(f"profile [{card}]: {steps} steps, wall {wall_us / 1e3:.2f} ms, "
-          f"device busy {busy_us / 1e3:.2f} ms "
-          f"({100 * busy_us / wall_us:.1f}% of wall)")
-    for e in rows[:10]:
+    print(f"{head}, wall {wall_us / 1e3:.2f} ms, device busy "
+          f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}% of wall)")
+    for e in rows[:top]:
         if dev_us(e) > 0:
             print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  "
                   f"{e.key[:90]}")
@@ -428,10 +764,12 @@ def main():
         print(f"chip_smoke: cannot import paddle_tpu_torch ({exc}); run "
               f"from the repository root", file=sys.stderr)
         return 2
+    from paddle_tpu_torch import bench as tbench
     from paddle_tpu_torch import serving
     from paddle_tpu_torch.models import convert
     from paddle_tpu_torch.models import llama as tllama
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import int8_matmul as i8
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
@@ -454,10 +792,15 @@ def main():
 
     int8_rows, int8_err = int8_phase(torch, i8)
     rpa_rows, rpa_err = rpa_phase(torch, rpa)
+    flash, flash_err, flash_row_err, flash_ctl = flash_phase(torch, fa)
     small_reference_check(torch, tllama, convert)
-    # the main path: llama7b (bf16, 32 layers) on the card
+    # the serving path: llama7b (bf16, 32 layers) on the card
     launches = serve_phase(torch, tllama.preset("llama7b"), tllama,
                            serving, i8, rpa, card, torch.device("cuda"))
+    small_train_check(torch, tllama)
+    # the train path: bench.py's ~0.95B model, S = 2048, on the card
+    train_launches, _ = train_phase(torch, tbench, fa, card)
+    train_profile(torch, tbench, tllama, card)
 
     # one decode step of the main path: 225 int8 matmuls at M = 8 and 32
     # attention calls at the decode case
@@ -489,6 +832,34 @@ def main():
          "eager_ms": 32 * att["eager_ms"],
          "per": "one llama7b decode step: 32 calls, R=8, Tc=1, page 16"},
     ]}
+    # the flash kernels, per call at the bench shape; no one library call
+    # computes dq or dk/dv alone, so those carry the pair's SDPA backward
+    per = "one call at B=4 S=2048 H=16 D=128 (the bench step's shape)"
+    src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
+    pair = {"pair_ms": flash["ms"]["pair"],
+            "pair_plain_ms": flash["plain_ms"]["pair"],
+            "pair_bound_ms": flash["bounds"]["pair"][0],
+            "pair_split_bound_ms": flash["bounds"]["pair_split"][0],
+            "pair_library_ms": flash["library_ms"]["pair"]}
+    # each replaces a resident body and its streamed twin (one TPU
+    # VMEM-capacity split)
+    for name, key, line, twin, lib_ms, extra in (
+            ("flash_fwd", "fwd", 543, 313, flash["library_ms"]["fwd"], {}),
+            ("flash_bwd_dq", "dq", 609, 398, None, pair),
+            ("flash_bwd_dkv", "dkv", 645, 439, None, pair)):
+        kernels["kernels"].append(dict(
+            name=name, route="cuda", source=src,
+            replaces=f"paddle_tpu/ops/pallas_ops.py:{line}",
+            also_replaces=f"paddle_tpu/ops/pallas_ops.py:{twin}",
+            launches=train_launches[name], max_abs_err=flash_err[key],
+            row_rel_err=flash_row_err[key], row_rel_max=ROW_REL_MAX,
+            control_row_rel_err=min(
+                flash_ctl[n] for n in {"fwd": ("o",), "dq": ("dq",),
+                                       "dkv": ("dk", "dv")}[key]),
+            ms=flash["ms"][key], plain_ms=flash["plain_ms"][key],
+            bound_ms=flash["bounds"][key][0],
+            bound_by=flash["bounds"][key][1], library_ms=lib_ms, per=per,
+            **extra))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

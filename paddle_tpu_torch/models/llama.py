@@ -1,13 +1,21 @@
-"""Llama functional core for serving: the port of the serving half of
-``paddle_tpu/models/llama.py``.
+"""Llama functional core: the port of ``paddle_tpu/models/llama.py``'s
+serving half and its single-device train half.
 
 Parameters are a plain dict of tensors in the reference's stacked
 layout: every per-layer leaf carries a leading layer axis ``L``, and an
 int8 weight is a ``{"q": int8 [L, K, N], "scale": f32 [L, 1, N]}`` leaf
-(``quantize_params``).  ``forward_paged`` is the serving step: one
-ragged batch of prefill chunks and decode tokens over paged K/V pools,
-with attention in the ragged-paged-attention kernel and every matmul of
-a quantized model in the int8 matmul kernel.
+(``quantize_params``).
+
+- ``forward_paged`` is the serving step: one ragged batch of prefill
+  chunks and decode tokens over paged K/V pools, with attention in the
+  ragged-paged-attention kernel and every matmul of a quantized model in
+  the int8 matmul kernel.
+- ``forward_pure`` / ``loss_fn`` are the train step's forward: embed ->
+  ``run_layer_stack`` (``decoder_layer`` per layer, under the remat
+  policy) -> final norm -> ``lm_head``, with attention in the flash
+  kernels (``ops.flash_attention.causal_attention``).  Only the unfused
+  dense branch is ported: the fused decoder blocks, MoE and context
+  parallelism raise.
 """
 from __future__ import annotations
 
@@ -16,13 +24,17 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..ops.flash_attention import causal_attention
 from ..ops.int8_matmul import int8_matmul, quantize_int8
 from ..ops.ragged_paged_attention import ragged_paged_attention
 
 __all__ = ["LlamaConfig", "PRESETS", "preset", "init_params",
-           "quantize_params", "forward_paged"]
+           "quantize_params", "forward_paged", "decoder_layer",
+           "run_layer_stack", "forward_pure", "loss_fn"]
 
 
 @dataclasses.dataclass
@@ -43,8 +55,15 @@ class LlamaConfig:
     # everywhere (the CPU runs the plain int8 version, what parity tests
     # use), "off" = dense weights
     quantized: Optional[str] = None
+    # training: remat per layer; "full" recomputes the whole layer in the
+    # backward, "dots" saves the matmul outputs and recomputes the rest
+    use_remat: bool = True
+    remat_policy: str = "dots"
 
     def __post_init__(self):
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy must be 'full' or 'dots', got "
+                             f"{self.remat_policy!r}")
         if self.quantized not in (None, "auto", "on", "off"):
             raise ValueError(f"quantized must be None, 'auto', 'on' or "
                              f"'off', got {self.quantized!r}")
@@ -314,3 +333,130 @@ def forward_paged(cfg: LlamaConfig, params, tokens, k_pages, v_pages,
     x = _rms_norm(h, params["norm_f"], cfg.rms_norm_eps)
     logits = _qmm(x, params["lm_head"]).float()
     return logits, (k_pages, v_pages)
+
+
+# ---------------------------------------------------------------------------
+# the train half: forward_pure -> loss_fn (single device, unfused blocks)
+# ---------------------------------------------------------------------------
+
+def _apply_rope(x, sin, cos):
+    """Neox rope on x [B, S, H, D] with tables [S, D], cast to x's dtype
+    before the multiply as the reference does."""
+    half = x.shape[-1] // 2
+    rot = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return (x * cos[None, :, None, :].to(x.dtype)
+            + rot * sin[None, :, None, :].to(x.dtype))
+
+
+def _attention(cfg: LlamaConfig, lp, x, sin, cos):
+    """Self-attention of one layer (the reference's non-context-parallel
+    branch): qkv projections, rope, GQA kv-head repeat (``jnp.repeat``
+    = ``repeat_interleave``), causal flash attention, output
+    projection."""
+    B, S, H = x.shape
+    nh, nkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    q = _apply_rope(_qmm(x, lp["wq"]).reshape(B, S, nh, d), sin, cos)
+    k = _apply_rope(_qmm(x, lp["wk"]).reshape(B, S, nkv, d), sin, cos)
+    v = _qmm(x, lp["wv"]).reshape(B, S, nkv, d)
+    if nkv != nh:
+        rep = nh // nkv
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    out = causal_attention(q, k, v)
+    return _qmm(out.reshape(B, S, H), lp["wo"])
+
+
+def decoder_layer(cfg: LlamaConfig, lp, x, sin, cos):
+    """One decoder block on a per-layer param slice (no leading L axis):
+    the unfused dense composition.  It returns the hidden state alone;
+    the reference's MoE aux loss comes with MoE (ROADMAP A.6)."""
+    if cfg.moe_num_experts > 0:
+        raise NotImplementedError(
+            "MoE layers are not ported yet (ROADMAP A.6: distributed train "
+            "runtime, _moe_mlp)")
+    h = x + _attention(cfg, lp, _rms_norm(x, lp["ln1"], cfg.rms_norm_eps),
+                       sin, cos)
+    return h + _dense_mlp(lp, _rms_norm(h, lp["ln2"], cfg.rms_norm_eps))
+
+
+# matmul ops whose outputs the "dots" policy keeps (jax's dots_saveable)
+_DOT_OPS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default]
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_DOT_OPS)
+
+
+def run_layer_stack(cfg: LlamaConfig, stacked, x, sin, cos):
+    """The layers in a Python loop (the reference's ``lax.scan``); returns
+    the hidden state.
+
+    Remat per layer, as the reference's ``jax.checkpoint`` around the
+    scan body: ``use_remat=False`` saves every activation; ``"full"``
+    is ``torch.utils.checkpoint`` (non-reentrant) around the layer,
+    which saves only its inputs; ``"dots"`` is the same with a
+    selective policy that saves the outputs of ``aten.mm`` / ``addmm`` /
+    ``bmm`` and recomputes everything else.  Under both policies the
+    flash forward is recomputed in the backward (its kernel is not a
+    matmul op, and ``dots_saveable`` does not save a custom VJP's
+    outputs either), so a step launches it twice per layer.  The kernel
+    is launched through ctypes outside the dispatcher; its outputs are
+    made by ``torch.empty`` of the same shapes on recompute, so
+    checkpoint's saved-tensor metadata check holds.
+
+    The stacked leaves are split with one ``unbind`` each, whose
+    backward writes every layer's gradient into one stacked tensor (a
+    per-layer index would add a full-size zero tensor per layer)."""
+    names = list(stacked)
+    L = stacked[names[0]].shape[0]
+    per_layer = [dict(zip(names, parts)) for parts in
+                 zip(*(stacked[n].unbind(0) for n in names))]
+
+    def layer(lp, h):
+        return decoder_layer(cfg, lp, h, sin, cos)
+
+    for l in range(L):
+        lp = per_layer[l]
+        if not cfg.use_remat:
+            x = layer(lp, x)
+        elif cfg.remat_policy == "full":
+            x = checkpoint(layer, lp, x, use_reentrant=False)
+        else:
+            x = checkpoint(layer, lp, x, use_reentrant=False,
+                           context_fn=_dots_context)
+    return x
+
+
+def forward_pure(cfg: LlamaConfig, params, input_ids, sp_axis=None,
+                 cp_mesh=None):
+    """Full forward: ids [B, S] -> logits [B, S, V] f32.  Runs on the
+    device the params are on; sequence and context parallelism are not
+    ported (ROADMAP A.6) and raise."""
+    if sp_axis is not None or cp_mesh is not None:
+        raise NotImplementedError(
+            "sequence and context parallelism are not ported yet (ROADMAP "
+            "A.6: distributed train runtime, ring attention)")
+    if isinstance(params["lm_head"], dict):
+        raise NotImplementedError("training takes dense weights, not "
+                                  "quantize_params leaves")
+    embed = params["embed"]
+    S = input_ids.shape[1]
+    sin, cos = _rope_tables(cfg, S, embed.device)
+    x = F.embedding(input_ids.to(embed.device).long(), embed)
+    x = run_layer_stack(cfg, params["layers"], x, sin, cos)
+    x = _rms_norm(x, params["norm_f"], cfg.rms_norm_eps)
+    return _qmm(x, params["lm_head"]).float()
+
+
+def loss_fn(cfg: LlamaConfig, params, batch, sp_axis=None, cp_mesh=None):
+    """Mean next-token cross-entropy over every token (no ignore index),
+    in the reference's logsumexp form: (total, ce).  With no MoE aux
+    loss ported, total is ce."""
+    logits = forward_pure(cfg, params, batch["input_ids"], sp_axis, cp_mesh)
+    labels = batch["labels"].to(logits.device).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, labels[..., None])[..., 0]
+    ce = (lse - tgt).mean()
+    return ce, ce

@@ -150,3 +150,157 @@ def test_forward_paged_on_the_card_matches_the_cpu(cuda):
             assert diff.item() <= 1e-2, (r, diff)
     for a, b in zip(outs[0][1:], outs[1][1:]):
         assert (a[:, :, 1:] - b[:, :, 1:]).abs().max().item() <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+# The kernels take bf16 and feed bf16 p and ds to the tensor cores; the
+# plain version runs in f32 on the same bf16 inputs.  Tolerances: output
+# max |diff| <= 2e-2 (bf16 output of magnitude ~1), lse <= 1e-3 (f32),
+# gradients max |diff| / max(max |ref|, 1e-3) <= 2e-2.  The floor is for
+# S = 1: a row's softmax then has one key, so dq and dk are exactly 0
+# and both sides hold rounding noise of ~1e-7.  Each row of o, dq, dk and
+# dv is also held to its own scale: RMS error over the row's RMS
+# (floored at 1e-3) <= 2e-2, since at S = 2048 a late row of o is ~20x
+# smaller than an early one and a max-based limit cannot see it.
+
+from paddle_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+
+def _qkvd(device, B, S, H, D, seed, Hkv=None):
+    rng = np.random.RandomState(seed)
+    Hkv = Hkv or H
+    shapes = [(B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D), (B, S, H, D)]
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(device, torch.bfloat16) for s in shapes]
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-3)).item()
+
+
+def _row_rel(got, ref):
+    d, r = got.float() - ref.float(), ref.float()
+    return (d.pow(2).mean(-1).sqrt()
+            / r.pow(2).mean(-1).sqrt().clamp_min(1e-3)).max().item()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1, 17, 128, 2048])
+def test_flash_kernels_match_plain(cuda, S, D):
+    B, H = (2, 3) if S < 2048 else (1, 2)
+    q, k, v, do = _qkvd(cuda, B, S, H, D, seed=S + D)
+    counts = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    o, lse = fa.flash_fwd(q, k, v)
+    dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    f = [t.float() for t in (q, k, v, do)]
+    o_ref, lse_ref = fa._flash_fwd_plain(*f[:3])
+    assert o.dtype == torch.bfloat16 and lse.shape == (B, H, S)
+    assert (o.float() - o_ref).abs().max().item() <= 2e-2
+    assert _row_rel(o, o_ref) <= 2e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    dq_ref, delta_ref = fa._flash_bwd_dq_plain(*f[:3], o.float(), lse, f[3])
+    dk_ref, dv_ref = fa._flash_bwd_dkv_plain(*f[:3], f[3], lse, delta_ref)
+    assert (delta - delta_ref).abs().max().item() <= 1e-3 * max(
+        1.0, delta_ref.abs().max().item())
+    for got, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert _rel(got, ref) <= 2e-2
+        assert _row_rel(got, ref) <= 2e-2
+
+
+def test_causal_attention_autograd_gqa_on_card(cuda):
+    """GQA as models.llama._attention feeds it: kv heads repeated with
+    repeat_interleave, gradients summed back through the repeat."""
+    B, S, H, Hkv, D = 2, 300, 4, 2, 128
+    q, k, v, do = _qkvd(cuda, B, S, H, D, seed=7, Hkv=Hkv)
+
+    def run(q, k, v):
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        out = fa.causal_attention(q, k.repeat_interleave(H // Hkv, dim=2),
+                                  v.repeat_interleave(H // Hkv, dim=2))
+        out.backward(do.to(out.device, out.dtype))
+        return out, q.grad, k.grad, v.grad
+
+    got = run(q, k, v)
+    ref = run(*(t.float().cpu() for t in (q, k, v)))
+    assert (got[0].float().cpu() - ref[0]).abs().max().item() <= 2e-2
+    for g, r in zip(got[1:], ref[1:]):
+        assert _rel(g.cpu(), r) <= 2e-2
+
+
+def test_attention_layer_on_card_matches_cpu(cuda):
+    """models.llama._attention (GQA, rope, projections) in bf16 on the
+    card against f32 on the CPU, on the same bf16 weights.  The bf16
+    projections round too, so the gradients get 5e-2 of their max."""
+    cfg = tllama.LlamaConfig(vocab_size=64, hidden_size=256,
+                             intermediate_size=256, num_hidden_layers=1,
+                             num_attention_heads=4, num_key_value_heads=2,
+                             max_position_embeddings=128,
+                             dtype=torch.bfloat16)
+    params = tllama.init_params(cfg, 0, device="cpu")
+    lp = {n: params["layers"][n][0] for n in ("wq", "wk", "wv", "wo")}
+    x = torch.from_numpy(np.random.RandomState(3).standard_normal(
+        (2, 96, 256)).astype(np.float32)).to(torch.bfloat16)
+    outs = []
+    for dev, dtype in (("cpu", torch.float32), (cuda, torch.bfloat16)):
+        w = {n: t.to(dev, dtype).requires_grad_() for n, t in lp.items()}
+        xx = x.to(dev, dtype).requires_grad_()
+        sin, cos = tllama._rope_tables(cfg, 96, xx.device)
+        out = tllama._attention(cfg, w, xx, sin, cos)
+        out.float().square().sum().backward()
+        outs.append((out.float().cpu(), xx.grad.float().cpu(),
+                     *(w[n].grad.float().cpu() for n in lp)))
+    assert (outs[0][0] - outs[1][0]).abs().max().item() <= 2e-2
+    for r, g in zip(outs[0][1:], outs[1][1:]):
+        assert _rel(g, r) <= 5e-2
+
+
+def test_flash_kernels_refuse_what_they_cannot_serve(cuda):
+    q, k, v, _ = _qkvd(cuda, 1, 16, 2, 64, seed=0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_fwd(q.float(), k.float(), v.float())
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_fwd(q.half(), k.half(), v.half())
+    q, k, v, _ = _qkvd(cuda, 1, 16, 2, 96, seed=0)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(q, k, v)
+
+
+@pytest.mark.parametrize("policy", ["none", "full", "dots"])
+def test_train_step_launches_the_flash_kernels(cuda, policy):
+    """A small bf16 train step on the card: every layer's attention goes
+    through the kernels, the forward twice under remat (recomputed in
+    the backward), and the gradients are finite."""
+    cfg = tllama.LlamaConfig(vocab_size=128, hidden_size=256,
+                             intermediate_size=256, num_hidden_layers=2,
+                             num_attention_heads=2, num_key_value_heads=2,
+                             max_position_embeddings=64,
+                             use_remat=policy != "none",
+                             remat_policy="full" if policy == "none"
+                             else policy)
+    params = tllama.init_params(cfg, 0, device=cuda)
+    leaves = [params["embed"], params["lm_head"], params["norm_f"],
+              *params["layers"].values()]
+    for t in leaves:
+        t.requires_grad_(True)
+    ids = torch.randint(0, 128, (2, 64), device=cuda)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    total, ce = tllama.loss_fn(cfg, params, {"input_ids": ids,
+                                             "labels": ids})
+    total.backward()
+    torch.cuda.synchronize()
+    after = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+             fa.flash_bwd_dkv.launches)
+    fwd = 2 if policy == "none" else 4
+    assert tuple(a - b for a, b in zip(after, before)) == (fwd, 2, 2)
+    assert torch.isfinite(ce)
+    assert all(torch.isfinite(t.grad).all() for t in leaves)

@@ -97,3 +97,31 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                           cwd=tmp_path, env=env)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_train_entry_points_never_pick_the_cpu_themselves(no_card, capsys):
+    """The train path: the bench without --device raises (its JSON line
+    carries the error and it exits non-zero); forward_pure / loss_fn run
+    where the params are, and the params need a device or a card."""
+    import json
+
+    from paddle_tpu_torch import bench as tbench
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tbench.measure()
+    assert tbench.main([]) != 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "no CUDA device" in line["error"] and line["value"] is None
+    cfg = tllama.LlamaConfig(vocab_size=32, hidden_size=32,
+                             intermediate_size=32, num_hidden_layers=1,
+                             num_attention_heads=2, num_key_value_heads=2,
+                             max_position_embeddings=16,
+                             dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tllama.init_params(cfg)
+    params = tllama.init_params(cfg, device="cpu")
+    ids = torch.zeros((1, 4), dtype=torch.long)
+    logits = tllama.forward_pure(cfg, params, ids)
+    assert logits.device.type == "cpu"
+    total, _ = tllama.loss_fn(cfg, params, {"input_ids": ids,
+                                            "labels": ids})
+    assert total.device.type == "cpu"
