@@ -15,11 +15,15 @@ yardstick the port never calls), then drives the two main paths:
   the ``llama7b`` preset (random weights from a seed, int8 weights, bf16
   KV pages), every launch counted through the int8 matmul and ragged
   paged attention kernels;
-- training: a small bf16 train step on the card against the CPU in
-  f32, then ``paddle_tpu_torch.bench``'s train step at bench.py's
-  ~0.95B shape (S = 2048, AdamW) for warmup + 5 timed steps, every
-  launch counted through the three flash attention kernels, and one
-  profiled step.
+- training: the four fused decoder-block kernels against their plain
+  versions at the bench shape (timed beside the unfused PyTorch
+  composition of each block), a small bf16 train step on the card
+  against the CPU in f32 with the fused blocks on and off, then
+  ``paddle_tpu_torch.bench``'s train step at bench.py's ~0.95B shape
+  (S = 2048, AdamW) for warmup + 5 timed steps at the default policy
+  (the fused blocks, every launch counted through their four kernels
+  and the flash backward pair), the same unfused (every launch counted
+  through the three flash kernels), and one profiled fused step.
 
 Any failure exits non-zero.  The last two lines of standard output are
 the card's name and power limit (from nvidia-smi) and, last,
@@ -617,6 +621,225 @@ def flash_timing(torch, F, fa, q, k, v, do, o, lse, delta):
 
 
 # ---------------------------------------------------------------------------
+# the fused decoder blocks (the train path's kernels at the default policy)
+# ---------------------------------------------------------------------------
+
+# the bench step's shape: B, S, H, head dim, intermediate
+FUSED_SHAPE = (4, 2048, 2048, 128, 5632)
+EPS = 1e-6
+
+
+def fused_inputs(torch, B, S, H, D, I):
+    """Random bf16 operands at the bench's scales: activations and the
+    output gradient N(0, 1), weights N(0, 0.02) as ``init_params``
+    draws them, ln 1 + N(0, 0.1); the bench's rope tables."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    half = D // 2
+    inv = 1.0 / (10000.0 ** (torch.arange(half, device=dev).float() / half))
+    ang = torch.arange(S, device=dev).float()[:, None] * inv[None, :]
+    emb = torch.cat([ang, ang], dim=-1)
+    return dict(x=rnd(B, S, H), dy=rnd(B, S, H),
+                ln=(1 + 0.1 * torch.randn(H, generator=g, device=dev)).to(
+                    torch.bfloat16),
+                wq=rnd(H, H, scale=0.02), wk=rnd(H, H, scale=0.02),
+                wv=rnd(H, H, scale=0.02), wo=rnd(H, H, scale=0.02),
+                wg=rnd(H, I, scale=0.02), wu=rnd(H, I, scale=0.02),
+                wd=rnd(I, H, scale=0.02), sin=emb.sin(), cos=emb.cos())
+
+
+def fused_bounds(B, S, H, D, I):
+    """(bytes, ops) of each fused function: inputs read and outputs
+    written once (bf16 activations and weights, f32 tables and lse); the
+    products' 2 operations per multiply-add, and the causal pairs of the
+    attention (2 products, 2 D operations per pair each)."""
+    M, x = B * S, 2 * B * S * H
+    pairs = B * (H // D) * S * (S + 1) // 2
+    return {
+        "fused_qkv": (x + 2 * H + 3 * 2 * H * H + 2 * 4 * S * D + 3 * x,
+                      3 * 2 * M * H * H),
+        "fused_attn_epilogue": (4 * x + 2 * H * H + 2 * x
+                                + 4 * B * (H // D) * S,
+                                4 * D * pairs + 2 * M * H * H),
+        "fused_mlp_fwd": (2 * x + 2 * H + 3 * 2 * H * I, 3 * 2 * M * H * I),
+        "fused_mlp_bwd_dx": (3 * x + 2 * H + 3 * 2 * H * I,
+                             5 * 2 * M * H * I),
+    }
+
+
+def fused_compositions(torch, fb, t, D):
+    """The unfused PyTorch composition of each block on the same bf16
+    operands: cuBLAS bf16 matmuls, elementwise ops and, for the
+    attention, SDPA.  A yardstick of speed only; the port never calls
+    them."""
+    F = torch.nn.functional
+    B, S, H = t["x"].shape
+    nh = H // D
+
+    def rms(x):
+        return fb._rms_norm(x, t["ln"], EPS)
+
+    def qkv():
+        xn = rms(t["x"])
+        return (fb._rope_flat(xn @ t["wq"], t["sin"], t["cos"], D),
+                fb._rope_flat(xn @ t["wk"], t["sin"], t["cos"], D),
+                xn @ t["wv"])
+
+    q, k, v = (z.view(B, S, nh, D).transpose(1, 2).contiguous()
+               for z in qkv())
+
+    def attn():
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return t["x"] + o.transpose(1, 2).reshape(B, S, H) @ t["wo"]
+
+    def mlp():
+        xn = rms(t["x"])
+        return t["x"] + (F.silu(xn @ t["wg"]) * (xn @ t["wu"])) @ t["wd"]
+
+    def dx():
+        x, dy = t["x"], t["dy"]
+        xn = rms(x)
+        g, u = xn @ t["wg"], xn @ t["wu"]
+        da = dy @ t["wd"].t()
+        sg = torch.sigmoid(g)
+        dg = da * u * (sg + g * sg * (1 - sg))
+        du = da * g * sg
+        dz = (dg @ t["wg"].t() + du @ t["wu"].t()).float() * t["ln"].float()
+        x32 = x.float()
+        r = torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + EPS)
+        inner = (dz * x32).sum(-1, keepdim=True)
+        return (dy.float() + dz * r - x32 * (inner * r ** 3 / H)).to(x.dtype)
+
+    return {"fused_qkv": qkv, "fused_attn_epilogue": attn,
+            "fused_mlp_fwd": mlp, "fused_mlp_bwd_dx": dx}
+
+
+def fused_controls(fb, t, D, refs):
+    """The limits against a wrong kernel: each plain version with one
+    block of its sum dropped, read against the plain version.  qkv: the
+    last 32 rows of K (one k step of the GEMM) left out of the q
+    projection; attention: the last head's term left out of y's sum over
+    heads; MLP: the last 128 columns of I (one N tile) left out of the
+    down product; dx: the last 128 columns of I left out of the dx sum.
+    Each must break the per-row limit."""
+    x, ln = t["x"], t["ln"]
+    dt = x.dtype
+    xn = fb._rms_norm(x, ln, EPS)
+    q = fb._rope_flat(fb._mm32(xn[..., :-32], t["wq"][:-32]).to(dt),
+                      t["sin"], t["cos"], D)
+    attn = refs["fused_attn_epilogue"][1]
+    y_attn = (x.float() + fb._mm32(attn[..., :-D], t["wo"][:-D])).to(dt)
+    keep = t["wg"].shape[1] - 128
+    y_mlp = fb._fused_mlp_fwd_plain(x, ln, t["wg"][:, :keep],
+                                    t["wu"][:, :keep], t["wd"][:keep], EPS)
+    dx = fb._fused_mlp_bwd_dx_plain(x, ln, t["wg"][:, :keep],
+                                    t["wu"][:, :keep], t["wd"][:keep],
+                                    t["dy"], EPS)
+    bad = {"fused_qkv": (q, refs["fused_qkv"][0]),
+           "fused_attn_epilogue": (y_attn, refs["fused_attn_epilogue"][0]),
+           "fused_mlp_fwd": (y_mlp, refs["fused_mlp_fwd"]),
+           "fused_mlp_bwd_dx": (dx, refs["fused_mlp_bwd_dx"])}
+    row = {n: rms_rel(b, r, True) for n, (b, r) in bad.items()}
+    print("fused controls (one block of each sum dropped): row rel "
+          + "  ".join(f"{n} {e:.3g}" for n, e in row.items()))
+    for n, e in row.items():
+        check(e > ROW_REL_MAX, f"fused control {n}: row rel {e} passes the "
+              f"limit {ROW_REL_MAX}: the check cannot see a dropped block")
+    return row
+
+
+def fused_phase(torch, fb):
+    """Each fused-block kernel against its plain version at the bench
+    shape, on the same bf16 inputs: the plain versions follow the
+    kernels' rounding (f32 products, bf16 casts where the kernels cast),
+    so they differ by summation order and, in dx, by the bf16 rounding
+    of dg and du before the tensor cores.  Every output within
+    ``ROW_REL_MAX`` per row and ``NORM_REL_MAX`` over the tensor, lse
+    within 1e-3; a control per kernel (``fused_controls``) must break
+    the row limit.  Times by CUDA-graph replay: kernel, plain, bound and
+    the unfused composition."""
+    B, S, H, D, I = FUSED_SHAPE
+    t = fused_inputs(torch, B, S, H, D, I)
+    args = {
+        "fused_qkv": lambda: fb.fused_qkv(
+            t["x"], t["ln"], t["wq"], t["wk"], t["wv"], t["sin"], t["cos"],
+            head_dim=D, eps=EPS),
+        "fused_mlp_fwd": lambda: fb.fused_mlp_fwd(
+            t["x"], t["ln"], t["wg"], t["wu"], t["wd"], eps=EPS),
+        "fused_mlp_bwd_dx": lambda: fb.fused_mlp_bwd_dx(
+            t["x"], t["ln"], t["wg"], t["wu"], t["wd"], t["dy"], eps=EPS),
+    }
+    plain = {
+        "fused_qkv": lambda: fb._fused_qkv_plain(
+            t["x"], t["ln"], t["wq"], t["wk"], t["wv"], t["sin"], t["cos"],
+            D, EPS),
+        "fused_mlp_fwd": lambda: fb._fused_mlp_fwd_plain(
+            t["x"], t["ln"], t["wg"], t["wu"], t["wd"], EPS),
+        "fused_mlp_bwd_dx": lambda: fb._fused_mlp_bwd_dx_plain(
+            t["x"], t["ln"], t["wg"], t["wu"], t["wd"], t["dy"], EPS),
+    }
+    got = {n: f() for n, f in args.items()}
+    refs = {n: f() for n, f in plain.items()}
+    # the attention epilogue runs on the kernel's own q, k, v
+    q, k, v = got["fused_qkv"]
+    args["fused_attn_epilogue"] = lambda: fb.fused_attn_epilogue(
+        q, k, v, t["x"], t["wo"], head_dim=D)
+    plain["fused_attn_epilogue"] = lambda: fb._fused_attn_epilogue_plain(
+        q, k, v, t["x"], t["wo"], D)
+    got["fused_attn_epilogue"] = args["fused_attn_epilogue"]()
+    refs["fused_attn_epilogue"] = plain["fused_attn_epilogue"]()
+    torch.cuda.synchronize()
+    names = ("fused_qkv", "fused_attn_epilogue", "fused_mlp_fwd",
+             "fused_mlp_bwd_dx")
+    res = {}
+    for n in names:
+        g, r = got[n], refs[n]
+        pairs = {"fused_qkv": list(zip("qkv", g, r)),
+                 "fused_attn_epilogue": [("y", g[0], r[0]),
+                                         ("attn", g[1], r[1])],
+                 "fused_mlp_fwd": [("y", g, r)],
+                 "fused_mlp_bwd_dx": [("dx", g, r)]}[n]
+        row = {o: rms_rel(a, b, True) for o, a, b in pairs}
+        norm = {o: rms_rel(a, b, False) for o, a, b in pairs}
+        err = max((a.float() - b.float()).abs().max().item()
+                  for _, a, b in pairs)
+        for o in row:
+            check(row[o] <= ROW_REL_MAX, f"{n}: {o} row rel {row[o]} > "
+                  f"{ROW_REL_MAX}")
+            check(norm[o] <= NORM_REL_MAX, f"{n}: {o} norm rel {norm[o]} > "
+                  f"{NORM_REL_MAX}")
+        if n == "fused_attn_epilogue":
+            e_lse = (g[2] - r[2]).abs().max().item()
+            check(e_lse <= 1e-3, f"{n}: lse max |diff| {e_lse} > 1e-3")
+        res[n] = dict(max_abs_err=err, row_rel_err=max(row.values()),
+                      norm_rel_err=max(norm.values()))
+        print(f"{n} B={B} S={S} H={H} D={D} I={I}: max |diff| {err:.3g}; "
+              "row rel " + "  ".join(f"{o} {e:.3g}" for o, e in row.items())
+              + "; norm rel " + "  ".join(f"{o} {e:.3g}"
+                                          for o, e in norm.items()))
+    control = fused_controls(fb, t, D, refs)
+    del got, refs
+    comp = fused_compositions(torch, fb, t, D)
+    bounds = fused_bounds(B, S, H, D, I)
+    for n in names:
+        ms = time_ms(torch, lambda i: args[n](), calls=10)
+        plain_ms = time_ms(torch, lambda i: plain[n](), calls=2, replays=2)
+        comp_ms = time_ms(torch, lambda i: comp[n](), calls=10)
+        b_ms, b_by = bound_ms(*bounds[n], "bf16")
+        res[n].update(ms=ms, plain_ms=plain_ms, composition_ms=comp_ms,
+                      bound_ms=b_ms, bound_by=b_by,
+                      control_row_rel_err=control[n])
+        print(f"{n}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"composition {comp_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the train path
 # ---------------------------------------------------------------------------
 
@@ -635,18 +858,20 @@ def _flat(tree, prefix=""):
     return {prefix: tree}
 
 
-def small_train_check(torch, tllama):
-    """One train step's loss and gradients of a small GQA model (head dim
-    128): the card in bf16 (flash kernels, "dots" remat) against the CPU
-    in f32 on the same (bf16-valued) weights.  bf16 rounds every
-    activation (8 mantissa bits); the same comparison made on the CPU
-    alone (bf16 vs f32) gives loss |diff| ~1e-4 and gradient errors
-    ~1e-2 of each gradient's max, hence loss atol 1e-2 and gradient
-    max |diff| / max |ref| <= 5e-2."""
+def small_train_check(torch, tllama, fused_blocks):
+    """One train step's loss and gradients of a small model (head dim
+    128, as many kv heads as heads, so that both fused blocks engage at
+    "on"): the card in bf16 (the kernels, "dots" remat) against the CPU
+    in f32 (the plain versions) on the same (bf16-valued) weights, at
+    ``fused_blocks`` "on" or "off".  bf16 rounds every activation (8
+    mantissa bits); the same comparison made on the CPU alone (bf16 vs
+    f32) gives loss |diff| ~1e-4 and gradient errors ~1e-2 of each
+    gradient's max, hence loss atol 1e-2 and gradient max |diff| /
+    max |ref| <= 5e-2."""
     kw = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
               num_hidden_layers=2, num_attention_heads=2,
-              num_key_value_heads=1, max_position_embeddings=128,
-              remat_policy="dots")
+              num_key_value_heads=2, max_position_embeddings=128,
+              remat_policy="dots", fused_blocks=fused_blocks)
     base = tllama.init_params(tllama.LlamaConfig(dtype=torch.bfloat16, **kw),
                               0, device="cpu")
     rng = np.random.default_rng(0)
@@ -656,6 +881,10 @@ def small_train_check(torch, tllama):
     for dev, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
         cfg = tllama.LlamaConfig(dtype=dtype, **kw)
         params = _tree(base, lambda t: t.to(dev, dtype).requires_grad_())
+        modes = tllama._fused_block_modes(cfg, params["embed"])
+        check(modes == ((fused_blocks == "on"),) * 2,
+              f"small train step {fused_blocks} on {dev}: fused blocks "
+              f"{modes}")
         total, ce = tllama.loss_fn(cfg, params, _tree(
             batch, lambda t: t.to(dev)))
         total.backward()
@@ -664,55 +893,67 @@ def small_train_check(torch, tllama):
     loss_err = abs(outs["cpu"][0] - outs["cuda"][0])
     grad_err = max(rel_err(outs["cuda"][1][n], g)
                    for n, g in outs["cpu"][1].items())
-    check(math.isfinite(outs["cuda"][0]), "small train step: loss not finite")
-    check(loss_err <= 1e-2, f"small train step: loss |diff| {loss_err}")
-    check(grad_err <= 5e-2, f"small train step: grad rel err {grad_err}")
-    print(f"small train step (bf16 card vs f32 CPU): loss "
+    what = f"small train step (fused_blocks {fused_blocks})"
+    check(math.isfinite(outs["cuda"][0]), f"{what}: loss not finite")
+    check(loss_err <= 1e-2, f"{what}: loss |diff| {loss_err}")
+    check(grad_err <= 5e-2, f"{what}: grad rel err {grad_err}")
+    print(f"{what}, bf16 card vs f32 CPU: loss "
           f"{outs['cuda'][0]:.6f} vs {outs['cpu'][0]:.6f} (|diff| "
           f"{loss_err:.3g}, atol 1e-2), worst grad rel err {grad_err:.3g} "
           f"(<= 5e-2) over {len(outs['cpu'][1])} leaves")
 
 
-def train_phase(torch, tbench, fa, card):
+def train_phase(torch, tbench, card, fused_blocks=None):
     """The train path: ``paddle_tpu_torch.bench.measure`` (the entry point
     of ``python -m paddle_tpu_torch.bench``) at bench.py's shape, 2
-    warmup + 5 timed steps, with the flash launches counted."""
-    for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+    warmup + 5 timed steps, every kernel launch counted.  At the default
+    policy both fused blocks engage; at "off" the layer is unfused
+    (the flash kernels alone)."""
+    for w in tbench.KERNELS.values():
         w.launches = 0
-    res = tbench.measure(iters=5, warmup=2)
-    launches = {"flash_fwd": fa.flash_fwd.launches,
-                "flash_bwd_dq": fa.flash_bwd_dq.launches,
-                "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+    res = tbench.measure(iters=5, warmup=2, fused_blocks=fused_blocks)
+    launches = {n: w.launches for n, w in tbench.KERNELS.items()}
     steps = res["iters"] + res["warmup"]
     L = tbench.MODEL["num_hidden_layers"]
-    fwd_per = 2 * L if res["remat_policy"] != "none" else L
+    fwd = 2 * L if res["remat_policy"] != "none" else L
+    fused = fused_blocks != "off"
     check(not res["oom_rungs"], f"a ladder rung ran out of memory: "
           f"{res['oom_rungs']}")
-    check(launches == {"flash_fwd": fwd_per * steps,
-                       "flash_bwd_dq": L * steps,
-                       "flash_bwd_dkv": L * steps},
-          f"flash launches {launches} over {steps} steps, expected "
-          f"{fwd_per} fwd (remat {res['remat_policy']}), {L} dq, {L} dkv "
-          f"per step")
+    check(res["fused_blocks"] == {"attention": fused, "mlp": fused},
+          f"fused_blocks {fused_blocks}: the bench took {res['fused_blocks']}")
+    per_step = {"flash_fwd": 0 if fused else fwd, "flash_bwd_dq": L,
+                "flash_bwd_dkv": L,
+                "fused_qkv": fwd if fused else 0,
+                "fused_attn_epilogue": fwd if fused else 0,
+                "fused_mlp_fwd": fwd if fused else 0,
+                "fused_mlp_bwd_dx": L if fused else 0}
+    check(launches == {n: c * steps for n, c in per_step.items()},
+          f"launches {launches} over {steps} steps, expected per step "
+          f"{per_step} (remat {res['remat_policy']} recomputes each "
+          f"forward kernel)")
     ln_v = math.log(tbench.MODEL["vocab_size"])
     check(all(math.isfinite(res[k]) for k in ("loss_step0", "loss_last")),
           "train loss not finite")
     check(abs(res["loss_step0"] - ln_v) <= 0.5,
           f"step-0 loss {res['loss_step0']} not within 0.5 of ln V {ln_v}")
-    print(f"train [{card}]: {json.dumps(res)}")
-    print(f"train [{card}]: launches {launches} over {steps} steps = per "
-          f"step {fwd_per} flash_fwd ({res['remat_policy']} remat "
-          f"recomputes it), {L} flash_bwd_dq, {L} flash_bwd_dkv")
+    tag = "fused" if fused else "unfused"
+    print(f"train {tag} [{card}]: {json.dumps(res)}")
+    print(f"train {tag} [{card}]: step {res['step_ms']:.2f} ms, MFU "
+          f"{res['value']:.2f} %, launches over {steps} steps {launches} = "
+          f"per step {per_step}")
     return launches, res
 
 
 def train_profile(torch, tbench, tllama, card):
-    """Where a train step's time goes: one warmup step, then one step
-    under torch.profiler at the bench's first rung; device time by
-    kernel and the device's busy share of the profiled wall time."""
+    """Where a train step's time goes: one warmup step, then one step of
+    the fused path (the default policy) under torch.profiler at the
+    bench's first rung; device time by kernel and the device's busy
+    share of the profiled wall time."""
     from torch.profiler import ProfilerActivity, profile
     policy, B = tbench.LADDER[0]
     cfg = tllama.LlamaConfig(remat_policy=policy, **tbench.MODEL)
+    check(tllama._fused_block_modes(cfg, torch.zeros(1, device="cuda"))
+          == (True, True), "the profiled step is not the fused one")
     params = tllama.init_params(cfg, 0, device="cuda")
     for t in tbench.leaves(params):
         t.requires_grad_(True)
@@ -726,7 +967,8 @@ def train_profile(torch, tbench, tllama, card):
         tbench.train_step(cfg, params, opt, batch)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    print_profile(prof, wall_us, f"profile train [{card}]: 1 step", 15)
+    print_profile(prof, wall_us, f"profile train [{card}]: 1 fused step",
+                  20)
 
 
 def print_profile(prof, wall_us, head, top):
@@ -770,6 +1012,7 @@ def main():
     from paddle_tpu_torch.models import llama as tllama
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_blocks as fb
     from paddle_tpu_torch.ops import int8_matmul as i8
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
@@ -793,13 +1036,22 @@ def main():
     int8_rows, int8_err = int8_phase(torch, i8)
     rpa_rows, rpa_err = rpa_phase(torch, rpa)
     flash, flash_err, flash_row_err, flash_ctl = flash_phase(torch, fa)
+    fused = fused_phase(torch, fb)
     small_reference_check(torch, tllama, convert)
     # the serving path: llama7b (bf16, 32 layers) on the card
     launches = serve_phase(torch, tllama.preset("llama7b"), tllama,
                            serving, i8, rpa, card, torch.device("cuda"))
-    small_train_check(torch, tllama)
-    # the train path: bench.py's ~0.95B model, S = 2048, on the card
-    train_launches, _ = train_phase(torch, tbench, fa, card)
+    for mode in ("on", "off"):
+        small_train_check(torch, tllama, mode)
+    # the train path: bench.py's ~0.95B model, S = 2048, on the card, at
+    # the default policy (the fused blocks), then unfused (the yardstick,
+    # and the path that runs flash_fwd)
+    fused_launches, fused_res = train_phase(torch, tbench, card)
+    train_launches, unfused_res = train_phase(torch, tbench, card, "off")
+    print(f"train [{card}]: fused step {fused_res['step_ms']:.2f} ms "
+          f"(MFU {fused_res['value']:.2f} %), unfused step "
+          f"{unfused_res['step_ms']:.2f} ms (MFU {unfused_res['value']:.2f} "
+          f"%), same call")
     train_profile(torch, tbench, tllama, card)
 
     # one decode step of the main path: 225 int8 matmuls at M = 8 and 32
@@ -851,7 +1103,9 @@ def main():
             name=name, route="cuda", source=src,
             replaces=f"paddle_tpu/ops/pallas_ops.py:{line}",
             also_replaces=f"paddle_tpu/ops/pallas_ops.py:{twin}",
-            launches=train_launches[name], max_abs_err=flash_err[key],
+            launches=train_launches[name],
+            launches_fused_step=fused_launches[name],
+            max_abs_err=flash_err[key],
             row_rel_err=flash_row_err[key], row_rel_max=ROW_REL_MAX,
             control_row_rel_err=min(
                 flash_ctl[n] for n in {"fwd": ("o",), "dq": ("dq",),
@@ -860,6 +1114,35 @@ def main():
             bound_ms=flash["bounds"][key][0],
             bound_by=flash["bounds"][key][1], library_ms=lib_ms, per=per,
             **extra))
+    # the fused blocks, per call at the bench shape; no one PyTorch call
+    # computes any of them, so the unfused composition stands beside
+    per = "one call at B=4 S=2048 H=2048 D=128 I=5632 (the bench step's)"
+    src = "paddle_tpu_torch/ops/csrc/fused_blocks.cu"
+    for name, line, note in (
+            ("fused_qkv", 1130, "row pass (xn) + one GEMM launch over q, k, v"),
+            ("fused_attn_epilogue", 1200,
+             "two launches: flash_fwd's kernel (attn, lse), then the GEMM "
+             "y = x + attn wo"),
+            ("fused_mlp_fwd", 1417,
+             "row pass + GEMM [g | u] with silu*mul epilogue + GEMM a wd + x"),
+            ("fused_mlp_bwd_dx", 1444,
+             "row pass + GEMM g, u (f32) + GEMM dy wd^T with dg, du epilogue"
+             " + GEMM [dg | du] [wg | wu]^T + RMSNorm-backward row pass")):
+        r = fused[name]
+        kernels["kernels"].append(dict(
+            name=name, route="cuda",
+            source=src if name != "fused_attn_epilogue"
+            else f"{src} + paddle_tpu_torch/ops/csrc/flash_attention.cu",
+            replaces=f"paddle_tpu/ops/pallas_ops.py:{line}",
+            launches=fused_launches[name], max_abs_err=r["max_abs_err"],
+            row_rel_err=r["row_rel_err"], row_rel_max=ROW_REL_MAX,
+            norm_rel_err=r["norm_rel_err"],
+            control_row_rel_err=r["control_row_rel_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None,
+            composition_ms=r["composition_ms"], per=per, launches_per=note))
+    check(len(kernels["kernels"]) == 9, "the kernels line lists "
+          f"{len(kernels['kernels'])} kernels, not 9")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

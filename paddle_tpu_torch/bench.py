@@ -11,8 +11,10 @@ sequence 2048, going down the remat/batch ladder
 device memory.  A step is zero-grad -> ``loss_fn`` -> backward ->
 ``torch.optim.AdamW`` (optax ``adamw(3e-4, b1=0.9, b2=0.95,
 weight_decay=0.1)``: every leaf decays, moments in the param dtype).
-Attention runs in the flash kernels; any error other than running out
-of memory ends the run.
+On the card the layers take the fused decoder blocks (``fused_blocks``
+"auto", the reference's default; the result line says which blocks
+engaged), the CPU smoke shape the unfused layer with plain attention;
+any error other than running out of memory ends the run.
 
 It prints one JSON line on every exit path and exits non-zero when the
 run failed.  MFU is ``bench.py``'s formula (6 N tokens + causal
@@ -36,6 +38,7 @@ import torch
 from .device import resolve_device
 from .models import llama
 from .ops import flash_attention as fa
+from .ops import fused_blocks as fb
 
 # dense bf16 tensor-core peak (TFLOP/s) by card name, from NVIDIA's data
 # sheets (the sparse figure halved); first match wins
@@ -59,6 +62,13 @@ SMOKE = dict(vocab_size=1024, hidden_size=256, intermediate_size=512,
              dtype=torch.float32, use_remat=False)
 SMOKE_LADDER = (("full", 2),)
 SMOKE_SEQ, SMOKE_ITERS, SMOKE_WARMUP = 256, 3, 1
+# every kernel wrapper of the train path, by the name its launches are
+# reported under
+KERNELS = {"flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+           "flash_bwd_dkv": fa.flash_bwd_dkv, "fused_qkv": fb.fused_qkv,
+           "fused_attn_epilogue": fb.fused_attn_epilogue,
+           "fused_mlp_fwd": fb.fused_mlp_fwd,
+           "fused_mlp_bwd_dx": fb.fused_mlp_bwd_dx}
 
 
 def peak_bf16_flops(card: str) -> Optional[float]:
@@ -131,32 +141,31 @@ def run_rung(base, policy, B, S, iters, warmup, device):
     batch = make_batch(cfg, B, S, device)
     losses = [train_step(cfg, params, opt, batch) for _ in range(warmup)]
     _sync(device)
-    launches0 = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
-                 fa.flash_bwd_dkv.launches)
+    launches0 = {n: w.launches for n, w in KERNELS.items()}
     t0 = time.perf_counter()
     for _ in range(iters):
         losses.append(train_step(cfg, params, opt, batch))
     _sync(device)
     step_s = (time.perf_counter() - t0) / iters
-    per_step = [(now - before) / iters for now, before in zip(
-        (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
-         fa.flash_bwd_dkv.launches), launches0)]
+    attn, mlp = llama._fused_block_modes(cfg, batch["input_ids"])
     return dict(cfg=cfg, step_s=step_s, B=B,
                 losses=[float(x) for x in losses],
                 n_params=sum(t.numel() for t in leaves(params)),
-                launches_per_step=dict(zip(
-                    ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
-                    per_step)))
+                fused_blocks={"attention": attn, "mlp": mlp},
+                launches_per_step={
+                    n: (w.launches - launches0[n]) / iters
+                    for n, w in KERNELS.items()})
 
 
-def measure(device=None, iters=None, warmup=None):
+def measure(device=None, iters=None, warmup=None, fused_blocks=None):
     """Run the ladder on ``device`` (the card unless the caller names
     another; the CPU takes the smoke shape) and return the result
-    dict."""
+    dict.  ``fused_blocks`` is the model's policy (None = "auto")."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     base, ladder, S = ((MODEL, LADDER, SEQ) if on_card
                        else (SMOKE, SMOKE_LADDER, SMOKE_SEQ))
+    base = dict(base, fused_blocks=fused_blocks)
     if iters is None:
         iters = ITERS if on_card else SMOKE_ITERS
     if warmup is None:
@@ -200,7 +209,8 @@ def measure(device=None, iters=None, warmup=None):
         "model_flops_per_step": flops,
         "iters": iters, "warmup": warmup,
         "loss_step0": run["losses"][0], "loss_last": run["losses"][-1],
-        "flash_launches_per_step": run["launches_per_step"],
+        "fused_blocks": run["fused_blocks"],
+        "launches_per_step": run["launches_per_step"],
         "oom_rungs": oom,
     }
     if mfu is None:

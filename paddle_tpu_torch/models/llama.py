@@ -12,9 +12,11 @@ int8 weight is a ``{"q": int8 [L, K, N], "scale": f32 [L, 1, N]}`` leaf
   the int8 matmul kernel.
 - ``forward_pure`` / ``loss_fn`` are the train step's forward: embed ->
   ``run_layer_stack`` (``decoder_layer`` per layer, under the remat
-  policy) -> final norm -> ``lm_head``, with attention in the flash
-  kernels (``ops.flash_attention.causal_attention``).  Only the unfused
-  dense branch is ported: the fused decoder blocks, MoE and context
+  policy) -> final norm -> ``lm_head``.  ``decoder_layer`` takes the
+  fused decoder blocks (``ops.fused_blocks``) where the
+  ``fused_blocks`` policy engages them, else the unfused dense
+  composition with attention in the flash kernels
+  (``ops.flash_attention.causal_attention``).  MoE and context
   parallelism raise.
 """
 from __future__ import annotations
@@ -28,6 +30,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..ops import fused_blocks as fb
 from ..ops.flash_attention import causal_attention
 from ..ops.int8_matmul import int8_matmul, quantize_int8
 from ..ops.ragged_paged_attention import ragged_paged_attention
@@ -59,11 +62,18 @@ class LlamaConfig:
     # backward, "dots" saves the matmul outputs and recomputes the rest
     use_remat: bool = True
     remat_policy: str = "dots"
+    # fused decoder blocks: "auto" (or None) = on CUDA tensors only, "on"
+    # = on any device (the CPU runs the plain versions, what parity tests
+    # use), "off" = the unfused composition; see _fused_block_modes
+    fused_blocks: Optional[str] = None
 
     def __post_init__(self):
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(f"remat_policy must be 'full' or 'dots', got "
                              f"{self.remat_policy!r}")
+        if self.fused_blocks not in (None, "auto", "on", "off"):
+            raise ValueError(f"fused_blocks must be None, 'auto', 'on' or "
+                             f"'off', got {self.fused_blocks!r}")
         if self.quantized not in (None, "auto", "on", "off"):
             raise ValueError(f"quantized must be None, 'auto', 'on' or "
                              f"'off', got {self.quantized!r}")
@@ -367,17 +377,51 @@ def _attention(cfg: LlamaConfig, lp, x, sin, cos):
     return _qmm(out.reshape(B, S, H), lp["wo"])
 
 
+def _fused_block_modes(cfg: LlamaConfig, x):
+    """(use_fused_attention, use_fused_mlp) for the activation ``x``
+    (reference llama.py:405-430).  ``fused_blocks`` None means "auto",
+    the reference flag's default: "auto" engages on CUDA tensors only,
+    "on" on any device, "off" never.  The fused attention block also
+    needs as many kv heads as heads and a head dim the flash kernels
+    take; the fused MLP needs no MoE; both need the kernels' shapes
+    (``fused_blocks.fused_*_ok``)."""
+    mode = cfg.fused_blocks or "auto"
+    if mode == "off" or (mode == "auto" and x.device.type != "cuda"):
+        return False, False
+    H = cfg.hidden_size
+    attn_ok = (cfg.num_key_value_heads == cfg.num_attention_heads
+               and fb.fused_attention_ok(H, cfg.head_dim))
+    mlp_ok = (cfg.moe_num_experts == 0
+              and fb.fused_mlp_ok(H, cfg.intermediate_size))
+    return attn_ok, mlp_ok
+
+
 def decoder_layer(cfg: LlamaConfig, lp, x, sin, cos):
     """One decoder block on a per-layer param slice (no leading L axis):
-    the unfused dense composition.  It returns the hidden state alone;
-    the reference's MoE aux loss comes with MoE (ROADMAP A.6)."""
+    the fused blocks where ``_fused_block_modes`` engages them, else the
+    unfused dense composition (reference llama.py:433-465).  It returns
+    the hidden state alone; the reference's MoE aux loss comes with MoE
+    (ROADMAP A.6)."""
     if cfg.moe_num_experts > 0:
         raise NotImplementedError(
             "MoE layers are not ported yet (ROADMAP A.6: distributed train "
             "runtime, _moe_mlp)")
-    h = x + _attention(cfg, lp, _rms_norm(x, lp["ln1"], cfg.rms_norm_eps),
-                       sin, cos)
-    return h + _dense_mlp(lp, _rms_norm(h, lp["ln2"], cfg.rms_norm_eps))
+    fused_attn, fused_mlp = _fused_block_modes(cfg, x)
+    if isinstance(lp.get("wq"), dict) or isinstance(lp.get("w_gate"), dict):
+        # int8 quantize_params leaves: the fused kernels take dense
+        # weights, so quantized layers take the unfused composition
+        fused_attn = fused_mlp = False
+    eps = cfg.rms_norm_eps
+    if fused_attn:
+        h = fb.fused_attention_block(x, lp["ln1"], lp["wq"], lp["wk"],
+                                     lp["wv"], lp["wo"], sin, cos,
+                                     head_dim=cfg.head_dim, eps=eps)
+    else:
+        h = x + _attention(cfg, lp, _rms_norm(x, lp["ln1"], eps), sin, cos)
+    if fused_mlp:
+        return fb.fused_mlp_block(h, lp["ln2"], lp["w_gate"], lp["w_up"],
+                                  lp["w_down"], eps=eps)
+    return h + _dense_mlp(lp, _rms_norm(h, lp["ln2"], eps))
 
 
 # matmul ops whose outputs the "dots" policy keeps (jax's dots_saveable)
@@ -399,12 +443,13 @@ def run_layer_stack(cfg: LlamaConfig, stacked, x, sin, cos):
     which saves only its inputs; ``"dots"`` is the same with a
     selective policy that saves the outputs of ``aten.mm`` / ``addmm`` /
     ``bmm`` and recomputes everything else.  Under both policies the
-    flash forward is recomputed in the backward (its kernel is not a
+    flash forward, and on the fused path the forward kernels of both
+    fused blocks, are recomputed in the backward (a kernel is not a
     matmul op, and ``dots_saveable`` does not save a custom VJP's
-    outputs either), so a step launches it twice per layer.  The kernel
-    is launched through ctypes outside the dispatcher; its outputs are
-    made by ``torch.empty`` of the same shapes on recompute, so
-    checkpoint's saved-tensor metadata check holds.
+    outputs either), so a step launches each twice per layer.  The
+    kernels are launched through ctypes outside the dispatcher; their
+    outputs are made by ``torch.empty`` of the same shapes on recompute,
+    so checkpoint's saved-tensor metadata check holds.
 
     The stacked leaves are split with one ``unbind`` each, whose
     backward writes every layer's gradient into one stacked tensor (a

@@ -34,7 +34,8 @@ __all__ = ["SOURCES", "build_all", "load", "check", "stream_ptr"]
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE.parent / "build"
-SOURCES = ("int8_matmul", "ragged_paged_attention", "flash_attention")
+SOURCES = ("int8_matmul", "ragged_paged_attention", "flash_attention",
+           "fused_blocks")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

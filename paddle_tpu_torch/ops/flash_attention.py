@@ -160,7 +160,9 @@ def _ptrs(*ts):
     return [t.data_ptr() for t in ts]
 
 
-def _flash_fwd_cuda(q, k, v):
+def _launch_fwd(q, k, v):
+    """The forward kernel, uncounted: ``flash_fwd`` counts its launches,
+    and ``fused_blocks.fused_attn_epilogue`` runs it as its first half."""
     B, S, H, D = _check_kernel_args("flash_fwd", q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
@@ -169,7 +171,6 @@ def _flash_fwd_cuda(q, k, v):
                                   1.0 / math.sqrt(D),
                                   _build.stream_ptr(q.device))
     _build.check(err, "flash_fwd")
-    flash_fwd.launches += 1
     return o, lse
 
 
@@ -214,7 +215,9 @@ def _route(q, what):
 def flash_fwd(q, k, v):
     """Causal attention forward: (o [B, S, H, D], lse [B, H, S] f32)."""
     if _route(q, "flash_fwd") == "cuda":
-        return _flash_fwd_cuda(q, k, v)
+        o, lse = _launch_fwd(q, k, v)
+        flash_fwd.launches += 1
+        return o, lse
     return _flash_fwd_plain(q, k, v)
 
 

@@ -276,16 +276,17 @@ def test_flash_kernels_refuse_what_they_cannot_serve(cuda):
 
 @pytest.mark.parametrize("policy", ["none", "full", "dots"])
 def test_train_step_launches_the_flash_kernels(cuda, policy):
-    """A small bf16 train step on the card: every layer's attention goes
-    through the kernels, the forward twice under remat (recomputed in
-    the backward), and the gradients are finite."""
+    """A small bf16 train step on the card with the unfused layer
+    (``fused_blocks="off"``): every layer's attention goes through the
+    kernels, the forward twice under remat (recomputed in the backward),
+    and the gradients are finite."""
     cfg = tllama.LlamaConfig(vocab_size=128, hidden_size=256,
                              intermediate_size=256, num_hidden_layers=2,
                              num_attention_heads=2, num_key_value_heads=2,
                              max_position_embeddings=64,
                              use_remat=policy != "none",
                              remat_policy="full" if policy == "none"
-                             else policy)
+                             else policy, fused_blocks="off")
     params = tllama.init_params(cfg, 0, device=cuda)
     leaves = [params["embed"], params["lm_head"], params["norm_f"],
               *params["layers"].values()]
@@ -302,5 +303,135 @@ def test_train_step_launches_the_flash_kernels(cuda, policy):
              fa.flash_bwd_dkv.launches)
     fwd = 2 if policy == "none" else 4
     assert tuple(a - b for a, b in zip(after, before)) == (fwd, 2, 2)
+    assert torch.isfinite(ce)
+    assert all(torch.isfinite(t.grad).all() for t in leaves)
+
+
+# ---------------------------------------------------------------------------
+# the fused decoder blocks
+# ---------------------------------------------------------------------------
+# The kernels take bf16 and their plain versions run on the same bf16
+# inputs with the kernels' rounding (products in f32, casts where the
+# kernels cast), so the two differ by f32 summation order, which flips an
+# occasional bf16 rounding, and, in dx, by the bf16 rounding of the f32
+# dg, du that feed the tensor cores.  Each output is held per row: RMS
+# error over the row's RMS <= 2e-2, and max |diff| <= 2e-2 * max |ref|.
+
+from paddle_tpu_torch.ops import fused_blocks as fb  # noqa: E402
+
+FUSED_CASES = [
+    # (B, S, H, D, I): S = 200 and 77 are not multiples of the 128-row
+    # tile; the last is the bench's width at a short S
+    (1, 200, 256, 128, 512), (2, 77, 256, 64, 512), (1, 200, 2048, 128, 5632),
+]
+
+
+def _fused_inputs(device, B, S, H, D, I, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=device) * scale).to(
+            torch.bfloat16)
+
+    half = D // 2
+    inv = 1.0 / (10000.0 ** (torch.arange(half, device=device).float()
+                             / half))
+    ang = torch.arange(S, device=device).float()[:, None] * inv[None, :]
+    emb = torch.cat([ang, ang], dim=-1)
+    return dict(x=rnd(B, S, H), dy=rnd(B, S, H),
+                ln=(1 + 0.1 * torch.randn(H, generator=g, device=device)).to(
+                    torch.bfloat16),
+                w=[rnd(H, H, scale=0.02) for _ in range(4)],
+                wg=rnd(H, I, scale=0.02), wu=rnd(H, I, scale=0.02),
+                wd=rnd(I, H, scale=0.02), sin=emb.sin(), cos=emb.cos())
+
+
+def _held(got, ref):
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert _row_rel(got, ref) <= 2e-2
+    assert _rel(got, ref) <= 2e-2
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_kernels_match_plain(cuda, case):
+    B, S, H, D, I = case
+    t = _fused_inputs(cuda, *case, seed=S + H)
+    wq, wk, wv, wo = t["w"]
+    before = (fb.fused_qkv.launches, fb.fused_attn_epilogue.launches,
+              fb.fused_mlp_fwd.launches, fb.fused_mlp_bwd_dx.launches)
+    q, k, v = fb.fused_qkv(t["x"], t["ln"], wq, wk, wv, t["sin"], t["cos"],
+                           head_dim=D)
+    y, attn, lse = fb.fused_attn_epilogue(q, k, v, t["x"], wo, head_dim=D)
+    ym = fb.fused_mlp_fwd(t["x"], t["ln"], t["wg"], t["wu"], t["wd"])
+    dx = fb.fused_mlp_bwd_dx(t["x"], t["ln"], t["wg"], t["wu"], t["wd"],
+                             t["dy"])
+    torch.cuda.synchronize()
+    after = (fb.fused_qkv.launches, fb.fused_attn_epilogue.launches,
+             fb.fused_mlp_fwd.launches, fb.fused_mlp_bwd_dx.launches)
+    assert after == tuple(c + 1 for c in before)
+    ref = fb._fused_qkv_plain(t["x"], t["ln"], wq, wk, wv, t["sin"],
+                              t["cos"], D, 1e-6)
+    for got, r in zip((q, k, v), ref):
+        _held(got, r)
+    y_r, attn_r, lse_r = fb._fused_attn_epilogue_plain(q, k, v, t["x"], wo,
+                                                       D)
+    _held(y, y_r)
+    _held(attn, attn_r)
+    assert lse.shape == (B, H // D, S)
+    assert (lse - lse_r).abs().max().item() <= 1e-3
+    _held(ym, fb._fused_mlp_fwd_plain(t["x"], t["ln"], t["wg"], t["wu"],
+                                      t["wd"], 1e-6))
+    _held(dx, fb._fused_mlp_bwd_dx_plain(t["x"], t["ln"], t["wg"], t["wu"],
+                                         t["wd"], t["dy"], 1e-6))
+
+
+def test_fused_kernels_refuse_what_they_cannot_serve(cuda):
+    t = _fused_inputs(cuda, 1, 16, 256, 128, 512, seed=0)
+    x, ln, wg, wu, wd = t["x"], t["ln"], t["wg"], t["wu"], t["wd"]
+    with pytest.raises(TypeError, match="bfloat16"):
+        fb.fused_mlp_fwd(x.float(), ln.float(), wg.float(), wu.float(),
+                         wd.float())
+    with pytest.raises(ValueError, match="w_down"):
+        fb.fused_mlp_fwd(x, ln, wg, wu, wd[:, :128])
+    with pytest.raises(ValueError, match="not contiguous"):
+        fb.fused_mlp_bwd_dx(x, ln, wg, wu, wd,
+                            torch.cat([x, x], -1)[..., ::2])
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fb.fused_mlp_fwd(x, ln, wg[:, :200], wu[:, :200], wd[:200])
+    wq, wk, wv, wo = t["w"]
+    with pytest.raises(ValueError, match="head dim"):
+        fb.fused_qkv(x, ln, wq, wk, wv, t["sin"], t["cos"], head_dim=32)
+    with pytest.raises(ValueError, match="wo"):
+        fb.fused_attn_epilogue(x, x, x, x, wo.t(), head_dim=128)
+
+
+@pytest.mark.parametrize("policy", ["none", "dots"])
+def test_train_step_launches_the_fused_kernels(cuda, policy):
+    """A small bf16 train step on the card at the default policy: both
+    fused blocks engage (nkv == nh, head dim 128), each forward kernel
+    runs once per layer and again under remat, dx once per layer, the
+    flash backward once per layer and the flash forward not at all."""
+    cfg = tllama.LlamaConfig(vocab_size=128, hidden_size=256,
+                             intermediate_size=512, num_hidden_layers=2,
+                             num_attention_heads=2, num_key_value_heads=2,
+                             max_position_embeddings=64,
+                             use_remat=policy != "none", remat_policy="dots")
+    params = tllama.init_params(cfg, 0, device=cuda)
+    leaves = [params["embed"], params["lm_head"], params["norm_f"],
+              *params["layers"].values()]
+    for t in leaves:
+        t.requires_grad_(True)
+    ids = torch.randint(0, 128, (2, 64), device=cuda)
+    wrappers = (fb.fused_qkv, fb.fused_attn_epilogue, fb.fused_mlp_fwd,
+                fb.fused_mlp_bwd_dx, fa.flash_fwd, fa.flash_bwd_dq,
+                fa.flash_bwd_dkv)
+    before = [w.launches for w in wrappers]
+    total, ce = tllama.loss_fn(cfg, params, {"input_ids": ids,
+                                             "labels": ids})
+    total.backward()
+    torch.cuda.synchronize()
+    fwd = 2 if policy == "none" else 4
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [
+        fwd, fwd, fwd, 2, 0, 2, 2]
     assert torch.isfinite(ce)
     assert all(torch.isfinite(t.grad).all() for t in leaves)

@@ -45,6 +45,8 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_paddle_tpu():
     files = _port_files()
     assert len(files) > 10 and (REPO / "chip_smoke.py").exists()
+    for mod in ("flash_attention", "fused_blocks"):
+        assert REPO / "paddle_tpu_torch" / "ops" / f"{mod}.py" in files
     bad = []
     for path in files:
         for line, mod in _imports(path):

@@ -200,6 +200,8 @@ def test_bench_cpu_smoke_prints_one_json_line(capsys):
     res = json.loads(out[0])
     assert res["value"] is None and "not a card" in res["mfu_note"]
     assert res["attention"] == "plain_cpu" and res["remat_policy"] == "none"
+    assert res["fused_blocks"] == {"attention": False, "mlp": False}
+    assert set(res["launches_per_step"].values()) == {0}
     assert (res["batch"], res["seq"]) == (2, 256)
     assert np.isfinite(res["loss_step0"])
     assert abs(res["loss_step0"] - np.log(1024)) <= 0.5
@@ -236,3 +238,187 @@ def test_unported_branches_raise():
     sin, cos = tllama._rope_tables(tcfg, 4, "cpu")
     with pytest.raises(NotImplementedError, match="A.6"):
         tllama.decoder_layer(moe, lp, x, sin, cos)
+
+
+# ---------------------------------------------------------------------------
+# the fused decoder blocks (fused_blocks="on" on both sides; the JAX side
+# runs its Pallas kernels in interpret mode)
+# ---------------------------------------------------------------------------
+# A 2-layer config with head dim 128 and nkv == nh, so that both fused
+# blocks engage, at fused_parity_cases' widths (H = 256, I = 512).
+# Tolerances as above: logits and loss atol 2e-5, gradients atol 2e-5 +
+# rtol 1e-3 (float32); "on" against "off" in the port, whose f32 sums
+# run in another order, atol 2e-5 and gradients atol 2e-5 + rtol 1e-3.
+
+FUSED = (dict(vocab_size=256, hidden_size=256, intermediate_size=512,
+              num_hidden_layers=2, num_attention_heads=2,
+              num_key_value_heads=2, max_position_embeddings=256), 1, 256)
+
+
+@pytest.fixture
+def interpret():
+    from paddle_tpu.ops import pallas_ops
+    old = pallas_ops._INTERPRET
+    pallas_ops._INTERPRET = True
+    yield
+    pallas_ops._INTERPRET = old
+
+
+def _fused_cfgs(mode, **port):
+    fields, _, _ = FUSED
+    jcfg = jllama.LlamaConfig(dtype=jnp.float32, use_remat=False,
+                              fused_blocks=mode, **fields)
+    tcfg = tllama.LlamaConfig(dtype=torch.float32, fused_blocks=mode,
+                              **{"use_remat": False, **port, **fields})
+    return jcfg, tcfg
+
+
+def test_fused_loss_and_grads_match_jax(interpret):
+    _, B, S = FUSED
+    jcfg, tcfg = _fused_cfgs("on")
+    jparams = jllama.init_params(jcfg, jax.random.PRNGKey(5))
+    batch = _batch(jcfg.vocab_size, B, S, seed=5)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    x = jnp.zeros((B, S, jcfg.hidden_size), jnp.float32)
+    assert jllama._fused_block_modes(jcfg, x, None, False) == (True, True)
+    jlogits, _ = jllama.forward_pure(jcfg, jparams, jb["input_ids"])
+    (jtotal, _), jgrads = jax.value_and_grad(
+        lambda p: jllama.loss_fn(jcfg, p, jb), has_aux=True)(jparams)
+
+    params = _port_params(_np(jparams))
+    assert tllama._fused_block_modes(tcfg, torch.zeros(1)) == (True, True)
+    logits, total, _ = _port_step(tcfg, params, batch)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               atol=2e-5, rtol=0)
+    assert abs(total - float(jtotal)) <= 2e-5
+    ref = _flat(_np(jgrads))
+    for n, g in ref.items():
+        np.testing.assert_allclose(_flat(params)[n].grad.numpy(), g,
+                                   atol=2e-5, rtol=1e-3, err_msg=n)
+
+
+def test_fused_decoder_layer_matches_jax(interpret):
+    """One decoder layer at "on", output and the gradient of the input
+    and of every layer weight, against the reference's layer."""
+    fields, B, S = FUSED
+    jcfg, tcfg = _fused_cfgs("on")
+    jparams = jllama.init_params(jcfg, jax.random.PRNGKey(6))
+    jlp = {k: v[0] for k, v in jparams["layers"].items()}
+    x = (np.random.RandomState(6).standard_normal(
+        (B, S, fields["hidden_size"])) * 0.5).astype(np.float32)
+    dy = (np.random.RandomState(7).standard_normal(x.shape)
+          ).astype(np.float32)
+    jsin, jcos = jllama._rope_tables(jcfg, S)
+
+    def jlayer(xx, lp):
+        return jllama.decoder_layer(jcfg, lp, xx, jsin, jcos)[0]
+
+    y_r, pull = jax.vjp(jlayer, jnp.asarray(x), jlp)
+    dx_r, dlp_r = pull(jnp.asarray(dy))
+    lp = {k: torch.from_numpy(np.array(v)).requires_grad_(True)
+          for k, v in jlp.items()}
+    xx = torch.from_numpy(x).requires_grad_(True)
+    sin, cos = tllama._rope_tables(tcfg, S, "cpu")
+    y = tllama.decoder_layer(tcfg, lp, xx, sin, cos)
+    y.backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_r),
+                               atol=2e-5, rtol=0)
+    np.testing.assert_allclose(xx.grad.numpy(), np.asarray(dx_r),
+                               atol=2e-5, rtol=1e-3)
+    for n, g in dlp_r.items():
+        np.testing.assert_allclose(lp[n].grad.numpy(), np.asarray(g),
+                                   atol=2e-5, rtol=1e-3, err_msg=n)
+
+
+def test_fused_on_matches_off_in_the_port():
+    """The counterpart of test_pallas_fused's
+    test_decoder_layer_fused_matches_unfused, over the whole loss."""
+    _, B, S = FUSED
+    jcfg, on = _fused_cfgs("on")
+    _, off = _fused_cfgs("off")
+    np_params = _np(jllama.init_params(jcfg, jax.random.PRNGKey(8)))
+    batch = _batch(jcfg.vocab_size, B, S, seed=8)
+    outs = []
+    for cfg in (on, off):
+        params = _port_params(np_params)
+        logits, total, _ = _port_step(cfg, params, batch)
+        outs.append((logits, total, {n: t.grad for n, t in
+                                     _flat(params).items()}))
+    torch.testing.assert_close(outs[0][0], outs[1][0], atol=2e-5, rtol=0)
+    assert abs(outs[0][1] - outs[1][1]) <= 2e-5
+    for n, g in outs[1][2].items():
+        torch.testing.assert_close(outs[0][2][n], g, atol=2e-5, rtol=1e-3,
+                                   msg=n)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_fused_remat_policies_give_the_same_grads(policy):
+    _, B, S = FUSED
+    jcfg, ref_cfg = _fused_cfgs("on")
+    _, cfg = _fused_cfgs("on", use_remat=True, remat_policy=policy)
+    np_params = _np(jllama.init_params(jcfg, jax.random.PRNGKey(9)))
+    batch = _batch(jcfg.vocab_size, B, S, seed=9)
+    got = []
+    for c in (ref_cfg, cfg):
+        params = _port_params(np_params)
+        _, total, _ = _port_step(c, params, batch)
+        got.append((total, {n: t.grad for n, t in _flat(params).items()}))
+    assert abs(got[0][0] - got[1][0]) <= 1e-6
+    for n, g in got[0][1].items():
+        torch.testing.assert_close(got[1][1][n], g, atol=1e-6, rtol=0,
+                                   msg=n)
+
+
+def test_fused_block_policy():
+    """None and "auto" stay unfused on the CPU; "on" engages on any
+    device; GQA keeps the unfused attention with the fused MLP; a head
+    dim the flash kernels do not take keeps the unfused attention;
+    quantized leaves and "off" stay unfused; a bad value raises."""
+    fields, _, _ = FUSED
+    x = torch.zeros((1, 4, fields["hidden_size"]))
+    for mode in (None, "auto", "off"):
+        cfg = tllama.LlamaConfig(fused_blocks=mode, **fields)
+        assert tllama._fused_block_modes(cfg, x) == (False, False)
+    on = tllama.LlamaConfig(fused_blocks="on", **fields)
+    assert tllama._fused_block_modes(on, x) == (True, True)
+    assert tllama._fused_block_modes(on, x.to("meta")) == (True, True)
+    gqa = tllama.LlamaConfig(fused_blocks="on",
+                             **{**fields, "num_key_value_heads": 1})
+    assert tllama._fused_block_modes(gqa, x) == (False, True)
+    d32 = tllama.LlamaConfig(fused_blocks="on",
+                             **{**fields, "num_attention_heads": 8,
+                                "num_key_value_heads": 8})
+    assert tllama._fused_block_modes(d32, x) == (False, True)
+    with pytest.raises(ValueError, match="fused_blocks"):
+        tllama.LlamaConfig(fused_blocks="always")
+
+
+def test_fused_policy_routes_each_layer(monkeypatch):
+    """decoder_layer calls the fused blocks exactly where the policy
+    engages them: both at "on"; the MLP alone under GQA; neither with
+    int8 leaves (quantize_params) or at "off"."""
+    from paddle_tpu_torch.ops import fused_blocks as fb
+    calls = []
+    for name in ("fused_attention_block", "fused_mlp_block"):
+        real = getattr(fb, name)
+        monkeypatch.setattr(fb, name, lambda *a, _r=real, _n=name, **k: (
+            calls.append(_n), _r(*a, **k))[1])
+    fields, _, S = FUSED
+    S = 16
+    for nkv, mode, quant, want in (
+            (2, "on", False, ["fused_attention_block", "fused_mlp_block"]),
+            (1, "on", False, ["fused_mlp_block"]),
+            (2, "on", True, []),
+            (2, "off", False, [])):
+        cfg = tllama.LlamaConfig(dtype=torch.float32, fused_blocks=mode,
+                                 **{**fields, "num_key_value_heads": nkv})
+        params = tllama.init_params(cfg, 0, device="cpu")
+        if quant:
+            params = tllama.quantize_params(cfg, params)
+        lp = {k: tllama._layer(v, 0) for k, v in params["layers"].items()}
+        sin, cos = tllama._rope_tables(cfg, S, "cpu")
+        calls.clear()
+        y = tllama.decoder_layer(cfg, lp, torch.zeros(
+            (1, S, fields["hidden_size"])), sin, cos)
+        assert calls == want, (nkv, mode, quant)
+        assert torch.isfinite(y).all()
