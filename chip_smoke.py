@@ -10,11 +10,16 @@ against its plain PyTorch version at its main path's shapes and times
 both (plus one PyTorch library call for the same function as a
 yardstick the port never calls), then drives the two main paths:
 
-- serving: a small model's serving step on the card against the CPU,
-  then 16 requests through ``LLMEngine`` at the full width and depth of
-  the ``llama7b`` preset (random weights from a seed, int8 weights, bf16
-  KV pages), every launch counted through the int8 matmul and ragged
-  paged attention kernels;
+- serving: a small model's serving step on the card against the CPU
+  (float32 and int8 KV pages), then ``paddle_tpu_torch.bench_serve``'s
+  measuring function three times at the full width and depth of the
+  ``llama7b`` preset (random weights from a seed, int8 weights built
+  once): bf16 KV pages, int8 KV pages, and int8 pages under the
+  shared-prefix workload with the prefix cache on; every launch counted
+  through the int8 matmul and the two ragged paged attention kernels
+  (bf16 pools, int8 pools), and the KV pool bytes held to their
+  formula.  Ragged paged attention is also held and timed at a decode
+  of 2048 tokens a request, for both pool types;
 - training: the four fused decoder-block kernels against their plain
   versions at the bench shape (timed beside the unfused PyTorch
   composition of each block), a small bf16 train step on the card
@@ -185,7 +190,8 @@ def int_mm_ms(torch, i8, x, copies, ws):
 
 
 # R = 8 slots, llama7b's heads; mixed kv lengths with an empty slot and
-# chunks across page boundaries; the last case is GQA (rep = 4)
+# chunks across page boundaries; GQA (rep = 4); and one decode at a
+# context users serve: 2048 tokens a request (Bmax 128, P 1025)
 RPA_CASES = [
     ("prefill_tc8", 32, 1, 8, [8, 20, 0, 33, 24, 16, 40, 9],
      [8, 4, 0, 8, 8, 3, 8, 2]),
@@ -193,75 +199,178 @@ RPA_CASES = [
      [1, 1, 1, 1, 0, 1, 1, 1]),
     ("gqa_rep4_tc8", 8, 4, 8, [8, 20, 0, 33, 24, 16, 40, 9],
      [8, 4, 0, 8, 8, 3, 8, 2]),
+    ("decode_long", 32, 1, 1, [2048] * 8, [1] * 8),
 ]
+RPA_R, RPA_D, RPA_PAGE = 8, 128, 16
 
 
-def rpa_phase(torch, rpa):
-    F = torch.nn.functional
+def rpa_inputs(torch, rng, case, quant):
+    """One case's inputs on the card: bf16 q, and pools drawn N(0, 1) —
+    bf16, or quantized per (kv head, page) as the engine writes them
+    (scale = absmax / 127, int8 = round(x / scale)) with their f32
+    scales.  The block table maps every request to distinct pages."""
     dev = torch.device("cuda")
-    R, d, page, Bmax, P = 8, 128, 16, 3, 64
-    rng = np.random.RandomState(2)
+    name, nkv, rep, Tc, lens_l, qlens_l = case
+    R, d, page = RPA_R, RPA_D, RPA_PAGE
+    Bmax = max(3, -(-max(lens_l) // page))
+    P = max(64, R * Bmax + 1)
+    q = torch.from_numpy(rng.standard_normal((R, nkv, Tc * rep, d)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.randint(1 << 30)))
+    pools, scales = [], []
+    for _ in range(2):
+        x = torch.randn((nkv, P, page, d), generator=gen, device=dev)
+        if quant:
+            sc = x.abs().amax(dim=(2, 3)).clamp_min(1e-8) / 127.0
+            pools.append(torch.round(x / sc[:, :, None, None]).clamp_(
+                -127, 127).to(torch.int8))
+            scales.append(sc.contiguous())
+        else:
+            pools.append(x.to(torch.bfloat16))
+        del x
+    tbl = torch.from_numpy((1 + rng.permutation(P - 1)[:R * Bmax])
+                           .reshape(R, Bmax).astype(np.int32)).to(dev)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    qlens = torch.tensor(qlens_l, dtype=torch.int32, device=dev)
+    return (q, pools[0], pools[1], tbl, lens, qlens), scales
+
+
+def rpa_dense_kv(torch, args, scales):
+    """Each request's K and V gathered (and dequantized) into dense
+    [R, nkv, Bmax * page, d] bf16: SDPA's inputs for the same
+    function."""
+    q, kp, vp, tbl = args[:4]
+    R, nkv, _, d = q.shape
+    S = tbl.shape[1] * kp.shape[2]
+    flat = tbl.reshape(-1).long()
+    dense = []
+    for i, pool in enumerate((kp, vp)):
+        x = pool.index_select(1, flat)
+        if scales:
+            x = x.float() * scales[i].index_select(1, flat)[:, :, None, None]
+        dense.append(x.to(torch.bfloat16).reshape(nkv, R, S, d)
+                     .transpose(0, 1).contiguous())
+    return dense
+
+
+def rpa_mask(torch, lens, qlens, Tr, rep, S, drop_blk=None, page=None):
+    """[R, Tr, S] keys each q row may see (the kernel's predicate), with
+    logical block ``drop_blk`` of every request hidden when given."""
+    dev = lens.device
+    tok = torch.arange(Tr, device=dev) // rep
+    qpos = (lens - qlens)[:, None] + tok[None, :]
+    kpos = torch.arange(S, device=dev)
+    mask = ((kpos[None, None, :] <= qpos[:, :, None])
+            & (kpos[None, None, :] < lens[:, None, None])
+            & (tok[None, :, None] < qlens[:, None, None]))
+    if drop_blk is not None:
+        mask &= (kpos // page != drop_blk)[None, None, :]
+    return mask
+
+
+def rpa_control(torch, args, scales, rep):
+    """The limits against a wrong kernel: ragged attention in f32 that
+    drops logical page 0 of every request (every row of an active
+    request sees it), read against the plain version.  It fails unless
+    it breaks the per-row limit."""
+    q, kp, vp, tbl, lens, qlens = args
+    kd, vd = rpa_dense_kv(torch, args, scales)
+    Tr, page = q.shape[2], kp.shape[2]
+    mask = rpa_mask(torch, lens, qlens, Tr, rep, kd.shape[2], 0, page)
+    s = torch.einsum("rhtd,rhsd->rhts", q.float(), kd.float()) / math.sqrt(
+        q.shape[-1])
+    p = torch.softmax(s.masked_fill(~mask[:, None], -1e30), dim=-1)
+    o = torch.einsum("rhts,rhsd->rhtd", p, vd.float())
+    tok = torch.arange(Tr, device=q.device) // rep
+    return torch.where((tok[None, :] < qlens[:, None])[:, None, :, None],
+                       o, 0.0)
+
+
+def rpa_bounds(case, quant):
+    """(bytes, ops) the function needs on this case's data: q read and
+    out written once, the K and V of every visible token once (bf16: 2
+    bytes an element; int8: 1, plus two f32 scales per visible page and
+    kv head), q.k and p.v for every visible (q row, key) pair."""
+    name, nkv, rep, Tc, lens_l, qlens_l = case
+    d, page = RPA_D, RPA_PAGE
+    active = [(L, ql) for L, ql in zip(lens_l, qlens_l) if ql]
+    visible = sum(L for L, _ in active)
+    pages = sum(-(-L // page) for L, _ in active)
+    pairs = sum(ql * rep * ((L - ql) + (ql + 1) / 2) for L, ql in active)
+    qbytes = 2 * RPA_R * nkv * Tc * rep * d * 2
+    kv = 2 * visible * nkv * d * (1 if quant else 2)
+    if quant:
+        kv += 2 * pages * nkv * 4
+    return qbytes + kv, 4 * pairs * nkv * d
+
+
+def rpa_phase(torch, rpa, quant=False):
+    """Ragged paged attention against its plain version on every case:
+    bf16 pools (the kernel replacing _rpa_kernel) or, with ``quant``,
+    int8 pools and scales (the one replacing _rpa_kernel_quant).  Each
+    row of the output within ``ROW_REL_MAX`` of its RMS, the tensor
+    within ``NORM_REL_MAX``, max |diff| <= 2e-2, padding exact zeros, and
+    a control that drops one visible page must break the row limit.
+    Timed per call by graph replay and eager, beside the plain version,
+    the bound and SDPA over the same (dequantized) KV gathered dense
+    outside the timed call (a yardstick the port never calls)."""
+    F = torch.nn.functional
+    rng = np.random.RandomState(3 if quant else 2)
+    tag = "ragged_paged_attention" + ("_quant" if quant else "")
     rows, max_err = [], 0.0
-    for name, nkv, rep, Tc, lens_l, qlens_l in RPA_CASES:
-        Tr = Tc * rep
-        q = torch.from_numpy(rng.standard_normal((R, nkv, Tr, d)).astype(
-            np.float32)).to(dev, torch.bfloat16)
-        kp, vp = (torch.from_numpy(rng.standard_normal(
-            (nkv, P, page, d)).astype(np.float32)).to(dev, torch.bfloat16)
-            for _ in range(2))
-        tbl = torch.from_numpy((1 + rng.permutation(P - 1)[:R * Bmax])
-                               .reshape(R, Bmax).astype(np.int32)).to(dev)
-        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
-        qlens = torch.tensor(qlens_l, dtype=torch.int32, device=dev)
-        args = (q, kp, vp, tbl, lens, qlens)
-        out = rpa.ragged_paged_attention(*args, rep=rep)
-        ref = rpa._ragged_attention_plain(*args, rep)
+    for case in RPA_CASES:
+        name, nkv, rep, Tc, lens_l, qlens_l = case
+        args, scales = rpa_inputs(torch, rng, case, quant)
+        kw = dict(k_scales=scales[0], v_scales=scales[1]) if quant else {}
+        q, kp, vp, tbl, lens, qlens = args
+        out = rpa.ragged_paged_attention(*args, rep=rep, **kw)
+        ref = rpa._ragged_attention_plain(*args, rep, *scales)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        tok = torch.arange(Tr, device=dev) // rep
+        row = rms_rel(out, ref, True)
+        norm = rms_rel(out, ref, False)
+        ctl = rms_rel(rpa_control(torch, args, scales, rep), ref, True)
+        tok = torch.arange(Tc * rep, device=q.device) // rep
         pad = (tok[None, :] >= qlens[:, None])[:, None, :, None].expand_as(
             out)
         pad_zero = not out[pad].any().item()
-        check(err <= 2e-2, f"attention {name}: max |diff| {err} > 2e-2")
-        check(pad_zero, f"attention {name}: padding rows not exact zeros")
+        check(err <= 2e-2, f"{tag} {name}: max |diff| {err} > 2e-2")
+        check(row <= ROW_REL_MAX, f"{tag} {name}: row rel {row} > "
+              f"{ROW_REL_MAX}")
+        check(norm <= NORM_REL_MAX, f"{tag} {name}: norm rel {norm} > "
+              f"{NORM_REL_MAX}")
+        check(ctl > ROW_REL_MAX, f"{tag} {name}: control (page 0 dropped) "
+              f"row rel {ctl} passes the limit {ROW_REL_MAX}")
+        check(pad_zero, f"{tag} {name}: padding rows not exact zeros")
         max_err = max(max_err, err)
+
         def kern(i):
-            return rpa.ragged_paged_attention(*args, rep=rep)
+            return rpa.ragged_paged_attention(*args, rep=rep, **kw)
 
         ms = time_ms(torch, kern, calls=50)
         host_ms = eager_ms(torch, kern, calls=100)
         plain_ms = time_ms(torch, lambda i: rpa._ragged_attention_plain(
-            *args, rep), calls=10)
-        # yardstick: SDPA over each request's kv gathered dense (gather
-        # and mask built outside the timed call)
-        S = Bmax * page
-        flat = tbl.reshape(-1).long()
-        kd = kp.index_select(1, flat).reshape(nkv, R, S, d).transpose(0, 1)
-        vd = vp.index_select(1, flat).reshape(nkv, R, S, d).transpose(0, 1)
-        kd, vd = kd.contiguous(), vd.contiguous()
-        kpos = torch.arange(S, device=dev)
-        qpos = (lens - qlens)[:, None] + tok[None, :]
-        mask = ((kpos[None, None, :] <= qpos[:, :, None])
-                & (kpos[None, None, :] < lens[:, None, None])
-                & (tok[None, :, None] < qlens[:, None, None]))[:, None]
+            *args, rep, *scales), calls=10)
+        kd, vd = rpa_dense_kv(torch, args, scales)
+        mask = rpa_mask(torch, lens, qlens, Tc * rep, rep,
+                        kd.shape[2])[:, None]
         lib_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
             q, kd, vd, attn_mask=mask), calls=50)
-        # bytes this data needs: q and out once, the K and V of every
-        # visible token once; ops: q.k and p.v for every visible pair
-        visible = sum(L for L, ql in zip(lens_l, qlens_l) if ql)
-        pairs = sum(ql * rep * ((L - ql) + (ql + 1) / 2)
-                    for L, ql in zip(lens_l, qlens_l))
-        nbytes = 2 * (2 * q.numel()) + 2 * visible * nkv * d * 2
-        ops = 4 * pairs * nkv * d
-        b_ms, _ = bound_ms(nbytes, ops, "bf16")
+        del kd, vd, mask
+        nbytes, ops = rpa_bounds(case, quant)
+        b_ms, b_by = bound_ms(nbytes, ops, "bf16")
         rows.append(dict(name=name, nkv=nkv, rep=rep, Tc=Tc, ms=ms,
-                         eager_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bytes=nbytes, ops=ops,
-                         max_abs_err=err))
-        print(f"ragged_paged_attention {name}: kernel {ms:.4f} ms (eager "
-              f"{host_ms:.4f})  plain "
-              f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound "
-              f"{b_ms:.6f} ms  max |diff| {err:.3g}  padding exact 0")
+                         eager_ms=host_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                         bytes=nbytes, ops=ops, max_abs_err=err,
+                         row_rel_err=row, norm_rel_err=norm,
+                         control_row_rel_err=ctl))
+        print(f"{tag} {name}: kernel {ms:.4f} ms (eager {host_ms:.4f})  "
+              f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound "
+              f"{b_ms:.6f} ms ({b_by}, {nbytes / 1e6:.3f} MB)  max |diff| "
+              f"{err:.3g}  row rel {row:.3g}  norm rel {norm:.3g}  control "
+              f"row rel {ctl:.3g}  padding exact 0")
+        del args, scales, out, ref
     return rows, max_err
 
 
@@ -269,13 +378,17 @@ def rpa_phase(torch, rpa):
 # the serving path
 # ---------------------------------------------------------------------------
 
-def small_reference_check(torch, tllama, convert):
+def small_reference_check(torch, tllama, convert, rpa):
     """One mixed prefill + decode step of a small float32 model with int8
-    weights: the card (both kernels) against the CPU (plain versions).
+    weights, over float32 KV pages and over int8 pages with scales: the
+    card (every kernel of the step) against the CPU (plain versions).
     They agree to float32 summation order, except where an activation
     sits within an ulp of an int8 rounding boundary on one side only;
     each such flip moves an output by at most x_scale * max|w| (~3e-3
-    here), hence atol 1e-2."""
+    here), hence atol 1e-2 on logits and f32 pages.  int8 pages: the
+    bytes equal except +-1 at a rounding tie on at most 0.1 % of them,
+    the scales within 1e-5 relative (absmaxes of differently summed
+    products), the null page untouched."""
     cfg = tllama.LlamaConfig(vocab_size=512, hidden_size=256,
                              intermediate_size=512, num_hidden_layers=2,
                              num_attention_heads=2, num_key_value_heads=1,
@@ -286,113 +399,154 @@ def small_reference_check(torch, tllama, convert):
     rng = np.random.RandomState(0)
     R, Tc, P, page, Bmax = 4, 8, 16, 16, 3
     shape = (2, 1, P, page, 128)
-    kp = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-    vp = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    pools = {
+        "f32": [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)) for _ in range(2)],
+        # earlier tokens' int8 bytes and scales, as a previous step left
+        "int8": [torch.from_numpy(rng.randint(-127, 128, shape).astype(
+            np.int8)) for _ in range(2)]
+        + [torch.from_numpy(rng.uniform(0.005, 0.03, shape[:3]).astype(
+            np.float32)) for _ in range(2)]}
+    for t in pools["int8"]:
+        t[:, :, 0] = 0 if t.dtype == torch.int8 else 1.0
     tbl = torch.from_numpy((1 + rng.permutation(P - 1)[:R * Bmax])
                            .reshape(R, Bmax).astype(np.int32))
     lens = torch.tensor([8, 21, 0, 40], dtype=torch.int32)
     qlens = torch.tensor([8, 1, 0, 6], dtype=torch.int32)
     tokens = torch.from_numpy(rng.randint(0, 512, (R, Tc)).astype(np.int32))
-    outs = []
-    for dev in ("cpu", "cuda"):
-        k_dev, v_dev = kp.clone().to(dev), vp.clone().to(dev)
-        with torch.no_grad():
-            logits, _ = tllama.forward_paged(
-                cfg, convert.params_to(params, dev), tokens.to(dev), k_dev,
-                v_dev, tbl.to(dev), lens.to(dev), qlens.to(dev))
-        outs.append((logits.cpu(), k_dev.cpu(), v_dev.cpu()))
-    err = 0.0
-    for r, q in enumerate(qlens.tolist()):
-        err = max(err, (outs[0][0][r, :q] - outs[1][0][r, :q]).abs().max()
-                  .item() if q else 0.0)
-    for a, b in zip(outs[0][1:], outs[1][1:]):
-        err = max(err, (a[:, :, 1:] - b[:, :, 1:]).abs().max().item())
-    check(all(torch.isfinite(o[0]).all() for o in outs), "non-finite logits")
-    check(err <= 1e-2, f"small model: card vs CPU max |diff| {err} > 1e-2")
-    print(f"small model step (f32, int8 weights): card vs CPU max |diff| "
-          f"{err:.3g} (atol 1e-2)")
+    for kind, init in pools.items():
+        outs = []
+        for dev in ("cpu", "cuda"):
+            t = [x.clone().to(dev) for x in init]
+            sc = dict(k_scales=t[2], v_scales=t[3]) if len(t) == 4 else {}
+            before = rpa.ragged_paged_attention.quant_launches
+            with torch.no_grad():
+                logits, _ = tllama.forward_paged(
+                    cfg, convert.params_to(params, dev), tokens.to(dev),
+                    t[0], t[1], tbl.to(dev), lens.to(dev), qlens.to(dev),
+                    **sc)
+            if dev == "cuda" and sc:
+                check(rpa.ragged_paged_attention.quant_launches
+                      == before + 2, "the int8 attention kernel did not run")
+            outs.append([logits.cpu()] + [x.cpu() for x in t])
+        check(all(torch.isfinite(o[0]).all() for o in outs),
+              "non-finite logits")
+        err = max((outs[0][0][r, :q] - outs[1][0][r, :q]).abs().max().item()
+                  for r, q in enumerate(qlens.tolist()) if q)
+        if kind == "f32":
+            for a, b in zip(outs[0][1:], outs[1][1:]):
+                err = max(err, (a[:, :, 1:] - b[:, :, 1:]).abs().max().item())
+            check(err <= 1e-2, f"small model: card vs CPU max |diff| {err} "
+                  f"> 1e-2")
+            print(f"small model step (f32, int8 weights, f32 pages): card vs "
+                  f"CPU max |diff| {err:.3g} (atol 1e-2)")
+            continue
+        check(err <= 1e-2, f"small model int8 KV: card vs CPU logits max "
+              f"|diff| {err} > 1e-2")
+        flips = 0
+        for a, b in zip(outs[0][1:3], outs[1][1:3]):
+            d = a.int() - b.int()
+            check(d.abs().max().item() <= 1, "small model int8 KV: a page "
+                  "byte differs by more than 1")
+            flips += d.count_nonzero().item()
+            check(not b[:, :, 0].any(), "the null page was written")
+        check(flips <= 1e-3 * 2 * outs[0][1].numel(), f"small model int8 "
+              f"KV: {flips} bytes differ")
+        sc_err = max(((b - a).abs() / a.abs()).max().item()
+                     for a, b in zip(outs[0][3:], outs[1][3:]))
+        check(sc_err <= 1e-5, f"small model int8 KV: scales rel {sc_err}")
+        print(f"small model step (f32, int8 weights, int8 pages): card vs "
+              f"CPU logits max |diff| {err:.3g} (atol 1e-2), {flips} page "
+              f"bytes off by 1, scales rel {sc_err:.3g}")
 
 
-def serve_phase(torch, cfg, tllama, serving, i8, rpa, card, device):
-    n_req, max_prompt, n_new, chunk = 16, 24, 16, 8
-    L = cfg.num_hidden_layers
+# the three serve runs of one call: (name, kv dtype, workload)
+SERVE_RUNS = (("bf16", "bf16", "uniform"), ("int8", "int8", "uniform"),
+              ("int8_shared_prefix", "int8", "shared-prefix"))
+
+
+def serve_phase(torch, tllama, bench_serve, card):
+    """The serving main path through ``bench_serve``'s measuring
+    function: llama7b at full width and depth, int8 weights built once,
+    served three times in one call (bf16 KV; int8 KV; int8 KV with the
+    shared-prefix workload and the prefix cache).  Every launch of the
+    three serving kernels is counted from 0 over each run (its warm-up
+    included) and held against the engine's forward steps; the KV pool
+    bytes against their formula."""
+    cfg = tllama.preset("llama7b")
+    L, nkv, d = (cfg.num_hidden_layers, cfg.num_key_value_heads,
+                 cfg.head_dim)
     t0 = time.perf_counter()
-    params = tllama.init_params(cfg, seed=0, device=device)
-    eng = serving.LLMEngine(cfg, params, device=device, max_running=8,
-                            chunk=chunk, page_size=16,
-                            max_model_len=max_prompt + n_new + chunk)
-    del params                                    # the engine holds int8
+    params = tllama.quantize_params(
+        cfg, tllama.init_params(cfg, seed=0, device="cuda"))
     torch.cuda.synchronize()
-    check(isinstance(eng.params["layers"]["wq"], dict),
-          "quantized='auto' did not quantize on CUDA")
-    print(f"engine built ({L} layers, hidden {cfg.hidden_size}, int8 "
-          f"weights, {eng._kp.dtype} KV pages, {eng.num_pages} pages of "
-          f"16): {time.perf_counter() - t0:.1f} s")
-
-    rng = np.random.RandomState(0)
-    prompts = [list(rng.randint(0, cfg.vocab_size,
-                                rng.randint(2, max_prompt + 1)))
-               for _ in range(n_req)]
-    # warm-up request (first-call costs), then the measured run
-    eng.add_request(prompts[0], 2)
-    eng.run()
-    eng._step_wall_s.clear()
-    torch.cuda.reset_peak_memory_stats()
-
-    i8.int8_matmul.launches = 0
-    rpa.ragged_paged_attention.launches = 0
-    t_start = time.monotonic()
-    rids = [eng.add_request(p, n_new) for p in prompts[:n_req // 2]]
-    pending = list(prompts[n_req // 2:])
-    steps = 0
-    while eng.has_work() or pending:
-        if pending and steps % 2 == 1:
-            rids.append(eng.add_request(pending.pop(0), n_new))
-        eng.step()
-        steps += 1
-        check(steps < 10000, "serve loop did not converge")
-    wall = time.monotonic() - t_start
-    launches = {"int8_matmul": i8.int8_matmul.launches,
-                "ragged_paged_attention":
-                    rpa.ragged_paged_attention.launches}
-
-    reqs = [eng.request(r) for r in rids]
-    check(all(r.state is serving.RequestState.FINISHED for r in reqs),
-          "a request did not finish")
-    check(all(len(r.output) == n_new for r in reqs),
-          "a request finished short")
-    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.output),
-          "a token id out of the vocabulary")
-    check(eng.kv.allocator.num_allocated == 0 and eng.kv.audit()["ok"],
-          f"page books not balanced: {eng.kv.audit()}")
-    fwd = sum(len(v) for v in eng._step_wall_s.values())
-    check(launches["int8_matmul"] == (7 * L + 1) * fwd,
-          f"int8_matmul launched {launches['int8_matmul']} times over "
-          f"{fwd} steps, expected {(7 * L + 1) * fwd} (7 x {L} + 1 per "
-          f"step)")
-    check(launches["ragged_paged_attention"] == L * fwd,
-          f"ragged_paged_attention launched "
-          f"{launches['ragged_paged_attention']} times over {fwd} steps, "
-          f"expected {L * fwd}")
-
-    tokens = sum(len(r.output) for r in reqs)
-    ttft = [r.first_token_s - r.arrival_s for r in reqs]
-    dec = eng._step_wall_s.get(1, [])
-    pre = eng._step_wall_s.get(chunk, [])
-    peak = torch.cuda.max_memory_allocated()
-    print(f"serve [{card}]: {n_req} requests x {n_new} new tokens, "
-          f"{fwd} steps ({len(pre)} prefill, {len(dec)} decode), "
-          f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.2f} tokens/s")
-    print(f"serve [{card}]: TTFT p50 {1e3 * np.percentile(ttft, 50):.2f} ms"
-          f"  p95 {1e3 * np.percentile(ttft, 95):.2f} ms  decode step "
-          f"{1e3 * np.mean(dec):.2f} ms  prefill step "
-          f"{1e3 * np.mean(pre):.2f} ms (means)")
-    print(f"serve [{card}]: max_memory_allocated {peak} bytes "
-          f"({peak / 2**30:.2f} GiB)")
-    print(f"serve [{card}]: launches {launches} = per step "
-          f"{7 * L + 1} int8_matmul, {L} ragged_paged_attention")
-    profile_steps(torch, eng, prompts[:8], card)
-    return launches
+    print(f"llama7b int8 weights built: {time.perf_counter() - t0:.1f} s")
+    runs, outputs = {}, {}
+    for name, kv_dtype, workload in SERVE_RUNS:
+        bench_serve.reset_kernel_launches()
+        run = bench_serve.serve("cuda", kv_dtype=kv_dtype,
+                                workload=workload, params=params)
+        launches = bench_serve.kernel_launches()
+        eng, res = run.engine, run.result
+        steps = eng._steps
+        reqs = [eng.request(r) for r in run.rids]
+        n_new = res["new_tokens"]
+        check(all(r.state.value == "finished" and len(r.output) == n_new
+                  for r in reqs), f"serve {name}: a request did not finish "
+              f"with {n_new} tokens")
+        check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.output),
+              f"serve {name}: a token id out of the vocabulary")
+        check(eng.kv.audit()["ok"], f"serve {name}: page books not "
+              f"balanced: {eng.kv.audit()}")
+        check(isinstance(eng.params["layers"]["wq"], dict),
+              f"serve {name}: the weights are not int8")
+        check(launches["int8_matmul"] == (7 * L + 1) * steps,
+              f"serve {name}: int8_matmul launched "
+              f"{launches['int8_matmul']} times over {steps} steps, "
+              f"expected {(7 * L + 1) * steps}")
+        quant = kv_dtype == "int8"
+        want = {"ragged_paged_attention": 0 if quant else L * steps,
+                "ragged_paged_attention_quant": L * steps if quant else 0}
+        for k, v in want.items():
+            check(launches[k] == v, f"serve {name}: {k} launched "
+                  f"{launches[k]} times over {steps} steps, expected {v}")
+        page, P = eng.page_size, eng.num_pages
+        pool = 2 * L * nkv * P * page * d * (1 if quant else 2)
+        scales = 2 * L * nkv * P * 4 if quant else 0
+        held = sum(t.numel() * t.element_size() for t in
+                   (eng._kp, eng._vp, eng._ks, eng._vs) if t is not None)
+        check(eng._pool_bytes == pool + scales == held,
+              f"serve {name}: pool bytes {eng._pool_bytes} (held {held}), "
+              f"formula {pool} + {scales}")
+        if workload == "shared-prefix":
+            check(res["reuse"]["prefix_hit_tokens"] > 0,
+                  f"serve {name}: no prefix hit")
+        res["launches"] = launches
+        res["forward_steps"] = steps
+        runs[name] = res
+        outputs[name] = [list(r.output) for r in reqs]
+        print(f"serve {name} [{card}]: BENCH_SERVE {json.dumps(res)}")
+        print(f"serve {name} [{card}]: {res['tokens']} tokens in "
+              f"{res['wall_seconds']:.3f} s = {res['value']:.2f} tokens/s, "
+              f"TTFT p50 {res['ttft_p50_ms']:.2f} ms p95 "
+              f"{res['ttft_p95_ms']:.2f} ms, decode step "
+              f"{res['decode_step_ms']:.2f} ms, prefill step "
+              f"{res['prefill_step_ms']:.2f} ms (means), "
+              f"max_memory_allocated {res['max_memory_allocated']} bytes, "
+              f"KV pools {eng._pool_bytes} bytes, launches {launches} over "
+              f"{steps} forward steps")
+        if workload == "uniform":
+            prompts, _, _ = bench_serve.prompts_for(
+                workload, bench_serve.knobs(), cfg.vocab_size)
+            profile_steps(torch, eng, prompts[:8], f"{card}, {name} KV")
+        del run, eng
+    same = sum(a == b for x, y in zip(outputs["bf16"], outputs["int8"])
+               for a, b in zip(x, y))
+    total = sum(len(x) for x in outputs["bf16"])
+    print(f"serve [{card}]: int8 KV tokens equal to the bf16 run's: "
+          f"{same}/{total} ({100 * same / total:.1f} %; not gated: random "
+          f"weights give tiny argmax margins)")
+    return runs
 
 
 def profile_steps(torch, eng, prompts, card):
@@ -1007,7 +1161,7 @@ def main():
               f"from the repository root", file=sys.stderr)
         return 2
     from paddle_tpu_torch import bench as tbench
-    from paddle_tpu_torch import serving
+    from paddle_tpu_torch import bench_serve
     from paddle_tpu_torch.models import convert
     from paddle_tpu_torch.models import llama as tllama
     from paddle_tpu_torch.ops import _build
@@ -1035,12 +1189,15 @@ def main():
 
     int8_rows, int8_err = int8_phase(torch, i8)
     rpa_rows, rpa_err = rpa_phase(torch, rpa)
+    quant_rows, quant_err = rpa_phase(torch, rpa, quant=True)
     flash, flash_err, flash_row_err, flash_ctl = flash_phase(torch, fa)
     fused = fused_phase(torch, fb)
-    small_reference_check(torch, tllama, convert)
-    # the serving path: llama7b (bf16, 32 layers) on the card
-    launches = serve_phase(torch, tllama.preset("llama7b"), tllama,
-                           serving, i8, rpa, card, torch.device("cuda"))
+    small_reference_check(torch, tllama, convert, rpa)
+    # the serving path: llama7b (32 layers, int8 weights) on the card,
+    # bf16 KV, int8 KV, int8 KV + shared prefix
+    serve = serve_phase(torch, tllama, bench_serve, card)
+    launches = serve["bf16"]["launches"]
+    by_run = {n: r["launches"] for n, r in serve.items()}
     for mode in ("on", "off"):
         small_train_check(torch, tllama, mode)
     # the train path: bench.py's ~0.95B model, S = 2048, on the card, at
@@ -1063,7 +1220,13 @@ def main():
            else sum(r["calls"] * r["library_ms"] for r in dec))
     _, int8_by = bound_ms(step["bytes"], step["ops"], "int8")
     att = next(r for r in rpa_rows if r["name"] == "decode_tc1")
+    long = {n: next(r for r in rows if r["name"] == "decode_long")
+            for n, rows in (("dense", rpa_rows), ("quant", quant_rows))}
+    qdec = next(r for r in quant_rows if r["name"] == "decode_tc1")
     _, att_by = bound_ms(att["bytes"], att["ops"], "bf16")
+    long_keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "bytes", "row_rel_err", "norm_rel_err",
+                 "control_row_rel_err")
     kernels = {"kernels": [
         {"name": "int8_matmul", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/int8_matmul.cu",
@@ -1073,7 +1236,8 @@ def main():
          "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
          "bound_by": int8_by, "library_ms": lib,
          "eager_ms": sum(r["calls"] * r["eager_ms"] for r in dec),
-         "per": "one llama7b decode step: 225 calls at M=8"},
+         "per": "one llama7b decode step: 225 calls at M=8",
+         "launches_by_run": {n: v["int8_matmul"] for n, v in by_run.items()}},
         {"name": "ragged_paged_attention", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
          "replaces": "paddle_tpu/ops/pallas_ops.py:1781",
@@ -1082,7 +1246,26 @@ def main():
          "plain_ms": 32 * att["plain_ms"], "bound_ms": 32 * att["bound_ms"],
          "bound_by": att_by, "library_ms": 32 * att["library_ms"],
          "eager_ms": 32 * att["eager_ms"],
-         "per": "one llama7b decode step: 32 calls, R=8, Tc=1, page 16"},
+         "per": "one llama7b decode step: 32 calls, R=8, Tc=1, page 16",
+         "long_decode": {k: long["dense"][k] for k in long_keys},
+         "long_per": "one call, R=8 x 2048 tokens, 32 kv heads of 128, "
+                     "page 16",
+         "launches_by_run": {n: v["ragged_paged_attention"]
+                             for n, v in by_run.items()}},
+        {"name": "ragged_paged_attention_quant", "route": "cuda",
+         "source": "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+         "replaces": "paddle_tpu/ops/pallas_ops.py:1841",
+         "launches": serve["int8"]["launches"][
+             "ragged_paged_attention_quant"],
+         "max_abs_err": quant_err,
+         **{k: long["quant"][k] for k in long_keys},
+         "row_rel_max": ROW_REL_MAX, "norm_rel_max": NORM_REL_MAX,
+         "per": "one call, R=8 x 2048 tokens, 32 kv heads of 128, page 16, "
+                "int8 pages + f32 scales (the long decode case)",
+         "decode_step": {k: 32 * qdec[k] for k in
+                         ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "launches_by_run": {n: v["ragged_paged_attention_quant"]
+                             for n, v in by_run.items()}},
     ]}
     # the flash kernels, per call at the bench shape; no one library call
     # computes dq or dk/dv alone, so those carry the pair's SDPA backward
@@ -1141,8 +1324,8 @@ def main():
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
             composition_ms=r["composition_ms"], per=per, launches_per=note))
-    check(len(kernels["kernels"]) == 9, "the kernels line lists "
-          f"{len(kernels['kernels'])} kernels, not 9")
+    check(len(kernels["kernels"]) == 10, "the kernels line lists "
+          f"{len(kernels['kernels'])} kernels, not 10")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

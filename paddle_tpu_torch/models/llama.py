@@ -258,21 +258,36 @@ def forward_paged(cfg: LlamaConfig, params, tokens, k_pages, v_pages,
                                   padding-token writes)
     seq_lens      [R] int32       total kv length incl. this chunk
     q_lens        [R] int32       chunk lengths (0 = inactive slot)
+    k/v_scales    [L, nkv, P] f32 per-page dequant scales, UPDATED IN
+                                  PLACE; their presence selects int8
+                                  pools (quantize on write, dequantize
+                                  on read inside the attention kernel)
 
     Rope runs at each token's absolute position (seq_lens - q_lens + t),
     the new k/v are written into the pools through the block table, and
     attention is ``ragged_paged_attention``.  Returns (logits [R, Tc, V]
-    fp32, (k_pages, v_pages)); the pools are the same tensors the caller
-    passed.  Logits in padding rows are garbage by contract: callers
-    read row q_lens[r] - 1.
+    fp32, (k_pages, v_pages)), with scales (k_pages, v_pages, k_scales,
+    v_scales); these are the same tensors the caller passed.  Logits in
+    padding rows are garbage by contract: callers read row q_lens[r] - 1.
+
+    int8 write path (the reference's, llama.py:670-716): for each request
+    a window of W = Tc // page + 2 logical blocks from the chunk's first
+    page is gathered and dequantized, the chunk's new k/v are inserted,
+    every window position at or past seq_len is zeroed (a recycled page
+    keeps its previous owner's bytes, which must not reach the new page
+    absmax), each page is rescaled to max(absmax, 1e-8) / 127, rounded
+    half to even and clamped to +-127, and written back.  Only valid
+    window slots are written: never page 0, never past Bmax, nothing for
+    a q_len == 0 slot.  The window starts at the chunk's first page,
+    which is private to the request even when the prefix cache shares
+    the pages before it, and every window is gathered before any is
+    written, so the in-place update reads no page another window wrote.
 
     The reference returns new pools (JAX arrays are immutable); here the
     step writes into the pools in place, which halves the pool memory a
-    step needs.  Quantized (int8) KV pools are not ported yet."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "int8 KV pools are not ported yet (ROADMAP A: int8-KV serving "
-            "path, kernel row 12 _rpa_kernel_quant)")
+    step needs."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales come together")
     if cfg.moe_num_experts > 0:
         raise NotImplementedError(
             "MoE layers are not ported yet (ROADMAP A: distributed train "
@@ -304,13 +319,18 @@ def forward_paged(cfg: LlamaConfig, params, tokens, k_pages, v_pages,
         return (x * cos[:, :, None, :].to(x.dtype)
                 + rot * sin[:, :, None, :].to(x.dtype))
 
-    # flat pool slot of each new token, through the block table; padding
-    # tokens land on the null page, which the kernel never reads (it
-    # reads only pages with j * page < kvlen)
-    blk = (qpos_c // page).clamp(0, Bmax - 1)
-    phys = block_tables.long().gather(1, blk)                # [R, Tc]
-    dest = torch.where(valid, phys * page + qpos_c % page,
-                       torch.zeros_like(phys)).reshape(-1)
+    quant_kv = k_scales is not None
+    if quant_kv:
+        quant_write = _quant_window_writer(start, qpos, valid, lens,
+                                           q_lens, block_tables, page, Tc)
+    else:
+        # flat pool slot of each new token, through the block table;
+        # padding tokens land on the null page, which the kernel never
+        # reads (it reads only pages with j * page < kvlen)
+        blk = (qpos_c // page).clamp(0, Bmax - 1)
+        phys = block_tables.long().gather(1, blk)            # [R, Tc]
+        dest = torch.where(valid, phys * page + qpos_c % page,
+                           torch.zeros_like(phys)).reshape(-1)
 
     h = params["embed"][tokens.long()]                       # [R, Tc, H]
     layers = params["layers"]
@@ -321,20 +341,27 @@ def forward_paged(cfg: LlamaConfig, params, tokens, k_pages, v_pages,
         k = rope(_qmm(xn, lp["wk"]).reshape(R, Tc, nkv, d))
         v = _qmm(xn, lp["wv"]).reshape(R, Tc, nkv, d)
         kp, vp = k_pages[l], v_pages[l]                      # [nkv, P, page, d]
-        # write the new k/v into the pools in place: [R, Tc, nkv, d] ->
-        # [nkv, R*Tc, d] at the flat slots of the [nkv, P*page, d] view
-        kp.view(nkv, num_pages * page, d).index_copy_(
-            1, dest, k.permute(2, 0, 1, 3).reshape(nkv, R * Tc, d)
-            .to(kp.dtype))
-        vp.view(nkv, num_pages * page, d).index_copy_(
-            1, dest, v.permute(2, 0, 1, 3).reshape(nkv, R * Tc, d)
-            .to(vp.dtype))
+        ks = vs = None
+        if quant_kv:
+            ks, vs = k_scales[l], v_scales[l]                # [nkv, P]
+            quant_write(kp, vp, ks, vs, k, v)
+        else:
+            # write the new k/v into the pools in place: [R, Tc, nkv, d]
+            # -> [nkv, R*Tc, d] at the flat slots of the [nkv, P*page, d]
+            # view
+            kp.view(nkv, num_pages * page, d).index_copy_(
+                1, dest, k.permute(2, 0, 1, 3).reshape(nkv, R * Tc, d)
+                .to(kp.dtype))
+            vp.view(nkv, num_pages * page, d).index_copy_(
+                1, dest, v.permute(2, 0, 1, 3).reshape(nkv, R * Tc, d)
+                .to(vp.dtype))
         # kernel layout [R, nkv, Tc*rep, d]: row t*rep + j = q head
         # k*rep + j of token t (the h // rep GQA mapping)
         qk = q.reshape(R, Tc, nkv, rep, d).permute(0, 2, 1, 3, 4).reshape(
             R, nkv, Tc * rep, d)
         out = ragged_paged_attention(qk, kp, vp, block_tables, seq_lens,
-                                     q_lens, rep=rep)
+                                     q_lens, rep=rep, k_scales=ks,
+                                     v_scales=vs)
         out = out.reshape(R, nkv, Tc, rep, d).permute(0, 2, 1, 3, 4).reshape(
             R, Tc, H)
         h = h + _qmm(out.to(h.dtype), lp["wo"])
@@ -342,7 +369,58 @@ def forward_paged(cfg: LlamaConfig, params, tokens, k_pages, v_pages,
         h = h + _dense_mlp(lp, hn)
     x = _rms_norm(h, params["norm_f"], cfg.rms_norm_eps)
     logits = _qmm(x, params["lm_head"]).float()
+    if quant_kv:
+        return logits, (k_pages, v_pages, k_scales, v_scales)
     return logits, (k_pages, v_pages)
+
+
+def _quant_window_writer(start, qpos, valid, lens, q_lens, block_tables,
+                         page, Tc):
+    """The int8 write of one step (``forward_paged``'s docstring).  The
+    window geometry is the same for every layer, so it is built once; the
+    returned ``write(kp, vp, ks, vs, k, v)`` updates one layer's
+    [nkv, P, page, d] int8 pools and [nkv, P] scales in place with the
+    chunk's new k, v [R, Tc, nkv, d].  K and V go through each op
+    together, and only the window slots that are written are gathered
+    (every other slot's result would be dropped): the same bytes as the
+    reference's whole-window computation, in half the launches."""
+    dev = block_tables.device
+    R, Bmax = block_tables.shape
+    W = Tc // page + 2
+    first_blk = start.clamp_min(0) // page                   # [R]
+    wblk = first_blk[:, None] + torch.arange(W, device=dev)[None, :]
+    phys_w = block_tables.long().gather(1, wblk.clamp(0, Bmax - 1))
+    wvalid = (wblk < Bmax) & (q_lens.long() > 0)[:, None] & (phys_w > 0)
+    keep = wvalid.reshape(-1).nonzero().squeeze(1)           # slots written
+    dst = phys_w.reshape(-1)[keep]                           # their pages
+    slot_of = torch.full((R * W,), -1, dtype=torch.long, device=dev)
+    slot_of[keep] = torch.arange(keep.numel(), device=dev)
+    # the chunk's tokens: (request, chunk position) -> (kept slot, row)
+    tok_r, tok_t = valid.nonzero(as_tuple=True)
+    rel = (qpos - (first_blk * page)[:, None])[tok_r, tok_t]
+    tok_slot = slot_of[tok_r * W + rel // page]
+    tok_row = rel % page
+    wpos = (first_blk * page)[:, None] + torch.arange(
+        W * page, device=dev)[None, :]
+    live = (wpos < lens[:, None]).reshape(R * W, page)[keep]
+    live = live[None, None, :, :, None]                      # [1,1,K,page,1]
+
+    def write(kp, vp, ks, vs, k, v):
+        win = torch.stack((kp.index_select(1, dst), vp.index_select(1, dst)))
+        sc = torch.stack((ks.index_select(1, dst), vs.index_select(1, dst)))
+        deq = win.float() * sc[..., None, None]     # [2, nkv, K, page, d]
+        new = torch.stack((k, v))[:, tok_r, tok_t]  # [2, n, nkv, d]
+        deq[:, :, tok_slot, tok_row] = new.transpose(1, 2).float()
+        deq = torch.where(live, deq, 0.0)
+        new_sc = deq.abs().amax(dim=(3, 4)).clamp_min(1e-8) / 127.0
+        qp = torch.round(deq / new_sc[..., None, None]).clamp_(-127, 127)
+        qp = qp.to(kp.dtype)
+        kp.index_copy_(1, dst, qp[0])
+        vp.index_copy_(1, dst, qp[1])
+        ks.index_copy_(1, dst, new_sc[0])
+        vs.index_copy_(1, dst, new_sc[1])
+
+    return write
 
 
 # ---------------------------------------------------------------------------

@@ -12,12 +12,17 @@ Layout (``paddle_tpu``'s, kept at the public function):
                                  unused entries hold 0, the null page
   seq_lens     [R] int32         kv length including this chunk
   q_lens       [R] int32         tokens in this chunk (0 = empty slot)
+  k/v_scales   [nkv, P] f32      with int8 pools only: page (h, p)
+                                 dequantizes as int8 * scale[h, p]
 
 ``ragged_paged_attention`` launches the hand-written kernel in
 ``csrc/ragged_paged_attention.cu`` for CUDA tensors (it replaces
-``paddle_tpu/ops/pallas_ops.py::_rpa_kernel``; the source says what
-bounds it) and runs the plain version, ``_ragged_attention_plain``, for
-CPU tensors.  Padding rows come out as exact zeros in both.
+``paddle_tpu/ops/pallas_ops.py::_rpa_kernel``, and ``_rpa_kernel_quant``
+for int8 pools; the source says what bounds them) and runs the plain
+version, ``_ragged_attention_plain``, for CPU tensors.  Padding rows come
+out as exact zeros in both.  Launches over dense pools count on
+``ragged_paged_attention.launches``, over int8 pools on
+``ragged_paged_attention.quant_launches``.
 """
 from __future__ import annotations
 
@@ -34,16 +39,26 @@ _NEG_BIG = -1e30  # finite mask value: -inf would NaN fully masked rows
 
 
 def _ragged_attention_plain(q, k_pages, v_pages, block_tables, seq_lens,
-                            q_lens, rep):
+                            q_lens, rep, k_scales=None, v_scales=None):
     """Plain PyTorch version (the port of ``_ragged_attention_jnp``):
     gather every request's pages into a dense [R, Bmax*page] kv span,
-    mask, softmax, all in f32."""
+    mask, softmax, all in f32.  With per-page scales (int8 pools) the
+    pages dequantize at the gather: scale first, dot second, as
+    ``_rpa_kernel_quant`` does."""
     R, nkv, Tr, d = q.shape
     page = k_pages.shape[2]
     Bmax = block_tables.shape[1]
     flat = block_tables.reshape(-1).long()
-    k_seq = k_pages.index_select(1, flat).reshape(nkv, R, Bmax * page, d)
-    v_seq = v_pages.index_select(1, flat).reshape(nkv, R, Bmax * page, d)
+    k_seq = k_pages.index_select(1, flat)          # [nkv, R*Bmax, page, d]
+    v_seq = v_pages.index_select(1, flat)
+    if k_scales is not None:
+        k_seq = k_seq.float() * k_scales.index_select(1, flat)[
+            :, :, None, None]
+    if v_scales is not None:
+        v_seq = v_seq.float() * v_scales.index_select(1, flat)[
+            :, :, None, None]
+    k_seq = k_seq.reshape(nkv, R, Bmax * page, d)
+    v_seq = v_seq.reshape(nkv, R, Bmax * page, d)
     scale = 1.0 / math.sqrt(float(d))
     s = torch.einsum("rhtd,hrsd->rhts", q.float(), k_seq.float()) * scale
     dev = q.device
@@ -67,26 +82,52 @@ _HEAD_DIMS = (64, 128)
 PAGE_MULTIPLE = 8  # the kernel serves any page size that is a multiple of 8
 
 
-def _lib():
+def _lib(quant=False):
     lib = _build.load("ragged_paged_attention")
-    fn = lib.rpa_launch
+    fn = lib.rpa_quant_launch if quant else lib.rpa_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, p]
+        ptrs = 9 if quant else 7
+        fn.argtypes = [p] * ptrs + [i] * 9 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def _check_scales(k_pages, v_pages, k_scales, v_scales):
+    """int8 pools come with f32 [nkv, P] contiguous scales, and scales
+    only with int8 pools."""
+    quant = k_pages.dtype == torch.int8 or v_pages.dtype == torch.int8
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales come together")
+    if quant and k_scales is None:
+        raise ValueError("int8 pools need k_scales and v_scales")
+    if k_scales is None:
+        return
+    if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+        raise TypeError(f"scales go with int8 pools, got "
+                        f"{k_pages.dtype} / {v_pages.dtype}")
+    want = (k_pages.shape[0], k_pages.shape[1])
+    for name, sc in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if sc.dtype != torch.float32 or tuple(sc.shape) != want \
+                or not sc.is_contiguous() or sc.device != k_pages.device:
+            raise ValueError(f"{name} must be contiguous float32 {want} on "
+                             f"{k_pages.device}, got {sc.dtype} "
+                             f"{tuple(sc.shape)} on {sc.device}")
+
+
 def _ragged_attention_cuda(q, k_pages, v_pages, block_tables, seq_lens,
-                           q_lens, rep):
+                           q_lens, rep, k_scales=None, v_scales=None):
     R, nkv, Tr, d = q.shape
     P, page = k_pages.shape[1], k_pages.shape[2]
     Bmax = block_tables.shape[1]
-    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
-        raise TypeError("ragged_paged_attention kernel takes float32 or "
-                        f"bfloat16 q and pools of the same dtype, got "
+    quant = k_scales is not None
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"ragged_paged_attention kernel takes float32 or "
+                        f"bfloat16 q, got {q.dtype}")
+    if not quant and (k_pages.dtype != q.dtype
+                      or v_pages.dtype != q.dtype):
+        raise TypeError("ragged_paged_attention kernel takes pools of q's "
+                        f"dtype or int8 pools with scales, got "
                         f"{q.dtype} / {k_pages.dtype} / {v_pages.dtype}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"ragged_paged_attention kernel takes head dim "
@@ -111,31 +152,48 @@ def _ragged_attention_cuda(q, k_pages, v_pages, block_tables, seq_lens,
     k_pages = k_pages.contiguous()
     v_pages = v_pages.contiguous()
     out = torch.empty_like(q)
+    scale = 1.0 / math.sqrt(float(d))
+    tail = (out.data_ptr(), _DTYPES[q.dtype], R, nkv, Tr, d, P, page,
+            Bmax, rep, scale, _build.stream_ptr(q.device))
+    if quant:
+        # the kernel loads int8 pages 16 bytes a thread
+        if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+            raise ValueError("int8 pools must start 16-byte aligned")
+        err = _lib(quant=True)(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr(), ints[0].data_ptr(),
+            ints[1].data_ptr(), ints[2].data_ptr(), *tail)
+        _build.check(err, "ragged_paged_attention (int8 pools)")
+        ragged_paged_attention.quant_launches += 1
+        return out
     err = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  ints[0].data_ptr(), ints[1].data_ptr(), ints[2].data_ptr(),
-                 out.data_ptr(), _DTYPES[q.dtype], R, nkv, Tr, d, P, page,
-                 Bmax, rep, 1.0 / math.sqrt(float(d)),
-                 _build.stream_ptr(q.device))
+                 *tail)
     _build.check(err, "ragged_paged_attention")
     ragged_paged_attention.launches += 1
     return out
 
 
 def ragged_paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
-                           q_lens, *, rep=1):
+                           q_lens, *, rep=1, k_scales=None, v_scales=None):
     """Mixed prefill + decode attention over a paged KV cache (layout in
     the module docstring); decode is the Tc == 1 case of the same call.
-    CUDA tensors go through the kernel (page a multiple of 8, head dim
-    64 or 128), CPU tensors through the plain version; any other device
-    raises."""
+    int8 pools take ``k_scales``/``v_scales`` ([nkv, P] f32, contiguous)
+    and only they do.  CUDA tensors go through the kernel (page a
+    multiple of 8, head dim 64 or 128), CPU tensors through the plain
+    version; any other device raises."""
+    _check_scales(k_pages, v_pages, k_scales, v_scales)
     if q.device.type == "cuda":
         return _ragged_attention_cuda(q, k_pages, v_pages, block_tables,
-                                      seq_lens, q_lens, rep)
+                                      seq_lens, q_lens, rep, k_scales,
+                                      v_scales)
     if q.device.type == "cpu":
         return _ragged_attention_plain(q, k_pages, v_pages, block_tables,
-                                       seq_lens, q_lens, rep)
+                                       seq_lens, q_lens, rep, k_scales,
+                                       v_scales)
     raise RuntimeError(
         f"ragged_paged_attention: no kernel for device {q.device}")
 
 
-ragged_paged_attention.launches = 0  # kernel launches since last reset
+ragged_paged_attention.launches = 0        # dense-pool kernel launches
+ragged_paged_attention.quant_launches = 0  # int8-pool kernel launches

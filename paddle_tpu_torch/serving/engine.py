@@ -7,10 +7,11 @@ engine owns the device page pools; the scheduler and ``PagedKVCache``
 own all host-side state.  The batch is always [max_running, Tc] with
 Tc in {1, chunk}.  Greedy decode only.
 
-This is the core of ``paddle_tpu/serving/engine.py``.  Not ported yet:
-prefix cache, speculative decoding, deadlines and SLO reports, tracing
-and metrics, int8 KV pools, and crash recovery.  Without recovery a
-failing step raises to the caller: nothing here catches a kernel fault.
+This is the core of ``paddle_tpu/serving/engine.py``, with its int8 KV
+pools (``kv_dtype="int8"``) and shared-prefix cache (``prefix_cache``).
+Not ported yet: speculative decoding, deadlines and SLO reports, tracing
+and metrics, and crash recovery.  Without recovery a failing step raises
+to the caller: nothing here catches a kernel fault.
 """
 from __future__ import annotations
 
@@ -62,6 +63,23 @@ class _SafeCallback:
                 "the callback, stream continues", rid, exc)
 
 
+def _kv_dtype(kv_dtype, model_dtype) -> torch.dtype:
+    """The pool dtype: None -> the model's, "bf16" / "int8" by name, or
+    a torch dtype."""
+    if kv_dtype is None:
+        return model_dtype
+    if isinstance(kv_dtype, str):
+        named = {"bf16": torch.bfloat16, "int8": torch.int8}
+        if kv_dtype not in named:
+            raise ValueError(f"unknown kv_dtype {kv_dtype!r} "
+                             f"(one of {sorted(named)} or a torch dtype)")
+        return named[kv_dtype]
+    if not isinstance(kv_dtype, torch.dtype):
+        raise TypeError(f"kv_dtype must be a name or a torch dtype, got "
+                        f"{kv_dtype!r}")
+    return kv_dtype
+
+
 def _sample(logits: torch.Tensor, qlens: torch.Tensor):
     """Argmax at every fed position ([R, Tc] int32; position q_len - 1
     is the sampled token) and the max logit of each row's last fed
@@ -83,14 +101,24 @@ class LLMEngine:
     admission queue bound (default ``8 * max_running``).  Runs on the
     card unless ``device`` names another; with ``cfg.quantized`` "auto"
     (the default) the weights are quantized to int8 at build on CUDA.
-    The KV pages have the model's dtype; clock stamps are
+
+    ``kv_dtype`` is the pages' dtype: None means the model's, else
+    "bf16", "int8" or a torch dtype.  int8 pages come with f32 scale
+    pools [L, nkv, P] (one scale per layer, kv head and page, indexed by
+    the same block tables): ``forward_paged`` quantizes on write and
+    the attention kernel dequantizes on read.  ``prefix_cache=True``
+    turns on shared-prefix KV reuse: admission matches each prompt
+    against the radix cache (``serving/prefix_cache.py``) and prefills
+    only the uncached tail; a partially matched page is forked
+    copy-on-write, scales included.  Clock stamps are
     ``time.monotonic``."""
 
     def __init__(self, cfg, params, *, device=None, max_running: int = 8,
                  chunk: int = 16, page_size: int = 16,
                  num_pages: Optional[int] = None,
                  max_model_len: Optional[int] = None,
-                 max_queue: Optional[int] = None):
+                 kv_dtype=None, max_queue: Optional[int] = None,
+                 prefix_cache: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg
         params = params_to(params, self.device)
@@ -123,14 +151,32 @@ class LLMEngine:
 
         L, nkv, d = (cfg.num_hidden_layers, cfg.num_key_value_heads,
                      cfg.head_dim)
+        kv_dtype = _kv_dtype(kv_dtype, cfg.dtype)
+        self._quant_kv = kv_dtype == torch.int8
         self._pool_shape = (L, nkv, self.num_pages, self.page_size, d)
-        self._kp = torch.zeros(self._pool_shape, dtype=cfg.dtype,
+        self._scale_shape = (L, nkv, self.num_pages)
+        self._kp = torch.zeros(self._pool_shape, dtype=kv_dtype,
                                device=self.device)
-        self._vp = torch.zeros(self._pool_shape, dtype=cfg.dtype,
+        self._vp = torch.zeros(self._pool_shape, dtype=kv_dtype,
                                device=self.device)
-        self._pool_bytes = 2 * self._kp.numel() * self._kp.element_size()
+        self._ks = self._vs = None
+        self._scale_bytes = 0
+        if self._quant_kv:
+            # scale 1.0 everywhere: untouched (all-zero) pages dequantize
+            # to exact zeros, as the dense pools start
+            self._ks = torch.ones(self._scale_shape, dtype=torch.float32,
+                                  device=self.device)
+            self._vs = torch.ones(self._scale_shape, dtype=torch.float32,
+                                  device=self.device)
+            self._scale_bytes = 2 * self._ks.numel() * 4
+        self._pool_bytes = (2 * self._kp.numel() * self._kp.element_size()
+                            + self._scale_bytes)
         self._requests: Dict[int, Request] = {}
         self._steps = 0
+        self._prefix_enabled = bool(prefix_cache)
+        if self._prefix_enabled:
+            self.kv.enable_prefix_cache()
+        self._evicted_seen = 0
         _STATS["engines"] += 1
         _STATS["pool_bytes"] += self._pool_bytes
 
@@ -202,17 +248,27 @@ class LLMEngine:
             qlens[s.slot] = s.q_len
         return tokens, tbl, lens, qlens
 
+    def _apply_copies(self, pairs) -> None:
+        """Run the COW page forks on the device, in place: each copies
+        the page of every layer and kv head and, with int8 pools, its
+        dequant scales."""
+        for src, dst in pairs:
+            for pool in (self._kp, self._vp, self._ks, self._vs):
+                if pool is not None:
+                    pool[:, :, dst] = pool[:, :, src]
+
     def _forward(self, plan: StepPlan, tokens, tbl, lens, qlens
                  ) -> np.ndarray:
         """One device step; returns the sampled tokens [R, Tc].  The
-        pools are updated in place."""
+        pools (and scales) are updated in place."""
         dev = self.device
         args = [torch.from_numpy(a).to(dev)
                 for a in (tokens, tbl, lens, qlens)]
         with torch.no_grad():
             logits, _ = _llama.forward_paged(
                 self.cfg, self.params, args[0], self._kp, self._vp,
-                args[1], args[2], args[3])
+                args[1], args[2], args[3], k_scales=self._ks,
+                v_scales=self._vs)
             nxt, chk = _sample(logits, args[3])
         nxt = nxt.cpu().numpy()
         slots = [s.slot for s in plan.seqs]
@@ -229,6 +285,12 @@ class LLMEngine:
         plan = self.scheduler.schedule()
         if plan.admission_blocked:
             _STATS["admission_waits"] += 1
+        # COW forks from this schedule's prefix matches must land on
+        # the device before any forward reads (or the allocator
+        # recycles) the pages involved
+        pairs = self.kv.drain_copies()
+        if pairs:
+            self._apply_copies(pairs)
         if not plan.seqs:
             return []
         R, Tc = self.max_running, plan.bucket
@@ -259,6 +321,11 @@ class LLMEngine:
         _STATS["requests_finished"] += len(finished)
         _STATS["peak_running"] = max(_STATS["peak_running"],
                                      len(plan.seqs))
+        _STATS["prefix_hit_tokens"] += plan.prefix_hit_tokens
+        if self._prefix_enabled:
+            ev = self.kv.prefix.stats.evicted_pages
+            _STATS["prefix_evicted_pages"] += ev - self._evicted_seen
+            self._evicted_seen = ev
         return [r.rid for r in finished]
 
     # -- convenience -----------------------------------------------------

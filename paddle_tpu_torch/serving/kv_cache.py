@@ -1,7 +1,6 @@
 """Paged KV cache bookkeeping: fixed-size token blocks in preallocated
 device pools (the port's copy of ``paddle_tpu/serving/kv_cache.py``,
-without the prefix-cache hooks, which come with the prefix-cache
-slice).
+prefix-cache hooks included).
 
 The pools are allocated ONCE per engine — [L, nkv, num_pages, page, d]
 tensors that live for the engine's lifetime and that every step updates
@@ -15,6 +14,11 @@ out, every unused block-table slot points at it, and the model's write
 of padding-token k/v lands on it.  The ragged kernel masks by sequence
 length and reads only pages below it, so the null page's contents are
 never read.
+
+With a ``PrefixCache`` attached (``enable_prefix_cache``), requests
+also borrow cached pages (refcounted, read-only) and fork a partially
+matching one copy-on-write; ``drain_copies`` hands the engine the page
+copies to run on the device before the next forward.
 """
 from __future__ import annotations
 
@@ -33,8 +37,10 @@ class BlockAllocator:
     """Refcounted free-list allocator over ``num_pages`` pool pages.
 
     Pages start single-owner (``alloc`` hands them out at refcount 1)
-    and become shared through ``incref``.  A page returns to the free
-    list only when the last reference drops.
+    and become shared through ``incref`` — the prefix cache borrows a
+    cached page for every request reading it, plus one reference for
+    the trie itself.  A page returns to the free list only when the
+    last reference drops.
 
     Invariants:
       * page 0 is never allocated (the null page),
@@ -133,13 +139,30 @@ class PagedKVCache:
     """Host-side page bookkeeping for one engine: request id -> block
     list, plus the [R, Bmax] block-table rows the kernel consumes.  The
     device pools themselves are owned by the engine; this class never
-    holds device memory."""
+    holds device memory.
+
+    With a ``PrefixCache`` attached (``enable_prefix_cache``),
+    ``match_prefix`` seeds a new request's block list from the trie —
+    full cached pages are borrowed (one reference each), a partially
+    matching page is forked copy-on-write into a private page whose
+    device copy the engine drains before the next forward — and
+    ``donate`` retires a finished request's full pages into the trie
+    instead of freeing them."""
 
     def __init__(self, num_pages: int, page_size: int, max_blocks: int):
         self.allocator = BlockAllocator(num_pages, page_size)
         self.page_size = int(page_size)
         self.max_blocks = int(max_blocks)    # Bmax of the block table
         self._table: Dict[object, _Entry] = {}
+        self.prefix = None                   # Optional[PrefixCache]
+        # COW forks awaiting their device copy: (src_page, dst_page);
+        # one src reference is held per pending pair until drained
+        self._pending_copies: List[tuple] = []
+
+    def enable_prefix_cache(self):
+        from .prefix_cache import PrefixCache
+        self.prefix = PrefixCache(self.allocator, self.page_size)
+        return self.prefix
 
     # -- allocation ------------------------------------------------------
     def pages_needed(self, rid, target_tokens: int) -> int:
@@ -166,12 +189,95 @@ class PagedKVCache:
         """Record that rid's kv is written up to num_tokens."""
         self._table[rid].num_tokens = num_tokens
 
+    # -- prefix cache ----------------------------------------------------
+    def match_prefix(self, rid, tokens: List[int]) -> int:
+        """Seed rid's block list from the prefix cache: borrow every
+        fully matching cached page, fork a partially matching one
+        copy-on-write.  Returns the number of tokens whose kv the
+        request inherits (0 when the cache is off, rid already has
+        pages, or nothing matches); the request must re-feed everything
+        past that point."""
+        if self.prefix is None or rid in self._table:
+            return 0
+        pages, matched, partial = self.prefix.match(tokens)
+        entry_pages = list(pages)
+        total = matched
+        if partial is not None:
+            src, plen = partial
+            got = self.allocator.alloc(1, owner=rid)
+            if got is None:
+                # no private page for the fork — keep the full-page hit
+                self.prefix.release_partial(src)
+            else:
+                # the src reference taken by match() is held until the
+                # engine drains this pair (drain_copies) or the request
+                # is released before the copy ran
+                self._pending_copies.append((src, got[0]))
+                entry_pages.append(got[0])
+                total += plen
+                self.prefix.stats.forks += 1
+        if not entry_pages:
+            return 0
+        self._table[rid] = _Entry(pages=entry_pages, num_tokens=total)
+        return total
+
+    def drain_copies(self) -> List[tuple]:
+        """Hand the engine the (src_page, dst_page) COW pairs to copy
+        on device, dropping the src references.  The caller MUST apply
+        the copies before the next forward pass or allocation — after
+        this call a src page may be evicted or recycled."""
+        pairs, self._pending_copies = self._pending_copies, []
+        for src, _dst in pairs:
+            self.allocator.decref([src])
+        return pairs
+
+    def donate(self, rid, tokens: List[int], valid_tokens: int) -> int:
+        """Completion path with the cache on: full pages covering the
+        first ``valid_tokens`` of ``tokens`` (the kv actually written)
+        move into the trie; the remainder is released.  Returns pages
+        donated."""
+        entry = self._table.pop(rid, None)
+        if entry is None:
+            return 0
+        self._drop_pending_for(entry)
+        full = min(valid_tokens // self.page_size, len(entry.pages))
+        donated = entry.pages[:full]
+        if self.prefix is not None and donated:
+            self.prefix.insert(tokens[:full * self.page_size], donated)
+        else:
+            self.allocator.decref(donated)
+        self.allocator.decref(entry.pages[full:])
+        return len(donated)
+
+    def evict_cached(self, num_pages: int) -> int:
+        """Ask the trie to reclaim up to num_pages unreferenced cached
+        pages (LRU).  No-op without a cache."""
+        if self.prefix is None:
+            return 0
+        return self.prefix.evict(num_pages)
+
+    def _drop_pending_for(self, entry: _Entry) -> None:
+        """Cancel COW copies whose destination belongs to a request
+        being torn down before the copy ran; their src refs drop."""
+        if not self._pending_copies:
+            return
+        mine = set(entry.pages)
+        keep: List[tuple] = []
+        for src, dst in self._pending_copies:
+            if dst in mine:
+                self.allocator.decref([src])
+            else:
+                keep.append((src, dst))
+        self._pending_copies = keep
+
     def release(self, rid) -> List[int]:
-        """Drop all of rid's references (completion, preemption,
-        cancel); its pages return to the pool."""
+        """Drop all of rid's references (completion without donation,
+        preemption, cancel).  Shared pages stay alive for the trie and
+        any sibling readers; uniquely-owned pages return to the pool."""
         entry = self._table.pop(rid, None)
         if entry is None:
             return []
+        self._drop_pending_for(entry)
         self.allocator.decref(entry.pages)
         return entry.pages
 
@@ -185,20 +291,29 @@ class PagedKVCache:
 
     def audit(self) -> dict:
         """Snapshot of the capacity invariant: every allocated page is
-        owned by exactly one request, and ``free + owned == capacity``.
-        ``ok`` is False when pages leak (e.g. a foreign owner holds pool
-        pages)."""
+        either uniquely owned by one request, shared between requests
+        and the trie, or cached with only the trie's reference — and
+        ``free + unique_owned + shared + cached_idle == capacity``.
+        ``ok`` is False when pages leak outside those states (e.g. a
+        foreign owner holds pool pages)."""
         held = set()
         for e in self._table.values():
             held.update(e.pages)
+        cached = set(self.prefix.cached_pages()) if self.prefix else set()
         free = self.allocator.num_free
-        owned = len(held)
+        unique = len(held - cached)
+        sharedc = len(held & cached)
+        idle = len(cached - held)
         return {
             "free": free,
-            "unique_owned": owned,
+            "unique_owned": unique,
+            "shared": sharedc,
+            "cached_idle": idle,
             "capacity": self.allocator.capacity,
-            "ok": (free + owned == self.allocator.capacity
-                   and self.allocator.num_allocated == owned),
+            "ok": (free + unique + sharedc + idle
+                   == self.allocator.capacity
+                   and self.allocator.num_allocated
+                   == unique + sharedc + idle),
         }
 
 

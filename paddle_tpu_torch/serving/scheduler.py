@@ -1,6 +1,6 @@
 """Continuous (in-flight) batching scheduler: the port's copy of
-``paddle_tpu/serving/scheduler.py``, without the flight-recorder calls
-and the prefix-cache and speculative-decoding paths (later slices).
+``paddle_tpu/serving/scheduler.py``, prefix cache included, without the
+flight-recorder calls and the speculative-decoding path.
 
 The running batch is a FIXED array of ``max_running`` slots and every
 step is one of two shapes: Tc=1 for pure decode, Tc=chunk when any
@@ -93,6 +93,9 @@ class StepPlan:
     # waiting requests that free slots could seat but the page pool
     # could not cover — they stay queued (never dropped)
     admission_blocked: int = 0
+    # prompt tokens served from the prefix cache by this step's
+    # admissions
+    prefix_hit_tokens: int = 0
 
 
 class AdmissionGate:
@@ -160,6 +163,18 @@ class Scheduler:
     def _q_len(self, req: Request) -> int:
         return min(self.chunk, req.num_known - req.fed)
 
+    def _try_grow(self, req: Request, target: int) -> bool:
+        """grow(), with one LRU sweep of unreferenced cached pages when
+        the free list alone cannot cover the target — eviction under
+        watermark pressure, before any preemption."""
+        if self.kv.grow(req.rid, target):
+            return True
+        deficit = (self.kv.pages_needed(req.rid, target)
+                   - self.kv.allocator.num_free)
+        if deficit > 0 and self.kv.evict_cached(deficit):
+            return self.kv.grow(req.rid, target)
+        return False
+
     def _evict_youngest(self, but_not: Request) -> Optional[Request]:
         for slot in range(self.max_running - 1, -1, -1):
             req = self.slots[slot]
@@ -175,7 +190,14 @@ class Scheduler:
     def _release_slot(self, req: Request) -> None:
         slot = self._slot_of.pop(req.rid)
         self.slots[slot] = None
-        self.kv.release(req.rid)
+        if self.kv.prefix is not None and req.fed >= self.kv.page_size:
+            # donate the valid full pages (fed tokens of kv) so a
+            # preempted request keeps its prefix hit on replay and a
+            # finished request seeds future siblings; the trie holds
+            # them at refcount "idle", so eviction can still reclaim
+            self.kv.donate(req.rid, req.known, req.fed)
+        else:
+            self.kv.release(req.rid)
 
     # -- lifecycle ------------------------------------------------------
     def remove(self, req: Request, now_s: float = 0.0) -> None:
@@ -209,7 +231,7 @@ class Scheduler:
             if req is None:
                 continue
             target = req.fed + self._q_len(req)
-            while not self.kv.grow(req.rid, target):
+            while not self._try_grow(req, target):
                 victim = self._evict_youngest(but_not=req)
                 if victim is None:
                     # alone and still can't grow — another tenant holds
@@ -225,19 +247,37 @@ class Scheduler:
                 preempted.append(victim)
 
         # 2) continuous admission into free slots, behind a watermark
-        # of one decode page per running request
+        # of one decode page per running request.  The prefix cache is
+        # consulted first: the matched head of the prompt is borrowed
+        # (refcounts bumped, nothing allocated), so the request is
+        # charged — in both pages and watermark math — only for its
+        # uncached tail.
         admission_blocked = 0
+        prefix_hit_tokens = 0
         while self.waiting and self.num_running < self.max_running:
             req = self.waiting[0]
+            matched = self.kv.match_prefix(req.rid, req.known)
+            if matched:
+                req.fed = matched
             first = req.fed + min(self.chunk, req.num_known - req.fed)
             need = self.kv.pages_needed(req.rid, first)
             watermark = sum(
                 1 for r in self.slots if r is not None
                 and self.kv.pages_needed(r.rid, r.fed + 1))
+            deficit = need + watermark - self.kv.allocator.num_free
+            if deficit > 0:
+                self.kv.evict_cached(deficit)
             if (self.kv.allocator.num_free - need < watermark
                     or not self.kv.grow(req.rid, first)):
+                if matched:
+                    # undo the borrow: drop the refs (and any pending
+                    # COW fork) so the blocked request re-matches when
+                    # it is eventually seated
+                    self.kv.release(req.rid)
+                    req.fed = 0
                 admission_blocked = len(self.waiting)
                 break
+            prefix_hit_tokens += matched
             self.waiting.popleft()
             slot = self.slots.index(None)
             self.slots[slot] = req
@@ -256,7 +296,8 @@ class Scheduler:
                 produces=req.fed + q_len >= req.num_known))
         bucket = self.chunk if any(s.q_len > 1 for s in seqs) else 1
         return StepPlan(seqs=seqs, bucket=bucket, preempted=preempted,
-                        admission_blocked=admission_blocked)
+                        admission_blocked=admission_blocked,
+                        prefix_hit_tokens=prefix_hit_tokens)
 
     def apply(self, plan: StepPlan, next_tokens: Dict[int, int],
               now_s: float = 0.0) -> List[Request]:

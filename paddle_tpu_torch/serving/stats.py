@@ -16,6 +16,8 @@ def stats_zero() -> Dict[str, float]:
         "engines": 0, "requests_added": 0, "requests_finished": 0,
         "requests_preempted": 0, "steps": 0, "prefill_tokens": 0,
         "decode_tokens": 0, "peak_running": 0, "pool_bytes": 0,
+        # work reuse (prefix cache)
+        "prefix_hit_tokens": 0, "prefix_evicted_pages": 0,
         # admission control and callback isolation
         "shed": 0, "admission_waits": 0, "callback_errors": 0,
         "cancelled": 0,

@@ -1,0 +1,99 @@
+"""The port's serve bench (``python -m paddle_tpu_torch.bench_serve``).
+
+On the CPU it serves ``llama-debug`` (the reference bench's default
+shape) with the plain versions and prints one ``BENCH_SERVE`` line with
+the reference's field names, for bf16 and int8 KV pages and for the
+shared-prefix workload; its synthetic workloads are the reference's,
+arrival for arrival; without a card and without ``--device`` it exits
+non-zero with the error in its line.
+"""
+import json
+
+import pytest
+import torch
+
+from paddle_tpu.serving import workloads as jworkloads
+from paddle_tpu_torch import bench_serve
+from paddle_tpu_torch.serving import workloads as tworkloads
+
+FIELDS = ("metric", "value", "unit", "ttft_p50_ms", "ttft_p95_ms",
+          "latency_p50_ms", "latency_p95_ms", "requests", "shed_submits",
+          "tokens", "steps", "wall_seconds", "prefill_tokens",
+          "decode_tokens", "preemptions", "max_running", "chunk",
+          "page_size", "kv", "preset", "device", "chips")
+
+SMALL = {"PADDLE_TPU_BENCH_SERVE_REQUESTS": "6",
+         "PADDLE_TPU_BENCH_SERVE_NEW": "5"}
+
+
+def _line(capsys):
+    out = capsys.readouterr().out.strip().splitlines()[-1]
+    assert out.startswith("BENCH_SERVE ")
+    return json.loads(out[len("BENCH_SERVE "):])
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_cpu_run_prints_the_line(kv_dtype, capsys, monkeypatch):
+    for k, v in SMALL.items():
+        monkeypatch.setenv(k, v)
+    assert bench_serve.main(["--device", "cpu", "--kv-dtype",
+                             kv_dtype]) == 0
+    res = _line(capsys)
+    assert all(f in res for f in FIELDS), set(FIELDS) - set(res)
+    assert res["metric"] == "serve_tokens_per_sec_chip"
+    assert res["value"] > 0 and res["device"] == "cpu"
+    assert res["preset"] == "llama-debug"
+    assert res["requests"] == 6 and res["tokens"] == 6 * 5
+    assert res["kv"]["dtype"] == kv_dtype
+    assert (res["kv"]["scale_pool_bytes"] > 0) == (kv_dtype == "int8")
+    assert res["ttft_p50_ms"] <= res["ttft_p95_ms"]
+    assert res["latency_p50_ms"] <= res["latency_p95_ms"]
+    assert "reuse" not in res
+
+
+def test_shared_prefix_turns_on_the_prefix_cache_only(monkeypatch):
+    monkeypatch.setenv("PADDLE_TPU_BENCH_SERVE_REQUESTS", "6")
+    monkeypatch.setenv("PADDLE_TPU_BENCH_SERVE_NEW", "4")
+    run = bench_serve.serve("cpu", kv_dtype="int8", workload="shared-prefix")
+    reuse = run.result["reuse"]
+    assert reuse["prefix_cache"] and reuse["spec_k"] == 0
+    assert reuse["prefix_hit_tokens"] > 0
+    assert 0 < reuse["prefix_hit_rate"] <= 1
+    assert run.engine.kv.prefix is not None and run.engine.kv.audit()["ok"]
+    assert all(len(run.engine.output_of(r)) == 4 for r in run.rids)
+
+
+@pytest.mark.parametrize("preset", jworkloads.PRESETS)
+def test_workloads_match_the_reference(preset):
+    kw = dict(seed=3, horizon_s=30.0, prompt_len=10, max_new_tokens=4,
+              vocab=50, n_groups=3)
+    ref = jworkloads.generate(preset, 17, **kw)
+    got = tworkloads.generate(preset, 17, **kw)
+    assert [(a.t_s, a.prompt, a.max_new_tokens, a.group) for a in got] \
+        == [(a.t_s, a.prompt, a.max_new_tokens, a.group) for a in ref]
+    assert tworkloads.step_schedule(got, 34).keys() \
+        == jworkloads.step_schedule(ref, 34).keys()
+    assert tworkloads.mean_rate(got) == jworkloads.mean_rate(ref)
+    assert tworkloads.peak_rate(got) == jworkloads.peak_rate(ref)
+
+
+def test_unknown_workload_and_kv_dtype_fail(capsys):
+    assert bench_serve.main(["--device", "cpu", "--workload", "nope"]) != 0
+    assert "unknown workload preset" in _line(capsys)["error"]
+    with pytest.raises(ValueError, match="unknown kv dtype"):
+        bench_serve.serve("cpu", kv_dtype="fp8")
+
+
+def test_knobs_read_the_reference_names():
+    k = bench_serve.knobs({"PADDLE_TPU_BENCH_SERVE_PROMPT": "1024",
+                           "PADDLE_TPU_BENCH_SERVE_CHUNK": "64",
+                           "PADDLE_TPU_BENCH_SERVE_PAGES": "300"})
+    assert (k["PROMPT"], k["CHUNK"], k["PAGES"]) == (1024, 64, 300)
+    assert (k["REQUESTS"], k["NEW"], k["MAX_QUEUE"]) == (16, 16, 64)
+
+
+def test_without_a_card_or_a_device_it_exits_non_zero(capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bench_serve.main([]) != 0
+    res = _line(capsys)
+    assert "no CUDA device" in res["error"] and res["value"] is None

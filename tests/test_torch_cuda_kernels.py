@@ -8,9 +8,10 @@ card with ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
 Tolerances: the int8 matmul is bit-identical to its plain version (the
 same f32 operations in the same order).  Attention differs from its
-plain version only in summation order: atol 1e-5 in float32 and 2e-2
-in bfloat16 (8 mantissa bits on outputs of magnitude ~1); padding rows
-are exact zeros in both.
+plain version only in summation order: atol 1e-5 in float32 (2e-5 over
+int8 pages, whose dequantized values reach ~4) and 2e-2 in bfloat16 (8
+mantissa bits on outputs of magnitude ~1); padding rows are exact zeros
+in both.
 """
 import numpy as np
 import pytest
@@ -150,6 +151,139 @@ def test_forward_paged_on_the_card_matches_the_cpu(cuda):
             assert diff.item() <= 1e-2, (r, diff)
     for a, b in zip(outs[0][1:], outs[1][1:]):
         assert (a[:, :, 1:] - b[:, :, 1:]).abs().max().item() <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# ragged paged attention over int8 pools (the kernel replacing
+# _rpa_kernel_quant).  Against its plain version on the same int8 pages
+# and scales: float32 q to 2e-5 (summation order, outputs of magnitude
+# ~1), bfloat16 q to 2e-2 and each row within 2e-2 of its RMS; padding
+# rows exact zeros.
+# ---------------------------------------------------------------------------
+
+def _rpa_quant_case(device, R, nkv, rep, Tc, d, P, page, Bmax, lens, qlens,
+                    dtype, seed):
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.standard_normal((R, nkv, Tc * rep, d))
+                         .astype(np.float32)).to(device, dtype)
+    tbl = (1 + rng.permutation(P - 1)[:R * Bmax]).reshape(R, Bmax)
+    tbl = torch.from_numpy(tbl.astype(np.int32)).to(device)
+    kp, vp = (torch.from_numpy(rng.randint(-127, 128, (nkv, P, page, d))
+                               .astype(np.int8)).to(device)
+              for _ in range(2))
+    ksc, vsc = (torch.from_numpy(rng.uniform(0.005, 0.03, (nkv, P))
+                                 .astype(np.float32)).to(device)
+                for _ in range(2))
+    lens = torch.tensor(lens, dtype=torch.int32, device=device)
+    qlens = torch.tensor(qlens, dtype=torch.int32, device=device)
+    return (q, kp, vp, tbl, lens, qlens), (ksc, vsc)
+
+
+RPA_QUANT_CASES = [
+    # (R, nkv, rep, Tc, d, P, page, Bmax, seq_lens, q_lens)
+    (8, 32, 1, 8, 128, 40, 16, 4, [8, 20, 0, 33, 1, 16, 64, 9],
+     [8, 4, 0, 8, 1, 3, 8, 2]),
+    (8, 32, 1, 1, 128, 40, 16, 4, [1, 17, 33, 64, 0, 9, 2, 50],
+     [1, 1, 1, 1, 0, 1, 1, 1]),
+    (4, 8, 4, 8, 128, 24, 16, 4, [40, 9, 0, 64], [8, 2, 0, 5]),   # GQA
+    (3, 2, 2, 4, 64, 16, 8, 4, [30, 5, 12], [4, 1, 3]),           # page 8
+    (3, 4, 1, 8, 64, 16, 32, 3, [90, 0, 40], [8, 0, 8]),          # page 32
+    (4, 2, 1, 4, 128, 12, 16, 2, [0, 0, 0, 0], [0, 0, 0, 0]),     # all empty
+    # the long decode case at llama7b width: 2048 tokens a request
+    (8, 32, 1, 1, 128, 1025, 16, 128, [2048] * 8, [1] * 8),
+]
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", RPA_QUANT_CASES)
+def test_quant_attention_kernel_matches_plain(cuda, case, dtype, atol):
+    R, nkv, rep, Tc, d, P, page, Bmax, lens, qlens = case
+    args, (ksc, vsc) = _rpa_quant_case(cuda, *case, dtype=dtype,
+                                       seed=R + P + d)
+    before = (rpa.ragged_paged_attention.launches,
+              rpa.ragged_paged_attention.quant_launches)
+    out = rpa.ragged_paged_attention(*args, rep=rep, k_scales=ksc,
+                                     v_scales=vsc)
+    torch.cuda.synchronize()
+    assert (rpa.ragged_paged_attention.launches,
+            rpa.ragged_paged_attention.quant_launches) == (
+        before[0], before[1] + 1)
+    ref = rpa._ragged_attention_plain(*args, rep, ksc, vsc)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+    if dtype == torch.bfloat16:
+        assert _row_rel(out, ref) <= 2e-2
+    tok = torch.arange(Tc * rep, device=cuda) // rep
+    pad = tok[None, :] >= args[5][:, None]
+    assert not out.float()[pad[:, None, :, None].expand_as(out)].any()
+
+
+def test_quant_attention_kernel_refuses_what_it_cannot_serve(cuda):
+    args, (ksc, vsc) = _rpa_quant_case(cuda, 1, 2, 1, 1, 128, 4, 16, 1,
+                                       [3], [1], torch.bfloat16, 0)
+    q, kp, vp, tbl, lens, qlens = args
+    with pytest.raises(ValueError, match="int8 pools need"):
+        rpa.ragged_paged_attention(*args)
+    with pytest.raises(ValueError, match="k_scales must be"):
+        rpa.ragged_paged_attention(*args, k_scales=ksc.double(),
+                                   v_scales=vsc)
+    with pytest.raises(TypeError, match="float32 or bfloat16 q"):
+        rpa.ragged_paged_attention(q.half(), kp, vp, tbl, lens, qlens,
+                                   k_scales=ksc, v_scales=vsc)
+    # a pool view that starts off the 16-byte grid
+    flat = torch.zeros(kp.numel() + 1, dtype=torch.int8, device=cuda)
+    off = flat[1:].view(kp.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rpa.ragged_paged_attention(q, off, vp, tbl, lens, qlens,
+                                   k_scales=ksc, v_scales=vsc)
+
+
+def test_forward_paged_int8_kv_on_the_card_matches_the_cpu(cuda):
+    """The small model's mixed step over int8 pools: the card (int8
+    matmul, the quantize-on-write ops, the int8 attention kernel)
+    against the CPU.  Logits to 1e-2 as above; the written pools equal
+    except +-1 on a rounding tie, on at most 0.1 % of the bytes; scales
+    to 1e-5 relative (an absmax over differently summed f32 products);
+    the null page untouched."""
+    cfg = tllama.LlamaConfig(vocab_size=512, hidden_size=256,
+                             intermediate_size=512, num_hidden_layers=2,
+                             num_attention_heads=2, num_key_value_heads=1,
+                             max_position_embeddings=128,
+                             dtype=torch.float32, quantized="on")
+    params = tllama.quantize_params(
+        cfg, tllama.init_params(cfg, 0, device="cpu"))
+    rng = np.random.RandomState(1)
+    R, Tc, P, page, Bmax = 4, 8, 16, 16, 3
+    tbl = torch.from_numpy((1 + rng.permutation(P - 1)[:R * Bmax])
+                           .reshape(R, Bmax).astype(np.int32))
+    lens = torch.tensor([8, 1, 0, 6], dtype=torch.int32)
+    qlens = torch.tensor([8, 1, 0, 6], dtype=torch.int32)
+    tokens = torch.from_numpy(rng.randint(0, 512, (R, Tc)).astype(np.int32))
+    outs = []
+    for dev in ("cpu", cuda):
+        pools = [torch.zeros((2, 1, P, page, 128), dtype=torch.int8,
+                             device=dev) for _ in range(2)]
+        scales = [torch.ones((2, 1, P), device=dev) for _ in range(2)]
+        before = rpa.ragged_paged_attention.quant_launches
+        logits, _ = tllama.forward_paged(
+            cfg, convert.params_to(params, dev), tokens.to(dev), *pools,
+            tbl.to(dev), lens.to(dev), qlens.to(dev), k_scales=scales[0],
+            v_scales=scales[1])
+        if dev != "cpu":
+            assert rpa.ragged_paged_attention.quant_launches == before + 2
+        outs.append([logits.cpu()] + [t.cpu() for t in pools + scales])
+    for r, q in enumerate(qlens.tolist()):
+        if q:
+            diff = (outs[0][0][r, :q] - outs[1][0][r, :q]).abs().max()
+            assert diff.item() <= 1e-2, (r, diff)
+    for a, b in zip(outs[0][1:3], outs[1][1:3]):
+        d = a.int() - b.int()
+        assert d.abs().max().item() <= 1
+        assert d.count_nonzero().item() <= 1e-3 * d.numel()
+        assert not b[:, :, 0].any()
+    for a, b in zip(outs[0][3:], outs[1][3:]):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=0)
 
 
 # ---------------------------------------------------------------------------

@@ -47,6 +47,9 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     assert len(files) > 10 and (REPO / "chip_smoke.py").exists()
     for mod in ("flash_attention", "fused_blocks"):
         assert REPO / "paddle_tpu_torch" / "ops" / f"{mod}.py" in files
+    for mod in ("bench_serve.py", "serving/prefix_cache.py",
+                "serving/workloads.py"):
+        assert REPO / "paddle_tpu_torch" / mod in files
     bad = []
     for path in files:
         for line, mod in _imports(path):

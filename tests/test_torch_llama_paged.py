@@ -179,11 +179,118 @@ def test_rms_norm_casts_before_the_weight_multiply():
 
 
 def test_forward_paged_refuses_what_is_not_ported():
-    cfg = _port_cfg(_jax_cfg())
     z = torch.zeros(1)
-    with pytest.raises(NotImplementedError, match="int8 KV"):
-        tllama.forward_paged(cfg, {}, z, z, z, z, z, z, k_scales=z,
-                             v_scales=z)
     moe = tllama.LlamaConfig(moe_num_experts=4)
     with pytest.raises(NotImplementedError, match="MoE"):
         tllama.forward_paged(moe, {}, z, z, z, z, z, z)
+
+
+# ---------------------------------------------------------------------------
+# int8 KV pools: quantize on write, dequantize on read
+# ---------------------------------------------------------------------------
+
+def _int8_steps(cfg):
+    """Four steps of one engine-like batch over int8 pools (page 8):
+    slot 0 prefills 5 then 8 tokens (the second chunk straddles its
+    first two pages), slot 1 prefills 5 and decodes, slot 2 joins at
+    step 1 on two recycled pages full of a previous owner's bytes and
+    decodes into the second, slot 3 stays empty.  Returns the step
+    inputs and the initial (pools, scales)."""
+    rng = np.random.RandomState(3)
+    L, nkv, d = (cfg.num_hidden_layers, cfg.num_key_value_heads,
+                 cfg.head_dim)
+    R, P, page, Bmax = 4, 20, 8, 4
+    kp = np.zeros((L, nkv, P, page, d), np.int8)
+    vp = np.zeros_like(kp)
+    ks = np.ones((L, nkv, P), np.float32)
+    vs = np.ones_like(ks)
+    tbl = np.zeros((R, Bmax), np.int32)
+    tbl[0] = [3, 4, 5, 6]
+    tbl[1] = [7, 8, 0, 0]
+    tbl[2] = [11, 12, 0, 0]                       # the recycled pages
+    for pool in (kp, vp):
+        pool[:, :, 11:13] = rng.randint(-127, 128, (L, nkv, 2, page, d))
+    ks[:, :, 11:13] = 0.37
+    vs[:, :, 11:13] = 0.21
+    # (q_lens, seq_lens, Tc) per step
+    script = [([5, 5, 0, 0], [5, 5, 0, 0], 8),
+              ([8, 1, 7, 0], [13, 6, 7, 0], 8),
+              ([1, 1, 1, 0], [14, 7, 8, 0], 1),
+              ([1, 1, 1, 0], [15, 8, 9, 0], 1)]
+    steps = []
+    for qlens, lens, Tc in script:
+        tokens = rng.randint(0, cfg.vocab_size, (R, Tc)).astype(np.int32)
+        steps.append((tokens, tbl, np.asarray(lens, np.int32),
+                      np.asarray(qlens, np.int32)))
+    return steps, (kp, vp, ks, vs)
+
+
+@pytest.mark.parametrize("quantized", ["off", "on"])
+def test_forward_paged_int8_kv_matches_jax(quantized):
+    cfg = _jax_cfg(quantized=quantized)
+    params = jllama.init_params(cfg, jax.random.PRNGKey(0))
+    if quantized == "on":
+        params = jllama.quantize_params(cfg, params)
+    tparams = convert.params_from_jax(_np_tree(params), device="cpu")
+    steps, pools = _int8_steps(cfg)
+    jp = [jnp.asarray(a) for a in pools]
+    tp = [torch.from_numpy(a.copy()) for a in pools]
+    for i, (tokens, tbl, lens, qlens) in enumerate(steps):
+        logits_j, jp = jllama.forward_paged(
+            cfg, params, *(jnp.asarray(a) for a in (tokens, jp[0], jp[1],
+                                                    tbl, lens, qlens)),
+            k_scales=jp[2], v_scales=jp[3])
+        logits_t, out = tllama.forward_paged(
+            _port_cfg(cfg), tparams, torch.from_numpy(tokens), tp[0], tp[1],
+            torch.from_numpy(tbl), torch.from_numpy(lens),
+            torch.from_numpy(qlens), k_scales=tp[2], v_scales=tp[3])
+        # pools and scales updated in place, and returned
+        assert all(a is b for a, b in zip(out, tp))
+        logits_j = np.asarray(logits_j)
+        for r, q in enumerate(qlens):   # padding rows are garbage
+            ref = logits_j[r, :q]
+            rel = np.abs(logits_t[r, :q].numpy() - ref).max() / max(
+                np.abs(ref).max(), 1e-30) if q else 0.0
+            assert rel <= 1e-4, f"step {i} slot {r}: logits rel {rel}"
+        for got, ref, name in zip(tp[:2], jp[:2], ("k", "v")):
+            diff = got.numpy().astype(np.int32) - np.asarray(ref, np.int32)
+            # rounding ties after a different matmul order may move a
+            # byte by one, and only rarely
+            assert np.abs(diff).max() <= 1, f"step {i} {name} pool"
+            assert np.count_nonzero(diff) <= 1e-3 * diff.size, \
+                f"step {i} {name} pool: {np.count_nonzero(diff)} bytes"
+        for got, ref, name in zip(tp[2:], jp[2:], ("k", "v")):
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                       rtol=1e-6, atol=0,
+                                       err_msg=f"step {i} {name} scales")
+        # the null page is never written
+        assert not tp[0][:, :, 0].any() and not tp[1][:, :, 0].any()
+        assert torch.equal(tp[2][:, :, 0], torch.ones_like(tp[2][:, :, 0]))
+    # the recycled pages' stale bytes reached neither page: everything
+    # past slot 2's 9 tokens is zero
+    assert not tp[0][:, :, 12, 1:].any() and not tp[1][:, :, 12, 1:].any()
+
+
+def test_forward_paged_int8_write_ignores_stale_bytes():
+    """The written bytes and scales are a function of the request's own
+    tokens: the same steps over clean pages and over recycled pages
+    full of stale bytes give identical pools."""
+    cfg = _port_cfg(_jax_cfg())
+    params = tllama.init_params(cfg, 0, device="cpu")
+    steps, pools = _int8_steps(_jax_cfg())
+    clean = [a.copy() for a in pools]
+    for a in clean[:2]:
+        a[:, :, 11:13] = 0
+    for a in clean[2:]:
+        a[:, :, 11:13] = 1.0
+    runs = []
+    for init in (pools, clean):
+        tp = [torch.from_numpy(a.copy()) for a in init]
+        for tokens, tbl, lens, qlens in steps:
+            tllama.forward_paged(
+                cfg, params, torch.from_numpy(tokens), tp[0], tp[1],
+                torch.from_numpy(tbl), torch.from_numpy(lens),
+                torch.from_numpy(qlens), k_scales=tp[2], v_scales=tp[3])
+        runs.append(tp)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

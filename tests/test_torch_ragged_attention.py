@@ -123,3 +123,88 @@ def test_wrapper_raises_on_a_device_without_a_kernel():
     lens = torch.ones((1,), dtype=torch.int32)
     with pytest.raises(RuntimeError, match="no kernel"):
         port.ragged_paged_attention(q, kp, kp, tbl, lens, lens)
+
+
+# ---------------------------------------------------------------------------
+# int8 pools with per-page f32 scales (the port of _rpa_kernel_quant)
+# ---------------------------------------------------------------------------
+
+def _quant_case(R, nkv, rep, Tc, d, P, page, Bmax, seq_lens, q_lens, seed):
+    """As ``_case``, with int8 pools and scales [nkv, P] in the range
+    quantize-on-write gives unit-scale activations (absmax / 127)."""
+    q, _, _, tbl, lens, qlens = _case(R, nkv, rep, Tc, d, P, page, Bmax,
+                                      seq_lens, q_lens, seed)
+    rng = np.random.RandomState(seed + 1)
+    kp = rng.randint(-127, 128, (nkv, P, page, d)).astype(np.int8)
+    vp = rng.randint(-127, 128, (nkv, P, page, d)).astype(np.int8)
+    ksc = rng.uniform(0.005, 0.03, (nkv, P)).astype(np.float32)
+    vsc = rng.uniform(0.005, 0.03, (nkv, P)).astype(np.float32)
+    return (q, kp, vp, tbl, lens, qlens), (ksc, vsc)
+
+
+def _port_quant(args, scales, rep):
+    q, kp, vp, tbl, lens, qlens = (torch.from_numpy(a) for a in args)
+    ksc, vsc = (torch.from_numpy(s) for s in scales)
+    return port._ragged_attention_plain(q, kp, vp, tbl, lens, qlens, rep,
+                                        ksc, vsc).numpy()
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_quant_plain_matches_jnp_reference(case):
+    _, R, nkv, rep, Tc, d, P, page, Bmax, lens, qlens = case
+    args, scales = _quant_case(R, nkv, rep, Tc, d, P, page, Bmax, lens,
+                               qlens, seed=R + P + 1)
+    ref = np.asarray(pallas_ops._ragged_attention_jnp(
+        *(jnp.asarray(a) for a in args), rep,
+        *(jnp.asarray(s) for s in scales)))
+    out = _port_quant(args, scales, rep)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=2e-5)
+    _assert_padding_zero(out, qlens, rep)
+
+
+@pytest.mark.parametrize("case", KERNEL_CASES,
+                         ids=[c[0] for c in KERNEL_CASES])
+def test_quant_plain_matches_pallas_kernel_interpret(case, interpret_mode):
+    _, R, nkv, rep, Tc, d, P, page, Bmax, lens, qlens = case
+    args, scales = _quant_case(R, nkv, rep, Tc, d, P, page, Bmax, lens,
+                               qlens, seed=P + d + 1)
+    ksc, vsc = (jnp.asarray(s) for s in scales)
+    ref = np.asarray(pallas_ops._rpa_call(
+        *(jnp.asarray(a) for a in args), rep=rep, bq_rows=Tc * rep,
+        k_scales=ksc, v_scales=vsc))
+    out = _port_quant(args, scales, rep)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=2e-5)
+    _assert_padding_zero(out, qlens, rep)
+
+
+def test_quant_wrapper_on_cpu_is_the_plain_version():
+    args, scales = _quant_case(2, 2, 2, 3, 16, 8, 8, 2, [10, 2], [3, 2],
+                               seed=11)
+    before = (port.ragged_paged_attention.launches,
+              port.ragged_paged_attention.quant_launches)
+    tens = [torch.from_numpy(a) for a in args]
+    ksc, vsc = (torch.from_numpy(s) for s in scales)
+    out = port.ragged_paged_attention(*tens, rep=2, k_scales=ksc,
+                                      v_scales=vsc)
+    torch.testing.assert_close(
+        out, torch.from_numpy(_port_quant(args, scales, 2)), rtol=0, atol=0)
+    assert (port.ragged_paged_attention.launches,
+            port.ragged_paged_attention.quant_launches) == before
+
+
+def test_quant_wrapper_refuses_mismatched_pools_and_scales():
+    args, scales = _quant_case(1, 2, 1, 2, 16, 4, 8, 2, [5], [2], seed=5)
+    q, kp, vp, tbl, lens, qlens = (torch.from_numpy(a) for a in args)
+    ksc, vsc = (torch.from_numpy(s) for s in scales)
+    call = port.ragged_paged_attention
+    with pytest.raises(ValueError, match="int8 pools need"):
+        call(q, kp, vp, tbl, lens, qlens)
+    with pytest.raises(TypeError, match="scales go with int8 pools"):
+        call(q, kp.float(), vp.float(), tbl, lens, qlens, k_scales=ksc,
+             v_scales=vsc)
+    with pytest.raises(ValueError, match="come together"):
+        call(q, kp, vp, tbl, lens, qlens, k_scales=ksc)
+    for bad in (ksc.double(), ksc[:, :3], ksc.t().contiguous().t()[:, :],
+                torch.ones((2, 8))[:, ::2]):
+        with pytest.raises(ValueError, match="k_scales must be"):
+            call(q, kp, vp, tbl, lens, qlens, k_scales=bad, v_scales=vsc)

@@ -3,8 +3,11 @@
 Greedy streams must be equal token for token: 10 requests, 8 slots,
 continuous admission (4 requests up front, the rest while the batch is in
 flight) and forced preemption (10 pool pages, as in the reference's
-preemption test), with dense and with int8 weights.  Both engines get the
-same weights through ``params_from_jax`` and run in float32 on the CPU.
+preemption test), with dense and with int8 weights, over float32 and
+over int8 KV pages.  Both engines get the same weights through
+``params_from_jax`` and run in float32 on the CPU.  With int8 pages the
+two sides may round a byte differently at a tie (their matmuls sum in
+another order); on these workloads no stream moves.
 The scheduler, page allocator and admission gate are the port's copies
 and must keep the same books as the reference on the same script.
 """
@@ -79,14 +82,18 @@ def _serve(eng, prompts, new_toks):
 
 # 10 pool pages (9 usable): with 16-token pages all 8 slots fill and one
 # request is preempted; with 8-token pages at most 6 run at once and
-# preemption replays 8 times
-@pytest.mark.parametrize("page_size,peak", [(16, 8), (8, 6)])
+# preemption replays 8 times.  kv_dtype None = the model's (f32) pages.
+@pytest.mark.parametrize("page_size,peak,kv_dtype", [
+    pytest.param(16, 8, None, id="16-8"),
+    pytest.param(8, 6, None, id="8-6"),
+    pytest.param(16, 8, "int8", id="16-8-int8"),
+    pytest.param(8, 6, "int8", id="8-6-int8")])
 @pytest.mark.parametrize("quantized", ["off", "on"])
 def test_streams_match_jax_engine_under_preemption(quantized, page_size,
-                                                   peak):
+                                                   peak, kv_dtype):
     cfg = _jax_cfg(quantized)
     engine_kw = dict(max_running=8, chunk=4, page_size=page_size,
-                     max_model_len=32, num_pages=10)
+                     max_model_len=32, num_pages=10, kv_dtype=kv_dtype)
     params = jllama.init_params(cfg, jax.random.PRNGKey(0))
     prompts, new_toks = _workload()
 
@@ -102,6 +109,8 @@ def test_streams_match_jax_engine_under_preemption(quantized, page_size,
                               **engine_kw)
     t_out, t_streams, t_steps = _serve(teng, prompts, new_toks)
     t_stats = tserving.serving_stats()
+    assert teng._quant_kv == jeng._quant_kv == (kv_dtype == "int8")
+    assert teng._pool_bytes == jeng._pool_bytes
 
     assert [len(o) for o in t_out] == new_toks
     for i in range(10):
@@ -205,3 +214,58 @@ def test_engine_step_raises_on_non_finite_logits():
     eng.add_request([1, 2, 3], 2)
     with pytest.raises(FloatingPointError, match="non-finite"):
         eng.step()
+
+
+def test_int8_kv_replay_after_preemption_matches_unpreempted():
+    """int8 writes are a function of the request's own tokens (stale
+    bytes on recycled pages never reach a page scale), so an engine that
+    preempts and replays gives the streams of one that never preempts,
+    run after run — the reference's determinism contract."""
+    cfg = _port_cfg(_jax_cfg("off"))
+    params = tllama.init_params(cfg, 0, device="cpu")
+    rng = np.random.RandomState(3)
+    prompts = [[int(t) for t in rng.randint(0, 128, 6)] for _ in range(5)]
+    kw = dict(device="cpu", max_running=4, chunk=4, page_size=8,
+              max_model_len=32, kv_dtype="int8")
+
+    def run(num_pages):
+        tserving.reset_stats()
+        eng = tserving.LLMEngine(cfg, params, num_pages=num_pages, **kw)
+        rids = [eng.add_request(p, 20) for p in prompts]
+        eng.run()
+        assert eng.kv.audit()["ok"]
+        return ([eng.output_of(r) for r in rids],
+                tserving.serving_stats()["requests_preempted"])
+
+    base, n0 = run(200)
+    tight, n1 = run(10)
+    tight2, _ = run(10)
+    assert n0 == 0 and n1 > 0
+    assert tight == tight2, "int8 replay is not deterministic"
+    assert tight == base, "preemption replay diverged from the unpreempted"
+    assert all(len(o) == 20 for o in base)
+
+
+@pytest.mark.parametrize("kv_dtype,want", [
+    ("int8", torch.int8), ("bf16", torch.bfloat16), (None, torch.float32),
+    (torch.float32, torch.float32)])
+def test_engine_kv_dtype_and_pool_bytes(kv_dtype, want):
+    cfg = _port_cfg(_jax_cfg("off"))
+    params = tllama.init_params(cfg, 0, device="cpu")
+    eng = tserving.LLMEngine(cfg, params, device="cpu", max_running=2,
+                             chunk=4, page_size=8, max_model_len=32,
+                             kv_dtype=kv_dtype)
+    L, nkv, P = 2, 2, eng.num_pages
+    assert eng._kp.dtype == eng._vp.dtype == want
+    page_bytes = 2 * L * nkv * 8 * cfg.head_dim * eng._kp.element_size()
+    scale_bytes = 2 * L * nkv * P * 4 if want == torch.int8 else 0
+    assert eng._scale_bytes == scale_bytes
+    assert eng._pool_bytes == P * page_bytes + scale_bytes
+    if want == torch.int8:
+        assert eng._ks.shape == eng._vs.shape == (L, nkv, P)
+        assert bool((eng._ks == 1).all() and (eng._vs == 1).all())
+    else:
+        assert eng._ks is None and eng._vs is None
+    with pytest.raises(ValueError, match="unknown kv_dtype"):
+        tserving.LLMEngine(cfg, params, device="cpu", max_model_len=32,
+                           kv_dtype="fp4")
