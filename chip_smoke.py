@@ -18,8 +18,11 @@ yardstick the port never calls), then drives the two main paths:
   shared-prefix workload with the prefix cache on; every launch counted
   through the int8 matmul and the two ragged paged attention kernels
   (bf16 pools, int8 pools), and the KV pool bytes held to their
-  formula.  Ragged paged attention is also held and timed at a decode
-  of 2048 tokens a request, for both pool types;
+  formula; one chunk-64 prefill step of the long-context shape
+  (1,024-token prompts) profiled by kernel for each KV type.  Ragged
+  paged attention is also held and timed at the long-context cell's
+  shapes (decode at 2048 tokens a request, chunk-64 prefill), for both
+  pool types;
 - training: the four fused decoder-block kernels against their plain
   versions at the bench shape (timed beside the unfused PyTorch
   composition of each block), a small bf16 train step on the card
@@ -37,6 +40,7 @@ the card's name and power limit (from nvidia-smi) and, last,
 """
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -103,6 +107,22 @@ def eager_ms(torch, fn, calls):
     return start.elapsed_time(end) / calls
 
 
+def host_ms(torch, fn, calls):
+    """Host ms a call: ``calls`` calls of ``fn(i)`` issued back to back
+    with no sync, on the host's clock.  Where the kernel takes less than
+    its launch (the serve cell's shapes) the card never holds the host
+    back, so this is the wrapper's and the launch's host cost."""
+    for i in range(2):
+        fn(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fn(i)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * wall / calls
+
+
 def gpu_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -148,19 +168,19 @@ def int8_phase(torch, i8):
                 return i8.int8_matmul(x, copies[i % len(copies)], ws)
 
             ms = time_ms(torch, kern, calls=20)
-            host_ms = eager_ms(torch, kern, calls=50)
+            launch_ms = eager_ms(torch, kern, calls=50)
             plain_ms = time_ms(torch, lambda i: i8._int8_matmul_plain(
                 x, copies[i % len(copies)], ws), calls=4, replays=2)
             lib_ms = int_mm_ms(torch, i8, x, copies, ws)
             nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
             b_ms, _ = bound_ms(nbytes, 2 * M * K * N, "int8")
             rows.append(dict(M=M, K=K, N=N, calls=calls, ms=ms,
-                             eager_ms=host_ms,
+                             eager_ms=launch_ms,
                              plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=b_ms, bytes=nbytes,
                              ops=2 * M * K * N))
             print(f"int8_matmul M={M:3d} K={K:5d} N={N:5d}: kernel "
-                  f"{ms:.4f} ms (eager {host_ms:.4f})  plain "
+                  f"{ms:.4f} ms (eager {launch_ms:.4f})  plain "
                   f"{plain_ms:.4f} ms  _int_mm "
                   f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
                   f"bound {b_ms:.4f} ms  bit-identical")
@@ -190,8 +210,11 @@ def int_mm_ms(torch, i8, x, copies, ws):
 
 
 # R = 8 slots, llama7b's heads; mixed kv lengths with an empty slot and
-# chunks across page boundaries; GQA (rep = 4); and one decode at a
-# context users serve: 2048 tokens a request (Bmax 128, P 1025)
+# chunks across page boundaries; GQA (rep = 4); one decode at a context
+# users serve: 2048 tokens a request (Bmax 128, P 1025); the same with
+# ragged lengths (load balance, split edges, an empty slot, lengths off a
+# page boundary); a GQA decode at 2048 tokens; and the long-context
+# cell's chunk-64 prefill steps with decode rows mixed in
 RPA_CASES = [
     ("prefill_tc8", 32, 1, 8, [8, 20, 0, 33, 24, 16, 40, 9],
      [8, 4, 0, 8, 8, 3, 8, 2]),
@@ -200,6 +223,11 @@ RPA_CASES = [
     ("gqa_rep4_tc8", 8, 4, 8, [8, 20, 0, 33, 24, 16, 40, 9],
      [8, 4, 0, 8, 8, 3, 8, 2]),
     ("decode_long", 32, 1, 1, [2048] * 8, [1] * 8),
+    ("decode_long_ragged", 32, 1, 1, [2048, 1, 700, 0, 1500, 33, 2047, 16],
+     [1, 1, 1, 0, 1, 1, 1, 1]),
+    ("gqa_long_rep4", 8, 4, 1, [2048] * 8, [1] * 8),
+    ("prefill_long_tc64", 32, 1, 64, [1024, 64, 577, 0, 1000, 130, 900,
+                                      1088], [64, 64, 64, 0, 1, 64, 1, 64]),
 ]
 RPA_R, RPA_D, RPA_PAGE = 8, 128, 16
 
@@ -348,7 +376,8 @@ def rpa_phase(torch, rpa, quant=False):
             return rpa.ragged_paged_attention(*args, rep=rep, **kw)
 
         ms = time_ms(torch, kern, calls=50)
-        host_ms = eager_ms(torch, kern, calls=100)
+        launch_ms = eager_ms(torch, kern, calls=100)
+        wrap_ms = host_ms(torch, kern, calls=500)
         plain_ms = time_ms(torch, lambda i: rpa._ragged_attention_plain(
             *args, rep, *scales), calls=10)
         kd, vd = rpa_dense_kv(torch, args, scales)
@@ -359,13 +388,17 @@ def rpa_phase(torch, rpa, quant=False):
         del kd, vd, mask
         nbytes, ops = rpa_bounds(case, quant)
         b_ms, b_by = bound_ms(nbytes, ops, "bf16")
-        rows.append(dict(name=name, nkv=nkv, rep=rep, Tc=Tc, ms=ms,
-                         eager_ms=host_ms, plain_ms=plain_ms,
+        plan = rpa._plan_for(q, kp, tbl)
+        rows.append(dict(name=name, nkv=nkv, rep=rep, Tc=Tc, S=plan.S,
+                         tile_rows=plan.rows, ms=ms,
+                         eager_ms=launch_ms, host_ms=wrap_ms,
+                         plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                          bytes=nbytes, ops=ops, max_abs_err=err,
                          row_rel_err=row, norm_rel_err=norm,
                          control_row_rel_err=ctl))
-        print(f"{tag} {name}: kernel {ms:.4f} ms (eager {host_ms:.4f})  "
+        print(f"{tag} {name} (S={plan.S}, {plan.rows}-row tiles): kernel "
+              f"{ms:.4f} ms (eager {launch_ms:.4f}, host {wrap_ms:.4f})  "
               f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound "
               f"{b_ms:.6f} ms ({b_by}, {nbytes / 1e6:.3f} MB)  max |diff| "
               f"{err:.3g}  row rel {row:.3g}  norm rel {norm:.3g}  control "
@@ -469,10 +502,11 @@ def serve_phase(torch, tllama, bench_serve, card):
     """The serving main path through ``bench_serve``'s measuring
     function: llama7b at full width and depth, int8 weights built once,
     served three times in one call (bf16 KV; int8 KV; int8 KV with the
-    shared-prefix workload and the prefix cache).  Every launch of the
-    three serving kernels is counted from 0 over each run (its warm-up
-    included) and held against the engine's forward steps; the KV pool
-    bytes against their formula."""
+    shared-prefix workload and the prefix cache), each uniform run
+    followed by its profiles (``profile_steps``, ``prefill_profile``).
+    Every launch of the three serving kernels is counted from 0 over each
+    run (its warm-up included) and held against the engine's forward
+    steps; the KV pool bytes against their formula."""
     cfg = tllama.preset("llama7b")
     L, nkv, d = (cfg.num_hidden_layers, cfg.num_key_value_heads,
                  cfg.head_dim)
@@ -540,6 +574,9 @@ def serve_phase(torch, tllama, bench_serve, card):
                 workload, bench_serve.knobs(), cfg.vocab_size)
             profile_steps(torch, eng, prompts[:8], f"{card}, {name} KV")
         del run, eng
+        if workload == "uniform":   # the pools above are freed first
+            prefill_profile(torch, bench_serve.serving, cfg, params,
+                            kv_dtype, f"{card}, {name} KV")
     same = sum(a == b for x, y in zip(outputs["bf16"], outputs["int8"])
                for a, b in zip(x, y))
     total = sum(len(x) for x in outputs["bf16"])
@@ -567,6 +604,42 @@ def profile_steps(torch, eng, prompts, card):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     print_profile(prof, wall_us, f"profile [{card}]: {steps} steps", 10)
+
+
+def prefill_profile(torch, serving, cfg, params, kv_dtype, card):
+    """Where a chunk-64 prefill step of the long-context cell goes
+    (``bench_serve`` with PROMPT=1024 CHUNK=64): an engine of that shape
+    over the same weights, one warm-up request, then 8 fresh 1,024-token
+    prompts whose first step (8 x 64 q rows, int8 GEMMs at M = 512) runs
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    chunk, prompt = 64, 1024
+    eng = serving.LLMEngine(
+        cfg, params, device="cuda", max_running=8, chunk=chunk,
+        page_size=16, max_model_len=prompt + 2 * chunk,
+        kv_dtype=None if kv_dtype == "bf16" else kv_dtype)
+    rng = np.random.RandomState(1)
+    prompts = [list(rng.randint(0, cfg.vocab_size, prompt))
+               for _ in range(eng.max_running)]
+    eng.add_request(prompts[0][:2 * chunk], 2)
+    eng.run()
+    before = len(eng._step_wall_s.get(chunk, []))
+    for p in prompts:
+        eng.add_request(p, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    check(len(eng._step_wall_s.get(chunk, [])) == before + 1,
+          f"profile [{card}]: the profiled step was not a chunk-{chunk} "
+          f"prefill")
+    print_profile(prof, wall_us, f"profile [{card}]: one chunk-{chunk} "
+                  f"prefill step, {len(prompts)} x {prompt}-token prompts",
+                  10)
+    del eng
 
 
 # ---------------------------------------------------------------------------
@@ -1183,9 +1256,14 @@ def main():
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{n} {r['seconds']:.1f} s" for n, r in report.items()))
     for n, r in report.items():
+        fn = None
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {n}: {line.strip()}")
+            m = re.search(r"entry function '(\w+)'", line)
+            if m:   # the kernel's mangled name, its anonymous namespace cut
+                fn = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d\d", "",
+                            m.group(1))
+            elif "registers" in line or "spill" in line:
+                print(f"  {n}: {fn}: {line.split(':', 1)[-1].strip()}")
 
     int8_rows, int8_err = int8_phase(torch, i8)
     rpa_rows, rpa_err = rpa_phase(torch, rpa)
@@ -1227,6 +1305,11 @@ def main():
     long_keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "bytes", "row_rel_err", "norm_rel_err",
                  "control_row_rel_err")
+    case_keys = ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "S", "tile_rows", "max_abs_err",
+                 "row_rel_err")
+    cases = {n: {r["name"]: {k: r[k] for k in case_keys} for r in rows}
+             for n, rows in (("dense", rpa_rows), ("quant", quant_rows))}
     kernels = {"kernels": [
         {"name": "int8_matmul", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/int8_matmul.cu",
@@ -1250,6 +1333,7 @@ def main():
          "long_decode": {k: long["dense"][k] for k in long_keys},
          "long_per": "one call, R=8 x 2048 tokens, 32 kv heads of 128, "
                      "page 16",
+         "cases": cases["dense"],
          "launches_by_run": {n: v["ragged_paged_attention"]
                              for n, v in by_run.items()}},
         {"name": "ragged_paged_attention_quant", "route": "cuda",
@@ -1264,6 +1348,7 @@ def main():
                 "int8 pages + f32 scales (the long decode case)",
          "decode_step": {k: 32 * qdec[k] for k in
                          ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "cases": cases["quant"],
          "launches_by_run": {n: v["ragged_paged_attention_quant"]
                              for n, v in by_run.items()}},
     ]}

@@ -7,8 +7,9 @@ header, so it compiles in seconds:
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 into ``paddle_tpu_torch/build/`` at first use.  The file name carries a
-hash of the source, so an edited kernel is never served by a stale
-library.  ``--use_fast_math`` is deliberately absent: the int8 matmul's
+hash of the source and of every header it includes with quotes
+(``csrc/*.cuh``), so an edited kernel or header is never served by a
+stale library.  ``--use_fast_math`` is deliberately absent: the int8 matmul's
 bit parity with its plain version rests on IEEE division and ``rintf``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -55,10 +57,25 @@ def _nvcc() -> str:
                        "under CUDA_HOME)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path: Path, seen=None) -> Dict[Path, bytes]:
+    """``path`` and every header it includes with quotes, transitively."""
+    seen = {} if seen is None else seen
+    if path not in seen:
+        seen[path] = path.read_bytes()
+        for inc in _INCLUDE.findall(seen[path]):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    srcs = _sources(_CSRC / f"{name}.cu")
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(srcs):
+        h.update(p.name.encode() + b"\0" + srcs[p])
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 _Job = Tuple[subprocess.Popen, Path, Path]   # (nvcc, temp file, library)

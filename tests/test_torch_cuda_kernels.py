@@ -69,6 +69,17 @@ def _rpa_case(device, R, nkv, rep, Tc, d, P, page, Bmax, lens, qlens,
     return q, kp, vp, tbl, lens, qlens
 
 
+# the long cases of chip_smoke.py's rpa_phase: load balance and split
+# edges (ragged lengths off a page boundary, an empty slot), GQA at 2048
+# tokens, and the long-context cell's chunk-64 prefill steps
+LONG_CASES = [
+    (8, 32, 1, 1, 128, 1025, 16, 128, [2048, 1, 700, 0, 1500, 33, 2047, 16],
+     [1, 1, 1, 0, 1, 1, 1, 1]),
+    (8, 8, 4, 1, 128, 1025, 16, 128, [2048] * 8, [1] * 8),
+    (8, 32, 1, 64, 128, 545, 16, 68, [1024, 64, 577, 0, 1000, 130, 900, 1088],
+     [64, 64, 64, 0, 1, 64, 1, 64]),
+]
+
 RPA_CASES = [
     # (R, nkv, rep, Tc, d, P, page, Bmax, seq_lens, q_lens)
     (8, 32, 1, 8, 128, 40, 16, 4, [8, 20, 0, 33, 1, 16, 64, 9],
@@ -78,7 +89,11 @@ RPA_CASES = [
     (4, 8, 4, 8, 128, 24, 16, 4, [40, 9, 0, 64], [8, 2, 0, 5]),
     (3, 2, 2, 4, 64, 16, 8, 4, [30, 5, 12], [4, 1, 3]),
     (2, 2, 1, 20, 128, 12, 24, 3, [70, 20], [20, 19]),  # page 24, 2 tiles
-]
+] + [
+    # llama7b width at 2048 tokens a request: the long decode, the same
+    # with ragged lengths, GQA, and chunk-64 prefill with decode rows
+    (8, 32, 1, 1, 128, 1025, 16, 128, [2048] * 8, [1] * 8),
+] + LONG_CASES
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
@@ -191,7 +206,7 @@ RPA_QUANT_CASES = [
     (4, 2, 1, 4, 128, 12, 16, 2, [0, 0, 0, 0], [0, 0, 0, 0]),     # all empty
     # the long decode case at llama7b width: 2048 tokens a request
     (8, 32, 1, 1, 128, 1025, 16, 128, [2048] * 8, [1] * 8),
-]
+] + LONG_CASES
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
@@ -217,6 +232,38 @@ def test_quant_attention_kernel_matches_plain(cuda, case, dtype, atol):
     tok = torch.arange(Tc * rep, device=cuda) // rep
     pad = tok[None, :] >= args[5][:, None]
     assert not out.float()[pad[:, None, :, None].expand_as(out)].any()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_long_decode_splits_the_walk_in_one_launch(cuda, quant):
+    """At the long decode (8 x 2048 tokens, 32 kv heads) the plan splits
+    each request's page walk (S > 1), the call is still one launch on
+    its counter, a second call gives the same bits (the tickets were
+    left at 0), and both agree with the plain version."""
+    case = (8, 32, 1, 1, 128, 1025, 16, 128, [2048] * 8, [1] * 8)
+    if quant:
+        args, (ksc, vsc) = _rpa_quant_case(cuda, *case, dtype=torch.bfloat16,
+                                           seed=5)
+        kw = dict(k_scales=ksc, v_scales=vsc)
+        scales = (ksc, vsc)
+    else:
+        args = _rpa_case(cuda, *case, dtype=torch.bfloat16, seed=5)
+        kw, scales = {}, ()
+    plan = rpa._plan_for(args[0], args[1], args[3])
+    assert plan.S > 1
+    fn = rpa.ragged_paged_attention
+    before = (fn.launches, fn.quant_launches)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.quant_launches) == (
+        before[0] + (not quant), before[1] + quant)
+    again = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert not rpa._TICKETS[cuda.index or 0].any()
+    ref = rpa._ragged_attention_plain(*args, 1, *scales)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert _row_rel(out, ref) <= 2e-2
 
 
 def test_quant_attention_kernel_refuses_what_it_cannot_serve(cuda):
