@@ -8,7 +8,12 @@ It builds the port's CUDA kernels from ``paddle_tpu_torch/ops/csrc``
 with nvcc (one nvcc per source, started together), holds each kernel
 against its plain PyTorch version at its main path's shapes and times
 both (plus one PyTorch library call for the same function as a
-yardstick the port never calls), then drives the two main paths:
+yardstick the port never calls), then drives the two main paths.  The
+int8 matmul is held bit for bit and timed at every llama7b shape for a
+decode step (M = 8), the default cell's prefill chunk (M = 64) and the
+long-context cell's (M = 512), beside ``torch._int_mm`` on the weights
+as stored and K-contiguous, and its two regimes side by side where
+both apply (M = 8, 16).
 
 - serving: a small model's serving step on the card against the CPU
   (float32 and int8 KV pages), then ``paddle_tpu_torch.bench_serve``'s
@@ -139,19 +144,35 @@ def gpu_line():
 # x 32 layers + lm_head)
 INT8_SHAPES = {(4096, 4096): 4 * 32, (4096, 11008): 2 * 32,
                (11008, 4096): 1 * 32, (4096, 32000): 1}
+# rows of one call: a decode step of 8 requests, the default cell's
+# prefill chunk (8 x 8) and the long-context cell's (8 x 64)
+INT8_ROWS = (8, 64, 512)
+
+
+def int8_inputs(torch, i8, gen, M, K, N):
+    """bf16 activations N(0, 1) and int8 weights of N(0, 0.02), plus
+    enough copies of the weights to exceed L2: the weights of one call
+    are cold in a real step (every layer has its own)."""
+    dev = torch.device("cuda")
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((K, N), generator=gen, device=dev) * 0.02
+    wq, ws = i8.quantize_int8(w)
+    del w
+    copies = [wq] + [wq.clone() for _ in
+                     range(max(0, math.ceil(160e6 / wq.numel()) - 1))]
+    return x, wq, ws, copies
 
 
 def int8_phase(torch, i8):
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    rows, max_err = [], 0.0
-    for M in (8, 64):
+    """The int8 matmul against its plain version (``torch.equal``) at
+    every llama7b shape and every M of ``INT8_ROWS``; kernel, eager, plain
+    and ``torch._int_mm`` times and the bound.  Takes the module, so the
+    parent's package can run through the same function."""
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(1)
+    out, max_err = [], 0.0
+    for M in INT8_ROWS:
         for (K, N), calls in INT8_SHAPES.items():
-            x = torch.randn((M, K), generator=gen, device=dev).to(
-                torch.bfloat16)
-            w = torch.randn((K, N), generator=gen, device=dev) * 0.02
-            wq, ws = i8.quantize_int8(w)
-            del w
+            x, wq, ws, copies = int8_inputs(torch, i8, gen, M, K, N)
             y = i8.int8_matmul(x, wq, ws)
             ref = i8._int8_matmul_plain(x, wq, ws)
             torch.cuda.synchronize()
@@ -160,10 +181,7 @@ def int8_phase(torch, i8):
                   f"int8_matmul M={M} K={K} N={N} not bit-identical "
                   f"(max |diff| {err})")
             max_err = max(max_err, err)
-            # the weights of one call are cold in a real step (every
-            # layer has its own): rotate through copies that exceed L2
-            copies = [wq] + [wq.clone() for _ in
-                             range(max(0, math.ceil(160e6 / wq.numel()) - 1))]
+
             def kern(i):
                 return i8.int8_matmul(x, copies[i % len(copies)], ws)
 
@@ -171,42 +189,97 @@ def int8_phase(torch, i8):
             launch_ms = eager_ms(torch, kern, calls=50)
             plain_ms = time_ms(torch, lambda i: i8._int8_matmul_plain(
                 x, copies[i % len(copies)], ws), calls=4, replays=2)
-            lib_ms = int_mm_ms(torch, i8, x, copies, ws)
+            lib = int_mm_ms(torch, i8, x, copies, ws)
+            lib_ms = min((v for v in lib.values() if v is not None),
+                         default=None)
             nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
-            b_ms, _ = bound_ms(nbytes, 2 * M * K * N, "int8")
-            rows.append(dict(M=M, K=K, N=N, calls=calls, ms=ms,
-                             eager_ms=launch_ms,
-                             plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=b_ms, bytes=nbytes,
-                             ops=2 * M * K * N))
+            b_ms, b_by = bound_ms(nbytes, 2 * M * K * N, "int8")
+            out.append(dict(M=M, K=K, N=N, calls=calls, ms=ms,
+                            eager_ms=launch_ms, plain_ms=plain_ms,
+                            library_ms=lib_ms, int_mm=lib, bound_ms=b_ms,
+                            bound_by=b_by, bytes=nbytes, ops=2 * M * K * N))
+            libs = "  ".join(f"_int_mm {k} "
+                             f"{'n/a' if v is None else f'{v:.4f} ms'}"
+                             for k, v in lib.items())
             print(f"int8_matmul M={M:3d} K={K:5d} N={N:5d}: kernel "
                   f"{ms:.4f} ms (eager {launch_ms:.4f})  plain "
-                  f"{plain_ms:.4f} ms  _int_mm "
-                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
-                  f"bound {b_ms:.4f} ms  bit-identical")
+                  f"{plain_ms:.4f} ms  {libs}  bound {b_ms:.4f} ms "
+                  f"({b_by})  bit-identical")
             del copies, wq, ws, x, y, ref
-    return rows, max_err
+    return out, max_err
+
+
+def int8_step(rows, M):
+    """One forward step's 225 calls at ``M`` rows, summed from the
+    per-call rows of ``int8_phase``."""
+    sel = [r for r in rows if r["M"] == M]
+    step = {k: sum(r["calls"] * r[k] for r in sel)
+            for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bytes",
+                      "ops")}
+    step["library_ms"] = (None if any(r["library_ms"] is None for r in sel)
+                          else sum(r["calls"] * r["library_ms"] for r in sel))
+    _, step["bound_by"] = bound_ms(step["bytes"], step["ops"], "int8")
+    return step
+
+
+# the regimes side by side on calls the stream regime can serve (its
+# stream_rows): where they cross sets ``_STREAM_MAX_M``
+INT8_REGIMES = (("stream", 16), ("rows", 0))
+
+
+def int8_plans(torch, i8):
+    """Calls of M = 8 and 16 rows run through both regimes, each held to
+    the plain version, their graph-replayed ms side by side."""
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(2)
+    out = []
+    for M in (8, 16):
+        for (K, N) in INT8_SHAPES:
+            x, wq, ws, copies = int8_inputs(torch, i8, gen, M, K, N)
+            ref = i8._int8_matmul_plain(x, wq, ws)
+            res = {}
+            for name, sr in INT8_REGIMES:
+                check(torch.equal(i8._int8_matmul_cuda(
+                    x, wq, ws, stream_rows=sr), ref),
+                    f"int8_matmul {name} regime M={M} K={K} N={N} not "
+                    f"bit-identical")
+                res[name] = time_ms(torch, lambda i: i8._int8_matmul_cuda(
+                    x, copies[i % len(copies)], ws, stream_rows=sr),
+                    calls=20)
+            out.append(dict(M=M, K=K, N=N, **res))
+            print(f"int8_matmul regimes M={M:3d} K={K:5d} N={N:5d}: "
+                  + "  ".join(f"{n} {v:.4f} ms" for n, v in res.items()))
+            del copies, wq, ws, x, ref
+    return out
 
 
 def int_mm_ms(torch, i8, x, copies, ws):
     """torch._int_mm (cuBLASLt) plus the dequant epilogue on the same
-    int8 operands; _int_mm needs more than 16 rows, so smaller M is
-    padded to 32 zero rows."""
+    int8 operands, the weights given as stored ([K, N] row-major) and
+    K-contiguous (the same matrix, ``w.t().contiguous().t()``: the
+    layout cuBLASLt's int8 tensor-core kernels take without a
+    transpose).  _int_mm needs more than 16 rows, so smaller M is padded
+    to 32 zero rows."""
     xq, xs = i8._quantize_rows(x.float())
     M = xq.shape[0]
     if M <= 16:
         xq = torch.cat([xq, xq.new_zeros((32 - M, xq.shape[1]))])
+    res = {}
+    for name, ws_ in (("row_major", copies),
+                      ("k_contiguous", [w.t().contiguous().t()
+                                        for w in copies])):
+        def run(i):
+            acc = torch._int_mm(xq, ws_[i % len(ws_)])[:M]
+            return ((acc.float() * xs) * ws).to(x.dtype)
 
-    def run(i):
-        acc = torch._int_mm(xq, copies[i % len(copies)])[:M]
-        return ((acc.float() * xs) * ws).to(x.dtype)
-
-    try:
-        run(0)
-    except RuntimeError as exc:  # a library limit, not the port's kernel
-        print(f"  torch._int_mm unavailable here: {exc}")
-        return None
-    return time_ms(torch, run, calls=20)
+        try:
+            run(0)
+        except RuntimeError as exc:  # a library limit, not the port's kernel
+            print(f"  torch._int_mm ({name}) unavailable here: {exc}")
+            res[name] = None
+            continue
+        res[name] = time_ms(torch, run, calls=20)
+        del ws_
+    return res
 
 
 # R = 8 slots, llama7b's heads; mixed kv lengths with an empty slot and
@@ -1266,6 +1339,7 @@ def main():
                 print(f"  {n}: {fn}: {line.split(':', 1)[-1].strip()}")
 
     int8_rows, int8_err = int8_phase(torch, i8)
+    int8_regimes = int8_plans(torch, i8)
     rpa_rows, rpa_err = rpa_phase(torch, rpa)
     quant_rows, quant_err = rpa_phase(torch, rpa, quant=True)
     flash, flash_err, flash_row_err, flash_ctl = flash_phase(torch, fa)
@@ -1289,14 +1363,12 @@ def main():
           f"%), same call")
     train_profile(torch, tbench, tllama, card)
 
-    # one decode step of the main path: 225 int8 matmuls at M = 8 and 32
-    # attention calls at the decode case
-    dec = [r for r in int8_rows if r["M"] == 8]
-    step = {k: sum(r["calls"] * r[k] for r in dec)
-            for k in ("ms", "plain_ms", "bound_ms", "bytes", "ops")}
-    lib = (None if any(r["library_ms"] is None for r in dec)
-           else sum(r["calls"] * r["library_ms"] for r in dec))
-    _, int8_by = bound_ms(step["bytes"], step["ops"], "int8")
+    # one step of the main path: 225 int8 matmuls at M = 8 (decode), 64
+    # (the default cell's prefill) and 512 (the long-context prefill),
+    # and 32 attention calls at the decode case
+    step, pre64, pre512 = (int8_step(int8_rows, M) for M in INT8_ROWS)
+    step_keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")
     att = next(r for r in rpa_rows if r["name"] == "decode_tc1")
     long = {n: next(r for r in rows if r["name"] == "decode_long")
             for n, rows in (("dense", rpa_rows), ("quant", quant_rows))}
@@ -1317,9 +1389,20 @@ def main():
          "launches": launches["int8_matmul"],
          "max_abs_err": int8_err, "ms": step["ms"],
          "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
-         "bound_by": int8_by, "library_ms": lib,
-         "eager_ms": sum(r["calls"] * r["eager_ms"] for r in dec),
+         "bound_by": step["bound_by"], "library_ms": step["library_ms"],
+         "eager_ms": step["eager_ms"],
          "per": "one llama7b decode step: 225 calls at M=8",
+         "prefill_step": {k: pre512[k] for k in step_keys},
+         "prefill_per": "one long-context prefill step: 225 calls at M=512",
+         "default_prefill_step": {k: pre64[k] for k in step_keys},
+         "default_prefill_per": "one default-cell prefill step: 225 calls "
+                                "at M=64",
+         "library": "the faster of torch._int_mm on row-major and "
+                    "K-contiguous weights, + the epilogue",
+         "calls": [{k: r[k] for k in ("M", "K", "N", "ms", "bound_ms",
+                                      "plain_ms", "library_ms")}
+                   for r in int8_rows],
+         "regimes": int8_regimes,
          "launches_by_run": {n: v["int8_matmul"] for n, v in by_run.items()}},
         {"name": "ragged_paged_attention", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",

@@ -19,6 +19,7 @@ and a later synchronise would not report it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -31,7 +32,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["SOURCES", "build_all", "load", "check", "stream_ptr"]
+__all__ = ["SOURCES", "build_all", "load", "check", "stream_ptr", "sm_count"]
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
@@ -146,3 +147,13 @@ def stream_ptr(device) -> int:
     """PyTorch's current stream on ``device``, as the int a C entry point
     takes for its ``cudaStream_t``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The multiprocessors of a CUDA ``device`` (a launch plan's input)."""
+    return _sm_count(device.index or 0)

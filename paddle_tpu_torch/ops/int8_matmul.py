@@ -15,7 +15,8 @@ order, IEEE division, round-half-even, one final rounding.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -69,20 +70,110 @@ def _int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# The kernel's launch plan (``csrc/int8_matmul.cu`` says why): block
+# tiles of 128 columns fed through a ring of k stages, two regimes
+# chosen by M, K split over the blocks of one cluster.
+_BN = 128                 # block columns
+_STREAM_ROWS = 16         # the stream regime's tile rows: M it can serve
+# M up to which one streaming launch serves a call: at M = 16 the rows
+# regime reads as fast or faster on llama7b's shapes, at M = 8 slower on
+# three of four (``chip_smoke.py``'s ``int8_plans``, PERF.md)
+_STREAM_MAX_M = 8
+_MAX_SPLIT = 8            # k splits: the blocks of one cluster (portable max)
+_BLOCKS_PER_SM = 2        # split K until the grid holds this many a SM
+# each block shape by its tile rows: (k bytes a stage, ring stages), the
+# kernel's StreamCfg, Rows64Cfg and Rows128Cfg
+_SHAPES = {16: (64, 5), 64: (64, 4), 128: (128, 3)}
+_GRID_Y_MAX = 65535
+
+
+class SplitPlan(NamedTuple):
+    rows: int      # tile rows: 16 = the stream regime, 64 / 128 = rows
+    tiles_m: int   # grid x
+    tiles_n: int   # grid y
+    S: int         # grid z = cluster size: k splits
+    kslice: int    # k of one split, a multiple of the shape's stage
+    smem: int      # dynamic shared memory a block
+
+    @property
+    def launches(self) -> int:
+        """Kernels a call launches: the stream GEMM alone, or the
+        row-quant pre-pass and the GEMM."""
+        return 1 if self.rows == _STREAM_ROWS else 2
+
+
+def _smem_bytes(rows: int, xbytes: int) -> int:
+    """The kernel's dynamic shared memory (``Cfg::smem`` in the source):
+    the larger of the ring and the int32 partial tile the cluster sums,
+    then (stream) one stage's quantized x.  A stage holds the weight tile
+    and the A rows: int8 xq, or x itself (``xbytes`` an element) in the
+    stream regime."""
+    bk, stages = _SHAPES[rows]
+    stream = rows == _STREAM_ROWS
+    stage = rows * bk * (xbytes if stream else 1) + bk * _BN
+    part = rows * (_BN + 4) * 4
+    return max(stages * stage, part) + (rows * bk if stream else 0)
+
+
+@functools.lru_cache(maxsize=1024)
+def _split_plan(M: int, K: int, N: int, sms: int,
+                stream_rows: int = _STREAM_MAX_M,
+                xbytes: int = 2) -> SplitPlan:
+    """The launch of one call, from shapes only.  M <= ``stream_rows``
+    (at most 16) runs the stream regime; larger M 64- or 128-row tiles.
+    K is split (S <= 8, every split non-empty) until the grid holds
+    ``_BLOCKS_PER_SM`` blocks a multiprocessor.  ``xbytes``: bytes of an
+    activation (a streaming block stages x in its ring)."""
+    if min(M, K, N) < 1:
+        raise ValueError(f"int8_matmul: empty shape M={M} K={K} N={N}")
+    if stream_rows > _STREAM_ROWS:
+        raise ValueError(f"int8_matmul: the stream regime takes at most "
+                         f"{_STREAM_ROWS} rows, not {stream_rows}")
+    if M <= stream_rows:
+        rows = _STREAM_ROWS
+    else:
+        rows = 64 if M <= 64 else 128
+    bk = _SHAPES[rows][0]
+    tiles_m, tiles_n = -(-M // rows), -(-N // _BN)
+    if tiles_n > _GRID_Y_MAX:
+        raise ValueError(f"int8_matmul: N={N} needs {tiles_n} column tiles "
+                         f"> {_GRID_Y_MAX}")
+    S = (_BLOCKS_PER_SM * sms) // (tiles_n * tiles_m)
+    S = max(1, min(_MAX_SPLIT, S, -(-K // bk)))
+    kslice = -(-(-(-K // S)) // bk) * bk
+    S = -(-K // kslice)
+    return SplitPlan(rows, tiles_m, tiles_n, S, kslice,
+                     _smem_bytes(rows, xbytes))
+
+
+def _plan_for(x: torch.Tensor, w_q: torch.Tensor,
+              stream_rows: int = _STREAM_MAX_M) -> SplitPlan:
+    """The plan a call on these CUDA tensors (x [M, K]) launches with."""
+    return _split_plan(x.shape[0], x.shape[1], w_q.shape[1],
+                       _build.sm_count(x.device), stream_rows,
+                       x.element_size())
+
 
 def _lib():
     lib = _build.load("int8_matmul")
     fn = lib.int8_matmul_launch
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, p, p, p, p, p] + [i] * 6 + [p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernel's vector
+    loads); a copy when it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _int8_matmul_cuda(x: torch.Tensor, w_q: torch.Tensor,
-                      w_scale: torch.Tensor) -> torch.Tensor:
+                      w_scale: torch.Tensor,
+                      stream_rows: int = _STREAM_MAX_M) -> torch.Tensor:
     M, K = x.shape
     N = w_q.shape[1]
     if x.dtype not in _DTYPES:
@@ -100,17 +191,19 @@ def _int8_matmul_cuda(x: torch.Tensor, w_q: torch.Tensor,
                          f"N % 4 == 0, got K={K}, N={N}")
     if not (w_q.device == x.device == w_scale.device):
         raise ValueError("int8_matmul: tensors on different devices")
-    x = x.contiguous()
-    w_q = w_q.contiguous()
-    w_scale = w_scale.contiguous()
+    plan = _plan_for(x, w_q, stream_rows)
+    x, w_q, w_scale = _aligned(x), _aligned(w_q), _aligned(w_scale)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
-    xs = torch.empty((M,), dtype=torch.float32, device=x.device)
-    acc = torch.empty((M, N), dtype=torch.int32, device=x.device)
+    if plan.rows == _STREAM_ROWS:
+        xq = xs = None
+    else:
+        xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+        xs = torch.empty((M,), dtype=torch.float32, device=x.device)
     err = _lib()(x.data_ptr(), _DTYPES[x.dtype], w_q.data_ptr(),
-                 w_scale.data_ptr(), out.data_ptr(), xq.data_ptr(),
-                 xs.data_ptr(), acc.data_ptr(), M, K, N,
-                 _build.stream_ptr(x.device))
+                 w_scale.data_ptr(), out.data_ptr(),
+                 None if xq is None else xq.data_ptr(),
+                 None if xs is None else xs.data_ptr(), M, K, N, plan.rows,
+                 plan.S, plan.kslice, _build.stream_ptr(x.device))
     _build.check(err, "int8_matmul")
     int8_matmul.launches += 1
     return out

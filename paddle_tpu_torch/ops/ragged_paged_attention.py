@@ -155,16 +155,11 @@ def _split_plan(R, nkv, Tr, Bmax, page, sms, d=128,
     return SplitPlan(rows, ntiles, S, ws)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _plan_for(q, k_pages, block_tables):
     """The plan a call on these CUDA tensors launches with."""
     R, nkv, Tr, d = q.shape
     return _split_plan(R, nkv, Tr, block_tables.shape[1], k_pages.shape[2],
-                       _sm_count(q.device.index or 0), d, q.dtype,
+                       _build.sm_count(q.device), d, q.dtype,
                        k_pages.dtype)
 
 

@@ -32,17 +32,30 @@ def cuda():
     return torch.device("cuda")
 
 
+def _int8_case(device, M, K, N, dtype):
+    g = torch.Generator(device=device).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=device).to(dtype)
+    x[0] = 0                                   # all-zero row: eps floor
+    w = torch.randn((K, N), generator=g, device=device) * 0.02
+    wq, ws = i8.quantize_int8(w)
+    return x, wq, ws
+
+
+# every llama7b shape at M = 8 (decode, the stream regime), 64 and 512
+# (prefill chunks, the rows regime); both sides of the regime threshold
+# (8 | 9) and of the stream tile (16 | 17); M = 200, no multiple of a row
+# tile; K, N off the 16-byte copies and the tiles
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("M,K,N", [
     (1, 4096, 4096), (8, 4096, 11008), (8, 11008, 4096), (9, 4096, 32000),
     (64, 4096, 4096), (3, 72, 200), (130, 256, 36),
+    (16, 4096, 4096), (17, 4096, 4096), (200, 1024, 4096),
+    (512, 4096, 11008), (512, 11008, 4096), (512, 4096, 32000),
+    (8, 4096, 4096), (8, 4096, 32000), (64, 4096, 11008), (64, 11008, 4096),
+    (64, 4096, 32000), (512, 4096, 4096),
 ])
 def test_int8_matmul_kernel_is_bit_identical(cuda, M, K, N, dtype):
-    g = torch.Generator(device=cuda).manual_seed(M + K + N)
-    x = torch.randn((M, K), generator=g, device=cuda).to(dtype)
-    x[0] = 0                                   # all-zero row: eps floor
-    w = torch.randn((K, N), generator=g, device=cuda) * 0.02
-    wq, ws = i8.quantize_int8(w)
+    x, wq, ws = _int8_case(cuda, M, K, N, dtype)
     before = i8.int8_matmul.launches
     y = i8.int8_matmul(x, wq, ws)
     torch.cuda.synchronize()
@@ -50,6 +63,52 @@ def test_int8_matmul_kernel_is_bit_identical(cuda, M, K, N, dtype):
     ref = i8._int8_matmul_plain(x, wq, ws)
     assert y.dtype == dtype and y.shape == (M, N)
     assert torch.equal(y, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [8, 16, 200])
+def test_int8_matmul_kernel_saturates_outlier_rows(cuda, M, dtype):
+    """One large outlier a row (positive in row 1, negative in row 2):
+    it quantizes to +-127 and the row's other values to a few levels."""
+    x, wq, ws = _int8_case(cuda, M, 4096, 4096, dtype)
+    x[1, 7] = 3000.0
+    x[2, 4000] = -3000.0
+    y = i8.int8_matmul(x, wq, ws)
+    xq, _ = i8._quantize_rows(x.float())
+    assert xq[1, 7].item() == 127 and xq[2, 4000].item() == -127
+    assert torch.equal(y, i8._int8_matmul_plain(x, wq, ws))
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+def test_int8_matmul_both_regimes_agree_below_the_threshold(cuda, M):
+    """Rows the stream regime can serve (M <= 16), run through both
+    regimes (``stream_rows`` 16 and 0): both bit-identical to the plain
+    version."""
+    x, wq, ws = _int8_case(cuda, M, 4096, 11008, torch.bfloat16)
+    ref = i8._int8_matmul_plain(x, wq, ws)
+    for rows in (16, 0):
+        assert i8._plan_for(x, wq, rows).launches == (1 if rows else 2)
+        y = i8._int8_matmul_cuda(x, wq, ws, stream_rows=rows)
+        torch.cuda.synchronize()
+        assert torch.equal(y, ref), f"stream_rows={rows}"
+
+
+def test_int8_matmul_replays_in_a_cuda_graph(cuda):
+    """A captured call replays with new inputs: no state carries over
+    between calls (the split sums stay in the cluster's shared memory)."""
+    for M, K, N in ((8, 4096, 4096), (64, 4096, 4096), (512, 4096, 4096)):
+        x, wq, ws = _int8_case(cuda, M, K, N, torch.bfloat16)
+        i8.int8_matmul(x, wq, ws)      # build and warm up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = i8.int8_matmul(x, wq, ws)
+        for seed in (1, 2):
+            g = torch.Generator(device=cuda).manual_seed(seed)
+            x.copy_(torch.randn(x.shape, generator=g, device=cuda))
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(y, i8._int8_matmul_plain(x, wq, ws))
 
 
 def _rpa_case(device, R, nkv, rep, Tc, d, P, page, Bmax, lens, qlens,
