@@ -35,8 +35,8 @@ both apply (M = 8, 16).
   ``paddle_tpu_torch.bench``'s train step at bench.py's ~0.95B shape
   (S = 2048, AdamW) for warmup + 5 timed steps at the default policy
   (the fused blocks, every launch counted through their four kernels
-  and the flash backward pair), the same unfused (every launch counted
-  through the three flash kernels), and one profiled fused step.
+  and the flash backward), the same unfused (every launch counted
+  through the two flash wrappers), and one profiled step of each.
 
 Any failure exits non-zero.  The last two lines of standard output are
 the card's name and power limit (from nvidia-smi) and, last,
@@ -719,26 +719,22 @@ def prefill_profile(torch, serving, cfg, params, kv_dtype, card):
 # flash attention (the train path's kernels)
 # ---------------------------------------------------------------------------
 
-# (B, S, H, D): tails (S = 1, 17, 200), both head dims, the bench shape last
+# (B, S, H, D): tails (S = 1, 17, 200, 1000: no multiple of a tile), both
+# head dims, a long S at D = 64, the bench shape last
 FLASH_CASES = [(1, 1, 2, 128), (2, 17, 3, 64), (1, 200, 2, 128),
-               (4, 2048, 16, 128)]
+               (1, 1000, 2, 128), (1, 4096, 4, 64), (4, 2048, 16, 128)]
 
 
 def flash_bounds(B, S, H, D):
     """(bytes, ops) each flash function must move and do: every input read
     once and every output written once; the causal pairs only
     (S (S + 1) / 2 per head), 2 D ops per pair per matmul product (fwd
-    2: s, p.v; dq 3: s, dp, ds.k; dkv 4: s, dp, p^T.do, ds^T.q).  The
-    backward as one function (dq, dk, dv from q, k, v, o, do, lse) needs
-    5 products; "pair_split" counts the 7 that the dq/dkv split
-    computes, s and dp twice."""
+    2: s, p.v; the backward, dq, dk, dv from q, k, v, o, do, lse, 5: s,
+    dp, p^T.do, ds^T.q, ds.k)."""
     x, rows = 2 * B * S * H * D, 4 * B * H * S
     pairs = B * H * S * (S + 1) // 2
     return {"fwd": (3 * x + x + rows, 4 * D * pairs),
-            "dq": (5 * x + rows + x + rows, 6 * D * pairs),
-            "dkv": (4 * x + 2 * rows + 2 * x, 8 * D * pairs),
-            "pair": (5 * x + rows + 3 * x, 10 * D * pairs),
-            "pair_split": (5 * x + rows + 3 * x, 14 * D * pairs)}
+            "bwd": (5 * x + rows + 3 * x, 10 * D * pairs)}
 
 
 def rel_err(got, ref):
@@ -806,26 +802,28 @@ def flash_control(torch, q, k, v, do):
     return row
 
 
+def flash_inputs(torch, B, S, H, D):
+    rng = np.random.RandomState(S + D)
+    return [torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)).to("cuda", torch.bfloat16) for _ in range(4)]
+
+
 def flash_phase(torch, fa):
-    """Each flash kernel against its plain version (run in f32 on the same
+    """Each flash wrapper against its plain version (run in f32 on the same
     bf16 inputs): o max |diff| <= 2e-2 (bf16 output, values ~1); each
     gradient max |diff| / max |ref| <= 2e-2 (bf16 p and ds feed the
     tensor cores); lse max |diff| <= 1e-3; and o, dq, dk, dv each within
     ``ROW_REL_MAX`` per row and ``NORM_REL_MAX`` over the tensor
-    (``rms_rel``).  Controlled and timed at the bench shape."""
+    (``rms_rel``).  Controlled at the bench shape, timed there and at
+    D = 64."""
     F = torch.nn.functional
-    dev = torch.device("cuda")
-    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
-    row_errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
-    timing = control = None
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    row_errs = {"fwd": 0.0, "bwd": 0.0}
+    control = None
     for B, S, H, D in FLASH_CASES:
-        rng = np.random.RandomState(S + D)
-        q, k, v, do = (torch.from_numpy(rng.standard_normal(
-            (B, S, H, D)).astype(np.float32)).to(dev, torch.bfloat16)
-            for _ in range(4))
+        q, k, v, do = flash_inputs(torch, B, S, H, D)
         o, lse = fa.flash_fwd(q, k, v)
-        dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta)
+        dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do)
         f32 = [t.float() for t in (q, k, v, do)]
         o_ref, lse_ref = fa._flash_fwd_plain(*f32[:3])
         # the backward's reference runs on the kernel's own o and lse
@@ -850,12 +848,13 @@ def flash_phase(torch, fa):
                   f"{e_row[n]} > {ROW_REL_MAX}")
             check(e_norm[n] <= NORM_REL_MAX, f"flash {shape}: {n} norm rel "
                   f"{e_norm[n]} > {NORM_REL_MAX}")
-        for key, ns in (("fwd", ("o",)), ("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+        for key, ns in (("fwd", ("o",)), ("bwd", ("dq", "dk", "dv"))):
             row_errs[key] = max([row_errs[key]] + [e_row[n] for n in ns])
         errs["fwd"] = max(errs["fwd"], e_o)
-        errs["dq"] = max(errs["dq"], (dq.float() - dq_ref).abs().max().item())
-        errs["dkv"] = max(errs["dkv"], (dk.float() - dk_ref).abs().max()
-                          .item(), (dv.float() - dv_ref).abs().max().item())
+        errs["bwd"] = max([errs["bwd"]] + [(g.float() - r).abs().max().item()
+                                           for g, r in ((dq, dq_ref),
+                                                        (dk, dk_ref),
+                                                        (dv, dv_ref))])
         print(f"flash {shape}: o {e_o:.3g}  lse {e_lse:.3g}  rel dq "
               f"{e_g['dq']:.3g} dk {e_g['dk']:.3g} dv {e_g['dv']:.3g}; row "
               "rel " + "  ".join(f"{n} {e_row[n]:.3g}" for n in got)
@@ -864,30 +863,48 @@ def flash_phase(torch, fa):
         del f32, o_ref, lse_ref, dq_ref, dk_ref, dv_ref, got
         if (B, S, H, D) == FLASH_CASES[-1]:
             control = flash_control(torch, q, k, v, do)
-            timing = flash_timing(torch, F, fa, q, k, v, do, o, lse, delta)
+    timing = {}
+    for D in (128, 64):     # the bench shape, then its head dim halved
+        B, S, H = FLASH_CASES[-1][:3]
+        q, k, v, do = flash_inputs(torch, B, S, H, D)
+        o, lse = fa.flash_fwd(q, k, v)
+        timing[D] = flash_timing(torch, F, fa, q, k, v, do, o, lse)
+        del q, k, v, do, o, lse
     return timing, errs, row_errs, control
 
 
-def flash_timing(torch, F, fa, q, k, v, do, o, lse, delta):
+def kernel_profile(torch, fn, calls):
+    """Device ms a call of each kernel that ``calls`` calls of ``fn``
+    launch, by torch.profiler: {kernel name: (ms a call, launches a
+    call)}."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / 1e3 / calls, e.count / calls)
+            for e in device_rows(prof)}
+
+
+def flash_timing(torch, F, fa, q, k, v, do, o, lse):
+    """Graph-replayed ms a call of the forward and the backward, their
+    plain versions, SDPA's forward and backward, the bounds, and the
+    backward's launches by kernel.  Takes the module, so another
+    package's flash functions can run through the same timing."""
     B, S, H, D = q.shape
-    ms = {
-        "fwd": time_ms(torch, lambda i: fa.flash_fwd(q, k, v), calls=20),
-        "dq": time_ms(torch, lambda i: fa.flash_bwd_dq(q, k, v, o, lse, do),
-                      calls=20),
-        "dkv": time_ms(torch, lambda i: fa.flash_bwd_dkv(
-            q, k, v, do, lse, delta), calls=20),
-        "pair": time_ms(torch, lambda i: fa.flash_bwd_dkv(
-            q, k, v, do, lse, fa.flash_bwd_dq(q, k, v, o, lse, do)[1]),
-            calls=10),
-    }
+    shape = f"B={B} S={S} H={H} D={D}"
+
+    def bwd(i):
+        return fa.flash_bwd(q, k, v, o, lse, do)
+
+    ms = {"fwd": time_ms(torch, lambda i: fa.flash_fwd(q, k, v), calls=20),
+          "bwd": time_ms(torch, bwd, calls=20)}
     plain = {
         "fwd": time_ms(torch, lambda i: fa._flash_fwd_plain(q, k, v),
                        calls=2, replays=2),
-        "dq": time_ms(torch, lambda i: fa._flash_bwd_dq_plain(
-            q, k, v, o, lse, do), calls=2, replays=2),
-        "dkv": time_ms(torch, lambda i: fa._flash_bwd_dkv_plain(
-            q, k, v, do, lse, delta), calls=2, replays=2),
-        "pair": time_ms(torch, lambda i: fa._flash_bwd_plain(
+        "bwd": time_ms(torch, lambda i: fa._flash_bwd_plain(
             q, k, v, o, lse, do), calls=2, replays=2),
     }
     # yardstick: SDPA on [B, H, S, D], timed as the kernels are (CUDA-graph
@@ -902,22 +919,23 @@ def flash_timing(torch, F, fa, q, k, v, do, o, lse, delta):
         return torch.autograd.grad(y, (qg, kg, vg), dot)
 
     lib["fwd_bwd"] = time_ms(torch, fwd_bwd, calls=10)
-    lib["pair"] = lib["fwd_bwd"] - lib["fwd"]
+    lib["bwd"] = lib["fwd_bwd"] - lib["fwd"]
     bounds = {n: bound_ms(*flash_bounds(B, S, H, D)[n], "bf16")
-              for n in ("fwd", "dq", "dkv", "pair", "pair_split")}
-    shape = f"B={B} S={S} H={H} D={D}"
-    for n in ("fwd", "dq", "dkv", "pair"):
-        sdpa = (f"{lib[n]:.4f} ms" if n in lib
-                else "n/a (no one call computes it alone)")
+              for n in ("fwd", "bwd")}
+    for n in ("fwd", "bwd"):
         print(f"flash {n} {shape}: kernel {ms[n]:.4f} ms  plain "
-              f"{plain[n]:.4f} ms  sdpa {sdpa}  bound "
+              f"{plain[n]:.4f} ms  sdpa {lib[n]:.4f} ms  bound "
               f"{bounds[n][0]:.4f} ms ({bounds[n][1]})")
-    print(f"flash pair {shape}: bound of the split's 7 products "
-          f"{bounds['pair_split'][0]:.4f} ms (the function needs 5)")
-    print(f"flash fwd+bwd {shape}: kernels {ms['fwd'] + ms['pair']:.4f} ms"
+    profile = kernel_profile(torch, lambda: bwd(0), calls=10)
+    for name, (k_ms, n) in sorted(profile.items(), key=lambda x: -x[1][0]):
+        print(f"flash bwd {shape}: profile {k_ms:.4f} ms a call, {n:g} x  "
+              f"{name[:90]}")
+    print(f"flash fwd+bwd {shape}: kernels {ms['fwd'] + ms['bwd']:.4f} ms"
           f"  sdpa {lib['fwd_bwd']:.4f} ms")
-    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
-            "bounds": bounds}
+    out = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bounds": bounds,
+           "profile": {n: round(m, 5) for n, (m, _) in profile.items()}}
+    del qt, kt, vt, dot, qg, kg, vg
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1221,8 +1239,7 @@ def train_phase(torch, tbench, card, fused_blocks=None):
           f"{res['oom_rungs']}")
     check(res["fused_blocks"] == {"attention": fused, "mlp": fused},
           f"fused_blocks {fused_blocks}: the bench took {res['fused_blocks']}")
-    per_step = {"flash_fwd": 0 if fused else fwd, "flash_bwd_dq": L,
-                "flash_bwd_dkv": L,
+    per_step = {"flash_fwd": 0 if fused else fwd, "flash_bwd": L,
                 "fused_qkv": fwd if fused else 0,
                 "fused_attn_epilogue": fwd if fused else 0,
                 "fused_mlp_fwd": fwd if fused else 0,
@@ -1244,16 +1261,19 @@ def train_phase(torch, tbench, card, fused_blocks=None):
     return launches, res
 
 
-def train_profile(torch, tbench, tllama, card):
-    """Where a train step's time goes: one warmup step, then one step of
-    the fused path (the default policy) under torch.profiler at the
-    bench's first rung; device time by kernel and the device's busy
-    share of the profiled wall time."""
+def train_profile(torch, tbench, tllama, card, fused_blocks=None):
+    """Where a train step's time goes: one warmup step, then one step at
+    ``fused_blocks`` (None: the default policy, the fused blocks) under
+    torch.profiler at the bench's first rung; device time by kernel and
+    the device's busy share of the profiled wall time."""
     from torch.profiler import ProfilerActivity, profile
     policy, B = tbench.LADDER[0]
-    cfg = tllama.LlamaConfig(remat_policy=policy, **tbench.MODEL)
+    cfg = tllama.LlamaConfig(remat_policy=policy, fused_blocks=fused_blocks,
+                             **tbench.MODEL)
+    fused = fused_blocks != "off"
     check(tllama._fused_block_modes(cfg, torch.zeros(1, device="cuda"))
-          == (True, True), "the profiled step is not the fused one")
+          == (fused, fused), f"the profiled step is not the "
+          f"{'fused' if fused else 'unfused'} one")
     params = tllama.init_params(cfg, 0, device="cuda")
     for t in tbench.leaves(params):
         t.requires_grad_(True)
@@ -1267,31 +1287,33 @@ def train_profile(torch, tbench, tllama, card):
         tbench.train_step(cfg, params, opt, batch)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    print_profile(prof, wall_us, f"profile train [{card}]: 1 fused step",
-                  20)
+    print_profile(prof, wall_us, f"profile train [{card}]: 1 "
+                  f"{'fused' if fused else 'unfused'} step", 20)
+    del params, opt
+
+
+def device_rows(prof):
+    """The profile's kernels and copies with device time, longest first.
+    Only these count: a CPU op's row repeats the device time of the
+    kernels it launched, and a user annotation's device row
+    (``Optimizer.step``) spans kernels that have rows of their own."""
+    from torch.autograd import DeviceType
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU
+                   and not e.is_user_annotation
+                   and e.self_device_time_total > 0),
+                  key=lambda e: e.self_device_time_total, reverse=True)
 
 
 def print_profile(prof, wall_us, head, top):
-    """Device time by kernel and the busy share.  Only kernels and copies
-    count: a CPU op's row repeats the device time of the kernels it
-    launched, and a user annotation's device row (``Optimizer.step``)
-    spans kernels that have rows of their own."""
-    from torch.autograd import DeviceType
-
-    def dev_us(e):
-        return e.self_device_time_total
-
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type != DeviceType.CPU
-                   and not e.is_user_annotation),
-                  key=dev_us, reverse=True)
-    busy_us = sum(dev_us(e) for e in rows)
+    """Device time by kernel and the busy share."""
+    rows = device_rows(prof)
+    busy_us = sum(e.self_device_time_total for e in rows)
     print(f"{head}, wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}% of wall)")
     for e in rows[:top]:
-        if dev_us(e) > 0:
-            print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  "
-                  f"{e.key[:90]}")
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} x  "
+              f"{e.key[:90]}")
 
 
 def main():
@@ -1362,6 +1384,7 @@ def main():
           f"{unfused_res['step_ms']:.2f} ms (MFU {unfused_res['value']:.2f} "
           f"%), same call")
     train_profile(torch, tbench, tllama, card)
+    train_profile(torch, tbench, tllama, card, "off")
 
     # one step of the main path: 225 int8 matmuls at M = 8 (decode), 64
     # (the default cell's prefill) and 512 (the long-context prefill),
@@ -1435,36 +1458,36 @@ def main():
          "launches_by_run": {n: v["ragged_paged_attention_quant"]
                              for n, v in by_run.items()}},
     ]}
-    # the flash kernels, per call at the bench shape; no one library call
-    # computes dq or dk/dv alone, so those carry the pair's SDPA backward
+    # the flash wrappers, per call at the bench shape; each replaces a
+    # resident body and its streamed twin (one TPU VMEM-capacity split),
+    # and flash_bwd the dq and dk/dv bodies both
     per = "one call at B=4 S=2048 H=16 D=128 (the bench step's shape)"
     src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
-    pair = {"pair_ms": flash["ms"]["pair"],
-            "pair_plain_ms": flash["plain_ms"]["pair"],
-            "pair_bound_ms": flash["bounds"]["pair"][0],
-            "pair_split_bound_ms": flash["bounds"]["pair_split"][0],
-            "pair_library_ms": flash["library_ms"]["pair"]}
-    # each replaces a resident body and its streamed twin (one TPU
-    # VMEM-capacity split)
-    for name, key, line, twin, lib_ms, extra in (
-            ("flash_fwd", "fwd", 543, 313, flash["library_ms"]["fwd"], {}),
-            ("flash_bwd_dq", "dq", 609, 398, None, pair),
-            ("flash_bwd_dkv", "dkv", 645, 439, None, pair)):
+    f128, f64 = flash[128], flash[64]
+    for name, key, lines, extra in (
+            ("flash_fwd", "fwd", (543, 313), {}),
+            ("flash_bwd", "bwd", (609, 645, 398, 439), dict(
+                launches_per="3 kernels a call: delta pre-pass, main, cast",
+                kernel_ms=f128["profile"],
+                d64={k: (f64[k]["bwd"] if k != "bounds"
+                         else f64[k]["bwd"][0])
+                     for k in ("ms", "plain_ms", "library_ms", "bounds")}))):
         kernels["kernels"].append(dict(
             name=name, route="cuda", source=src,
-            replaces=f"paddle_tpu/ops/pallas_ops.py:{line}",
-            also_replaces=f"paddle_tpu/ops/pallas_ops.py:{twin}",
+            replaces=f"paddle_tpu/ops/pallas_ops.py:{lines[0]}",
+            also_replaces=[f"paddle_tpu/ops/pallas_ops.py:{n}"
+                           for n in lines[1:]],
             launches=train_launches[name],
             launches_fused_step=fused_launches[name],
             max_abs_err=flash_err[key],
             row_rel_err=flash_row_err[key], row_rel_max=ROW_REL_MAX,
             control_row_rel_err=min(
-                flash_ctl[n] for n in {"fwd": ("o",), "dq": ("dq",),
-                                       "dkv": ("dk", "dv")}[key]),
-            ms=flash["ms"][key], plain_ms=flash["plain_ms"][key],
-            bound_ms=flash["bounds"][key][0],
-            bound_by=flash["bounds"][key][1], library_ms=lib_ms, per=per,
-            **extra))
+                flash_ctl[n] for n in {"fwd": ("o",),
+                                       "bwd": ("dq", "dk", "dv")}[key]),
+            ms=f128["ms"][key], plain_ms=f128["plain_ms"][key],
+            bound_ms=f128["bounds"][key][0],
+            bound_by=f128["bounds"][key][1],
+            library_ms=f128["library_ms"][key], per=per, **extra))
     # the fused blocks, per call at the bench shape; no one PyTorch call
     # computes any of them, so the unfused composition stands beside
     per = "one call at B=4 S=2048 H=2048 D=128 I=5632 (the bench step's)"
@@ -1492,8 +1515,8 @@ def main():
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
             composition_ms=r["composition_ms"], per=per, launches_per=note))
-    check(len(kernels["kernels"]) == 10, "the kernels line lists "
-          f"{len(kernels['kernels'])} kernels, not 10")
+    check(len(kernels["kernels"]) == 9, "the kernels line lists "
+          f"{len(kernels['kernels'])} kernels, not 9")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

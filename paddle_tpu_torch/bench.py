@@ -64,8 +64,8 @@ SMOKE_LADDER = (("full", 2),)
 SMOKE_SEQ, SMOKE_ITERS, SMOKE_WARMUP = 256, 3, 1
 # every kernel wrapper of the train path, by the name its launches are
 # reported under
-KERNELS = {"flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
-           "flash_bwd_dkv": fa.flash_bwd_dkv, "fused_qkv": fb.fused_qkv,
+KERNELS = {"flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
+           "fused_qkv": fb.fused_qkv,
            "fused_attn_epilogue": fb.fused_attn_epilogue,
            "fused_mlp_fwd": fb.fused_mlp_fwd,
            "fused_mlp_bwd_dx": fb.fused_mlp_bwd_dx}

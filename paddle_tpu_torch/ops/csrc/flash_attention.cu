@@ -1,15 +1,21 @@
-// Flash causal attention for Hopper: a forward kernel and a backward pair
-// (dq, dk/dv), bf16 in and out, f32 accumulation on the tensor cores.
+// Flash causal attention for Hopper: a forward kernel and one backward
+// (three launches: a pre-pass, the main kernel, a cast pass), bf16 in and
+// out, f32 accumulation on the tensor cores.
 //
 // Replaces paddle_tpu/ops/pallas_ops.py's six flash bodies:
-//   flash_fwd      <- _flash_fwd_kernel_resident (543) and
-//                     _flash_fwd_kernel_streamed (313)
-//   flash_bwd_dq   <- _flash_bwd_dq_kernel_resident (609) and
-//                     _flash_bwd_dq_kernel_streamed (398)
-//   flash_bwd_dkv  <- _flash_bwd_dkv_kernel_resident (645) and
-//                     _flash_bwd_dkv_kernel_streamed (439)
+//   flash_fwd  <- _flash_fwd_kernel_resident (543) and
+//                 _flash_fwd_kernel_streamed (313)
+//   flash_bwd  <- _flash_bwd_dq_kernel_resident (609),
+//                 _flash_bwd_dkv_kernel_resident (645) and their streamed
+//                 twins (398, 439): the reference's _flash_bwd (746) as
+//                 one function, (dq, dk, dv) from (q, k, v, o, lse, do)
 // Resident vs streamed was a TPU VMEM-capacity split; here one kernel of
-// each kind serves every S >= 1 (tail rows and keys are masked).
+// each kind serves every S >= 1 (tail rows and keys are masked).  The
+// TPU also split the backward into a dq pass and a dk/dv pass because its
+// grid runs in order on one core, where a sum of dq across key tiles
+// needs a second pass; on this card the key tiles' dq parts are summed
+// in f32 by atomics, as FlashAttention-2 does, so the backward does five
+// products where the split did seven.
 //
 // Layout: q, k, v, o, do are [B, S, H, D] contiguous, read in place
 // through the row stride H*D (no [B*H, S, D] transposes); lse and delta
@@ -22,38 +28,62 @@
 //         mma.sync m16n8k16 (bf16 x bf16 -> f32); the online-softmax
 //         state (row max, row sum) lives in registers, in log2 units.
 //         Writes o (bf16) and lse = m + log(l) (f32, natural log).
-//   dq:   one block per (b*h, 64-row q tile); loops over k tiles up to
-//         the diagonal.  delta = rowsum(do * o) is computed here, at the
-//         start, for the block's rows, and written out for dkv.
-//         p = exp(s*scale - lse), ds = p * (do v^T - delta), dq = ds k *
-//         scale.
-//   dkv:  one block per (b*h, 64-key tile); loops over 32-row q tiles
-//         from the diagonal to the end, in the transposed view (rows are
-//         keys): dv += p^T do, dk += ds^T q * scale.
-// Every output row is owned by one block: no atomics, deterministic.
+//   bwd:  1. pre-pass: delta = rowsum(do * o) in f32 (16-byte loads, D/8
+//            lanes a row) and the f32 dq accumulator zeroed, in one
+//            launch (no memset: a CUDA graph replays every call).
+//         2. main: one block per (b*h, key tile of 128 keys), key tile 0
+//            (the one that sees the most q rows) launched first; a
+//            warpgroup (4 warps) per 64 keys.  K and V stay in shared
+//            memory; q, do, lse and delta come in 64-row tiles from the
+//            diagonal to the end through a two-stage cp.async ring, the
+//            next tile in flight while the tensor cores work on this one.
+//            Per q tile, in the transposed view (rows are keys), five
+//            wgmma products (m64nNk16, bf16 -> f32; B, and A where it is
+//            not in registers, read by the tensor cores straight from
+//            shared memory, stored with the 128-byte swizzle and named
+//            by descriptors, K-major or MN-major):
+//              S^T = K Q^T and dP^T = V dO^T (A and B from shared memory);
+//              P^T = exp2(S^T scale log2e - lse log2e) under the mask,
+//              dS^T = P^T (dP^T - delta), in registers;
+//              dQ_part = dS K (A = dS^T from shared memory, read M-major;
+//              each warpgroup D / 2 columns of it), summed
+//              into the f32 accumulator with 8-byte red.global.add
+//              (atomicAdd(float2)) while
+//              dV += P^T dO and dK += dS^T Q run (A = P^T, dS^T straight
+//              from the accumulators, as registers).
+//            dK (scaled) and dV stay in registers and are written once.
+//         3. cast: dq = bf16(acc * scale).
+// dk and dv have one writer each and are deterministic; dq is summed by
+// atomics in an order that changes from run to run, so it is not
+// bit-reproducible (it agrees with the plain version within the same
+// limits).
 //
 // What bounds it on this card: attention at S = 2048, D = 128 does ~D/2
-// flops per byte of q/k/v read once, and far more per byte actually
-// moved through shared memory, so it is bound by the tensor cores
-// (989 TFLOP/s bf16 dense).  This first version reaches them through
-// mma.sync from fragments loaded with 32-bit shared-memory reads, with
-// no cp.async pipelining, no wgmma and no TMA: it is right and simple,
-// not fast.  Those are later work.
+// flops per byte of q/k/v read once, so it is bound by the tensor cores
+// (989 TFLOP/s bf16 dense).  The forward reaches them through mma.sync
+// from fragments loaded with 32-bit shared-memory reads, with no
+// cp.async pipelining: it is right and simple, not fast.  The backward
+// reaches them through wgmma (mma.sync from ldmatrix fragments was
+// bound by its shared-memory reads: every warp re-read the whole q and
+// do tile).  What it pays besides: two block barriers a q tile (the
+// tile landed; dS^T complete for dQ), the softmax between the products,
+// the f32 reduction of dq (at B 4, S 2048, H 16, D 128: 64 heads x 272
+// (key, q) tile pairs x 32 KB = 0.57 GB of red traffic to L2) and the
+// two row passes (~0.2 GB of device memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kBQ = 64;    // fwd, dq: q rows per block (16 per warp)
-constexpr int kBK = 64;    // fwd, dq: keys per staged tile (== kBQ)
-constexpr int kBKV = 64;   // dkv: keys per block (16 per warp)
-constexpr int kBQ2 = 32;   // dkv: q rows per staged tile
+constexpr int kBQ = 64;    // fwd: q rows per block (16 per warp)
+constexpr int kBK = 64;    // fwd: keys per staged tile (== kBQ)
 constexpr int kPad = 8;    // bf16 of padding per smem row: no bank conflicts
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -198,167 +228,141 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// backward: dq (and delta)
+// backward
 // ---------------------------------------------------------------------------
 
+constexpr int kRowThreads = 256;  // pre-pass and cast pass
+constexpr int kBwdQ = 64;         // main: q rows a ring stage
+constexpr int kBwdKV = 128;       // main: keys a block, 64 a warpgroup
+constexpr int kBwdStages = 2;     // main: ring stages
+
+// 1. delta = rowsum(do * o) in f32, and the rows of the f32 dq
+// accumulator zeroed: D / 8 lanes a row of [B, S, H, D], 16 bytes each,
+// rows in memory order (r = (b S + s) H + h)
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ o,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, bf16* __restrict__ dq,
-                        float* __restrict__ delta, int S, int H, float scale) {
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [kBQ][LD]
-  bf16* do_s = q_s + kBQ * LD;                // [kBQ][LD]
-  bf16* k_s = do_s + kBQ * LD;                // [kBK][LD]
-  bf16* v_s = k_s + kBK * LD;                 // [kBK][LD]
-  __shared__ float delta_s[kBQ];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int t = lane & 3;
-  const int nq = (S + kBQ - 1) / kBQ;
-  const int qt = nq - 1 - (int)blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const size_t ld = (size_t)H * D;
-  const size_t base = (size_t)b * S * ld + (size_t)h * D;
-  const int q0 = qt * kBQ;
-  const int row[2] = {q0 + warp * 16 + (lane >> 2),
-                      q0 + warp * 16 + (lane >> 2) + 8};
-
-  load_tile<D, kBQ>(q_s, q + base, q0, S, ld, tid);
-  load_tile<D, kBQ>(do_s, dout + base, q0, S, ld, tid);
-  __syncthreads();
-  // delta = rowsum(do * o): each warp its 16 rows, lanes across D
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = warp * 16 + rr, qrow = q0 + r;
-    float acc = 0.f;
-    if (qrow < S) {
-      const bf16* orow = o + base + (size_t)qrow * ld;
-      for (int c = lane; c < D; c += 32)
-        acc += __bfloat162float(orow[c]) * __bfloat162float(do_s[r * LD + c]);
-    }
+__global__ void __launch_bounds__(kRowThreads)
+    flash_bwd_prep_kernel(const bf16* __restrict__ o,
+                          const bf16* __restrict__ dout,
+                          float* __restrict__ delta,
+                          float* __restrict__ dq_acc, int R, int S, int H) {
+  constexpr int L = D / 8;
+  const int i = blockIdx.x * kRowThreads + threadIdx.x;
+  const int r = i / L, c = (i - r * L) * 8;
+  float acc = 0.f;
+  if (r < R) {
+    const size_t off = (size_t)r * D + c;
+    const uint4 a = *reinterpret_cast<const uint4*>(o + off);
+    const uint4 b = *reinterpret_cast<const uint4*>(dout + off);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      delta_s[r] = acc;
-      if (qrow < S) delta[(size_t)bh * S + qrow] = acc;
+    for (int j = 0; j < 4; ++j) {
+      const float2 x = __bfloat1622float2(a2[j]);
+      const float2 y = __bfloat1622float2(b2[j]);
+      acc += x.x * y.x + x.y * y.y;
     }
+    float4* z = reinterpret_cast<float4*>(dq_acc + off);
+    z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  __syncthreads();
-  float lse2[2], dlt[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lse2[r] = row[r] < S ? lse[(size_t)bh * S + row[r]] * kLog2e : 0.f;
-    dlt[r] = delta_s[row[r] - q0];
-  }
-
-  float dqa[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-  const float sl2 = scale * kLog2e;
-  const bf16* qw = q_s + warp * 16 * LD;
-  const bf16* dow = do_s + warp * 16 * LD;
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kBK;
-    load_tile<D, kBK>(k_s, k + base, k0, S, ld, tid);
-    load_tile<D, kBK>(v_s, v + base, k0, S, ld, tid);
-    __syncthreads();
-
-    float s[kBK / 8][4], dp[kBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a(qa, qw + kk * 16, LD, lane);
-      load_a(da, dow + kk * 16, LD, lane);
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n) {
-        uint32_t bf[2];
-        load_b_nk(bf, k_s + n * 8 * LD + kk * 16, LD, lane);
-        mma(s[n], qa, bf);
-        load_b_nk(bf, v_s + n * 8 * LD + kk * 16, LD, lane);
-        mma(dp[n], da, bf);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = k0 + n * 8 + 2 * t + (i & 1);
-        const int r = i >> 1;
-        const float p = (col <= row[r] && col < S)
-                            ? exp2f(s[n][i] * sl2 - lse2[r]) : 0.f;
-        s[n][i] = p * (dp[n][i] - dlt[r]);  // ds
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t da[4];
-      c_to_a(da, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t bf[2];
-        load_b_kn(bf, k_s + kk * 16 * LD + n * 8, LD, lane);
-        mma(dqa[n], da, bf);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= S) continue;
-    bf16* drow = dq + base + (size_t)row[r] * ld + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(drow + n * 8) =
-          pack_f32(dqa[n][2 * r] * scale, dqa[n][2 * r + 1] * scale);
+  for (int off = L / 2; off > 0; off >>= 1)  // within the row's L lanes
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (r < R && c == 0) {
+    const int h = r % H, bs = r / H, s = bs % S, b = bs / S;
+    delta[((size_t)b * H + h) * S + s] = acc;
   }
 }
 
-// ---------------------------------------------------------------------------
-// backward: dk, dv
-// ---------------------------------------------------------------------------
+// 2. the main kernel.  A warpgroup (4 warps) owns 64 keys, 16 a warp, and
+// runs every product as wgmma m64nNk16 with B from shared memory: K, V,
+// q, do and dS^T are stored with the 128-byte swizzle, read K-major or
+// MN-major through descriptors.  P^T and dS^T are A operands
+// straight from the accumulators (the mma.sync A layout, block by block).
+template <int D>
+struct Bwd {
+  static constexpr int kGroups = kBwdKV / 64;     // warpgroups, 64 keys each
+  static constexpr int kThreads = 128 * kGroups;
+  static constexpr int kDQ = D / kGroups;         // dq columns a warpgroup
+  static constexpr int kStage = 2 * kBwdQ * D;    // q, do (bf16)
+  static constexpr int kSmem =
+      (2 * kBwdKV * D + kBwdStages * kStage + kBwdKV * kBwdQ) * 2 +
+      kBwdStages * 2 * kBwdQ * 4;                 // + lse, delta (f32)
+};
+
+// rows [row0, row0 + R) of one (b, h) slice of a [B, S, H, D] tensor (g ->
+// element (b, 0, h, 0), row stride ld) into a swizzled tile, rows >= S
+// zeroed; a warp copies whole 128-byte rows
+template <int D, int R, int NT>
+__device__ __forceinline__ void load_sw(bf16* s, const bf16* g, int row0,
+                                        int S, size_t ld, int tid) {
+  for (int m = tid; m < R * D / 8; m += NT) {
+    const int r = m / (D / 8), cg = m - r * (D / 8);
+    const bool ok = row0 + r < S;
+    cp_async16(s + sw128_off<R>(r, cg * 8),
+               g + (size_t)(ok ? row0 + r : 0) * ld + cg * 8, ok);
+  }
+}
+
+// the operand at p read K-major, or MN-major with its panels `panel` bytes
+// apart
+__device__ __forceinline__ uint64_t desc_k(const bf16* p) {
+  return wgmma_desc_sw128(p, 0);
+}
+__device__ __forceinline__ uint64_t desc_mn(const bf16* p, uint32_t panel) {
+  return wgmma_desc_sw128(p, panel);
+}
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
-                         int H, float scale) {
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);  // [kBKV][LD]
-  bf16* v_s = k_s + kBKV * LD;                // [kBKV][LD]
-  bf16* q_s = v_s + kBKV * LD;                // [kBQ2][LD]
-  bf16* do_s = q_s + kBQ2 * LD;               // [kBQ2][LD]
-  __shared__ float lse_s[kBQ2], delta_s[kBQ2];
+__global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
+    flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int S, int H, float scale) {
+  using C = Bwd<D>;
+  constexpr int NT = C::kThreads;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem);   // [kBwdKV][D], swizzled
+  bf16* v_s = k_s + kBwdKV * D;                // [kBwdKV][D]
+  bf16* ring = v_s + kBwdKV * D;               // stages x {q, do}
+  bf16* ds_s = ring + kBwdStages * C::kStage;  // [kBwdKV][kBwdQ]: dS^T
+  float* rows_s =
+      reinterpret_cast<float*>(ds_s + kBwdKV * kBwdQ);  // lse, delta
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int t = lane & 3;
-  const int kt = blockIdx.x;  // low key tiles see the most q rows: first
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int g = lane >> 2, t = lane & 3, wg = warp >> 2, w = warp & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int k0 = blockIdx.y * kBwdKV;  // key tile 0 sees the most q rows
   const size_t ld = (size_t)H * D;
   const size_t base = (size_t)b * S * ld + (size_t)h * D;
-  const int k0 = kt * kBKV;
-  const int key[2] = {k0 + warp * 16 + (lane >> 2),
-                      k0 + warp * 16 + (lane >> 2) + 8};
+  const float* lse_bh = lse + (size_t)bh * S;
+  const float* delta_bh = delta + (size_t)bh * S;
+  const int j0 = k0 / kBwdQ;  // q tiles before j0 see none of these keys
+  const int n_it = (S + kBwdQ - 1) / kBwdQ - j0;
+  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
 
-  load_tile<D, kBKV>(k_s, k + base, k0, S, ld, tid);
-  load_tile<D, kBKV>(v_s, v + base, k0, S, ld, tid);
+  // K and V of the tile (rows >= S zeroed), resident for the block
+  load_sw<D, kBwdKV, NT>(k_s, k + base, k0, S, ld, tid);
+  load_sw<D, kBwdKV, NT>(v_s, v + base, k0, S, ld, tid);
+  // q, do, lse and delta of q tile j into ring stage st (rows >= S zeroed)
+  auto load_q = [&](int st, int j) {
+    bf16* qs = ring + st * C::kStage;
+    const int q0 = j * kBwdQ;
+    load_sw<D, kBwdQ, NT>(qs, q + base, q0, S, ld, tid);
+    load_sw<D, kBwdQ, NT>(qs + kBwdQ * D, dout + base, q0, S, ld, tid);
+    float* rs = rows_s + st * 2 * kBwdQ;
+    for (int i = tid; i < 2 * kBwdQ; i += NT) {
+      const int r = i & (kBwdQ - 1);
+      const bool ok = q0 + r < S;
+      cp_async4(rs + i, (i < kBwdQ ? lse_bh : delta_bh) + (ok ? q0 + r : 0),
+                ok);
+    }
+  };
+  load_q(0, j0);
+  cp_async_commit();
 
   float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
@@ -367,69 +371,134 @@ __global__ void __launch_bounds__(kThreads)
     dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
   }
   const float sl2 = scale * kLog2e;
-  const bf16* kw = k_s + warp * 16 * LD;
-  const bf16* vw = v_s + warp * 16 * LD;
-  const int nq2 = (S + kBQ2 - 1) / kBQ2;
 
-  for (int j = k0 / kBQ2; j < nq2; ++j) {  // earlier q rows are masked
-    const int qs0 = j * kBQ2;
-    load_tile<D, kBQ2>(q_s, q + base, qs0, S, ld, tid);
-    load_tile<D, kBQ2>(do_s, dout + base, qs0, S, ld, tid);
-    if (tid < kBQ2) {
-      const bool in = qs0 + tid < S;
-      lse_s[tid] = in ? lse[(size_t)bh * S + qs0 + tid] * kLog2e : 0.f;
-      delta_s[tid] = in ? delta[(size_t)bh * S + qs0 + tid] : 0.f;
-    }
-    __syncthreads();
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kBwdStages, q0 = (j0 + it) * kBwdQ;
+    cp_async_wait<0>();    // this thread's copies of tile it have landed
+    fence_async_shared();  // ... visible to wgmma
+    __syncthreads();       // ... every thread's; iteration it - 1 is done
+    // the next tile into the stage iteration it - 1 read
+    if (it + 1 < n_it) load_q((it + 1) % kBwdStages, j0 + it + 1);
+    cp_async_commit();
+    const bf16* q_s = ring + st * C::kStage;
+    const bf16* do_s = q_s + kBwdQ * D;
+    const float* lse_s = rows_s + st * 2 * kBwdQ;
+    const float* dl_s = lse_s + kBwdQ;
 
-    // transposed view: rows = this warp's 16 keys, columns = 32 q rows
-    float st[kBQ2 / 8][4], dpt[kBQ2 / 8][4];
+    // S^T = K Q^T and dP^T = V dO^T: this group's 64 keys x 64 q rows
+    float s[kBwdQ / 8][4], dp[kBwdQ / 8][4];
 #pragma unroll
-    for (int n = 0; n < kBQ2 / 8; ++n) {
-      st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-      dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
+    for (int n = 0; n < kBwdQ / 8; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
     }
+    wgmma_hold(s);
+    wgmma_hold(dp);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a(ka, kw + kk * 16, LD, lane);
-      load_a(va, vw + kk * 16, LD, lane);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kBwdQ, 0, 0>(
+          s, desc_k(k_s + sw128_off<kBwdKV>(wg * 64, kk * 16)),
+          desc_k(q_s + sw128_off<kBwdQ>(0, kk * 16)));
+    wgmma_commit();
 #pragma unroll
-      for (int n = 0; n < kBQ2 / 8; ++n) {
-        uint32_t bf[2];
-        load_b_nk(bf, q_s + n * 8 * LD + kk * 16, LD, lane);
-        mma(st[n], ka, bf);
-        load_b_nk(bf, do_s + n * 8 * LD + kk * 16, LD, lane);
-        mma(dpt[n], va, bf);
-      }
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kBwdQ, 0, 0>(
+          dp, desc_k(v_s + sw128_off<kBwdKV>(wg * 64, kk * 16)),
+          desc_k(do_s + sw128_off<kBwdQ>(0, kk * 16)));
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T is in; dP^T may still be running
+    wgmma_hold(s);
+    // P^T under the causal mask (rows >= S too)
+    const bool edge = q0 < k0 + kBwdKV || q0 + kBwdQ > S;
 #pragma unroll
-    for (int n = 0; n < kBQ2 / 8; ++n) {
+    for (int n = 0; n < kBwdQ / 8; ++n) {
+      const int c = n * 8 + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int c = n * 8 + 2 * t + (i & 1), qrow = qs0 + c;
-        const float p = (qrow >= key[i >> 1] && qrow < S)
-                            ? exp2f(st[n][i] * sl2 - lse_s[c]) : 0.f;
-        st[n][i] = p;
-        dpt[n][i] = p * (dpt[n][i] - delta_s[c]);  // ds^T
+        const int qrow = q0 + c + (i & 1);
+        float p = exp2f(s[n][i] * sl2 - ((i & 1) ? l2.y : l2.x) * kLog2e);
+        if (edge && (qrow < key[i >> 1] || qrow >= S)) p = 0.f;
+        s[n][i] = p;
       }
     }
+    wgmma_wait<0>();
+    wgmma_hold(dp);
+    // dS^T = P^T (dP^T - delta); to registers as A fragments (bf16, as the
+    // products take them) and to shared memory for dQ
+    uint32_t pa[kBwdQ / 16][4], da[kBwdQ / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBQ2 / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      c_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-      c_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t bf[2];
-        load_b_kn(bf, do_s + kk * 16 * LD + n * 8, LD, lane);
-        mma(dva[n], pa, bf);
-        load_b_kn(bf, q_s + kk * 16 * LD + n * 8, LD, lane);
-        mma(dka[n], da, bf);
-      }
+    for (int n = 0; n < kBwdQ / 8; ++n) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dl_s + n * 8 + 2 * t);
+      dp[n][0] = s[n][0] * (dp[n][0] - d2.x);
+      dp[n][1] = s[n][1] * (dp[n][1] - d2.y);
+      dp[n][2] = s[n][2] * (dp[n][2] - d2.x);
+      dp[n][3] = s[n][3] * (dp[n][3] - d2.y);
     }
-    __syncthreads();  // q_s / do_s / lse_s / delta_s are spent
+#pragma unroll
+    for (int kk = 0; kk < kBwdQ / 16; ++kk) {
+      c_to_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+      c_to_a(da[kk], dp[2 * kk], dp[2 * kk + 1]);
+      const int r = warp * 16 + g, c = kk * 16 + 2 * t;
+      *reinterpret_cast<uint32_t*>(ds_s + sw128_off<kBwdKV>(r, c)) =
+          da[kk][0];
+      *reinterpret_cast<uint32_t*>(ds_s + sw128_off<kBwdKV>(r + 8, c)) =
+          da[kk][1];
+      *reinterpret_cast<uint32_t*>(ds_s + sw128_off<kBwdKV>(r, c + 8)) =
+          da[kk][2];
+      *reinterpret_cast<uint32_t*>(ds_s + sw128_off<kBwdKV>(r + 8, c + 8)) =
+          da[kk][3];
+    }
+    fence_async_shared();  // the dS^T stores, for the dQ product
+    __syncthreads();       // dS^T of all kBwdKV keys is in shared memory
+    // dQ_part = dS K over the kBwdKV keys (A = dS^T read M-major): this
+    // group's columns wg * kDQ .., warp w's rows w * 16 ..; then dV += P^T
+    // dO and dK += dS^T Q (K = the tile's q rows: MN-major B), running while
+    // dQ is summed into dq_acc
+    float qa[C::kDQ / 8][4];
+#pragma unroll
+    for (int n = 0; n < C::kDQ / 8; ++n)
+      qa[n][0] = qa[n][1] = qa[n][2] = qa[n][3] = 0.f;
+    wgmma_hold(qa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBwdKV / 16; ++kk)
+      wgmma_ss<C::kDQ, 1, 1>(
+          qa, desc_mn(ds_s + sw128_off<kBwdKV>(kk * 16, 0), kBwdKV * 128),
+          desc_mn(k_s + sw128_off<kBwdKV>(kk * 16, wg * C::kDQ),
+                  kBwdKV * 128));
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kBwdQ / 16; ++kk) {
+      wgmma_rs<D, 1>(dva, pa[kk],
+                     desc_mn(do_s + sw128_off<kBwdQ>(kk * 16, 0), kBwdQ * 128));
+      wgmma_rs<D, 1>(dka, da[kk],
+                     desc_mn(q_s + sw128_off<kBwdQ>(kk * 16, 0), kBwdQ * 128));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // dQ
+    wgmma_hold(qa);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qrow = q0 + w * 16 + g + 8 * r;
+      if (qrow >= S) continue;
+      float* dst = dq_acc + base + (size_t)qrow * ld + wg * C::kDQ + 2 * t;
+#pragma unroll
+      for (int n = 0; n < C::kDQ / 8; ++n)
+        atomicAdd(reinterpret_cast<float2*>(dst + n * 8),
+                  make_float2(qa[n][2 * r], qa[n][2 * r + 1]));
+    }
+    wgmma_wait<0>();  // dV, dK
+    wgmma_hold(dva);
+    wgmma_hold(dka);
+#pragma unroll
+    for (int kk = 0; kk < kBwdQ / 16; ++kk) {
+      wgmma_hold(pa[kk]);
+      wgmma_hold(da[kk]);
+    }
   }
+  cp_async_wait<0>();
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -446,14 +515,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// dynamic shared memory of each kernel, in bytes
+// 3. dq = bf16(acc * scale), 8 values a thread
+__global__ void __launch_bounds__(kRowThreads)
+    flash_bwd_cast_kernel(const float* __restrict__ acc,
+                          bf16* __restrict__ dq, size_t n8, float scale) {
+  const size_t i = (size_t)blockIdx.x * kRowThreads + threadIdx.x;
+  if (i >= n8) return;
+  const float4 a = reinterpret_cast<const float4*>(acc)[2 * i];
+  const float4 c = reinterpret_cast<const float4*>(acc)[2 * i + 1];
+  reinterpret_cast<uint4*>(dq)[i] = make_uint4(
+      pack_f32(a.x * scale, a.y * scale), pack_f32(a.z * scale, a.w * scale),
+      pack_f32(c.x * scale, c.y * scale), pack_f32(c.z * scale, c.w * scale));
+}
+
+// dynamic shared memory of the forward kernel, in bytes
 template <int D> constexpr int fwd_smem() { return 2 * kBK * (D + kPad) * 2; }
-template <int D> constexpr int dq_smem() {
-  return (2 * kBQ + 2 * kBK) * (D + kPad) * 2;
-}
-template <int D> constexpr int dkv_smem() {
-  return (2 * kBKV + 2 * kBQ2) * (D + kPad) * 2;
-}
 
 // Raise each kernel's dynamic shared-memory limit once, before its first
 // launch (never inside a CUDA-graph capture: the first call is eager).
@@ -481,36 +557,31 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int D>
-cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                   const void* dout, const void* lse, void* dq, void* delta,
-                   int B, int S, int H, float scale, cudaStream_t s) {
+cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
+                const void* dout, const void* lse, void* dq, void* dk,
+                void* dv, void* delta, void* dq_acc, int B, int S, int H,
+                float scale, cudaStream_t s) {
+  using C = Bwd<D>;
   static bool ready = false;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, dq_smem<D>(), &ready);
+  cudaError_t err = allow_smem(flash_bwd_kernel<D>, C::kSmem, &ready);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, dq_smem<D>(), s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<bf16*>(dq), static_cast<float*>(delta), S, H, scale);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta,
-                    void* dk, void* dv, int B, int S, int H, float scale,
-                    cudaStream_t s) {
-  static bool ready = false;
-  cudaError_t err =
-      allow_smem(flash_bwd_dkv_kernel<D>, dkv_smem<D>(), &ready);
-  if (err != cudaSuccess) return err;
-  dim3 grid((S + kBKV - 1) / kBKV, B * H);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, dkv_smem<D>(), s>>>(
+  const int R = B * S * H, rows = kRowThreads / (D / 8);
+  flash_bwd_prep_kernel<D><<<(R + rows - 1) / rows, kRowThreads, 0, s>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+      static_cast<float*>(delta), static_cast<float*>(dq_acc), R, S, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dim3 grid(B * H, (S + kBwdKV - 1) / kBwdKV);
+  flash_bwd_kernel<D><<<grid, C::kThreads, C::kSmem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, scale);
+      static_cast<float*>(dq_acc), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), S, H, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t n8 = (size_t)R * D / 8;
+  flash_bwd_cast_kernel<<<(unsigned)((n8 + kRowThreads - 1) / kRowThreads),
+                          kRowThreads, 0, s>>>(
+      static_cast<const float*>(dq_acc), static_cast<bf16*>(dq), n8, scale);
   return cudaGetLastError();
 }
 
@@ -518,8 +589,8 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
 
 // All tensors bf16 [B, S, H, D] contiguous except lse and delta (f32
 // [B, H, S]); d in {64, 128}.  Each returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a head width it was not built for (the
-// wrapper checks first).
+// cudaErrorInvalidValue for a head width it was not built for
+// (the wrapper checks first).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int B, int S, int H,
                                 int d, float scale, void* stream) {
@@ -529,28 +600,20 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
-                                   const void* v, const void* o,
-                                   const void* dout, const void* lse,
-                                   void* dq, void* delta, int B, int S, int H,
-                                   int d, float scale, void* stream) {
+// The backward's three launches.  delta ([B, H, S] f32) and dq_acc
+// ([B, S, H, D] f32) are workspaces the wrapper allocates (uninitialised:
+// the pre-pass writes both).
+extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
+                                const void* o, const void* dout,
+                                const void* lse, void* dq, void* dk, void* dv,
+                                void* delta, void* dq_acc, int B, int S,
+                                int H, int d, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 128)
-    return bwd_dq<128>(q, k, v, o, dout, lse, dq, delta, B, S, H, scale, s);
+    return bwd<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, dq_acc, B, S,
+                    H, scale, s);
   if (d == 64)
-    return bwd_dq<64>(q, k, v, o, dout, lse, dq, delta, B, S, H, scale, s);
-  return cudaErrorInvalidValue;
-}
-
-extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
-                                    const void* v, const void* dout,
-                                    const void* lse, const void* delta,
-                                    void* dk, void* dv, int B, int S, int H,
-                                    int d, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 128)
-    return bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, s);
-  if (d == 64)
-    return bwd_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, s);
+    return bwd<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, dq_acc, B, S, H,
+                   scale, s);
   return cudaErrorInvalidValue;
 }

@@ -50,9 +50,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "mma_bf16.cuh"
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3;
 constexpr int kThreads = 256;
@@ -95,11 +95,6 @@ __device__ __forceinline__ float rbf(float f) {  // round to bf16 (RN)
   return __bfloat162float(__float2bfloat16(f));
 }
 
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ void unpack8(const uint4& u, float v[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
@@ -119,24 +114,6 @@ __device__ __forceinline__ uint4 pack8(const float v[8]) {
   return u;
 }
 
-// 16 bytes global -> shared, zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile(
@@ -153,17 +130,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
-}
-
-// c += a * b, m16n8k16, row-major A, column-major B, f32 accumulators
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ float sigmoid(float g) {

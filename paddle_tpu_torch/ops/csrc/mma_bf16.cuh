@@ -1,7 +1,8 @@
-// Tensor-core helpers shared by the attention kernels: mma.sync m16n8k16
+// Tensor-core helpers shared by the bf16 kernels: mma.sync m16n8k16
 // (bf16 x bf16 -> f32) and the fragment loads from shared memory that
-// feed it, plus the quad reductions over one fragment row.  Included by
-// flash_attention.cu and ragged_paged_attention.cu; _build.py hashes an
+// feed it, the cp.async copies that fill shared memory, and the quad
+// reductions over one fragment row.  Included by flash_attention.cu,
+// ragged_paged_attention.cu and fused_blocks.cu; _build.py hashes an
 // included header with the source that includes it.
 
 #pragma once
@@ -76,6 +77,35 @@ __device__ __forceinline__ void c_to_a(uint32_t a[4], const float c0[4],
   a[1] = pack_f32(c0[2], c0[3]);
   a[2] = pack_f32(c1[0], c1[1]);
   a[3] = pack_f32(c1[2], c1[3]);
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: global -> shared without a register round trip
+// ---------------------------------------------------------------------------
+
+// 16 bytes, bypassing L1; ok == false reads nothing and zero-fills
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+// 4 bytes (one f32 of a row that need not be 16-byte aligned)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ float quad_max(float x) {

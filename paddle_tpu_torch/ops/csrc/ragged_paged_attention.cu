@@ -115,21 +115,6 @@ struct Args {
   float scale;
 };
 
-// 16 bytes global -> shared, bypassing L1; src_bytes 0 zero-fills and
-// reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // 16 bytes of a key row as f32
 __device__ __forceinline__ void unpack(const uint4& w, float* f, float) {
   f[0] = __uint_as_float(w.x);

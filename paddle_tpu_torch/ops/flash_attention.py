@@ -13,15 +13,17 @@ Layout, as at the reference's public function:
 The reference kept ``lse`` replicated over 128 TPU lanes; that was a
 TPU layout artifact and is not kept.
 
-Three wrappers, each with a plain integer ``launches`` count:
-``flash_fwd`` -> (o, lse), ``flash_bwd_dq`` -> (dq, delta) and
-``flash_bwd_dkv`` -> (dk, dv).  CUDA tensors go to the hand-written
-kernels in ``csrc/flash_attention.cu`` (bf16, head dim 64 or 128, any
-S >= 1; anything else raises), which read ``[B, S, H, D]`` in place
-through its row stride: the reference's ``_to_bh`` transposes are gone.
-CPU tensors go to the plain versions, which materialise the S x S
-scores in f32 as the kernels' math does.  ``causal_attention`` is the
-``torch.autograd.Function`` over them.
+Two wrappers, each with a plain integer ``launches`` count of its
+calls: ``flash_fwd`` -> (o, lse) and ``flash_bwd`` -> (dq, dk, dv), the
+reference's ``_flash_bwd`` as one function.  CUDA tensors go to the
+hand-written kernels in ``csrc/flash_attention.cu`` (bf16, head dim 64
+or 128, any S >= 1; anything else raises), which read ``[B, S, H, D]``
+in place through its row stride: the reference's ``_to_bh`` transposes
+are gone.  The backward is three launches (a delta pre-pass, the main
+kernel over 128-key tiles, a cast of the f32 dq sum); dq is summed
+across key tiles by atomics, so it is not bit-reproducible on the card.  CPU tensors go to the plain versions,
+which materialise the S x S scores in f32 as the kernels' math does.
+``causal_attention`` is the ``torch.autograd.Function`` over them.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import torch
 
 from . import _build
 
-__all__ = ["causal_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
+__all__ = ["causal_attention", "flash_fwd", "flash_bwd"]
 
 _HEAD_DIMS = (64, 128)
 
@@ -107,10 +109,8 @@ def _flash_bwd_plain(q, k, v, o, lse, do):
 _ARGTYPES = {
     # q k v o lse B S H d scale stream
     "flash_fwd_launch": 5 * ["p"] + 4 * ["i"] + ["f", "p"],
-    # q k v o do lse dq delta B S H d scale stream
-    "flash_bwd_dq_launch": 8 * ["p"] + 4 * ["i"] + ["f", "p"],
-    # q k v do lse delta dk dv B S H d scale stream
-    "flash_bwd_dkv_launch": 8 * ["p"] + 4 * ["i"] + ["f", "p"],
+    # q k v o do lse dq dk dv delta dq_acc B S H d scale stream
+    "flash_bwd_launch": 11 * ["p"] + 4 * ["i"] + ["f", "p"],
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -174,32 +174,22 @@ def _launch_fwd(q, k, v):
     return o, lse
 
 
-def _flash_bwd_dq_cuda(q, k, v, o, lse, do):
-    B, S, H, D = _check_kernel_args("flash_bwd_dq", q, k, v, o, do)
+def _flash_bwd_cuda(q, k, v, o, lse, do):
+    """The backward's three launches, uncounted (``flash_bwd`` counts),
+    with their f32 workspaces: delta [B, H, S] and the dq sum
+    [B, S, H, D], both written by the first launch."""
+    B, S, H, D = _check_kernel_args("flash_bwd", q, k, v, o, do)
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
-    lse = _rows(lse, B, H, S, "flash_bwd_dq lse")
-    dq = torch.empty_like(q)
+    lse = _rows(lse, B, H, S, "flash_bwd lse")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    err = _fn("flash_bwd_dq_launch")(*_ptrs(q, k, v, o, do, lse, dq, delta),
-                                     B, S, H, D, 1.0 / math.sqrt(D),
-                                     _build.stream_ptr(q.device))
-    _build.check(err, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
-    return dq, delta
-
-
-def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta):
-    B, S, H, D = _check_kernel_args("flash_bwd_dkv", q, k, v, do)
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
-    lse = _rows(lse, B, H, S, "flash_bwd_dkv lse")
-    delta = _rows(delta, B, H, S, "flash_bwd_dkv delta")
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _fn("flash_bwd_dkv_launch")(
-        *_ptrs(q, k, v, do, lse, delta, dk, dv), B, S, H, D,
+    acc = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
+    err = _fn("flash_bwd_launch")(
+        *_ptrs(q, k, v, o, do, lse, dq, dk, dv, delta, acc), B, S, H, D,
         1.0 / math.sqrt(D), _build.stream_ptr(q.device))
-    _build.check(err, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
-    return dk, dv
+    _build.check(err, "flash_bwd")
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -221,30 +211,23 @@ def flash_fwd(q, k, v):
     return _flash_fwd_plain(q, k, v)
 
 
-def flash_bwd_dq(q, k, v, o, lse, do):
-    """dq, and delta = rowsum(do * o) [B, H, S] f32 for
-    ``flash_bwd_dkv``."""
-    if _route(q, "flash_bwd_dq") == "cuda":
-        return _flash_bwd_dq_cuda(q, k, v, o, lse, do)
-    return _flash_bwd_dq_plain(q, k, v, o, lse, do)
+def flash_bwd(q, k, v, o, lse, do):
+    """Causal attention backward: (dq, dk, dv) from the forward's o and
+    lse and the output gradient do."""
+    if _route(q, "flash_bwd") == "cuda":
+        grads = _flash_bwd_cuda(q, k, v, o, lse, do)
+        flash_bwd.launches += 1
+        return grads
+    return _flash_bwd_plain(q, k, v, o, lse, do)
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta):
-    """(dk, dv) from the forward's lse and ``flash_bwd_dq``'s delta."""
-    if _route(q, "flash_bwd_dkv") == "cuda":
-        return _flash_bwd_dkv_cuda(q, k, v, do, lse, delta)
-    return _flash_bwd_dkv_plain(q, k, v, do, lse, delta)
-
-
-flash_fwd.launches = 0      # kernel launches since last reset
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+flash_fwd.launches = 0      # calls that launched the kernels since reset
+flash_bwd.launches = 0
 
 
 class _CausalAttention(torch.autograd.Function):
     """The reference's ``causal_attention`` custom VJP: the forward
-    saves q, k, v, o and lse; the backward runs dq (which also yields
-    delta) and then dk/dv."""
+    saves q, k, v, o and lse; the backward is ``flash_bwd``."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -255,9 +238,7 @@ class _CausalAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, delta = flash_bwd_dq(q, k, v, o, lse, do)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
-        return dq, dk, dv
+        return flash_bwd(q, k, v, o, lse, do)
 
 
 def causal_attention(q, k, v):

@@ -36,12 +36,11 @@ for the tensor cores.
 
 ``fused_attention_block`` and ``fused_mlp_block`` are
 ``torch.autograd.Function``s with the reference's backward split: the
-attention backward runs the flash backward kernels
-(``flash_bwd_dq``/``flash_bwd_dkv``) on the flat-head tensors, and
-``dwo``, the attention-output gradient and the prologue's gradients
-are plain PyTorch (the reference left them to XLA); the MLP's dx comes
-from ``fused_mlp_bwd_dx``, its ln and weight gradients from autograd
-of the plain composition with x fixed.
+attention backward runs the flash backward (``flash_bwd``) on the
+flat-head tensors, and ``dwo``, the attention-output gradient and the
+prologue's gradients are plain PyTorch (the reference left them to
+XLA); the MLP's dx comes from ``fused_mlp_bwd_dx``, its ln and weight
+gradients from autograd of the plain composition with x fixed.
 """
 from __future__ import annotations
 
@@ -370,10 +369,9 @@ class _FusedAttention(torch.autograd.Function):
         # the epilogue's transpose
         dwo = attn.reshape(-1, H).t() @ dy.reshape(-1, H)
         gb = dy @ wo.t()
-        # the O(S^2) core: the flash backward kernels on [B, S, nh, D]
+        # the O(S^2) core: the flash backward on [B, S, nh, D]
         qh, kh, vh, oh, gh = (_heads(t, D) for t in (q, k, v, attn, gb))
-        dq, delta = fa.flash_bwd_dq(qh, kh, vh, oh, lse, gh)
-        dk, dv = fa.flash_bwd_dkv(qh, kh, vh, gh, lse, delta)
+        dq, dk, dv = fa.flash_bwd(qh, kh, vh, oh, lse, gh)
         # the prologue's transpose: autograd of its plain composition
         with torch.enable_grad():
             xl, lnl, wql, wkl, wvl = (_leaf(t) for t in (x, ln, wq, wk, wv))

@@ -10,6 +10,11 @@ against the JAX reference on the CPU.
   the resident kernels at S = 512 and the streamed ones at S = 768
   (256 x 256 blocks), D = 128, including the reference's lane-replicated
   lse (its lane 0 equals the port's lse).  Same tolerances.
+- ``flash_bwd`` on CPU tensors against the plain version (equal) and
+  the reference's ``causal_attention`` VJP (its ``_bwd``: the Pallas
+  backward in interpret mode where the reference takes it, the jnp
+  recompute elsewhere), also at the kernels' tails (S = 1, below, at
+  and off their 64-row and 128-key tiles).
 - ``causal_attention`` through torch autograd, and ``models.llama.
   _attention`` with GQA against the reference's ``_attention``.
 - The kernels' argument checks, which are pure Python and run here.
@@ -113,12 +118,48 @@ def test_plain_versions_match_the_pallas_bodies(interpret, variant, S):
     ref = bwd(qb, kb, vb, gb, o_ref, jnp.asarray(lse_ref), 256, 256)
     o_t = torch.from_numpy(_from_bh(o_ref, B, H).copy())
     lse_t = torch.from_numpy(lse_ref[..., 0].reshape(B, H, S).copy())
-    dq, delta = fa.flash_bwd_dq(tq, tk, tv, o_t, lse_t, tdo)
-    dk, dv = fa.flash_bwd_dkv(tq, tk, tv, tdo, lse_t, delta)
-    for g, r, name in zip((dq, dk, dv), ref, "qkv"):
+    grads = fa.flash_bwd(tq, tk, tv, o_t, lse_t, tdo)
+    for g, r, name in zip(grads, ref, "qkv"):
         np.testing.assert_allclose(g.numpy(), _from_bh(r, B, H),
                                    atol=ATOL_GRAD, rtol=0,
                                    err_msg=f"d{name} {variant}")
+
+
+@pytest.mark.parametrize("B,S,H,D,pallas", [(1, 256, 2, 128, True),
+                                            (2, 37, 2, 64, False)])
+def test_flash_bwd_on_cpu_matches_plain_and_jax_vjp(interpret, B, S, H, D,
+                                                    pallas):
+    """``flash_bwd`` on CPU tensors is the plain version, and both match
+    the VJP of the reference's ``causal_attention`` (its ``_bwd``) on
+    the same numpy inputs."""
+    q, k, v, do = _inputs(B, S, H, D, seed=S + D)
+    assert pallas_ops.flash_attention_available(q.shape, q.dtype) == pallas
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    o, lse = fa.flash_fwd(tq, tk, tv)
+    got = fa.flash_bwd(tq, tk, tv, o, lse, tdo)
+    for g, r in zip(got, fa._flash_bwd_plain(tq, tk, tv, o, lse, tdo)):
+        assert torch.equal(g, r)
+    _, vjp = jax.vjp(pallas_ops.causal_attention, jnp.asarray(q),
+                     jnp.asarray(k), jnp.asarray(v))
+    for g, r, name in zip(got, vjp(jnp.asarray(do)), "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r),
+                                   atol=ATOL_GRAD, rtol=0,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1, 17, 64, 127, 128, 129])
+def test_flash_bwd_on_cpu_matches_jax_vjp_at_tails(S, D):
+    q, k, v, do = _inputs(2, S, 2, D, seed=3 * S + D)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    o, lse = fa.flash_fwd(tq, tk, tv)
+    got = fa.flash_bwd(tq, tk, tv, o, lse, tdo)
+    _, vjp = jax.vjp(pallas_ops.causal_attention, jnp.asarray(q),
+                     jnp.asarray(k), jnp.asarray(v))
+    for g, r, name in zip(got, vjp(jnp.asarray(do)), "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r),
+                                   atol=ATOL_GRAD, rtol=0,
+                                   err_msg=f"d{name}")
 
 
 def test_causal_attention_autograd_matches_jax():
@@ -174,13 +215,10 @@ def test_gqa_attention_layer_matches_jax():
 
 def test_launch_counts_stay_put_on_the_cpu():
     q, k, v, do = _t(*_inputs(1, 8, 1, 16, seed=0))
-    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
-              fa.flash_bwd_dkv.launches)
+    before = (fa.flash_fwd.launches, fa.flash_bwd.launches)
     o, lse = fa.flash_fwd(q, k, v)
-    dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do)
-    fa.flash_bwd_dkv(q, k, v, do, lse, delta)
-    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
-            fa.flash_bwd_dkv.launches) == before
+    fa.flash_bwd(q, k, v, o, lse, do)
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == before
 
 
 def test_other_devices_raise():
@@ -188,9 +226,7 @@ def test_other_devices_raise():
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         fa.flash_fwd(q, q, q)
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
-        fa.flash_bwd_dq(q, q, q, q, q, q)
-    with pytest.raises(RuntimeError, match="no kernel for device meta"):
-        fa.flash_bwd_dkv(q, q, q, q, q, q)
+        fa.flash_bwd(q, q, q, q, q, q)
 
 
 @pytest.mark.parametrize("dtype,D,exc,match", [
