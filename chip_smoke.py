@@ -719,10 +719,12 @@ def prefill_profile(torch, serving, cfg, params, kv_dtype, card):
 # flash attention (the train path's kernels)
 # ---------------------------------------------------------------------------
 
-# (B, S, H, D): tails (S = 1, 17, 200, 1000: no multiple of a tile), both
-# head dims, a long S at D = 64, the bench shape last
+# (B, S, H, D): tails (S = 1, 17, 200, 257, 1000: no multiple of a tile;
+# 257 one key past two 128-key tiles), both head dims, a long S at D = 64,
+# the bench shape last
 FLASH_CASES = [(1, 1, 2, 128), (2, 17, 3, 64), (1, 200, 2, 128),
-               (1, 1000, 2, 128), (1, 4096, 4, 64), (4, 2048, 16, 128)]
+               (1, 257, 2, 64), (1, 1000, 2, 128), (1, 4096, 4, 64),
+               (4, 2048, 16, 128)]
 
 
 def flash_bounds(B, S, H, D):
@@ -1080,7 +1082,9 @@ def fused_phase(torch, fb):
     ``ROW_REL_MAX`` per row and ``NORM_REL_MAX`` over the tensor, lse
     within 1e-3; a control per kernel (``fused_controls``) must break
     the row limit.  Times by CUDA-graph replay: kernel, plain, bound and
-    the unfused composition."""
+    the unfused composition; each call's launches by kernel (device ms a
+    call from torch.profiler), so row 8's flash and GEMM halves and the
+    GEMMs of rows 7, 9 and 10 are seen apart."""
     B, S, H, D, I = FUSED_SHAPE
     t = fused_inputs(torch, B, S, H, D, I)
     args = {
@@ -1149,11 +1153,18 @@ def fused_phase(torch, fb):
         plain_ms = time_ms(torch, lambda i: plain[n](), calls=2, replays=2)
         comp_ms = time_ms(torch, lambda i: comp[n](), calls=10)
         b_ms, b_by = bound_ms(*bounds[n], "bf16")
+        profile = kernel_profile(torch, args[n], calls=10)
         res[n].update(ms=ms, plain_ms=plain_ms, composition_ms=comp_ms,
                       bound_ms=b_ms, bound_by=b_by,
-                      control_row_rel_err=control[n])
+                      control_row_rel_err=control[n],
+                      kernel_ms={kern: round(m, 5)
+                                 for kern, (m, _) in profile.items()})
         print(f"{n}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"composition {comp_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        for kern, (k_ms, c) in sorted(profile.items(),
+                                      key=lambda x: -x[1][0]):
+            print(f"{n}: profile {k_ms:.4f} ms a call, {c:g} x  "
+                  f"{kern[:90]}")
     return res
 
 
@@ -1464,14 +1475,16 @@ def main():
     per = "one call at B=4 S=2048 H=16 D=128 (the bench step's shape)"
     src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
     f128, f64 = flash[128], flash[64]
+
+    def d64(key):
+        return {k: (f64[k][key] if k != "bounds" else f64[k][key][0])
+                for k in ("ms", "plain_ms", "library_ms", "bounds")}
+
     for name, key, lines, extra in (
-            ("flash_fwd", "fwd", (543, 313), {}),
+            ("flash_fwd", "fwd", (543, 313), dict(d64=d64("fwd"))),
             ("flash_bwd", "bwd", (609, 645, 398, 439), dict(
                 launches_per="3 kernels a call: delta pre-pass, main, cast",
-                kernel_ms=f128["profile"],
-                d64={k: (f64[k]["bwd"] if k != "bounds"
-                         else f64[k]["bwd"][0])
-                     for k in ("ms", "plain_ms", "library_ms", "bounds")}))):
+                kernel_ms=f128["profile"], d64=d64("bwd")))):
         kernels["kernels"].append(dict(
             name=name, route="cuda", source=src,
             replaces=f"paddle_tpu/ops/pallas_ops.py:{lines[0]}",
@@ -1514,7 +1527,8 @@ def main():
             control_row_rel_err=r["control_row_rel_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
-            composition_ms=r["composition_ms"], per=per, launches_per=note))
+            composition_ms=r["composition_ms"], kernel_ms=r["kernel_ms"],
+            per=per, launches_per=note))
     check(len(kernels["kernels"]) == 9, "the kernels line lists "
           f"{len(kernels['kernels'])} kernels, not 9")
     print(json.dumps(kernels))

@@ -21,13 +21,25 @@
 // through the row stride H*D (no [B*H, S, D] transposes); lse and delta
 // are [B, H, S] f32.  D is 64 or 128.
 //
-//   fwd:  one block per (b*h, 64-row q tile), heaviest tiles first.  Each
-//         of 4 warps owns 16 q rows; q stays in registers as mma A
-//         fragments.  k/v tiles of 64 keys are staged in shared memory,
-//         only up to the causal diagonal.  S = q k^T and O += P v run on
-//         mma.sync m16n8k16 (bf16 x bf16 -> f32); the online-softmax
-//         state (row max, row sum) lives in registers, in log2 units.
-//         Writes o (bf16) and lse = m + log(l) (f32, natural log).
+//   fwd:  one block per (b*h, 128-row q tile), heaviest tiles first; a
+//         warpgroup (4 warps) per 64 q rows.  The q tile goes to shared
+//         memory once; k and v tiles of 128 keys, only up to the causal
+//         diagonal, come through a three-stage cp.async ring two tiles
+//         ahead; all three are stored with the 128-byte swizzle.  Each
+//         stage has two mbarriers (its copies landed; both warpgroups are
+//         done with it) instead of a block barrier, so the warpgroups run
+//         out of step and take turns on the tensor cores (two named
+//         barriers): one's S product runs while the other does its
+//         softmax.  Per key tile, two wgmma products (m64nNk16, bf16 ->
+//         f32):
+//           S = Q K^T (A and B from shared memory, both K-major);
+//           the online softmax in registers, in log2 units (row max and
+//           row sum; only the diagonal tile is masked);
+//           O += P V (A = P rounded to bf16, straight from the
+//           accumulators; B = V as stored, MN-major).
+//         Writes o (bf16, staged through the spent q rows, 16-byte
+//         stores) and lse = m + log(l) (f32, natural log).  Every output
+//         element has one writer: the result is the same from run to run.
 //   bwd:  1. pre-pass: delta = rowsum(do * o) in f32 (16-byte loads, D/8
 //            lanes a row) and the f32 dq accumulator zeroed, in one
 //            launch (no memset: a CUDA graph replays every call).
@@ -60,16 +72,18 @@
 //
 // What bounds it on this card: attention at S = 2048, D = 128 does ~D/2
 // flops per byte of q/k/v read once, so it is bound by the tensor cores
-// (989 TFLOP/s bf16 dense).  The forward reaches them through mma.sync
-// from fragments loaded with 32-bit shared-memory reads, with no
-// cp.async pipelining: it is right and simple, not fast.  The backward
-// reaches them through wgmma (mma.sync from ldmatrix fragments was
-// bound by its shared-memory reads: every warp re-read the whole q and
-// do tile).  What it pays besides: two block barriers a q tile (the
-// tile landed; dS^T complete for dQ), the softmax between the products,
-// the f32 reduction of dq (at B 4, S 2048, H 16, D 128: 64 heads x 272
-// (key, q) tile pairs x 32 KB = 0.57 GB of red traffic to L2) and the
-// two row passes (~0.2 GB of device memory).
+// (989 TFLOP/s bf16 dense).  Both directions reach them through wgmma
+// with operands in swizzled shared memory.  The forward pays the softmax
+// between its two products of a warpgroup: the turns hide one
+// warpgroup's softmax under the other's S product only, every thread
+// issues copies between its products (no producer warp, no TMA), and the
+// PV product of a tile is waited for before the next tile's S.
+// (mma.sync from fragments was bound by its shared-memory reads in both:
+// every warp re-read whole tiles.)  The backward pays besides: two block
+// barriers a q tile (the tile landed; dS^T complete for dQ), the softmax
+// between the products, the f32 reduction of dq (at B 4, S 2048, H 16,
+// D 128: 64 heads x 272 (key, q) tile pairs x 32 KB = 0.57 GB of red
+// traffic to L2) and the two row passes (~0.2 GB of device memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,62 +94,101 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBQ = 64;    // fwd: q rows per block (16 per warp)
-constexpr int kBK = 64;    // fwd: keys per staged tile (== kBQ)
-constexpr int kPad = 8;    // bf16 of padding per smem row: no bank conflicts
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegBig = -1e30f;  // finite: -inf - -inf would be NaN
 
-// rows [row0, row0 + ROWS) of one (b, h) slice of a [B, S, H, D] tensor
-// (g -> element (b, 0, h, 0), row stride ld) into smem, rows >= S zeroed
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int row0,
-                                          int S, size_t ld, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = tid; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i - r * kChunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      v = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(s + r * (D + kPad) + c) = v;
+// rows [row0, row0 + R) of one (b, h) slice of a [B, S, H, D] tensor (g ->
+// element (b, 0, h, 0), row stride ld) into a swizzled tile, rows >= S
+// zeroed; a warp copies whole 128-byte rows
+template <int D, int R, int NT>
+__device__ __forceinline__ void load_sw(bf16* s, const bf16* g, int row0,
+                                        int S, size_t ld, int tid) {
+  for (int m = tid; m < R * D / 8; m += NT) {
+    const int r = m / (D / 8), cg = m - r * (D / 8);
+    const bool ok = row0 + r < S;
+    cp_async16(s + sw128_off<R>(r, cg * 8),
+               g + (size_t)(ok ? row0 + r : 0) * ld + cg * 8, ok);
   }
+}
+
+// the operand at p read K-major, or MN-major with its panels `panel` bytes
+// apart
+__device__ __forceinline__ uint64_t desc_k(const bf16* p) {
+  return wgmma_desc_sw128(p, 0);
+}
+__device__ __forceinline__ uint64_t desc_mn(const bf16* p, uint32_t panel) {
+  return wgmma_desc_sw128(p, panel);
 }
 
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
+constexpr int kFwdQ = 128;      // q rows a block, 64 a warpgroup
+constexpr int kFwdK = 128;      // keys a ring stage (== kFwdQ)
+constexpr int kFwdStages = 3;   // ring stages: tiles j - 1 .. j + 1
+constexpr int kFwdThreads = 256;
+// named barriers (0 is __syncthreads): the tensor-core turn of warpgroup
+// g is 1 + g; the output staging of warpgroup g is 3 + g
+constexpr int kTurnBar = 1, kStoreBar = 3;
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct Fwd {
+  static constexpr int kStage = 2 * kFwdK * D;  // k, v (bf16)
+  static constexpr int kBars = (kFwdQ * D + kFwdStages * kStage) * 2;
+  static constexpr int kSmem = kBars + 2 * kFwdStages * 8;  // + mbarriers
+};
+
+// One block per (b*h, 128-row q tile); warpgroup wg owns q rows
+// 64 wg .. 64 wg + 63, warp w of it 16 of them (the accumulator layout of
+// wgmma_bf16.cuh).  q sits in shared memory for the block's life; k and v
+// tiles of 128 keys come through a three-stage cp.async ring, two tiles
+// ahead.  A stage's `full` mbarrier completes when every thread's copies
+// into it have landed, its `empty` one when both warpgroups are done with
+// it, so the warpgroups never meet at a block barrier and run out of
+// step: they take turns on the tensor cores (named barriers), and one's
+// S product runs while the other exponentiates.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, int S, int H, float scale) {
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);  // [kBK][LD], first holds q
-  bf16* v_s = k_s + kBK * LD;                 // [kBK][LD]
+  using C = Fwd<D>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [kFwdQ][D], swizzled
+  bf16* ring = q_s + kFwdQ * D;               // stages x {k, v}
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBars);
+  uint64_t* empty = full + kFwdStages;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int t = lane & 3;
-  const int nq = (S + kBQ - 1) / kBQ;
-  const int qt = nq - 1 - (int)blockIdx.x;  // longest rows first
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int t = lane & 3, wg = warp >> 2;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int qt = (int)gridDim.y - 1 - (int)blockIdx.y;  // longest rows first
   const size_t ld = (size_t)H * D;
   const size_t base = (size_t)b * S * ld + (size_t)h * D;
-  const int q0 = qt * kBQ;
+  const int q0 = qt * kFwdQ;
   const int row[2] = {q0 + warp * 16 + (lane >> 2),
                       q0 + warp * 16 + (lane >> 2) + 8};
-
-  load_tile<D, kBQ>(k_s, q + base, q0, S, ld, tid);
+  if (tid == 0) {
+    for (int i = 0; i < kFwdStages; ++i) {
+      mbar_init(full + i, kFwdThreads);
+      mbar_init(empty + i, kFwdThreads);
+    }
+  }
   __syncthreads();
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    load_a(qa[kk], k_s + warp * 16 * LD + kk * 16, LD, lane);
-  __syncthreads();
+  // this thread's share of k and v of key tile j (rows >= S zeroed) into
+  // its stage, counted on the stage's full barrier when it lands
+  auto load_kv = [&](int j) {
+    bf16* ks = ring + (j % kFwdStages) * C::kStage;
+    load_sw<D, kFwdK, kFwdThreads>(ks, k + base, j * kFwdK, S, ld, tid);
+    load_sw<D, kFwdK, kFwdThreads>(ks + kFwdK * D, v + base, j * kFwdK, S,
+                                   ld, tid);
+    cp_async_mbar_arrive(full + j % kFwdStages);
+  };
+  load_sw<D, kFwdQ, kFwdThreads>(q_s, q + base, q0, S, ld, tid);
+  load_kv(0);  // q lands with tile 0
+  if (qt >= 1) load_kv(1);
 
   float acc[D / 8][4];
 #pragma unroll
@@ -144,28 +197,39 @@ __global__ void __launch_bounds__(kThreads)
   float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
   const float sl2 = scale * kLog2e;
 
-  for (int kt = 0; kt <= qt; ++kt) {  // kBK == kBQ: tile qt holds the diagonal
-    const int k0 = kt * kBK;
-    load_tile<D, kBK>(k_s, k + base, k0, S, ld, tid);
-    load_tile<D, kBK>(v_s, v + base, k0, S, ld, tid);
-    __syncthreads();
+  // warpgroup 0 takes the first turn; each turn passes to the other after
+  // the S product (warpgroup 1 passes none after its last)
+  if (wg == 1) bar_arrive(kTurnBar, kFwdThreads);
+  for (int kt = 0; kt <= qt; ++kt) {  // kFwdK == kFwdQ: qt is the diagonal
+    const int st = kt % kFwdStages, k0 = kt * kFwdK;
+    mbar_wait(full + st, (kt / kFwdStages) & 1);  // tile kt has landed
+    fence_async_shared();                          // ... visible to wgmma
+    const bf16* k_s = ring + st * C::kStage;
+    const bf16* v_s = k_s + kFwdK * D;
 
-    float s[kBK / 8][4];
+    // S = Q K^T: this group's 64 q rows x 128 keys
+    float s[kFwdK / 8][4];
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int n = 0; n < kFwdK / 8; ++n)
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    bar_sync(kTurnBar + wg, kFwdThreads);  // this warpgroup's turn
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n) {
-        uint32_t bf[2];
-        load_b_nk(bf, k_s + n * 8 * LD + kk * 16, LD, lane);
-        mma(s[n], qa[kk], bf);
-      }
-    }
-    const bool edge = kt == qt || k0 + kBK > S;
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kFwdK, 0, 0>(
+          s, desc_k(q_s + sw128_off<kFwdQ>(wg * 64, kk * 16)),
+          desc_k(k_s + sw128_off<kFwdK>(0, kk * 16)));
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(s);
+    if (wg == 0 || kt < qt) bar_arrive(kTurnBar + 1 - wg, kFwdThreads);
+
+    // the online softmax, in log2 units; only the diagonal tile (which is
+    // also the only one that can hold keys >= S) is masked
+    const bool edge = kt == qt;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
+    for (int n = 0; n < kFwdK / 8; ++n) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int col = k0 + n * 8 + 2 * t + (i & 1);
@@ -184,7 +248,7 @@ __global__ void __launch_bounds__(kThreads)
       l[r] *= corr[r];
     }
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
+    for (int n = 0; n < kFwdK / 8; ++n) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = exp2f(s[n][i] - mx[i >> 1]);  // masked -> 0
@@ -199,31 +263,58 @@ __global__ void __launch_bounds__(kThreads)
       acc[n][2] *= corr[1];
       acc[n][3] *= corr[1];
     }
+    // O += P V: P (rounded to bf16) straight from the accumulators as A
+    // fragments, V read as stored (keys along its rows: MN-major)
+    uint32_t pa[kFwdK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+    for (int kk = 0; kk < kFwdK / 16; ++kk)
+      c_to_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+    wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t bf[2];
-        load_b_kn(bf, v_s + kk * 16 * LD + n * 8, LD, lane);
-        mma(acc[n], pa, bf);
-      }
+    for (int kk = 0; kk < kFwdK / 16; ++kk)
+      wgmma_rs<D, 1>(acc, pa[kk],
+                     desc_mn(v_s + sw128_off<kFwdK>(kk * 16, 0), kFwdK * 128));
+    wgmma_commit();
+    // tile kt + 2 into the stage tile kt - 1 held, once both warpgroups
+    // are done with it
+    if (kt + 2 <= qt) {
+      if (kt >= 1)
+        mbar_wait(empty + (kt + 2) % kFwdStages,
+                  ((kt - 1) / kFwdStages) & 1);
+      load_kv(kt + 2);
     }
-    __syncthreads();  // k_s / v_s are spent
+    wgmma_wait<0>();
+    wgmma_hold(acc);
+#pragma unroll
+    for (int kk = 0; kk < kFwdK / 16; ++kk) wgmma_hold(pa[kk]);
+    mbar_arrive(empty + st);  // this thread is done with tile kt
   }
+  cp_async_wait_all();
 
+  // o = acc / l, staged through this warpgroup's rows of q's buffer (only
+  // its own products read them), then 16-byte stores
+  float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float lsum = quad_sum(l[r]);
-    if (row[r] >= S) continue;
-    const float inv = 1.f / lsum;
-    bf16* orow = o + base + (size_t)row[r] * ld + 2 * t;
+    inv[r] = 1.f / lsum;
+    if (t == 0 && row[r] < S)
+      lse[(size_t)bh * S + row[r]] = m[r] * kLn2 + logf(lsum);
+  }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_f32(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    if (t == 0) lse[(size_t)bh * S + row[r]] = m[r] * kLn2 + logf(lsum);
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(
+          q_s + sw128_off<kFwdQ>(row[r] - q0, n * 8 + 2 * t)) =
+          pack_f32(acc[n][2 * r] * inv[r], acc[n][2 * r + 1] * inv[r]);
+  }
+  bar_sync(kStoreBar + wg, 128);  // this warpgroup's 64 rows are staged
+  for (int i = tid - wg * 128; i < 64 * D / 8; i += 128) {
+    const int r = wg * 64 + i / (D / 8), c = (i % (D / 8)) * 8;
+    if (q0 + r < S)
+      *reinterpret_cast<uint4*>(o + base + (size_t)(q0 + r) * ld + c) =
+          *reinterpret_cast<const uint4*>(q_s + sw128_off<kFwdQ>(r, c));
   }
 }
 
@@ -289,29 +380,6 @@ struct Bwd {
       (2 * kBwdKV * D + kBwdStages * kStage + kBwdKV * kBwdQ) * 2 +
       kBwdStages * 2 * kBwdQ * 4;                 // + lse, delta (f32)
 };
-
-// rows [row0, row0 + R) of one (b, h) slice of a [B, S, H, D] tensor (g ->
-// element (b, 0, h, 0), row stride ld) into a swizzled tile, rows >= S
-// zeroed; a warp copies whole 128-byte rows
-template <int D, int R, int NT>
-__device__ __forceinline__ void load_sw(bf16* s, const bf16* g, int row0,
-                                        int S, size_t ld, int tid) {
-  for (int m = tid; m < R * D / 8; m += NT) {
-    const int r = m / (D / 8), cg = m - r * (D / 8);
-    const bool ok = row0 + r < S;
-    cp_async16(s + sw128_off<R>(r, cg * 8),
-               g + (size_t)(ok ? row0 + r : 0) * ld + cg * 8, ok);
-  }
-}
-
-// the operand at p read K-major, or MN-major with its panels `panel` bytes
-// apart
-__device__ __forceinline__ uint64_t desc_k(const bf16* p) {
-  return wgmma_desc_sw128(p, 0);
-}
-__device__ __forceinline__ uint64_t desc_mn(const bf16* p, uint32_t panel) {
-  return wgmma_desc_sw128(p, panel);
-}
 
 template <int D>
 __global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
@@ -528,9 +596,6 @@ __global__ void __launch_bounds__(kRowThreads)
       pack_f32(c.x * scale, c.y * scale), pack_f32(c.z * scale, c.w * scale));
 }
 
-// dynamic shared memory of the forward kernel, in bytes
-template <int D> constexpr int fwd_smem() { return 2 * kBK * (D + kPad) * 2; }
-
 // Raise each kernel's dynamic shared-memory limit once, before its first
 // launch (never inside a CUDA-graph capture: the first call is eager).
 template <typename K>
@@ -546,10 +611,10 @@ template <int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 void* lse, int B, int S, int H, float scale, cudaStream_t s) {
   static bool ready = false;
-  cudaError_t err = allow_smem(flash_fwd_kernel<D>, fwd_smem<D>(), &ready);
+  cudaError_t err = allow_smem(flash_fwd_kernel<D>, Fwd<D>::kSmem, &ready);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), s>>>(
+  dim3 grid(B * H, (S + kFwdQ - 1) / kFwdQ);
+  flash_fwd_kernel<D><<<grid, kFwdThreads, Fwd<D>::kSmem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(lse), S, H, scale);

@@ -1,6 +1,6 @@
-// The fused decoder blocks for Hopper: one tiled bf16 GEMM main loop
-// (mma.sync m16n8k16, f32 accumulation) with an epilogue per use, and two
-// row passes for the RMSNorm.  bf16 in and out; row-major everywhere.
+// The fused decoder blocks for Hopper: tiled bf16 GEMMs (f32
+// accumulation) with an epilogue per use, and two row passes for the
+// RMSNorm.  bf16 in and out; row-major everywhere.
 //
 // Replaces paddle_tpu/ops/pallas_ops.py's four fused-block bodies:
 //   fused_qkv_launch        <- _qkv_fused_kernel (1130): xn = RMSNorm(x)
@@ -27,30 +27,47 @@
 // that the wrapper allocates.  Every output element has one writer: no
 // atomics, deterministic.
 //
-// The GEMM: a 128 x 128 output tile per block of 8 warps (2 x 4, each
-// 64 x 32), K in steps of 32 through a 3-stage cp.async ring, fragments
-// by ldmatrix (.trans for a [K, N] weight).  The f32 tile then goes
-// through shared memory, where every epilogue reads whole rows of it:
-// rope pairs column j with j + D/2 of its head, and the gate/up epilogues
-// pair column j of g with column j of u, which a thread's own fragments
-// never hold together.  B is addressed three ways: a [K, N] weight, two
-// [K, N] weights side by side in N (64 columns of each per tile: g and u
-// of the same columns meet in one tile), or a weight stored [N, K] with
-// K split over two pointers (wg, wu for the dx product).
+// Two GEMM main loops:
+// - gemm_residual_kernel, y = bf16(x + A . B) (the wo product and the
+//   MLP's down product): wgmma on 128 x 256 output tiles.  A [M, K] and
+//   B [K, N], as the model stores them, come in k steps of 64 through a
+//   4-stage ring filled by TMA: one thread of a loader warp issues the
+//   copies (128-byte swizzled by the copy engine) on each stage's full
+//   mbarrier and waits on its empty one, so the two consumer warpgroups
+//   (64 rows each) spend no instructions on loads and meet at no block
+//   barrier.  They run m64n256k16 with both operands read from shared
+//   memory (A K-major, B MN-major), one k step left running while the
+//   next is issued.  The f32 tile meets x in f32 through shared memory:
+//   one rounding, 16-byte stores.
+// - gemm_kernel, every other epilogue: mma.sync m16n8k16 on 128 x 128
+//   output tiles, 8 warps of 64 x 32, K in steps of 32 through a 3-stage
+//   cp.async ring, fragments by ldmatrix (.trans for a [K, N] weight).
+//   The f32 tile then goes through shared memory, where every epilogue
+//   reads whole rows of it: rope pairs column j with j + D/2 of its head,
+//   and the gate/up epilogues pair column j of g with column j of u,
+//   which a thread's own fragments never hold together.  B is addressed
+//   three ways: a [K, N] weight, two [K, N] weights side by side in N (64
+//   columns of each per tile: g and u of the same columns meet in one
+//   tile), or a weight stored [N, K] with K split over two pointers (wg,
+//   wu for the dx product).
 //
 // What bounds it on this card: every product here has K >= 2048 and
 // M = B S = 8192 rows at the bench shape, about 1,000 operations per byte
 // of operand, so the tensor cores bound it (989 TFLOP/s bf16 dense; per
 // call at the bench shape: qkv 0.208 ms, attention + wo 0.139 ms, MLP
-// 0.573 ms, dx 0.955 ms).  mma.sync cannot reach that rate on Hopper
-// (wgmma and TMA can), and the workspaces add device-memory round trips:
-// this version is right and simple, not fast.
+// 0.573 ms, dx 0.955 ms).  mma.sync cannot reach that rate on Hopper;
+// wgmma fed by TMA can, and the residual GEMM uses both.  Its block runs
+// one tile (no persistent schedule: the epilogue does not overlap the
+// next tile's loads) and no cluster shares a tile's loads.  In
+// gemm_kernel every thread issues copies between its products.  The
+// workspaces add device-memory round trips.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -70,7 +87,6 @@ static_assert(kStageB >= kBK * kLdBkn, "B stage too small");
 // epilogues
 enum {
   kRope,        // out = rope(bf16(acc)) for z < rope_z, else bf16(acc)
-  kResidual,    // out = bf16(x + acc)
   kSwiglu,      // dual B: a = bf16(silu(g) * u)
   kGateUp,      // dual B: g, u -> f32 workspace
   kGateUpGrad,  // acc = da; g, u from the workspace -> dg, du (bf16)
@@ -84,7 +100,7 @@ struct Gemm {
   const bf16* b[3];     // B per grid z (kKN), or its low half
   const bf16* b_hi;     // kKNDual: the u weight; kNK: B for k >= ksplit
   void* out[3];         // output per grid z
-  const bf16* x;        // kResidual: residual, row stride ldo
+  const bf16* x;        // gemm_residual_kernel: residual, row stride ldo
   const float* sin;     // kRope: [S, D] tables
   const float* cos;
   float* gu;            // kGateUp / kGateUpGrad: [M, 2 ldo] f32
@@ -142,7 +158,7 @@ __device__ __forceinline__ float sigmoid(float g) {
 
 template <int EPI, int BMODE>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm p) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];
   bf16* sa = reinterpret_cast<bf16*>(smem);
   bf16* sb = sa + kStages * kStageA;
 
@@ -312,13 +328,6 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm p) {
       *reinterpret_cast<uint4*>(o + I) = pack8(du);
       continue;
     }
-    if (EPI == kResidual) {
-      float xv[8];
-      unpack8(*reinterpret_cast<const uint4*>(p.x + (size_t)gr * p.ldo + n0 + c),
-              xv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] += xv[j];
-    }
     if (EPI == kRope && z < p.rope_z) {
       // the reference's rounding: t = bf16(xn . w), rot = rotate_half(t),
       // out = t * bf16(cos) + rot * bf16(sin), each op rounded to bf16
@@ -337,6 +346,128 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm p) {
     }
     *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out[z]) +
                               (size_t)gr * p.ldo + n0 + c) = pack8(v);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the wgmma GEMM with the residual epilogue: y = bf16(x + A . B), one
+// 128 x 256 tile per block of two consumer warpgroups (64 rows each) and
+// a loader warp
+// ---------------------------------------------------------------------------
+
+struct Res {
+  static constexpr int kBM = 128, kBN = 256;
+  static constexpr int kBK = 64;     // one swizzle panel of A
+  static constexpr int kStages = 4;  // ring stages
+  static constexpr int kStageA = kBM * kBK, kStageB = kBK * kBN;  // bf16
+  static constexpr int kStageBytes = (kStageA + kStageB) * 2;
+  static constexpr int kLdC = kBN + 4;  // f32 epilogue tile
+  static constexpr int kPipe = kStages * kStageBytes;
+  static constexpr int kTile = kBM * kLdC * 4;
+  static constexpr int kBars = kPipe > kTile ? kPipe : kTile;
+  static constexpr int kSmem = kBars + 2 * kStages * 8;  // + mbarriers
+  static constexpr int kThreads = 256 + 32;
+};
+
+// A [M, K] (K-major) and B [K, N] as stored (MN-major) come in k steps of
+// 64 through the ring: one thread of the loader warp issues a TMA copy of
+// each (A one 128 x 64 box, B four 64 x 64 boxes, both 128-byte swizzled;
+// rows >= M and columns >= N arrive as zeros) on the stage's full
+// mbarrier, once both warpgroups have released the stage on its empty
+// one.  Each warpgroup runs m64n256k16 wgmma from shared memory into f32
+// accumulators, one k step left running while the next is issued; the
+// tile meets x in f32 through shared memory, rounded once, 16-byte
+// stores.
+__global__ void __launch_bounds__(Res::kThreads, 1)
+    gemm_residual_kernel(const __grid_constant__ CUtensorMap map_a,
+                         const __grid_constant__ CUtensorMap map_b,
+                         const Gemm p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* sa = reinterpret_cast<bf16*>(smem);
+  bf16* sb = sa + Res::kStages * Res::kStageA;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Res::kBars);
+  uint64_t* empty = full + Res::kStages;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.y * Res::kBM, n0 = blockIdx.x * Res::kBN;
+  const int nk = p.K / Res::kBK;
+  if (tid == 0) {
+    for (int i = 0; i < Res::kStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 256);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // the loader
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % Res::kStages;
+        if (kt >= Res::kStages)
+          mbar_wait(empty + st, (kt / Res::kStages - 1) & 1);
+        mbar_expect_tx(full + st, Res::kStageBytes);
+        tma_load_2d(sa + st * Res::kStageA, &map_a, kt * Res::kBK, m0,
+                    full + st);
+#pragma unroll
+        for (int i = 0; i < Res::kBN / 64; ++i)
+          tma_load_2d(sb + st * Res::kStageB + i * Res::kBK * 64, &map_b,
+                      n0 + 64 * i, kt * Res::kBK, full + st);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  float acc[Res::kBN / 8][4];
+#pragma unroll
+  for (int n = 0; n < Res::kBN / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % Res::kStages;
+    mbar_wait(full + st, (kt / Res::kStages) & 1);  // k step kt has landed
+    const bf16* ta = sa + st * Res::kStageA;
+    const bf16* tb = sb + st * Res::kStageB;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < Res::kBK / 16; ++kk)
+      wgmma_ss<Res::kBN, 0, 1>(
+          acc, wgmma_desc_sw128(ta + sw128_off<Res::kBM>(wg * 64, kk * 16), 0),
+          wgmma_desc_sw128(tb + sw128_off<Res::kBK>(kk * 16, 0),
+                           Res::kBK * 128));
+    wgmma_commit();
+    wgmma_wait<1>();  // k step kt - 1 is done: release its stage
+    if (kt > 0) mbar_arrive(empty + (kt - 1) % Res::kStages);
+  }
+  wgmma_wait<0>();
+  wgmma_hold(acc);
+  bar_sync(1, 256);  // both warpgroups are done: the ring takes the f32 tile
+
+  const int cols = min(Res::kBN, p.ldb - n0);  // N = ldb; a multiple of 128
+  float* cs = reinterpret_cast<float*>(smem);
+  const int r0 = warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < Res::kBN / 8; ++n) {
+    const int c = n * 8 + c0;
+    *reinterpret_cast<float2*>(cs + r0 * Res::kLdC + c) =
+        make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(cs + (r0 + 8) * Res::kLdC + c) =
+        make_float2(acc[n][2], acc[n][3]);
+  }
+  bar_sync(1, 256);
+  for (int i = tid; i < Res::kBM * (Res::kBN / 8); i += 256) {
+    const int r = i / (Res::kBN / 8), c = (i % (Res::kBN / 8)) * 8;
+    const int gr = m0 + r;
+    if (gr >= p.M || c >= cols) continue;
+    const float4 lo = *reinterpret_cast<const float4*>(cs + r * Res::kLdC + c);
+    const float4 hi =
+        *reinterpret_cast<const float4*>(cs + r * Res::kLdC + c + 4);
+    const size_t off = (size_t)gr * p.ldo + n0 + c;
+    float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}, xv[8];
+    unpack8(*reinterpret_cast<const uint4*>(p.x + off), xv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] += xv[j];
+    *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out[0]) + off) = pack8(v);
   }
 }
 
@@ -445,6 +576,26 @@ cudaError_t gemm(const Gemm& p, int N, int Z, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+cudaError_t gemm_residual(const Gemm& p, int N, cudaStream_t s) {
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gemm_residual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Res::kSmem);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  CUtensorMap map_a, map_b;
+  cudaError_t err = tma_map_2d(&map_a, p.a, p.M, p.K, p.lda, Res::kBM);
+  if (err != cudaSuccess) return err;
+  err = tma_map_2d(&map_b, p.b[0], p.K, N, p.ldb, Res::kBK);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + Res::kBN - 1) / Res::kBN, (p.M + Res::kBM - 1) / Res::kBM);
+  gemm_residual_kernel<<<grid, Res::kThreads, Res::kSmem, s>>>(map_a, map_b,
+                                                                p);
+  return cudaGetLastError();
+}
+
 cudaError_t rms_norm(const void* x, const void* ln, void* xn, int M, int H,
                      float eps, cudaStream_t s) {
   rms_norm_kernel<<<M, kRowThreads, 0, s>>>(
@@ -505,7 +656,7 @@ extern "C" int fused_attn_out_launch(const void* attn, const void* wo,
   p.out[0] = y;
   p.x = static_cast<const bf16*>(x);
   p.ldb = p.ldo = H;
-  return gemm<kResidual, kKN>(p, H, 1, static_cast<cudaStream_t>(stream));
+  return gemm_residual(p, H, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fused_mlp_fwd_launch(const void* x, const void* ln,
@@ -528,7 +679,7 @@ extern "C" int fused_mlp_fwd_launch(const void* x, const void* ln,
   q.out[0] = y;
   q.x = static_cast<const bf16*>(x);
   q.ldb = q.ldo = H;
-  return gemm<kResidual, kKN>(q, H, 1, s);
+  return gemm_residual(q, H, s);
 }
 
 extern "C" int fused_mlp_bwd_dx_launch(const void* x, const void* ln,

@@ -438,10 +438,11 @@ def _check_bwd(got, q, k, v, o, lse, do):
         assert _row_rel(g, r) <= 2e-2
 
 
-# S: one row, tails below, at and off the tiles (64-row q tiles, 128-key
-# tiles), 1000 (no multiple of either), the bench's 2048
+# S: one row, tails below, at and off one tile and two (the forward's
+# 128-row q tiles and 128-key ring stages, the backward's 128-key blocks
+# and 64-row q stages), 1000 (no multiple of either), the bench's 2048
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("S", [1, 17, 128, 200, 1000, 2048])
+@pytest.mark.parametrize("S", [1, 17, 127, 128, 129, 200, 257, 1000, 2048])
 def test_flash_kernels_match_plain(cuda, S, D):
     B, H = (2, 3) if S < 1000 else (1, 2)
     q, k, v, do = _qkvd(cuda, B, S, H, D, seed=S + D)
@@ -458,6 +459,37 @@ def test_flash_kernels_match_plain(cuda, S, D):
     assert _row_rel(o, o_ref) <= 2e-2
     assert (lse - lse_ref).abs().max().item() <= 1e-3
     _check_bwd(grads, q, k, v, o, lse, do)
+
+
+def test_flash_fwd_twice_in_a_row_is_bit_identical(cuda):
+    """Every element of o and lse has one writer and a fixed order of
+    summation: a second call on the same inputs gives the same bits."""
+    q, k, v, _ = _qkvd(cuda, 2, 1000, 3, 128, seed=4)
+    first = fa.flash_fwd(q, k, v)
+    second = fa.flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_fwd_replays_in_a_cuda_graph(cuda):
+    """A forward captured in a CUDA graph and replayed (as chip_smoke.py
+    times it) writes the eager call's o and lse, bit for bit."""
+    q, k, v, _ = _qkvd(cuda, 2, 1000, 2, 64, seed=8)
+    eager = fa.flash_fwd(q, k, v)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa.flash_fwd(q, k, v)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa.flash_fwd(q, k, v)
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(eager, out):
+        assert torch.equal(a, b)
 
 
 def test_flash_bwd_twice_in_a_row_agrees(cuda):
@@ -604,8 +636,10 @@ from paddle_tpu_torch.ops import fused_blocks as fb  # noqa: E402
 
 FUSED_CASES = [
     # (B, S, H, D, I): S = 200 and 77 are not multiples of the 128-row
-    # tile; the last is the bench's width at a short S
-    (1, 200, 256, 128, 512), (2, 77, 256, 64, 512), (1, 200, 2048, 128, 5632),
+    # tile; H = 128 is one N tile of every GEMM; the last is the bench's
+    # width at a short S
+    (1, 200, 256, 128, 512), (2, 77, 256, 64, 512), (2, 77, 128, 128, 256),
+    (1, 200, 2048, 128, 5632),
 ]
 
 

@@ -10,6 +10,10 @@ against the JAX reference on the CPU.
   the resident kernels at S = 512 and the streamed ones at S = 768
   (256 x 256 blocks), D = 128, including the reference's lane-replicated
   lse (its lane 0 equals the port's lse).  Same tolerances.
+- ``flash_fwd`` on CPU tensors against the reference's
+  ``causal_attention`` and the logsumexp of the causal scores at the
+  forward kernel's tile edges (S = 1, below, at and off one and two
+  128-row tiles).
 - ``flash_bwd`` on CPU tensors against the plain version (equal) and
   the reference's ``causal_attention`` VJP (its ``_bwd``: the Pallas
   backward in interpret mode where the reference takes it, the jnp
@@ -160,6 +164,29 @@ def test_flash_bwd_on_cpu_matches_jax_vjp_at_tails(S, D):
         np.testing.assert_allclose(g.numpy(), np.asarray(r),
                                    atol=ATOL_GRAD, rtol=0,
                                    err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1, 17, 127, 128, 129, 255, 256, 257])
+def test_flash_fwd_on_cpu_matches_jax_at_tails(S, D):
+    """``flash_fwd`` on CPU tensors at the forward kernel's tile edges
+    (128-row q tiles and 128-key tiles: one row, below, at and off one
+    and two tiles) against the reference's ``causal_attention``, and its
+    lse against the logsumexp of the causal scores, in float32 with
+    ``ATOL_OUT`` (summation order only)."""
+    q, k, v = _inputs(2, S, 2, D, seed=5 * S + D)[:3]
+    o, lse = fa.flash_fwd(*_t(q, k, v))
+    ref = pallas_ops.causal_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v))
+    np.testing.assert_allclose(o.numpy(), np.asarray(ref), atol=ATOL_OUT,
+                               rtol=0)
+    s = np.einsum("bshd,bthd->bhst", q.astype(np.float64),
+                  k.astype(np.float64)) / np.sqrt(D)
+    s = np.where(np.tril(np.ones((S, S), bool)), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    lse_ref = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    assert lse.shape == (2, 2, S) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), lse_ref, atol=ATOL_OUT, rtol=0)
 
 
 def test_causal_attention_autograd_matches_jax():

@@ -10,9 +10,11 @@ with numpy and handed to both packages.
 
 - Each plain kernel function against its Pallas kernel called directly:
   ``_fused_qkv_proj``, ``_fused_attn_epilogue`` (y, attn, and lane 0 of
-  the reference's lane-replicated lse), and ``_fused_mlp_pallas``
-  "fwd" and "bwd_dx".  Forward atol 2e-5 (f32 summation order); dx
-  atol 2e-5 + rtol 1e-3 (a sum over I of products).
+  the reference's lane-replicated lse; at head dim 64, which the Pallas
+  body does not take, the reference's jnp composition), and
+  ``_fused_mlp_pallas`` "fwd" and "bwd_dx".  Forward atol 2e-5 (f32
+  summation order); dx atol 2e-5 + rtol 1e-3 (a sum over I of
+  products).
 - ``fused_attention_block`` / ``fused_mlp_block`` forward and the
   gradient of every differentiable input, through torch autograd,
   against ``jax.vjp`` of the reference's fused blocks (custom VJP,
@@ -105,19 +107,41 @@ def test_qkv_plain_matches_the_pallas_kernel():
         _close(g.numpy(), r, msg=n)
 
 
-def test_attn_epilogue_plain_matches_the_pallas_kernel():
+@pytest.mark.parametrize("hd", [64, 128])
+def test_attn_epilogue_plain_matches_the_pallas_kernel(hd):
+    """Both head dims the port's kernels take.  At D = 128 the reference
+    is its Pallas body at the blocks it picks, (128, 128).  Its body
+    does not take D = 64 (it tiles the row statistics over 128 lanes),
+    and there its ``fused_attention_block`` takes the jnp composition
+    instead; so at D = 64 the reference is that composition's epilogue,
+    ``x + _attention_jnp(q, k, v) wo``, and the lse the logsumexp of the
+    causal scores."""
     x, _, _, _, _, wo, _, _ = _attn_args(1)
     rng = np.random.RandomState(2)
     q, k, v = ((rng.standard_normal((B, S, H)) * 0.5).astype(np.float32)
                for _ in range(3))
-    bq, bk = pallas_ops._fused_attn_config(S, H, D, jnp.float32)
-    y_r, attn_r, lse_r = pallas_ops._fused_attn_epilogue(
-        *_j(q, k, v, x, wo), D, bq, bk)
-    y, attn, lse = fb.fused_attn_epilogue(*_t(q, k, v, x, wo), head_dim=D)
+    nh = H // hd
+    if hd == D:
+        bq, bk = pallas_ops._fused_attn_config(S, H, hd, jnp.float32)
+        y_r, attn_r, lse_r = pallas_ops._fused_attn_epilogue(
+            *_j(q, k, v, x, wo), hd, bq, bk)
+        lse_r = np.asarray(lse_r)[..., 0]
+    else:
+        assert pallas_ops._fused_attn_config(S, H, hd, jnp.float32) is None
+        attn_r = pallas_ops._attention_jnp(
+            *(jnp.asarray(t.reshape(B, S, nh, hd)) for t in (q, k, v))
+        ).reshape(B, S, H)
+        y_r = jnp.asarray(x) + attn_r @ jnp.asarray(wo)
+        s = np.einsum("bshd,bthd->bhst", q.reshape(B, S, nh, hd),
+                      k.reshape(B, S, nh, hd)) / np.sqrt(hd)
+        s = np.where(np.tril(np.ones((S, S), bool)), s, -np.inf)
+        m = s.max(-1, keepdims=True)
+        lse_r = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    y, attn, lse = fb.fused_attn_epilogue(*_t(q, k, v, x, wo), head_dim=hd)
     _close(y.numpy(), y_r, msg="y")
     _close(attn.numpy(), attn_r, msg="attn")
-    assert lse.shape == (B, H // D, S) and lse.dtype == torch.float32
-    _close(lse.numpy(), np.asarray(lse_r)[..., 0], msg="lse")
+    assert lse.shape == (B, nh, S) and lse.dtype == torch.float32
+    _close(lse.numpy(), lse_r, msg="lse")
 
 
 @pytest.mark.parametrize("which", ["fwd", "bwd_dx"])
