@@ -992,6 +992,24 @@ def fused_bounds(B, S, H, D, I):
     }
 
 
+def mlp_products(H, I):
+    """The GEMM launches of rows 9 and 10 by the name the profiler gives
+    each (``gemm_tma_kernel<epilogue, B mode>`` by fused_blocks.cu's
+    enums), with the K and N of its products over the M = B S rows: row
+    10's first launch runs da (N = I) and gate/up (N = 2I), both at K =
+    H."""
+    return {
+        "fused_mlp_fwd": (
+            ("gate/up, a = silu(g) u", "gemm_tma_kernel<1, 1>", H, 2 * I),
+            ("down, y = x + a wd", "gemm_tma_kernel<0, 0>", I, H)),
+        "fused_mlp_bwd_dx": (
+            ("da = dy wd^T and gate/up, dg and du", "gate_up_grad_kernel",
+             H, 3 * I),
+            ("dxn = [dg | du] [wg | wu]^T", "gemm_tma_kernel<2, 2>", 2 * I,
+             H)),
+    }
+
+
 def fused_compositions(torch, fb, t, D):
     """The unfused PyTorch composition of each block on the same bf16
     operands: cuBLAS bf16 matmuls, elementwise ops and, for the
@@ -1084,7 +1102,9 @@ def fused_phase(torch, fb):
     the row limit.  Times by CUDA-graph replay: kernel, plain, bound and
     the unfused composition; each call's launches by kernel (device ms a
     call from torch.profiler), so row 8's flash and GEMM halves and the
-    GEMMs of rows 7, 9 and 10 are seen apart."""
+    GEMMs of rows 7, 9 and 10 are seen apart, and each GEMM launch of
+    rows 9 and 10 with its TFLOP/s and share of the card's peak
+    (``mlp_products``; a launch missing from the profile fails)."""
     B, S, H, D, I = FUSED_SHAPE
     t = fused_inputs(torch, B, S, H, D, I)
     args = {
@@ -1148,6 +1168,10 @@ def fused_phase(torch, fb):
     del got, refs
     comp = fused_compositions(torch, fb, t, D)
     bounds = fused_bounds(B, S, H, D, I)
+    products = mlp_products(H, I)
+    from paddle_tpu_torch.bench import peak_bf16_flops
+    peak = (peak_bf16_flops(torch.cuda.get_device_name(0))
+            or PEAK_OPS_S["bf16"])
     for n in names:
         ms = time_ms(torch, lambda i: args[n](), calls=10)
         plain_ms = time_ms(torch, lambda i: plain[n](), calls=2, replays=2)
@@ -1165,6 +1189,16 @@ def fused_phase(torch, fb):
                                       key=lambda x: -x[1][0]):
             print(f"{n}: profile {k_ms:.4f} ms a call, {c:g} x  "
                   f"{kern[:90]}")
+        for what, kern, K, N in products.get(n, ()):
+            k_ms = [m for name, (m, _) in profile.items() if kern in name]
+            check(len(k_ms) == 1, f"{n}: {len(k_ms)} launches of {kern} "
+                  f"in the profile, expected 1 ({what})")
+            tflops = 2 * B * S * K * N / k_ms[0] / 1e9
+            res[n].setdefault("products", {})[what] = dict(
+                ms=round(k_ms[0], 5), tflops=round(tflops, 1))
+            print(f"{n}: product {what} (K {K}, N {N}): {k_ms[0]:.4f} ms, "
+                  f"{tflops:.1f} TFLOP/s, {1e14 * tflops / peak:.1f} % of "
+                  f"{peak / 1e12:g}")
     return res
 
 
@@ -1511,10 +1545,12 @@ def main():
              "two launches: flash_fwd's kernel (attn, lse), then the GEMM "
              "y = x + attn wo"),
             ("fused_mlp_fwd", 1417,
-             "row pass + GEMM [g | u] with silu*mul epilogue + GEMM a wd + x"),
+             "row pass + wgmma GEMM [g | u] (dual B) with silu*mul epilogue "
+             "+ wgmma GEMM a wd + x"),
             ("fused_mlp_bwd_dx", 1444,
-             "row pass + GEMM g, u (f32) + GEMM dy wd^T with dg, du epilogue"
-             " + GEMM [dg | du] [wg | wu]^T + RMSNorm-backward row pass")):
+             "row pass + one wgmma launch for dy wd^T and [g | u] with dg, "
+             "du epilogue + wgmma GEMM [dg | du] [wg | wu]^T (K-major B, K "
+             "split) + RMSNorm-backward row pass")):
         r = fused[name]
         kernels["kernels"].append(dict(
             name=name, route="cuda",

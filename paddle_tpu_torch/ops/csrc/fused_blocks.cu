@@ -15,52 +15,60 @@
 //        then [xn . wg | xn . wu] with a = bf16(silu(g) u) in the
 //        epilogue (g, u in f32), then y = x + a . wd.
 //   fused_mlp_bwd_dx_launch <- _mlp_bwd_dx_kernel (1444): the row pass;
-//        g, u = xn . [wg | wu] (f32 workspace); da = dy . wd^T with
-//        dg = da u silu'(g), du = da silu(g) in the epilogue (stored
-//        bf16: the mma rounds its left operand to bf16, where the
-//        reference multiplied f32 dg, du); dxn = [dg | du] . [wg | wu]^T
-//        (K = 2I, f32); then a row pass for the RMSNorm backward and the
-//        residual, which needs <dz, x> over the whole row.
+//        one launch for da = dy . wd^T and g, u = xn . [wg | wu], with
+//        dg = da u silu'(g), du = da silu(g) from the f32 da, g, u in its
+//        epilogue (stored bf16: the tensor cores round their left operand
+//        to bf16, where the reference multiplied f32 dg, du); dxn = [dg |
+//        du] . [wg | wu]^T (K = 2I, f32); then a row pass for the RMSNorm
+//        backward and the residual, which needs <dz, x> over the whole
+//        row.
 // Blocks on the card share nothing, so what the TPU carried in VMEM
 // scratch across a sequential grid axis (xn, the f32 sums over heads or
 // over I) is either the GEMM's own K loop or a workspace in device memory
 // that the wrapper allocates.  Every output element has one writer: no
 // atomics, deterministic.
 //
-// Two GEMM main loops:
-// - gemm_residual_kernel, y = bf16(x + A . B) (the wo product and the
-//   MLP's down product): wgmma on 128 x 256 output tiles.  A [M, K] and
-//   B [K, N], as the model stores them, come in k steps of 64 through a
-//   4-stage ring filled by TMA: one thread of a loader warp issues the
-//   copies (128-byte swizzled by the copy engine) on each stage's full
-//   mbarrier and waits on its empty one, so the two consumer warpgroups
-//   (64 rows each) spend no instructions on loads and meet at no block
-//   barrier.  They run m64n256k16 with both operands read from shared
-//   memory (A K-major, B MN-major), one k step left running while the
-//   next is issued.  The f32 tile meets x in f32 through shared memory:
-//   one rounding, 16-byte stores.
-// - gemm_kernel, every other epilogue: mma.sync m16n8k16 on 128 x 128
-//   output tiles, 8 warps of 64 x 32, K in steps of 32 through a 3-stage
-//   cp.async ring, fragments by ldmatrix (.trans for a [K, N] weight).
-//   The f32 tile then goes through shared memory, where every epilogue
-//   reads whole rows of it: rope pairs column j with j + D/2 of its head,
-//   and the gate/up epilogues pair column j of g with column j of u,
-//   which a thread's own fragments never hold together.  B is addressed
-//   three ways: a [K, N] weight, two [K, N] weights side by side in N (64
-//   columns of each per tile: g and u of the same columns meet in one
-//   tile), or a weight stored [N, K] with K split over two pointers (wg,
-//   wu for the dx product).
+// The GEMM main loops:
+// - gemm_tma_kernel<EPI, BMODE>: the wo product (row 8), gate/up and down
+//   (row 9), dxn (row 10).  wgmma on 128-row tiles: A [M, K] and B come
+//   in k steps of 64 through a 4-stage ring filled by TMA: one thread of
+//   a loader warp issues the copies (128-byte swizzled by the copy
+//   engine; rows >= M and columns past the edge arrive as zeros) on each
+//   stage's full mbarrier and waits on its empty one, so the two consumer
+//   warpgroups (64 rows each) spend no instructions on loads and meet at
+//   no block barrier.  Each runs one m64n256k16 a k16 step from shared
+//   memory (A K-major), one k step left running while the next is issued.
+//   B is read three ways (BMODE): a [K, N] weight as stored (MN-major,
+//   four 64-column boxes); two [K, N] weights, the same 128 columns of
+//   each (g in accumulator blocks 0-15, u in 16-31, so g and u of one
+//   column sit in one thread's registers and the swiglu epilogue runs
+//   there; the output tile is 128 wide); or a weight stored [N, K]
+//   (K-major, one box of 256 N rows), K split over two weights at ksplit
+//   (wg, wu for dxn).  The residual epilogue meets x in f32 through
+//   shared memory (16-byte stores); the others store from registers.
+// - gate_up_grad_kernel: row 10's da and gate/up products, the same
+//   roles and ring (3 stages) over two K loops on one 128 x 128 tile of
+//   [M, I]: da (m64n128k16, wd K-major) parked in shared memory, then g, u
+//   (m64n256k16, the dual B), then dg, du from registers.  It spares the
+//   f32 g, u workspace a separate da launch would read back (369 MB each
+//   way at the bench shape).
+// - gemm_kernel: row 7's q, k, v with rope: mma.sync m16n8k16 on
+//   128 x 128 tiles, 8 warps of 64 x 32, K in steps of 32 through a
+//   3-stage cp.async ring, fragments by ldmatrix (.trans for the [K, N]
+//   weight).  The f32 tile goes through shared memory, where rope pairs
+//   column j with j + D/2 of its head.
 //
-// What bounds it on this card: every product here has K >= 2048 and
+// What bounds them on this card: every product here has K >= 2048 and
 // M = B S = 8192 rows at the bench shape, about 1,000 operations per byte
 // of operand, so the tensor cores bound it (989 TFLOP/s bf16 dense; per
 // call at the bench shape: qkv 0.208 ms, attention + wo 0.139 ms, MLP
-// 0.573 ms, dx 0.955 ms).  mma.sync cannot reach that rate on Hopper;
-// wgmma fed by TMA can, and the residual GEMM uses both.  Its block runs
-// one tile (no persistent schedule: the epilogue does not overlap the
-// next tile's loads) and no cluster shares a tile's loads.  In
-// gemm_kernel every thread issues copies between its products.  The
-// workspaces add device-memory round trips.
+// 0.573 ms, dx 0.955 ms).  mma.sync cannot reach that rate on Hopper
+// (ldmatrix feeds every operand, every thread issues copies between its
+// products); wgmma fed by TMA can.  What holds the wgmma loops below it:
+// a block runs one tile (no persistent schedule, so the epilogue and the
+// ring's fill overlap no other tile's products), and no cluster shares a
+// tile's loads (a 128 x 256 tile reads 48 KB from L2 a k step, 87
+// operations a byte).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,40 +79,14 @@
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3;
-constexpr int kThreads = 256;
-constexpr int kLdA = kBK + 8;    // A tile [kBM][kLdA]: 80-byte rows
-constexpr int kLdBnk = kBK + 8;  // B tile stored [n][k]
-constexpr int kLdBkn = kBN + 8;  // B tile stored [k][n]: 272-byte rows
-constexpr int kLdC = kBN + 4;    // f32 epilogue tile
-constexpr int kStageA = kBM * kLdA;    // elements per stage
-constexpr int kStageB = kBN * kLdBnk;  // >= kBK * kLdBkn
-constexpr int kSmemPipe = kStages * (kStageA + kStageB) * 2;
-constexpr int kSmemC = kBM * kLdC * 4;
-constexpr int kSmem = kSmemPipe > kSmemC ? kSmemPipe : kSmemC;
-static_assert(kStageB >= kBK * kLdBkn, "B stage too small");
-
-// epilogues
-enum {
-  kRope,        // out = rope(bf16(acc)) for z < rope_z, else bf16(acc)
-  kSwiglu,      // dual B: a = bf16(silu(g) * u)
-  kGateUp,      // dual B: g, u -> f32 workspace
-  kGateUpGrad,  // acc = da; g, u from the workspace -> dg, du (bf16)
-  kStoreF32,    // out = acc (f32)
-};
-// B addressing
-enum { kKN, kKNDual, kNK };
-
 struct Gemm {
   const bf16* a;        // A [M, K], row stride lda
-  const bf16* b[3];     // B per grid z (kKN), or its low half
-  const bf16* b_hi;     // kKNDual: the u weight; kNK: B for k >= ksplit
-  void* out[3];         // output per grid z
-  const bf16* x;        // gemm_residual_kernel: residual, row stride ldo
-  const float* sin;     // kRope: [S, D] tables
+  const bf16* b[3];     // gemm_kernel: B [K, N] per grid z, row stride ldb
+  void* out[3];         // output per grid z (gemm_tma_kernel: out[0])
+  const bf16* x;        // kResidual: residual [M, N], row stride ldo
+  const float* sin;     // gemm_kernel: rope tables [S, D]
   const float* cos;
-  float* gu;            // kGateUp / kGateUpGrad: [M, 2 ldo] f32
-  int lda, ldb, ldo, ksplit, M, K, S, D, rope_z;
+  int lda, ldb, ldo, M, N, K, ksplit, S, D, rope_z;
 };
 
 __device__ __forceinline__ float rbf(float f) {  // round to bf16 (RN)
@@ -152,11 +134,28 @@ __device__ __forceinline__ float sigmoid(float g) {
   return 1.f / (1.f + expf(-g));
 }
 
+// dg, du from da and the f32 g, u (pallas_ops.py:1466-1470)
+__device__ __forceinline__ float2 swiglu_grad(float da, float g, float u) {
+  const float sg = sigmoid(g);
+  return make_float2(da * u * (sg + g * sg * (1.f - sg)), da * (g * sg));
+}
+
 // ---------------------------------------------------------------------------
-// the GEMM: one 128 x 128 tile of A . B per block, then the epilogue
+// row 7's GEMM: one 128 x 128 tile of xn . w per block (w = wq, wk, wv by
+// grid z), then rope on q and k
 // ---------------------------------------------------------------------------
 
-template <int EPI, int BMODE>
+constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3;
+constexpr int kThreads = 256;
+constexpr int kLdA = kBK + 8;    // A tile [kBM][kLdA]: 80-byte rows
+constexpr int kLdB = kBN + 8;    // B tile stored [k][n]: 272-byte rows
+constexpr int kLdC = kBN + 4;    // f32 epilogue tile
+constexpr int kStageA = kBM * kLdA;    // elements per stage
+constexpr int kStageB = kBK * kLdB;
+constexpr int kSmemPipe = kStages * (kStageA + kStageB) * 2;
+constexpr int kSmemC = kBM * kLdC * 4;
+constexpr int kSmem = kSmemPipe > kSmemC ? kSmemPipe : kSmemC;
+
 __global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm p) {
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* sa = reinterpret_cast<bf16*>(smem);
@@ -165,7 +164,9 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN, z = blockIdx.z;
-  const bf16* b_lo = p.b[z];
+  const bf16* b = z == 0 ? p.b[0] : z == 1 ? p.b[1] : p.b[2];
+  bf16* out = static_cast<bf16*>(z == 0 ? p.out[0] : z == 1 ? p.out[1]
+                                                             : p.out[2]);
 
   auto load_stage = [&](int stage, int k0) {
     bf16* da = sa + stage * kStageA;
@@ -175,25 +176,10 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm p) {
       const bf16* src = p.a + (size_t)(gr < p.M ? gr : p.M - 1) * p.lda + k0 + c;
       cp_async16(da + r * kLdA + c, src, gr < p.M);
     }
-    if (BMODE == kNK) {
-      const bool hi = k0 >= p.ksplit;
-      const bf16* bb = hi ? p.b_hi : b_lo;
-      const int kk = hi ? k0 - p.ksplit : k0;
-      for (int i = tid; i < kBN * (kBK / 8); i += kThreads) {
-        const int r = i >> 2, c = (i & 3) * 8;
-        cp_async16(db + r * kLdBnk + c,
-                   bb + (size_t)(n0 + r) * p.ldb + kk + c, true);
-      }
-    } else {
-      for (int i = tid; i < kBK * (kBN / 8); i += kThreads) {
-        const int r = i >> 4, c = (i & 15) * 8;
-        const bf16* src =
-            BMODE == kKN
-                ? b_lo + (size_t)(k0 + r) * p.ldb + n0 + c
-                : (c < kBN / 2 ? b_lo : p.b_hi) + (size_t)(k0 + r) * p.ldb +
-                      n0 / 2 + (c & (kBN / 2 - 1));
-        cp_async16(db + r * kLdBkn + c, src, true);
-      }
+    for (int i = tid; i < kBK * (kBN / 8); i += kThreads) {
+      const int r = i >> 4, c = (i & 15) * 8;
+      cp_async16(db + r * kLdB + c, b + (size_t)(k0 + r) * p.ldb + n0 + c,
+                 true);
     }
   };
 
@@ -229,14 +215,9 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm p) {
 #pragma unroll
       for (int nj = 0; nj < 2; ++nj) {  // two n8 blocks per ldmatrix
         uint32_t r[4];
-        if (BMODE == kNK)
-          ldmatrix_x4(r, tb + (wn * 32 + nj * 16 + (lane & 7) +
-                               (lane >> 4) * 8) * kLdBnk +
-                             kk + ((lane >> 3) & 1) * 8);
-        else
-          ldmatrix_x4_trans(r, tb + (kk + (lane & 7) +
-                                     ((lane >> 3) & 1) * 8) * kLdBkn +
-                                   wn * 32 + nj * 16 + (lane >> 4) * 8);
+        ldmatrix_x4_trans(r, tb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                      kLdB +
+                                  wn * 32 + nj * 16 + (lane >> 4) * 8);
         bfr[2 * nj][0] = r[0];
         bfr[2 * nj][1] = r[1];
         bfr[2 * nj + 1][0] = r[2];
@@ -265,38 +246,6 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm p) {
     }
   __syncthreads();
 
-  if (EPI == kSwiglu || EPI == kGateUp) {
-    // tile columns [0, 64) are g, [64, 128) are u, of output columns
-    // n0 / 2 + [0, 64)
-    const int I = p.ldo;
-    for (int i = tid; i < kBM * (kBN / 16); i += kThreads) {
-      const int r = i >> 3, c = (i & 7) * 8, gr = m0 + r;
-      if (gr >= p.M) continue;
-      const float* crow = cs + r * kLdC;
-      const size_t col = (size_t)gr * (EPI == kSwiglu ? I : 2 * I) + n0 / 2 + c;
-      if (EPI == kSwiglu) {
-        float v[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float g = crow[c + j], u = crow[c + kBN / 2 + j];
-          v[j] = g * sigmoid(g) * u;
-        }
-        *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out[0]) + col) =
-            pack8(v);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; j += 4) {
-          *reinterpret_cast<float4*>(p.gu + col + j) = make_float4(
-              crow[c + j], crow[c + j + 1], crow[c + j + 2], crow[c + j + 3]);
-          *reinterpret_cast<float4*>(p.gu + col + I + j) =
-              make_float4(crow[c + 64 + j], crow[c + 65 + j],
-                          crow[c + 66 + j], crow[c + 67 + j]);
-        }
-      }
-    }
-    return;
-  }
-
   for (int i = tid; i < kBM * (kBN / 8); i += kThreads) {
     const int r = i >> 4, c = (i & 15) * 8, gr = m0 + r;
     if (gr >= p.M) continue;
@@ -304,31 +253,7 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm p) {
     float v[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) v[j] = crow[c + j];
-    if (EPI == kStoreF32) {
-      float* o = static_cast<float*>(p.out[z]) + (size_t)gr * p.ldo + n0 + c;
-      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
-      continue;
-    }
-    if (EPI == kGateUpGrad) {
-      // v = da; the dx kernel's f32 epilogue (pallas_ops.py:1466-1470)
-      const int I = p.ldo;
-      const float* g = p.gu + (size_t)gr * 2 * I + n0 + c;
-      float dg[8], du[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float gj = g[j], uj = g[I + j];
-        const float sg = sigmoid(gj);
-        const float dsilu = sg + gj * sg * (1.f - sg);
-        dg[j] = v[j] * uj * dsilu;
-        du[j] = v[j] * (gj * sg);
-      }
-      bf16* o = static_cast<bf16*>(p.out[0]) + (size_t)gr * 2 * I + n0 + c;
-      *reinterpret_cast<uint4*>(o) = pack8(dg);
-      *reinterpret_cast<uint4*>(o + I) = pack8(du);
-      continue;
-    }
-    if (EPI == kRope && z < p.rope_z) {
+    if (z < p.rope_z) {
       // the reference's rounding: t = bf16(xn . w), rot = rotate_half(t),
       // out = t * bf16(cos) + rot * bf16(sin), each op rounded to bf16
       const int D = p.D, half = D / 2;
@@ -344,24 +269,32 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm p) {
         v[j] = rbf(t * cs_) + rbf(rot * sn);
       }
     }
-    *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out[z]) +
-                              (size_t)gr * p.ldo + n0 + c) = pack8(v);
+    *reinterpret_cast<uint4*>(out + (size_t)gr * p.ldo + n0 + c) = pack8(v);
   }
 }
 
 // ---------------------------------------------------------------------------
-// the wgmma GEMM with the residual epilogue: y = bf16(x + A . B), one
-// 128 x 256 tile per block of two consumer warpgroups (64 rows each) and
-// a loader warp
+// the wgmma GEMM: one 128-row tile per block of two consumer warpgroups
+// (64 rows each) and a loader warp, an epilogue per use
 // ---------------------------------------------------------------------------
 
-struct Res {
-  static constexpr int kBM = 128, kBN = 256;
-  static constexpr int kBK = 64;     // one swizzle panel of A
+// epilogues
+enum {
+  kResidual,  // y = bf16(x + acc)
+  kSwiglu,    // dual B: a = bf16(silu(g) u)
+  kStoreF32,  // out = acc (f32)
+};
+// B: [K, N] as stored; two [K, N] weights, the same columns of each; or
+// [N, K] as stored (K-major), K split at ksplit over two weights
+enum { kKN, kKNDual, kNK };
+
+struct Tma {
+  static constexpr int kBM = 128, kBN = 256;  // kBN: the product's N
+  static constexpr int kBK = 64;     // one swizzle panel of a K-major tile
   static constexpr int kStages = 4;  // ring stages
   static constexpr int kStageA = kBM * kBK, kStageB = kBK * kBN;  // bf16
   static constexpr int kStageBytes = (kStageA + kStageB) * 2;
-  static constexpr int kLdC = kBN + 4;  // f32 epilogue tile
+  static constexpr int kLdC = kBN + 4;  // f32 residual tile
   static constexpr int kPipe = kStages * kStageBytes;
   static constexpr int kTile = kBM * kLdC * 4;
   static constexpr int kBars = kPipe > kTile ? kPipe : kTile;
@@ -369,30 +302,34 @@ struct Res {
   static constexpr int kThreads = 256 + 32;
 };
 
-// A [M, K] (K-major) and B [K, N] as stored (MN-major) come in k steps of
-// 64 through the ring: one thread of the loader warp issues a TMA copy of
-// each (A one 128 x 64 box, B four 64 x 64 boxes, both 128-byte swizzled;
-// rows >= M and columns >= N arrive as zeros) on the stage's full
-// mbarrier, once both warpgroups have released the stage on its empty
-// one.  Each warpgroup runs m64n256k16 wgmma from shared memory into f32
-// accumulators, one k step left running while the next is issued; the
-// tile meets x in f32 through shared memory, rounded once, 16-byte
-// stores.
-__global__ void __launch_bounds__(Res::kThreads, 1)
-    gemm_residual_kernel(const __grid_constant__ CUtensorMap map_a,
-                         const __grid_constant__ CUtensorMap map_b,
-                         const Gemm p) {
+// A [M, K] (K-major) comes in one 128 x 64 box a k step and B in 32 KB:
+// kKN four 64 x 64 boxes of [K, N] (MN-major), kKNDual two of each of
+// two maps (g's 128 columns, then u's), kNK one 256-row x 64 box of
+// [N, K] (K-major; from map_b2 for k >= ksplit).  One thread of the
+// loader warp issues a stage's copies on its full mbarrier once both
+// warpgroups have released it on its empty one.  Each warpgroup runs
+// m64n256k16 wgmma from shared memory into f32 accumulators, one k step
+// left running while the next is issued.
+template <int EPI, int BMODE>
+__global__ void __launch_bounds__(Tma::kThreads, 1)
+    gemm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b,
+                    const __grid_constant__ CUtensorMap map_b2,
+                    const Gemm p) {
+  static_assert((BMODE == kKNDual) == (EPI == kSwiglu),
+                "the swiglu epilogue takes a dual B");
+  constexpr int kTileN = BMODE == kKNDual ? Tma::kBN / 2 : Tma::kBN;
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* sa = reinterpret_cast<bf16*>(smem);
-  bf16* sb = sa + Res::kStages * Res::kStageA;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Res::kBars);
-  uint64_t* empty = full + Res::kStages;
+  bf16* sb = sa + Tma::kStages * Tma::kStageA;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Tma::kBars);
+  uint64_t* empty = full + Tma::kStages;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m0 = blockIdx.y * Res::kBM, n0 = blockIdx.x * Res::kBN;
-  const int nk = p.K / Res::kBK;
+  const int m0 = blockIdx.y * Tma::kBM, n0 = blockIdx.x * kTileN;
+  const int nk = p.K / Tma::kBK;
   if (tid == 0) {
-    for (int i = 0; i < Res::kStages; ++i) {
+    for (int i = 0; i < Tma::kStages; ++i) {
       mbar_init(full + i, 1);
       mbar_init(empty + i, 256);
     }
@@ -403,71 +340,260 @@ __global__ void __launch_bounds__(Res::kThreads, 1)
   if (warp == 8) {  // the loader
     if (lane == 0) {
       for (int kt = 0; kt < nk; ++kt) {
-        const int st = kt % Res::kStages;
-        if (kt >= Res::kStages)
-          mbar_wait(empty + st, (kt / Res::kStages - 1) & 1);
-        mbar_expect_tx(full + st, Res::kStageBytes);
-        tma_load_2d(sa + st * Res::kStageA, &map_a, kt * Res::kBK, m0,
-                    full + st);
+        const int st = kt % Tma::kStages, k = kt * Tma::kBK;
+        if (kt >= Tma::kStages)
+          mbar_wait(empty + st, (kt / Tma::kStages - 1) & 1);
+        mbar_expect_tx(full + st, Tma::kStageBytes);
+        tma_load_2d(sa + st * Tma::kStageA, &map_a, k, m0, full + st);
+        bf16* tb = sb + st * Tma::kStageB;
+        if (BMODE == kNK) {
+          const bool hi = k >= p.ksplit;
+          tma_load_2d(tb, hi ? &map_b2 : &map_b, hi ? k - p.ksplit : k, n0,
+                      full + st);
+        } else {
 #pragma unroll
-        for (int i = 0; i < Res::kBN / 64; ++i)
-          tma_load_2d(sb + st * Res::kStageB + i * Res::kBK * 64, &map_b,
-                      n0 + 64 * i, kt * Res::kBK, full + st);
+          for (int i = 0; i < 4; ++i)
+            tma_load_2d(tb + i * Tma::kBK * 64,
+                        BMODE == kKNDual && i >= 2 ? &map_b2 : &map_b,
+                        n0 + 64 * (BMODE == kKNDual ? i & 1 : i), k,
+                        full + st);
+        }
       }
     }
     return;
   }
 
   const int wg = warp >> 2;
-  float acc[Res::kBN / 8][4];
+  float acc[Tma::kBN / 8][4];
 #pragma unroll
-  for (int n = 0; n < Res::kBN / 8; ++n)
+  for (int n = 0; n < Tma::kBN / 8; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt % Res::kStages;
-    mbar_wait(full + st, (kt / Res::kStages) & 1);  // k step kt has landed
-    const bf16* ta = sa + st * Res::kStageA;
-    const bf16* tb = sb + st * Res::kStageB;
+    const int st = kt % Tma::kStages;
+    mbar_wait(full + st, (kt / Tma::kStages) & 1);  // k step kt has landed
+    const bf16* ta = sa + st * Tma::kStageA;
+    const bf16* tb = sb + st * Tma::kStageB;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < Res::kBK / 16; ++kk)
-      wgmma_ss<Res::kBN, 0, 1>(
-          acc, wgmma_desc_sw128(ta + sw128_off<Res::kBM>(wg * 64, kk * 16), 0),
-          wgmma_desc_sw128(tb + sw128_off<Res::kBK>(kk * 16, 0),
-                           Res::kBK * 128));
+    for (int kk = 0; kk < Tma::kBK / 16; ++kk) {
+      const uint64_t desc_a = wgmma_desc_sw128(
+          ta + sw128_off<Tma::kBM>(wg * 64, kk * 16), 0);
+      if constexpr (BMODE == kNK)
+        wgmma_ss<Tma::kBN, 0, 0>(
+            acc, desc_a,
+            wgmma_desc_sw128(tb + sw128_off<Tma::kBN>(0, kk * 16), 0));
+      else
+        wgmma_ss<Tma::kBN, 0, 1>(
+            acc, desc_a,
+            wgmma_desc_sw128(tb + sw128_off<Tma::kBK>(kk * 16, 0),
+                             Tma::kBK * 128));
+    }
     wgmma_commit();
     wgmma_wait<1>();  // k step kt - 1 is done: release its stage
-    if (kt > 0) mbar_arrive(empty + (kt - 1) % Res::kStages);
+    if (kt > 0) mbar_arrive(empty + (kt - 1) % Tma::kStages);
   }
   wgmma_wait<0>();
   wgmma_hold(acc);
-  bar_sync(1, 256);  // both warpgroups are done: the ring takes the f32 tile
 
-  const int cols = min(Res::kBN, p.ldb - n0);  // N = ldb; a multiple of 128
-  float* cs = reinterpret_cast<float*>(smem);
-  const int r0 = warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+  if constexpr (EPI == kResidual) {
+    bar_sync(1, 256);  // both warpgroups are done: the ring takes the tile
+    const int cols = min(Tma::kBN, p.N - n0);  // N: a multiple of 128
+    float* cs = reinterpret_cast<float*>(smem);
+    const int r0 = warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
 #pragma unroll
-  for (int n = 0; n < Res::kBN / 8; ++n) {
-    const int c = n * 8 + c0;
-    *reinterpret_cast<float2*>(cs + r0 * Res::kLdC + c) =
-        make_float2(acc[n][0], acc[n][1]);
-    *reinterpret_cast<float2*>(cs + (r0 + 8) * Res::kLdC + c) =
-        make_float2(acc[n][2], acc[n][3]);
+    for (int n = 0; n < Tma::kBN / 8; ++n) {
+      const int c = n * 8 + c0;
+      *reinterpret_cast<float2*>(cs + r0 * Tma::kLdC + c) =
+          make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(cs + (r0 + 8) * Tma::kLdC + c) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+    bar_sync(1, 256);
+    for (int i = tid; i < Tma::kBM * (Tma::kBN / 8); i += 256) {
+      const int r = i / (Tma::kBN / 8), c = (i % (Tma::kBN / 8)) * 8;
+      const int gr = m0 + r;
+      if (gr >= p.M || c >= cols) continue;
+      const float4 lo =
+          *reinterpret_cast<const float4*>(cs + r * Tma::kLdC + c);
+      const float4 hi =
+          *reinterpret_cast<const float4*>(cs + r * Tma::kLdC + c + 4);
+      const size_t off = (size_t)gr * p.ldo + n0 + c;
+      float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}, xv[8];
+      unpack8(*reinterpret_cast<const uint4*>(p.x + off), xv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] += xv[j];
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out[0]) + off) =
+          pack8(v);
+    }
+    return;
   }
-  bar_sync(1, 256);
-  for (int i = tid; i < Res::kBM * (Res::kBN / 8); i += 256) {
-    const int r = i / (Res::kBN / 8), c = (i % (Res::kBN / 8)) * 8;
-    const int gr = m0 + r;
-    if (gr >= p.M || c >= cols) continue;
-    const float4 lo = *reinterpret_cast<const float4*>(cs + r * Res::kLdC + c);
-    const float4 hi =
-        *reinterpret_cast<const float4*>(cs + r * Res::kLdC + c + 4);
-    const size_t off = (size_t)gr * p.ldo + n0 + c;
-    float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}, xv[8];
-    unpack8(*reinterpret_cast<const uint4*>(p.x + off), xv);
+
+  // the other epilogues from registers: this thread's rows r, r + 8 and,
+  // in each 8-column block j, the columns 8 j + c, 8 j + c + 1
+  const int r0 = m0 + warp * 16 + (lane >> 2), c0 = n0 + 2 * (lane & 3);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] += xv[j];
-    *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out[0]) + off) = pack8(v);
+  for (int j = 0; j < kTileN / 8; ++j) {
+    const int c = c0 + 8 * j;
+    if (c >= p.N) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= p.M) continue;
+      const float v0 = acc[j][2 * h], v1 = acc[j][2 * h + 1];
+      if constexpr (EPI == kSwiglu) {  // u of column c: block j + 16
+        const float u0 = acc[j + 16][2 * h], u1 = acc[j + 16][2 * h + 1];
+        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.out[0]) +
+                                     (size_t)r * p.ldo + c) =
+            pack_f32(v0 * sigmoid(v0) * u0, v1 * sigmoid(v1) * u1);
+      } else {  // kStoreF32
+        *reinterpret_cast<float2*>(static_cast<float*>(p.out[0]) +
+                                   (size_t)r * p.ldo + c) =
+            make_float2(v0, v1);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// row 10's da and gate/up products in one launch: da = dy . wd^T and g, u
+// = xn . [wg | wu] for one 128 x 128 tile of [M, I], then dg, du from
+// registers; no f32 workspace
+// ---------------------------------------------------------------------------
+
+struct Gug {
+  static constexpr int kStages = 3;  // ring stages of Tma's size
+  static constexpr int kPipe = kStages * Tma::kStageBytes;
+  static constexpr int kStash = 128 * 128 * 4;  // da, f32
+  static constexpr int kSmem = kPipe + kStash + 2 * kStages * 8;
+};
+
+// gemm_tma_kernel's ring (3 stages) and roles: the first K / 64 steps
+// carry dy and 128 rows of wd (K-major; m64n128k16), the next K / 64 xn
+// and the g, u columns as the dual B (m64n256k16).  Each thread parks its
+// da in shared memory between the two loops, so no more than the n256
+// accumulators are live at once.
+__global__ void __launch_bounds__(Tma::kThreads, 1)
+    gate_up_grad_kernel(const __grid_constant__ CUtensorMap map_xn,
+                        const __grid_constant__ CUtensorMap map_dy,
+                        const __grid_constant__ CUtensorMap map_wg,
+                        const __grid_constant__ CUtensorMap map_wu,
+                        const __grid_constant__ CUtensorMap map_wd,
+                        const Gemm p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* sa = reinterpret_cast<bf16*>(smem);
+  bf16* sb = sa + Gug::kStages * Tma::kStageA;
+  float4* stash = reinterpret_cast<float4*>(smem + Gug::kPipe);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + Gug::kPipe + Gug::kStash);
+  uint64_t* empty = full + Gug::kStages;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.y * Tma::kBM, n0 = blockIdx.x * 128;
+  const int nk = p.K / Tma::kBK;
+  if (tid == 0) {
+    for (int i = 0; i < Gug::kStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 256);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // the loader
+    if (lane == 0) {
+      for (int kt = 0; kt < 2 * nk; ++kt) {
+        const int st = kt % Gug::kStages;
+        const bool grad = kt < nk;
+        const int k = (grad ? kt : kt - nk) * Tma::kBK;
+        if (kt >= Gug::kStages)
+          mbar_wait(empty + st, (kt / Gug::kStages - 1) & 1);
+        bf16* ta = sa + st * Tma::kStageA;
+        bf16* tb = sb + st * Tma::kStageB;
+        if (grad) {
+          mbar_expect_tx(full + st, 2 * Tma::kStageA * 2);
+          tma_load_2d(ta, &map_dy, k, m0, full + st);
+          tma_load_2d(tb, &map_wd, k, n0, full + st);
+        } else {
+          mbar_expect_tx(full + st, Tma::kStageBytes);
+          tma_load_2d(ta, &map_xn, k, m0, full + st);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            tma_load_2d(tb + i * Tma::kBK * 64, i >= 2 ? &map_wu : &map_wg,
+                        n0 + 64 * (i & 1), k, full + st);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  {
+    float da[16][4];
+#pragma unroll
+    for (int n = 0; n < 16; ++n) da[n][0] = da[n][1] = da[n][2] = da[n][3] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int st = kt % Gug::kStages;
+      mbar_wait(full + st, (kt / Gug::kStages) & 1);
+      const bf16* ta = sa + st * Tma::kStageA;
+      const bf16* tb = sb + st * Tma::kStageB;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < Tma::kBK / 16; ++kk)
+        wgmma_ss<128, 0, 0>(
+            da,
+            wgmma_desc_sw128(ta + sw128_off<Tma::kBM>(wg * 64, kk * 16), 0),
+            wgmma_desc_sw128(tb + sw128_off<128>(0, kk * 16), 0));
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (kt > 0) mbar_arrive(empty + (kt - 1) % Gug::kStages);
+    }
+    wgmma_wait<0>();
+    wgmma_hold(da);
+    mbar_arrive(empty + (nk - 1) % Gug::kStages);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      stash[j * 256 + tid] = make_float4(da[j][0], da[j][1], da[j][2], da[j][3]);
+  }
+  float gu[32][4];
+#pragma unroll
+  for (int n = 0; n < 32; ++n) gu[n][0] = gu[n][1] = gu[n][2] = gu[n][3] = 0.f;
+  for (int kt = nk; kt < 2 * nk; ++kt) {
+    const int st = kt % Gug::kStages;
+    mbar_wait(full + st, (kt / Gug::kStages) & 1);
+    const bf16* ta = sa + st * Tma::kStageA;
+    const bf16* tb = sb + st * Tma::kStageB;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < Tma::kBK / 16; ++kk)
+      wgmma_ss<256, 0, 1>(
+          gu,
+          wgmma_desc_sw128(ta + sw128_off<Tma::kBM>(wg * 64, kk * 16), 0),
+          wgmma_desc_sw128(tb + sw128_off<Tma::kBK>(kk * 16, 0),
+                           Tma::kBK * 128));
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (kt > nk) mbar_arrive(empty + (kt - 1) % Gug::kStages);
+  }
+  wgmma_wait<0>();
+  wgmma_hold(gu);
+
+  const int I = p.ldo;
+  const int r0 = m0 + warp * 16 + (lane >> 2), c0 = n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float4 d = stash[j * 256 + tid];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h, c = c0 + 8 * j;
+      if (r >= p.M) continue;
+      const float2 d0 = swiglu_grad(h ? d.z : d.x, gu[j][2 * h],
+                                    gu[j + 16][2 * h]);
+      const float2 d1 = swiglu_grad(h ? d.w : d.y, gu[j][2 * h + 1],
+                                    gu[j + 16][2 * h + 1]);
+      bf16* o = static_cast<bf16*>(p.out[0]) + (size_t)r * 2 * I + c;
+      *reinterpret_cast<uint32_t*>(o) = pack_f32(d0.x, d1.x);
+      *reinterpret_cast<uint32_t*>(o + I) = pack_f32(d0.y, d1.y);
+    }
   }
 }
 
@@ -559,40 +685,58 @@ __global__ void __launch_bounds__(kRowThreads)
 // launch helpers
 // ---------------------------------------------------------------------------
 
-// Raise the kernel's dynamic shared-memory limit once, before its first
+// Raise a kernel's dynamic shared-memory limit once, before its first
 // launch (never inside a CUDA-graph capture: the first call is eager).
-template <int EPI, int BMODE>
-cudaError_t gemm(const Gemm& p, int N, int Z, cudaStream_t s) {
+template <typename K>
+cudaError_t smem_limit(K kernel, int bytes, bool& ready) {
+  if (ready) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  ready = err == cudaSuccess;
+  return err;
+}
+
+cudaError_t gemm_rope(const Gemm& p, int N, cudaStream_t s) {
   static bool ready = false;
-  if (!ready) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gemm_kernel<EPI, BMODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmem);
-    if (err != cudaSuccess) return err;
-    ready = true;
-  }
-  dim3 grid(N / kBN, (p.M + kBM - 1) / kBM, Z);
-  gemm_kernel<EPI, BMODE><<<grid, kThreads, kSmem, s>>>(p);
+  cudaError_t err = smem_limit(gemm_kernel, kSmem, ready);
+  if (err != cudaSuccess) return err;
+  dim3 grid(N / kBN, (p.M + kBM - 1) / kBM, 3);
+  gemm_kernel<<<grid, kThreads, kSmem, s>>>(p);
   return cudaGetLastError();
 }
 
-cudaError_t gemm_residual(const Gemm& p, int N, cudaStream_t s) {
+// B as the BMODE reads it: kKN b [K, N]; kKNDual b, b2 [K, N] (N = the
+// output columns); kNK b [N, ksplit] and, for k >= ksplit, b2 [N, K -
+// ksplit]; each with row stride p.ldb
+template <int EPI, int BMODE>
+cudaError_t gemm_tma(const Gemm& p, const void* b, const void* b2,
+                     cudaStream_t s) {
   static bool ready = false;
-  if (!ready) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gemm_residual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Res::kSmem);
-    if (err != cudaSuccess) return err;
-    ready = true;
+  cudaError_t err =
+      smem_limit(gemm_tma_kernel<EPI, BMODE>, Tma::kSmem, ready);
+  if (err != cudaSuccess) return err;
+  CUtensorMap ma, mb, mb2;
+  if ((err = tma_map_2d(&ma, p.a, p.M, p.K, p.lda, Tma::kBM)) != cudaSuccess)
+    return err;
+  if (BMODE == kNK) {
+    if ((err = tma_map_2d(&mb, b, p.N, p.ksplit, p.ldb, Tma::kBN)) !=
+            cudaSuccess ||
+        (err = tma_map_2d(&mb2, b2, p.N, p.K - p.ksplit, p.ldb,
+                          Tma::kBN)) != cudaSuccess)
+      return err;
+  } else {
+    if ((err = tma_map_2d(&mb, b, p.K, p.N, p.ldb, Tma::kBK)) != cudaSuccess)
+      return err;
+    if (BMODE == kKN)
+      mb2 = mb;  // not read
+    else if ((err = tma_map_2d(&mb2, b2, p.K, p.N, p.ldb, Tma::kBK)) !=
+             cudaSuccess)
+      return err;
   }
-  CUtensorMap map_a, map_b;
-  cudaError_t err = tma_map_2d(&map_a, p.a, p.M, p.K, p.lda, Res::kBM);
-  if (err != cudaSuccess) return err;
-  err = tma_map_2d(&map_b, p.b[0], p.K, N, p.ldb, Res::kBK);
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + Res::kBN - 1) / Res::kBN, (p.M + Res::kBM - 1) / Res::kBM);
-  gemm_residual_kernel<<<grid, Res::kThreads, Res::kSmem, s>>>(map_a, map_b,
-                                                                p);
+  constexpr int tile_n = BMODE == kKNDual ? Tma::kBN / 2 : Tma::kBN;
+  dim3 grid((p.N + tile_n - 1) / tile_n, (p.M + Tma::kBM - 1) / Tma::kBM);
+  gemm_tma_kernel<EPI, BMODE><<<grid, Tma::kThreads, Tma::kSmem, s>>>(
+      ma, mb, mb2, p);
   return cudaGetLastError();
 }
 
@@ -604,12 +748,13 @@ cudaError_t rms_norm(const void* x, const void* ln, void* xn, int M, int H,
   return cudaGetLastError();
 }
 
-Gemm make(const void* a, int lda, int M, int K) {
+Gemm make(const void* a, int lda, int M, int K, int N) {
   Gemm p = {};
   p.a = static_cast<const bf16*>(a);
   p.lda = lda;
   p.M = M;
   p.K = K;
+  p.N = N;
   p.ksplit = K;
   return p;
 }
@@ -619,8 +764,8 @@ Gemm make(const void* a, int lda, int M, int K) {
 // All tensors row-major and contiguous; activations [M, H] with M = B S;
 // weights [in, out] as the model stores them (wq, wk, wv, wo [H, H]; wg,
 // wu [H, I]; wd [I, H]); H and I multiples of 128; ln [H] bf16; sin, cos
-// [S, D] f32.  Workspaces (xn [M, H] bf16, a [M, I] bf16, gu [M, 2I] f32,
-// dgu [M, 2I] bf16, dxn [M, H] f32) come from the caller.  Each returns
+// [S, D] f32.  Workspaces (xn [M, H] bf16, a [M, I] bf16, dgu [M, 2I]
+// bf16, dxn [M, H] f32) come from the caller.  Each returns
 // the first CUDA error of its launches, or 0.
 
 extern "C" int fused_qkv_launch(const void* x, const void* ln,
@@ -632,7 +777,7 @@ extern "C" int fused_qkv_launch(const void* x, const void* ln,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = rms_norm(x, ln, xn, M, H, eps, s);
   if (err != cudaSuccess) return err;
-  Gemm p = make(xn, H, M, H);
+  Gemm p = make(xn, H, M, H, H);
   p.b[0] = static_cast<const bf16*>(wq);
   p.b[1] = static_cast<const bf16*>(wk);
   p.b[2] = static_cast<const bf16*>(wv);
@@ -645,18 +790,18 @@ extern "C" int fused_qkv_launch(const void* x, const void* ln,
   p.S = S;
   p.D = D;
   p.rope_z = 2;  // q and k
-  return gemm<kRope, kKN>(p, H, 3, s);
+  return gemm_rope(p, H, s);
 }
 
 extern "C" int fused_attn_out_launch(const void* attn, const void* wo,
                                      const void* x, void* y, int M, int H,
                                      void* stream) {
-  Gemm p = make(attn, H, M, H);
-  p.b[0] = static_cast<const bf16*>(wo);
+  Gemm p = make(attn, H, M, H, H);
   p.out[0] = y;
   p.x = static_cast<const bf16*>(x);
   p.ldb = p.ldo = H;
-  return gemm_residual(p, H, static_cast<cudaStream_t>(stream));
+  return gemm_tma<kResidual, kKN>(p, wo, nullptr,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fused_mlp_fwd_launch(const void* x, const void* ln,
@@ -667,53 +812,51 @@ extern "C" int fused_mlp_fwd_launch(const void* x, const void* ln,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = rms_norm(x, ln, xn, M, H, eps, s);
   if (err != cudaSuccess) return err;
-  Gemm p = make(xn, H, M, H);  // a = silu(xn wg) * (xn wu)
-  p.b[0] = static_cast<const bf16*>(wg);
-  p.b_hi = static_cast<const bf16*>(wu);
+  Gemm p = make(xn, H, M, H, I);  // a = silu(xn wg) * (xn wu)
   p.out[0] = a;
   p.ldb = p.ldo = I;
-  err = gemm<kSwiglu, kKNDual>(p, 2 * I, 1, s);
+  err = gemm_tma<kSwiglu, kKNDual>(p, wg, wu, s);
   if (err != cudaSuccess) return err;
-  Gemm q = make(a, I, M, I);  // y = x + a wd
-  q.b[0] = static_cast<const bf16*>(wd);
+  Gemm q = make(a, I, M, I, H);  // y = x + a wd
   q.out[0] = y;
   q.x = static_cast<const bf16*>(x);
   q.ldb = q.ldo = H;
-  return gemm_residual(q, H, s);
+  return gemm_tma<kResidual, kKN>(q, wd, nullptr, s);
 }
 
 extern "C" int fused_mlp_bwd_dx_launch(const void* x, const void* ln,
                                        const void* wg, const void* wu,
                                        const void* wd, const void* dy,
-                                       void* xn, void* gu, void* dgu,
-                                       void* dxn, void* dx, int M, int H,
-                                       int I, float eps, void* stream) {
+                                       void* xn, void* dgu, void* dxn,
+                                       void* dx, int M, int H, int I,
+                                       float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = rms_norm(x, ln, xn, M, H, eps, s);
   if (err != cudaSuccess) return err;
-  Gemm p = make(xn, H, M, H);  // g, u = xn wg, xn wu (f32)
-  p.b[0] = static_cast<const bf16*>(wg);
-  p.b_hi = static_cast<const bf16*>(wu);
-  p.gu = static_cast<float*>(gu);
-  p.ldb = p.ldo = I;
-  err = gemm<kGateUp, kKNDual>(p, 2 * I, 1, s);
+  // da = dy wd^T and g, u = xn [wg | wu] -> dg, du
+  static bool ready = false;
+  err = smem_limit(gate_up_grad_kernel, Gug::kSmem, ready);
   if (err != cudaSuccess) return err;
-  Gemm q = make(dy, H, M, H);  // da = dy wd^T -> dg, du
-  q.b[0] = static_cast<const bf16*>(wd);  // wd [I, H] is B^T
-  q.gu = static_cast<float*>(gu);
-  q.out[0] = dgu;
-  q.ldb = H;
-  q.ldo = I;
-  err = gemm<kGateUpGrad, kNK>(q, I, 1, s);
-  if (err != cudaSuccess) return err;
-  Gemm r = make(dgu, 2 * I, M, 2 * I);  // dxn = [dg | du] [wg | wu]^T
-  r.b[0] = static_cast<const bf16*>(wg);
-  r.b_hi = static_cast<const bf16*>(wu);
+  CUtensorMap mxn, mdy, mwg, mwu, mwd;
+  if ((err = tma_map_2d(&mxn, xn, M, H, H, Tma::kBM)) != cudaSuccess ||
+      (err = tma_map_2d(&mdy, dy, M, H, H, Tma::kBM)) != cudaSuccess ||
+      (err = tma_map_2d(&mwg, wg, H, I, I, Tma::kBK)) != cudaSuccess ||
+      (err = tma_map_2d(&mwu, wu, H, I, I, Tma::kBK)) != cudaSuccess ||
+      (err = tma_map_2d(&mwd, wd, I, H, H, 128)) != cudaSuccess)
+    return err;
+  Gemm p = make(xn, H, M, H, I);
+  p.out[0] = dgu;
+  p.ldo = I;
+  dim3 grid(I / 128, (M + Tma::kBM - 1) / Tma::kBM);
+  gate_up_grad_kernel<<<grid, Tma::kThreads, Gug::kSmem, s>>>(
+      mxn, mdy, mwg, mwu, mwd, p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  Gemm r = make(dgu, 2 * I, M, 2 * I, H);  // dxn = [dg | du] [wg | wu]^T
   r.ksplit = I;
-  r.out[0] = dxn;
-  r.ldb = I;
+  r.ldb = I;  // wg, wu [H, I]: B^T as stored
   r.ldo = H;
-  err = gemm<kStoreF32, kNK>(r, H, 1, s);
+  r.out[0] = dxn;
+  err = gemm_tma<kStoreF32, kNK>(r, wg, wu, s);
   if (err != cudaSuccess) return err;
   rms_norm_bwd_kernel<<<M, kRowThreads, 0, s>>>(
       static_cast<const float*>(dxn), static_cast<const bf16*>(x),

@@ -150,8 +150,8 @@ _ARGTYPES = {
     "fused_attn_out_launch": 4 * ["p"] + 2 * ["i"] + ["p"],
     # x ln wg wu wd xn a y M H I eps stream
     "fused_mlp_fwd_launch": 8 * ["p"] + 3 * ["i"] + ["f", "p"],
-    # x ln wg wu wd dy xn gu dgu dxn dx M H I eps stream
-    "fused_mlp_bwd_dx_launch": 11 * ["p"] + 3 * ["i"] + ["f", "p"],
+    # x ln wg wu wd dy xn dgu dxn dx M H I eps stream
+    "fused_mlp_bwd_dx_launch": 10 * ["p"] + 3 * ["i"] + ["f", "p"],
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -274,14 +274,13 @@ def _fused_mlp_bwd_dx_cuda(x, ln, wg, wu, wd, dy, eps):
     M, H, I = _mlp_args("fused_mlp_bwd_dx", x, ln, wg, wu, wd,
                         {"dy": (dy, tuple(x.shape), torch.bfloat16)})
     xn = _empty((M, H), torch.bfloat16, x)
-    gu = _empty((M, 2 * I), torch.float32, x)
     dgu = _empty((M, 2 * I), torch.bfloat16, x)
     dxn = _empty((M, H), torch.float32, x)
     dx = torch.empty_like(x)
     err = _fn("fused_mlp_bwd_dx_launch")(
         x.data_ptr(), ln.data_ptr(), wg.data_ptr(), wu.data_ptr(),
-        wd.data_ptr(), dy.data_ptr(), xn.data_ptr(), gu.data_ptr(),
-        dgu.data_ptr(), dxn.data_ptr(), dx.data_ptr(), M, H, I, eps,
+        wd.data_ptr(), dy.data_ptr(), xn.data_ptr(), dgu.data_ptr(),
+        dxn.data_ptr(), dx.data_ptr(), M, H, I, eps,
         _build.stream_ptr(x.device))
     _build.check(err, "fused_mlp_bwd_dx")
     fused_mlp_bwd_dx.launches += 1

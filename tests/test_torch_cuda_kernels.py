@@ -636,10 +636,13 @@ from paddle_tpu_torch.ops import fused_blocks as fb  # noqa: E402
 
 FUSED_CASES = [
     # (B, S, H, D, I): S = 200 and 77 are not multiples of the 128-row
-    # tile; H = 128 is one N tile of every GEMM; the last is the bench's
-    # width at a short S
+    # tile; H = 128 is one N tile of every GEMM; I = 640 (an odd multiple
+    # of 128) gives the gate/up launch an odd number of 128-wide dual
+    # tiles and the da product a partial 256-wide tile, and H = 384 the
+    # same to dxn and the down product; the last is the bench's width at
+    # a short S
     (1, 200, 256, 128, 512), (2, 77, 256, 64, 512), (2, 77, 128, 128, 256),
-    (1, 200, 2048, 128, 5632),
+    (1, 200, 384, 128, 640), (1, 200, 2048, 128, 5632),
 ]
 
 
@@ -720,6 +723,50 @@ def test_fused_kernels_refuse_what_they_cannot_serve(cuda):
         fb.fused_qkv(x, ln, wq, wk, wv, t["sin"], t["cos"], head_dim=32)
     with pytest.raises(ValueError, match="wo"):
         fb.fused_attn_epilogue(x, x, x, x, wo.t(), head_dim=128)
+
+
+def _mlp_call(t, which):
+    if which == "fwd":
+        return lambda: fb.fused_mlp_fwd(t["x"], t["ln"], t["wg"], t["wu"],
+                                        t["wd"])
+    return lambda: fb.fused_mlp_bwd_dx(t["x"], t["ln"], t["wg"], t["wu"],
+                                       t["wd"], t["dy"])
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd_dx"])
+def test_fused_mlp_twice_in_a_row_is_bit_identical(cuda, which):
+    """Every output element of the MLP kernels has one writer and a fixed
+    order of summation: a second call on the same inputs gives the same
+    bits."""
+    call = _mlp_call(_fused_inputs(cuda, 1, 200, 384, 128, 640, seed=12),
+                     which)
+    first = call()
+    second = call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd_dx"])
+def test_fused_mlp_replays_in_a_cuda_graph(cuda, which):
+    """A call captured in a CUDA graph and replayed (as chip_smoke.py
+    times it) writes the eager call's output, bit for bit: the tensor
+    maps are built on the host at capture, the workspaces come from the
+    graph's pool."""
+    call = _mlp_call(_fused_inputs(cuda, 2, 77, 256, 128, 640, seed=13),
+                     which)
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(eager, out)
 
 
 @pytest.mark.parametrize("policy", ["none", "dots"])

@@ -12,7 +12,9 @@ with numpy and handed to both packages.
   ``_fused_qkv_proj``, ``_fused_attn_epilogue`` (y, attn, and lane 0 of
   the reference's lane-replicated lse; at head dim 64, which the Pallas
   body does not take, the reference's jnp composition), and
-  ``_fused_mlp_pallas`` "fwd" and "bwd_dx".  Forward atol 2e-5 (f32
+  ``_fused_mlp_pallas`` "fwd" and "bwd_dx" (also at I = 640, an odd
+  multiple of 128, which the reference's block picker takes: the CUDA
+  kernels' odd and partial tiles).  Forward atol 2e-5 (f32
   summation order); dx atol 2e-5 + rtol 1e-3 (a sum over I of
   products).
 - ``fused_attention_block`` / ``fused_mlp_block`` forward and the
@@ -65,13 +67,13 @@ def _attn_args(seed):
     return [x, ln, *ws, *_rope_np(S, D)]
 
 
-def _mlp_args(seed):
+def _mlp_args(seed, inter=I):
     rng = np.random.RandomState(seed)
     x = (rng.standard_normal((B, S, H)) * 0.5).astype(np.float32)
     ln = (1.0 + 0.1 * rng.standard_normal(H)).astype(np.float32)
-    wg = (rng.standard_normal((H, I)) * 0.05).astype(np.float32)
-    wu = (rng.standard_normal((H, I)) * 0.05).astype(np.float32)
-    wd = (rng.standard_normal((I, H)) * 0.05).astype(np.float32)
+    wg = (rng.standard_normal((H, inter)) * 0.05).astype(np.float32)
+    wu = (rng.standard_normal((H, inter)) * 0.05).astype(np.float32)
+    wd = (rng.standard_normal((inter, H)) * 0.05).astype(np.float32)
     return [x, ln, wg, wu, wd]
 
 
@@ -144,10 +146,16 @@ def test_attn_epilogue_plain_matches_the_pallas_kernel(hd):
     _close(lse.numpy(), lse_r, msg="lse")
 
 
-@pytest.mark.parametrize("which", ["fwd", "bwd_dx"])
-def test_mlp_plain_matches_the_pallas_kernel(which):
-    x, ln, wg, wu, wd = _mlp_args(3)
-    bs, bi = pallas_ops._fused_mlp_config(S, H, I, jnp.float32)
+@pytest.mark.parametrize("which,inter", [
+    pytest.param("fwd", I, id="fwd"),
+    pytest.param("bwd_dx", I, id="bwd_dx"),
+    # an odd multiple of 128: the CUDA kernels' partial and odd tiles
+    pytest.param("fwd", 640, id="fwd-I640"),
+    pytest.param("bwd_dx", 640, id="bwd_dx-I640"),
+])
+def test_mlp_plain_matches_the_pallas_kernel(which, inter):
+    x, ln, wg, wu, wd = _mlp_args(3, inter)
+    bs, bi = pallas_ops._fused_mlp_config(S, H, inter, jnp.float32)
     kernel = {"fwd": pallas_ops._mlp_fused_kernel,
               "bwd_dx": pallas_ops._mlp_bwd_dx_kernel}[which]
     inputs = [x, ln.reshape(1, -1), wg, wu, wd]
@@ -155,7 +163,7 @@ def test_mlp_plain_matches_the_pallas_kernel(which):
         inputs.append(_dy(4))
     ref = pallas_ops._fused_mlp_pallas(
         functools.partial(kernel, eps=EPS), tuple(_j(*inputs)), jnp.float32,
-        S, H, I, bs, bi, which)
+        S, H, inter, bs, bi, which)
     if which == "fwd":
         got = fb.fused_mlp_fwd(*_t(x, ln, wg, wu, wd), eps=EPS)
         _close(got.numpy(), ref)
