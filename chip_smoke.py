@@ -36,12 +36,23 @@ both apply (M = 8, 16).
   (S = 2048, AdamW) for warmup + 5 timed steps at the default policy
   (the fused blocks, every launch counted through their four kernels
   and the flash backward), the same unfused (every launch counted
-  through the two flash wrappers), and one profiled step of each.
+  through the two flash wrappers), and one profiled step of each, its
+  device rows summed into classes (GEMMs by library, the port's kernels,
+  elementwise, optimizer, copies) that must add up to the busy time.
 
 Any failure exits non-zero.  The last two lines of standard output are
 the card's name and power limit (from nvidia-smi) and, last,
 ``{"ok": true, "device": {...}}``; the line before them is the
 ``kernels`` JSON object.
+
+    python3 chip_smoke.py --against DIR
+
+runs, instead, a parent commit's ``paddle_tpu_torch`` (unpacked by ``git
+archive`` into DIR, a directory ``.gitignore`` lists) against this
+tree's in turns, parent, change, change, parent, in one process on one
+card (``compare_turns``): the four fused-block kernels and the flash
+backward (D 128 and 64) per call at the bench shape, and the bench's
+train step fused and unfused.
 """
 import json
 import math
@@ -816,8 +827,8 @@ def flash_phase(torch, fa):
     gradient max |diff| / max |ref| <= 2e-2 (bf16 p and ds feed the
     tensor cores); lse max |diff| <= 1e-3; and o, dq, dk, dv each within
     ``ROW_REL_MAX`` per row and ``NORM_REL_MAX`` over the tensor
-    (``rms_rel``).  Controlled at the bench shape, timed there and at
-    D = 64."""
+    (``rms_rel``).  Controlled at the bench shape, where a second
+    backward must give the same bits; timed there and at D = 64."""
     F = torch.nn.functional
     errs = {"fwd": 0.0, "bwd": 0.0}
     row_errs = {"fwd": 0.0, "bwd": 0.0}
@@ -865,6 +876,13 @@ def flash_phase(torch, fa):
         del f32, o_ref, lse_ref, dq_ref, dk_ref, dv_ref, got
         if (B, S, H, D) == FLASH_CASES[-1]:
             control = flash_control(torch, q, k, v, do)
+            # dq's key-tile parts are added in a fixed order: a second
+            # call gives the same bits, as dk and dv (one writer each) do
+            again = fa.flash_bwd(q, k, v, o, lse, do)
+            check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+                  f"flash_bwd {shape}: a second call differs")
+            print(f"flash bwd {shape}: dq, dk, dv bit-identical over two "
+                  f"calls")
     timing = {}
     for D in (128, 64):     # the bench shape, then its head dim halved
         B, S, H = FLASH_CASES[-1][:3]
@@ -992,13 +1010,18 @@ def fused_bounds(B, S, H, D, I):
     }
 
 
-def mlp_products(H, I):
-    """The GEMM launches of rows 9 and 10 by the name the profiler gives
-    each (``gemm_tma_kernel<epilogue, B mode>`` by fused_blocks.cu's
-    enums), with the K and N of its products over the M = B S rows: row
-    10's first launch runs da (N = I) and gate/up (N = 2I), both at K =
-    H."""
+def gemm_products(H, I):
+    """The GEMM launches of rows 7-10 by the name the profiler gives each
+    (``gemm_tma_kernel<epilogue, B mode>`` by fused_blocks.cu's enums),
+    with the K and N of its products over the M = B S rows: row 7's one
+    launch runs q, k and v (grid z = 3: N = 3H), row 10's first da (N =
+    I) and gate/up (N = 2I), both at K = H."""
     return {
+        "fused_qkv": (
+            ("q, k, v = xn [wq | wk | wv], rope on q and k",
+             "gemm_tma_kernel<3, 0>", H, 3 * H),),
+        "fused_attn_epilogue": (
+            ("y = x + attn wo", "gemm_tma_kernel<0, 0>", H, H),),
         "fused_mlp_fwd": (
             ("gate/up, a = silu(g) u", "gemm_tma_kernel<1, 1>", H, 2 * I),
             ("down, y = x + a wd", "gemm_tma_kernel<0, 0>", I, H)),
@@ -1103,8 +1126,8 @@ def fused_phase(torch, fb):
     the unfused composition; each call's launches by kernel (device ms a
     call from torch.profiler), so row 8's flash and GEMM halves and the
     GEMMs of rows 7, 9 and 10 are seen apart, and each GEMM launch of
-    rows 9 and 10 with its TFLOP/s and share of the card's peak
-    (``mlp_products``; a launch missing from the profile fails)."""
+    rows 7-10 with its TFLOP/s and share of the card's peak
+    (``gemm_products``; a launch missing from the profile fails)."""
     B, S, H, D, I = FUSED_SHAPE
     t = fused_inputs(torch, B, S, H, D, I)
     args = {
@@ -1168,7 +1191,7 @@ def fused_phase(torch, fb):
     del got, refs
     comp = fused_compositions(torch, fb, t, D)
     bounds = fused_bounds(B, S, H, D, I)
-    products = mlp_products(H, I)
+    products = gemm_products(H, I)
     from paddle_tpu_torch.bench import peak_bf16_flops
     peak = (peak_bf16_flops(torch.cuda.get_device_name(0))
             or PEAK_OPS_S["bf16"])
@@ -1306,11 +1329,119 @@ def train_phase(torch, tbench, card, fused_blocks=None):
     return launches, res
 
 
+# the train profile's classes, in order: a device row joins the first
+# whose pattern its name matches (the port's kernels before the
+# libraries', the optimizer's multi-tensor kernels before the rest of
+# at::native); the rest is "other"
+PROFILE_CLASSES = (
+    ("port GEMMs", r"gemm_tma_kernel|gate_up_grad_kernel"),
+    ("flash attention", r"flash_"),
+    ("RMSNorm row passes", r"rms_norm"),
+    ("cuBLAS GEMMs", r"nvjet|gemm|xmma|cutlass|cublas|splitKreduce"),
+    ("optimizer", r"multi_tensor_apply|adam"),
+    ("memcpy / memset", r"(?i)memcpy|memset"),
+    ("elementwise / reduction", r"at::native|elementwise|reduce|CatArray"
+                                r"|index|softmax|SoftMax"),
+)
+
+
+def step_gemm_flops(tbench, B, fused):
+    """FLOPs of a train step's products by the class that runs them, from
+    the shapes (M = B S rows, 2 a multiply-add; "dots" saves every matmul
+    output, so no cuBLAS product is recomputed).  Unfused: every layer's
+    q, k, v, o (K = N = H) and gate, up, down, and the lm_head, each
+    forward, input and weight gradient.  Fused: cuBLAS runs the backward
+    of ``fused_blocks``' two autograd Functions (attention: dwo, dy wo^T,
+    and the prologue's forward, weight and input gradients, 11 of K = N =
+    H; MLP: the composition's three forward products and six gradients,
+    9 of H x I) and the lm_head's three; the port's kernels the rest,
+    given per kernel name (row 8's and 9's residual GEMM shares one
+    instantiation, launched equally often: its mean)."""
+    m = tbench.MODEL
+    H, I, V, L = (m["hidden_size"], m["intermediate_size"], m["vocab_size"],
+                  m["num_hidden_layers"])
+    M = B * tbench.SEQ
+    hh, hi, head = 2 * M * H * H, 2 * M * H * I, 2 * M * H * V
+    if not fused:
+        return {"cuBLAS GEMMs": 3 * (L * (4 * hh + 3 * hi) + head)}, {}
+    per_launch = {}
+    for prods in gemm_products(H, I).values():
+        for _, kern, K, N in prods:
+            per_launch.setdefault(kern, []).append(2 * M * K * N)
+    return ({"cuBLAS GEMMs": L * (11 * hh + 9 * hi) + 3 * head},
+            {k: sum(v) / len(v) for k, v in per_launch.items()})
+
+
+def busy_union_us(prof):
+    """Device busy time from the trace: the union of the kernels' and
+    copies' intervals, so launches that overlap count once."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type != DeviceType.CPU
+                   and not e.is_user_annotation)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def profile_classes(prof, head, class_flops, kernel_flops):
+    """Every device row summed into ``PROFILE_CLASSES`` ("other" printed
+    with its largest names), each with its share of the busy time and,
+    where ``class_flops`` gives its products, TFLOP/s; the port's GEMM
+    kernels one by one with ``kernel_flops`` (FLOPs a launch).  Fails
+    unless the classes sum to the trace's busy time within 0.5 %."""
+    rows = device_rows(prof)
+    busy = busy_union_us(prof)
+    names = [n for n, _ in PROFILE_CLASSES] + ["other"]
+    sums = {n: [0.0, 0, []] for n in names}
+    for e in rows:
+        cls = next((n for n, pat in PROFILE_CLASSES if re.search(pat, e.key)),
+                   "other")
+        sums[cls][0] += e.self_device_time_total
+        sums[cls][1] += e.count
+        sums[cls][2].append(e)
+    total = sum(v[0] for v in sums.values())
+    print(f"{head}: device busy {busy / 1e3:.2f} ms (union of the trace's "
+          f"intervals), classes sum {total / 1e3:.2f} ms")
+    out = {}
+    for n in names:
+        us, count, evs = sums[n]
+        line = (f"  {n:26s} {us / 1e3:9.3f} ms {100 * us / busy:5.1f} %  "
+                f"{count:6d} launches")
+        if n in class_flops and us > 0:
+            line += (f"  {class_flops[n] / 1e12:.2f} TFLOP, "
+                     f"{class_flops[n] / us / 1e6:.1f} TFLOP/s")
+        print(line)
+        out[n] = dict(ms=round(us / 1e3, 3), launches=count)
+        if n == "other":
+            for e in evs[:5]:
+                print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+                      f"{e.count:6d} x  {e.key[:90]}")
+        if n == "port GEMMs":
+            for e in evs:
+                f = next((v for k, v in kernel_flops.items() if k in e.key),
+                         None)
+                rate = ("" if f is None else f"  {f * e.count / 1e12:.2f} "
+                        f"TFLOP, {f * e.count / e.self_device_time_total / 1e6:.1f} "
+                        "TFLOP/s")
+                print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+                      f"{e.count:6d} x  {e.key[:60]}{rate}")
+    check(abs(total - busy) <= 5e-3 * busy, f"{head}: the classes sum to "
+          f"{total / 1e3:.3f} ms, the trace's busy time is "
+          f"{busy / 1e3:.3f} ms")
+    return out
+
+
 def train_profile(torch, tbench, tllama, card, fused_blocks=None):
     """Where a train step's time goes: one warmup step, then one step at
     ``fused_blocks`` (None: the default policy, the fused blocks) under
-    torch.profiler at the bench's first rung; device time by kernel and
-    the device's busy share of the profiled wall time."""
+    torch.profiler at the bench's first rung; device time by kernel, the
+    device's busy share of the profiled wall time, and every row summed
+    into classes (``profile_classes``)."""
     from torch.profiler import ProfilerActivity, profile
     policy, B = tbench.LADDER[0]
     cfg = tllama.LlamaConfig(remat_policy=policy, fused_blocks=fused_blocks,
@@ -1332,9 +1463,11 @@ def train_profile(torch, tbench, tllama, card, fused_blocks=None):
         tbench.train_step(cfg, params, opt, batch)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    print_profile(prof, wall_us, f"profile train [{card}]: 1 "
-                  f"{'fused' if fused else 'unfused'} step", 20)
+    head = f"profile train [{card}]: 1 {'fused' if fused else 'unfused'} step"
+    print_profile(prof, wall_us, head, 20)
+    classes = profile_classes(prof, head, *step_gemm_flops(tbench, B, fused))
     del params, opt
+    return classes
 
 
 def device_rows(prof):
@@ -1361,7 +1494,104 @@ def print_profile(prof, wall_us, head, top):
               f"{e.key[:90]}")
 
 
-def main():
+def load_parent(root):
+    """``root``/paddle_tpu_torch imported as ``parent_paddle_tpu_torch``:
+    the package imports itself only relatively, so its kernels build from
+    its own sources into its own ``build/``."""
+    import importlib
+    import importlib.util
+    import os
+    pkg = os.path.join(root, "paddle_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "parent_paddle_tpu_torch", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return {n: importlib.import_module(f"{spec.name}.{n}")
+            for n in ("bench", "ops._build", "ops.fused_blocks",
+                      "ops.flash_attention")}
+
+
+TURNS = ("parent", "change", "change", "parent")
+
+
+def compare_turns(torch, parent_root, smi):
+    """The parent's package against this tree's in turns P C C P, every
+    kernel timed by graph replay on the same inputs (each package's
+    outputs held to its plain version first) and each tree's train step
+    measured by its own ``bench.measure`` (2 warm-up + 5 steps, fused
+    and unfused).  Prints one line a turn and, last, the turns as JSON."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention
+    from paddle_tpu_torch.ops import fused_blocks
+    pkgs = {"change": {"bench": bench, "ops._build": _build,
+                       "ops.fused_blocks": fused_blocks,
+                       "ops.flash_attention": flash_attention},
+            "parent": load_parent(parent_root)}
+    for name, mods in pkgs.items():
+        t0 = time.perf_counter()
+        mods["ops._build"].build_all()
+        print(f"compare: {name}'s kernels built in "
+              f"{time.perf_counter() - t0:.1f} s")
+    B, S, H, D, I = FUSED_SHAPE
+    t = fused_inputs(torch, B, S, H, D, I)
+    fl = {}
+    for d in (128, 64):     # flash_timing's shapes
+        q, k, v, do = flash_inputs(torch, *FLASH_CASES[-1][:3], d)
+        fl[d] = (q, k, v, do, *pkgs["change"]["ops.flash_attention"]
+                 .flash_fwd(q, k, v))
+    turns = []
+    for turn in TURNS:
+        fb_ = pkgs[turn]["ops.fused_blocks"]
+        fa_ = pkgs[turn]["ops.flash_attention"]
+        calls = {
+            "fused_qkv": lambda: fb_.fused_qkv(
+                t["x"], t["ln"], t["wq"], t["wk"], t["wv"], t["sin"],
+                t["cos"], head_dim=D, eps=EPS),
+            "fused_attn_epilogue": lambda: fb_.fused_attn_epilogue(
+                q7, k7, v7, t["x"], t["wo"], head_dim=D),
+            "fused_mlp_fwd": lambda: fb_.fused_mlp_fwd(
+                t["x"], t["ln"], t["wg"], t["wu"], t["wd"], eps=EPS),
+            "fused_mlp_bwd_dx": lambda: fb_.fused_mlp_bwd_dx(
+                t["x"], t["ln"], t["wg"], t["wu"], t["wd"], t["dy"],
+                eps=EPS),
+        }
+        q7, k7, v7 = calls["fused_qkv"]()
+        ref = fb_._fused_qkv_plain(t["x"], t["ln"], t["wq"], t["wk"],
+                                   t["wv"], t["sin"], t["cos"], D, EPS)
+        for n, g, r in zip("qkv", (q7, k7, v7), ref):
+            e = rms_rel(g, r, True)
+            check(e <= ROW_REL_MAX, f"compare {turn}: fused_qkv {n} row rel "
+                  f"{e} > {ROW_REL_MAX}")
+        del ref
+        res = {"turn": turn}
+        for n, fn in calls.items():
+            res[n] = time_ms(torch, lambda i: fn(), calls=10)
+        for d, (q, k, v, do, o, lse) in fl.items():
+            res[f"flash_bwd_d{d}"] = time_ms(
+                torch, lambda i: fa_.flash_bwd(q, k, v, o, lse, do), calls=20)
+        del q7, k7, v7
+        tb_ = pkgs[turn]["bench"]
+        for mode, fb_mode in (("fused", None), ("unfused", "off")):
+            r = tb_.measure(iters=5, warmup=2, fused_blocks=fb_mode)
+            check(not r["oom_rungs"], f"compare {turn} {mode}: out of memory")
+            res[f"{mode}_step_ms"] = r["step_ms"]
+            res[f"{mode}_mfu"] = r["value"]
+        turns.append(res)
+        print(f"compare turn {turn} [{smi}]: " + "  ".join(
+            f"{k} {v:.4f}" for k, v in res.items() if k != "turn"))
+    print(json.dumps({"compare": turns, "gpu": smi}))
+
+
+def main(argv=()):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--against", metavar="DIR",
+                    help="time a parent tree's package against this one "
+                         "in turns P C C P instead of the smoke run")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1390,6 +1620,9 @@ def main():
           f"python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.against:
+        compare_turns(torch, args.against, smi)
+        return 0
 
     t0 = time.perf_counter()
     report = _build.build_all(ptxas_verbose=True)
@@ -1540,7 +1773,9 @@ def main():
     per = "one call at B=4 S=2048 H=2048 D=128 I=5632 (the bench step's)"
     src = "paddle_tpu_torch/ops/csrc/fused_blocks.cu"
     for name, line, note in (
-            ("fused_qkv", 1130, "row pass (xn) + one GEMM launch over q, k, v"),
+            ("fused_qkv", 1130,
+             "row pass (xn) + one wgmma GEMM launch over q, k, v (grid z = "
+             "3), rope on q and k from registers"),
             ("fused_attn_epilogue", 1200,
              "two launches: flash_fwd's kernel (attn, lse), then the GEMM "
              "y = x + attn wo"),
@@ -1576,4 +1811,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

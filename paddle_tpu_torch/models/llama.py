@@ -115,7 +115,7 @@ def init_params(cfg: LlamaConfig, seed: int = 0, *,
     holds more than one layer's weight."""
     if cfg.moe_num_experts > 0:
         raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP A: distributed train "
+            "MoE layers are not ported yet (ROADMAP A2: distributed train "
             "runtime, _moe_mlp)")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -290,7 +290,7 @@ def forward_paged(cfg: LlamaConfig, params, tokens, k_pages, v_pages,
         raise ValueError("k_scales and v_scales come together")
     if cfg.moe_num_experts > 0:
         raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP A: distributed train "
+            "MoE layers are not ported yet (ROADMAP A2: distributed train "
             "runtime, _moe_mlp)")
     R, Tc = tokens.shape
     nh, nkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -479,10 +479,10 @@ def decoder_layer(cfg: LlamaConfig, lp, x, sin, cos):
     the fused blocks where ``_fused_block_modes`` engages them, else the
     unfused dense composition (reference llama.py:433-465).  It returns
     the hidden state alone; the reference's MoE aux loss comes with MoE
-    (ROADMAP A.6)."""
+    (ROADMAP A2)."""
     if cfg.moe_num_experts > 0:
         raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP A.6: distributed train "
+            "MoE layers are not ported yet (ROADMAP A2: distributed train "
             "runtime, _moe_mlp)")
     fused_attn, fused_mlp = _fused_block_modes(cfg, x)
     if isinstance(lp.get("wq"), dict) or isinstance(lp.get("w_gate"), dict):
@@ -556,11 +556,11 @@ def forward_pure(cfg: LlamaConfig, params, input_ids, sp_axis=None,
                  cp_mesh=None):
     """Full forward: ids [B, S] -> logits [B, S, V] f32.  Runs on the
     device the params are on; sequence and context parallelism are not
-    ported (ROADMAP A.6) and raise."""
+    ported (ROADMAP A2) and raise."""
     if sp_axis is not None or cp_mesh is not None:
         raise NotImplementedError(
             "sequence and context parallelism are not ported yet (ROADMAP "
-            "A.6: distributed train runtime, ring attention)")
+            "A2: distributed train runtime, ring attention)")
     if isinstance(params["lm_head"], dict):
         raise NotImplementedError("training takes dense weights, not "
                                   "quantize_params leaves")

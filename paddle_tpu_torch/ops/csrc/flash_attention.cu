@@ -14,8 +14,9 @@
 // TPU also split the backward into a dq pass and a dk/dv pass because its
 // grid runs in order on one core, where a sum of dq across key tiles
 // needs a second pass; on this card the key tiles' dq parts are summed
-// in f32 by atomics, as FlashAttention-2 does, so the backward does five
-// products where the split did seven.
+// in f32 in device memory, in key-tile order (FlashAttention-3's
+// deterministic mode), so the backward does five products where the
+// split did seven.
 //
 // Layout: q, k, v, o, do are [B, S, H, D] contiguous, read in place
 // through the row stride H*D (no [B*H, S, D] transposes); lse and delta
@@ -41,8 +42,8 @@
 //         stores) and lse = m + log(l) (f32, natural log).  Every output
 //         element has one writer: the result is the same from run to run.
 //   bwd:  1. pre-pass: delta = rowsum(do * o) in f32 (16-byte loads, D/8
-//            lanes a row) and the f32 dq accumulator zeroed, in one
-//            launch (no memset: a CUDA graph replays every call).
+//            lanes a row) and the dq turn counters zeroed, in one launch
+//            (no memset: a CUDA graph replays every call).
 //         2. main: one block per (b*h, key tile of 128 keys), key tile 0
 //            (the one that sees the most q rows) launched first; a
 //            warpgroup (4 warps) per 64 keys.  K and V stay in shared
@@ -58,17 +59,33 @@
 //              P^T = exp2(S^T scale log2e - lse log2e) under the mask,
 //              dS^T = P^T (dP^T - delta), in registers;
 //              dQ_part = dS K (A = dS^T from shared memory, read M-major;
-//              each warpgroup D / 2 columns of it), summed
-//              into the f32 accumulator with 8-byte red.global.add
-//              (atomicAdd(float2)) while
+//              each warpgroup D / 2 columns of it), added into the f32
+//              accumulator in its turn (below) with 8-byte
+//              red.global.add (atomicAdd(float2)) while
 //              dV += P^T dO and dK += dS^T Q run (A = P^T, dS^T straight
 //              from the accumulators, as registers).
 //            dK (scaled) and dV stay in registers and are written once.
 //         3. cast: dq = bf16(acc * scale).
-// dk and dv have one writer each and are deterministic; dq is summed by
-// atomics in an order that changes from run to run, so it is not
-// bit-reproducible (it agrees with the plain version within the same
-// limits).
+// Every output is the same bits from run to run.  dk and dv have one
+// writer each.  dq's parts are added in a fixed order: each (b*h, 64-row
+// q tile, warpgroup) has an int32 turn counter, and key tile j, the j-th
+// of the key tiles 0 .. floor(i / 2) that reach q tile i, waits until
+// the counter reads j before its adds; key tile 0 stores instead of
+// adding, so nothing zeroes the accumulator.  Every thread of the
+// warpgroup polls (ld.acquire, one load a warp), after the dQ product is
+// issued, while dV and dK run: a one-thread spin under a branch there
+// made ptxas serialize the wgmma (C7518).  The next iteration's block
+// barrier puts every thread's adds of q tile i before one thread's
+// red.release.max, which writes j + 1.  That fence waits for the adds to
+// reach L2 and holds its warpgroup's next products; it is the ordered
+// sum's cost (PERF.md).  Every thread releasing instead costs 256
+// same-address atomics an iteration, several times more.
+// It cannot deadlock: blocks are dispatched in launch order (x = b*h
+// fastest, y = key tile), so every block of key tile j - 1 was resident
+// before any of key tile j; a block waits only on key tile j - 1 of its
+// own b*h, that one only on j - 2, and key tile 0 on no one, so the
+// oldest waiting block always has a running predecessor, at one block
+// an SM (__launch_bounds__(256, 1)) or any other occupancy.
 //
 // What bounds it on this card: attention at S = 2048, D = 128 does ~D/2
 // flops per byte of q/k/v read once, so it is bound by the tensor cores
@@ -83,7 +100,8 @@
 // barriers a q tile (the tile landed; dS^T complete for dQ), the softmax
 // between the products, the f32 reduction of dq (at B 4, S 2048, H 16,
 // D 128: 64 heads x 272 (key, q) tile pairs x 32 KB = 0.57 GB of red
-// traffic to L2) and the two row passes (~0.2 GB of device memory).
+// traffic to L2) in key-tile order (a release fence and a turn a q
+// tile), and the two row passes (~0.2 GB of device memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,6 +115,22 @@ namespace {
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegBig = -1e30f;  // finite: -inf - -inf would be NaN
+
+// a turn counter of the ordered dq sum, read and written at device scope
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// p = max(p, v), ordered after every memory operation before it
+__device__ __forceinline__ void max_release(int* p, int v) {
+  asm volatile("red.release.gpu.global.max.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
 
 // rows [row0, row0 + R) of one (b, h) slice of a [B, S, H, D] tensor (g ->
 // element (b, 0, h, 0), row stride ld) into a swizzled tile, rows >= S
@@ -327,17 +361,18 @@ constexpr int kBwdQ = 64;         // main: q rows a ring stage
 constexpr int kBwdKV = 128;       // main: keys a block, 64 a warpgroup
 constexpr int kBwdStages = 2;     // main: ring stages
 
-// 1. delta = rowsum(do * o) in f32, and the rows of the f32 dq
-// accumulator zeroed: D / 8 lanes a row of [B, S, H, D], 16 bytes each,
-// rows in memory order (r = (b S + s) H + h)
+// 1. delta = rowsum(do * o) in f32, and the n_turns dq turn counters
+// zeroed: D / 8 lanes a row of [B, S, H, D], 16 bytes each, rows in
+// memory order (r = (b S + s) H + h)
 template <int D>
 __global__ void __launch_bounds__(kRowThreads)
     flash_bwd_prep_kernel(const bf16* __restrict__ o,
                           const bf16* __restrict__ dout,
-                          float* __restrict__ delta,
-                          float* __restrict__ dq_acc, int R, int S, int H) {
+                          float* __restrict__ delta, int* __restrict__ turns,
+                          int n_turns, int R, int S, int H) {
   constexpr int L = D / 8;
   const int i = blockIdx.x * kRowThreads + threadIdx.x;
+  for (int t = i; t < n_turns; t += gridDim.x * kRowThreads) turns[t] = 0;
   const int r = i / L, c = (i - r * L) * 8;
   float acc = 0.f;
   if (r < R) {
@@ -352,9 +387,6 @@ __global__ void __launch_bounds__(kRowThreads)
       const float2 y = __bfloat1622float2(b2[j]);
       acc += x.x * y.x + x.y * y.y;
     }
-    float4* z = reinterpret_cast<float4*>(dq_acc + off);
-    z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
-    z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 #pragma unroll
   for (int off = L / 2; off > 0; off >>= 1)  // within the row's L lanes
@@ -388,8 +420,9 @@ __global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
                      const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     float* __restrict__ dq_acc, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int S, int H, float scale) {
+                     float* __restrict__ dq_acc, int* __restrict__ turns,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
+                     int H, float scale) {
   using C = Bwd<D>;
   constexpr int NT = C::kThreads;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -409,7 +442,13 @@ __global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
   const float* lse_bh = lse + (size_t)bh * S;
   const float* delta_bh = delta + (size_t)bh * S;
   const int j0 = k0 / kBwdQ;  // q tiles before j0 see none of these keys
-  const int n_it = (S + kBwdQ - 1) / kBwdQ - j0;
+  const int n_q = (S + kBwdQ - 1) / kBwdQ, n_it = n_q - j0;
+  // this key tile's rank among those that reach any of its q tiles, and
+  // the turn counter of this warpgroup's columns of q tile j
+  const int kt = blockIdx.y;
+  auto turn_at = [&](int j) {
+    return turns + ((size_t)bh * n_q + j) * C::kGroups + wg;
+  };
   const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
 
   // K and V of the tile (rows >= S zeroed), resident for the block
@@ -441,12 +480,15 @@ __global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
   const float sl2 = scale * kLog2e;
 
   for (int it = 0; it < n_it; ++it) {
-    const int st = it % kBwdStages, q0 = (j0 + it) * kBwdQ;
+    const int st = it % kBwdStages, jq = j0 + it, q0 = jq * kBwdQ;
     cp_async_wait<0>();    // this thread's copies of tile it have landed
     fence_async_shared();  // ... visible to wgmma
     __syncthreads();       // ... every thread's; iteration it - 1 is done
+    // q tile jq - 1's dq adds, every thread's (the barrier), passed to
+    // the next key tile by one thread a warpgroup
+    if (it > 0 && (tid & 127) == 0) max_release(turn_at(jq - 1), kt + 1);
     // the next tile into the stage iteration it - 1 read
-    if (it + 1 < n_it) load_q((it + 1) % kBwdStages, j0 + it + 1);
+    if (it + 1 < n_it) load_q((it + 1) % kBwdStages, jq + 1);
     cp_async_commit();
     const bf16* q_s = ring + st * C::kStage;
     const bf16* do_s = q_s + kBwdQ * D;
@@ -545,6 +587,12 @@ __global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
                      desc_mn(q_s + sw128_off<kBwdQ>(kk * 16, 0), kBwdQ * 128));
     }
     wgmma_commit();
+    // this warpgroup's turn at q tile jq: key tiles 0 .. kt - 1 have
+    // added theirs (every thread polls the one counter, a load a warp, so
+    // no branch splits the warpgroup while dQ, dV, dK run)
+    if (kt > 0)
+      while (ld_acquire(turn_at(jq)) < kt) {
+      }
     wgmma_wait<1>();  // dQ
     wgmma_hold(qa);
 #pragma unroll
@@ -553,9 +601,13 @@ __global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
       if (qrow >= S) continue;
       float* dst = dq_acc + base + (size_t)qrow * ld + wg * C::kDQ + 2 * t;
 #pragma unroll
-      for (int n = 0; n < C::kDQ / 8; ++n)
-        atomicAdd(reinterpret_cast<float2*>(dst + n * 8),
-                  make_float2(qa[n][2 * r], qa[n][2 * r + 1]));
+      for (int n = 0; n < C::kDQ / 8; ++n) {
+        const float2 part = make_float2(qa[n][2 * r], qa[n][2 * r + 1]);
+        if (kt == 0)
+          *reinterpret_cast<float2*>(dst + n * 8) = part;
+        else
+          atomicAdd(reinterpret_cast<float2*>(dst + n * 8), part);
+      }
     }
     wgmma_wait<0>();  // dV, dK
     wgmma_hold(dva);
@@ -567,6 +619,8 @@ __global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
     }
   }
   cp_async_wait<0>();
+  __syncthreads();  // the last q tile's adds, every thread's
+  if ((tid & 127) == 0) max_release(turn_at(n_q - 1), kt + 1);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -624,24 +678,26 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
 template <int D>
 cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const void* lse, void* dq, void* dk,
-                void* dv, void* delta, void* dq_acc, int B, int S, int H,
-                float scale, cudaStream_t s) {
+                void* dv, void* delta, void* dq_acc, void* turns, int B,
+                int S, int H, float scale, cudaStream_t s) {
   using C = Bwd<D>;
   static bool ready = false;
   cudaError_t err = allow_smem(flash_bwd_kernel<D>, C::kSmem, &ready);
   if (err != cudaSuccess) return err;
   const int R = B * S * H, rows = kRowThreads / (D / 8);
+  const int n_turns = B * H * ((S + kBwdQ - 1) / kBwdQ) * C::kGroups;
   flash_bwd_prep_kernel<D><<<(R + rows - 1) / rows, kRowThreads, 0, s>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-      static_cast<float*>(delta), static_cast<float*>(dq_acc), R, S, H);
+      static_cast<float*>(delta), static_cast<int*>(turns), n_turns, R, S,
+      H);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   dim3 grid(B * H, (S + kBwdKV - 1) / kBwdKV);
   flash_bwd_kernel<D><<<grid, C::kThreads, C::kSmem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq_acc), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), S, H, scale);
+      static_cast<float*>(dq_acc), static_cast<int*>(turns),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t n8 = (size_t)R * D / 8;
   flash_bwd_cast_kernel<<<(unsigned)((n8 + kRowThreads - 1) / kRowThreads),
@@ -665,20 +721,22 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// The backward's three launches.  delta ([B, H, S] f32) and dq_acc
-// ([B, S, H, D] f32) are workspaces the wrapper allocates (uninitialised:
-// the pre-pass writes both).
+// The backward's three launches.  delta ([B, H, S] f32), dq_acc ([B, S,
+// H, D] f32) and turns (int32, B H ceil(S / 64) 2: a (b*h, 64-row q tile,
+// warpgroup) each) are workspaces the wrapper allocates, uninitialised:
+// the pre-pass writes delta and zeroes turns, key tile 0 writes dq_acc.
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 const void* o, const void* dout,
                                 const void* lse, void* dq, void* dk, void* dv,
-                                void* delta, void* dq_acc, int B, int S,
-                                int H, int d, float scale, void* stream) {
+                                void* delta, void* dq_acc, void* turns, int B,
+                                int S, int H, int d, float scale,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 128)
-    return bwd<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, dq_acc, B, S,
-                    H, scale, s);
+    return bwd<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, dq_acc, turns,
+                    B, S, H, scale, s);
   if (d == 64)
-    return bwd<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, dq_acc, B, S, H,
-                   scale, s);
+    return bwd<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, dq_acc, turns,
+                   B, S, H, scale, s);
   return cudaErrorInvalidValue;
 }

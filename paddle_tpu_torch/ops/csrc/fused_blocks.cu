@@ -28,65 +28,61 @@
 // that the wrapper allocates.  Every output element has one writer: no
 // atomics, deterministic.
 //
-// The GEMM main loops:
-// - gemm_tma_kernel<EPI, BMODE>: the wo product (row 8), gate/up and down
-//   (row 9), dxn (row 10).  wgmma on 128-row tiles: A [M, K] and B come
-//   in k steps of 64 through a 4-stage ring filled by TMA: one thread of
-//   a loader warp issues the copies (128-byte swizzled by the copy
-//   engine; rows >= M and columns past the edge arrive as zeros) on each
-//   stage's full mbarrier and waits on its empty one, so the two consumer
-//   warpgroups (64 rows each) spend no instructions on loads and meet at
-//   no block barrier.  Each runs one m64n256k16 a k16 step from shared
-//   memory (A K-major), one k step left running while the next is issued.
-//   B is read three ways (BMODE): a [K, N] weight as stored (MN-major,
-//   four 64-column boxes); two [K, N] weights, the same 128 columns of
-//   each (g in accumulator blocks 0-15, u in 16-31, so g and u of one
-//   column sit in one thread's registers and the swiglu epilogue runs
-//   there; the output tile is 128 wide); or a weight stored [N, K]
-//   (K-major, one box of 256 N rows), K split over two weights at ksplit
-//   (wg, wu for dxn).  The residual epilogue meets x in f32 through
-//   shared memory (16-byte stores); the others store from registers.
+// The GEMM main loops (every product here runs on wgmma fed by TMA):
+// - gemm_tma_kernel<EPI, BMODE>: q, k, v with rope (row 7), the wo
+//   product (row 8), gate/up and down (row 9), dxn (row 10).  wgmma on
+//   128-row tiles: A [M, K] and B come in k steps of 64 through a 4-stage
+//   ring filled by TMA: one thread of a loader warp issues the copies
+//   (128-byte swizzled by the copy engine; rows >= M and columns past the
+//   edge arrive as zeros) on each stage's full mbarrier and waits on its
+//   empty one, so the two consumer warpgroups (64 rows each) spend no
+//   instructions on loads and meet at no block barrier.  Each runs one
+//   m64n256k16 a k16 step from shared memory (A K-major), one k step left
+//   running while the next is issued.  B is read three ways (BMODE): a
+//   [K, N] weight as stored (MN-major, four 64-column boxes; row 7 picks
+//   wq, wk or wv by grid z, one launch for all three); two [K, N]
+//   weights, the same 128 columns of each (g in accumulator blocks 0-15,
+//   u in 16-31, so g and u of one column sit in one thread's registers
+//   and the swiglu epilogue runs there; the output tile is 128 wide); or
+//   a weight stored [N, K] (K-major, one box of 256 N rows), K split over
+//   two weights at ksplit (wg, wu for dxn).  The residual epilogue meets
+//   x in f32 through shared memory (16-byte stores); the others store
+//   from registers.  Rope does too: a 256-wide tile holds whole heads (D
+//   = 64 or 128 divides it), and column j of a head and its partner j +-
+//   D/2 sit in one thread's accumulator blocks n and n ^ (D/16).
 // - gate_up_grad_kernel: row 10's da and gate/up products, the same
 //   roles and ring (3 stages) over two K loops on one 128 x 128 tile of
 //   [M, I]: da (m64n128k16, wd K-major) parked in shared memory, then g, u
 //   (m64n256k16, the dual B), then dg, du from registers.  It spares the
 //   f32 g, u workspace a separate da launch would read back (369 MB each
 //   way at the bench shape).
-// - gemm_kernel: row 7's q, k, v with rope: mma.sync m16n8k16 on
-//   128 x 128 tiles, 8 warps of 64 x 32, K in steps of 32 through a
-//   3-stage cp.async ring, fragments by ldmatrix (.trans for the [K, N]
-//   weight).  The f32 tile goes through shared memory, where rope pairs
-//   column j with j + D/2 of its head.
 //
 // What bounds them on this card: every product here has K >= 2048 and
 // M = B S = 8192 rows at the bench shape, about 1,000 operations per byte
 // of operand, so the tensor cores bound it (989 TFLOP/s bf16 dense; per
 // call at the bench shape: qkv 0.208 ms, attention + wo 0.139 ms, MLP
-// 0.573 ms, dx 0.955 ms).  mma.sync cannot reach that rate on Hopper
-// (ldmatrix feeds every operand, every thread issues copies between its
-// products); wgmma fed by TMA can.  What holds the wgmma loops below it:
-// a block runs one tile (no persistent schedule, so the epilogue and the
-// ring's fill overlap no other tile's products), and no cluster shares a
-// tile's loads (a 128 x 256 tile reads 48 KB from L2 a k step, 87
-// operations a byte).
+// 0.573 ms, dx 0.955 ms).  wgmma fed by TMA is the way to that rate.
+// What holds the loops below it: a block runs one tile (no persistent
+// schedule, so the epilogue and the ring's fill overlap no other tile's
+// products), and no cluster shares a tile's loads (a 128 x 256 tile
+// reads 48 KB from L2 a k step, 87 operations a byte).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "mma_bf16.cuh"  // bf16, pack_f32
 #include "wgmma_bf16.cuh"
 
 namespace {
 
 struct Gemm {
   const bf16* a;        // A [M, K], row stride lda
-  const bf16* b[3];     // gemm_kernel: B [K, N] per grid z, row stride ldb
-  void* out[3];         // output per grid z (gemm_tma_kernel: out[0])
+  void* out[3];         // output per grid z (kRope: q, k, v; else out[0])
   const bf16* x;        // kResidual: residual [M, N], row stride ldo
-  const float* sin;     // gemm_kernel: rope tables [S, D]
+  const float* sin;     // kRope: rope tables [S, D]
   const float* cos;
-  int lda, ldb, ldo, M, N, K, ksplit, S, D, rope_z;
+  int lda, ldb, ldo, M, N, K, ksplit, S, D;
 };
 
 __device__ __forceinline__ float rbf(float f) {  // round to bf16 (RN)
@@ -112,24 +108,6 @@ __device__ __forceinline__ uint4 pack8(const float v[8]) {
   return u;
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
 __device__ __forceinline__ float sigmoid(float g) {
   return 1.f / (1.f + expf(-g));
 }
@@ -138,139 +116,6 @@ __device__ __forceinline__ float sigmoid(float g) {
 __device__ __forceinline__ float2 swiglu_grad(float da, float g, float u) {
   const float sg = sigmoid(g);
   return make_float2(da * u * (sg + g * sg * (1.f - sg)), da * (g * sg));
-}
-
-// ---------------------------------------------------------------------------
-// row 7's GEMM: one 128 x 128 tile of xn . w per block (w = wq, wk, wv by
-// grid z), then rope on q and k
-// ---------------------------------------------------------------------------
-
-constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3;
-constexpr int kThreads = 256;
-constexpr int kLdA = kBK + 8;    // A tile [kBM][kLdA]: 80-byte rows
-constexpr int kLdB = kBN + 8;    // B tile stored [k][n]: 272-byte rows
-constexpr int kLdC = kBN + 4;    // f32 epilogue tile
-constexpr int kStageA = kBM * kLdA;    // elements per stage
-constexpr int kStageB = kBK * kLdB;
-constexpr int kSmemPipe = kStages * (kStageA + kStageB) * 2;
-constexpr int kSmemC = kBM * kLdC * 4;
-constexpr int kSmem = kSmemPipe > kSmemC ? kSmemPipe : kSmemC;
-
-__global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm p) {
-  extern __shared__ __align__(1024) unsigned char smem[];
-  bf16* sa = reinterpret_cast<bf16*>(smem);
-  bf16* sb = sa + kStages * kStageA;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN, z = blockIdx.z;
-  const bf16* b = z == 0 ? p.b[0] : z == 1 ? p.b[1] : p.b[2];
-  bf16* out = static_cast<bf16*>(z == 0 ? p.out[0] : z == 1 ? p.out[1]
-                                                             : p.out[2]);
-
-  auto load_stage = [&](int stage, int k0) {
-    bf16* da = sa + stage * kStageA;
-    bf16* db = sb + stage * kStageB;
-    for (int i = tid; i < kBM * (kBK / 8); i += kThreads) {
-      const int r = i >> 2, c = (i & 3) * 8, gr = m0 + r;
-      const bf16* src = p.a + (size_t)(gr < p.M ? gr : p.M - 1) * p.lda + k0 + c;
-      cp_async16(da + r * kLdA + c, src, gr < p.M);
-    }
-    for (int i = tid; i < kBK * (kBN / 8); i += kThreads) {
-      const int r = i >> 4, c = (i & 15) * 8;
-      cp_async16(db + r * kLdB + c, b + (size_t)(k0 + r) * p.ldb + n0 + c,
-                 true);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  const int nk = p.K / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_stage(s, s * kBK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile kt has landed; tile kt - 1's stage is free
-    const int nxt = kt + kStages - 1;
-    if (nxt < nk) load_stage(nxt % kStages, nxt * kBK);
-    cp_async_commit();
-    const bf16* ta = sa + (kt % kStages) * kStageA;
-    const bf16* tb = sb + (kt % kStages) * kStageB;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], ta + (wm * 64 + mi * 16 + (lane & 15)) * kLdA +
-                                kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {  // two n8 blocks per ldmatrix
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, tb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                      kLdB +
-                                  wn * 32 + nj * 16 + (lane >> 4) * 8);
-        bfr[2 * nj][0] = r[0];
-        bfr[2 * nj][1] = r[1];
-        bfr[2 * nj + 1][0] = r[2];
-        bfr[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], af[mi], bfr[ni]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is spent: its memory takes the f32 tile
-
-  float* cs = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int r = wm * 64 + mi * 16 + (lane >> 2);
-      const int c = wn * 32 + ni * 8 + 2 * (lane & 3);
-      *reinterpret_cast<float2*>(cs + r * kLdC + c) =
-          make_float2(acc[mi][ni][0], acc[mi][ni][1]);
-      *reinterpret_cast<float2*>(cs + (r + 8) * kLdC + c) =
-          make_float2(acc[mi][ni][2], acc[mi][ni][3]);
-    }
-  __syncthreads();
-
-  for (int i = tid; i < kBM * (kBN / 8); i += kThreads) {
-    const int r = i >> 4, c = (i & 15) * 8, gr = m0 + r;
-    if (gr >= p.M) continue;
-    const float* crow = cs + r * kLdC;
-    float v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = crow[c + j];
-    if (z < p.rope_z) {
-      // the reference's rounding: t = bf16(xn . w), rot = rotate_half(t),
-      // out = t * bf16(cos) + rot * bf16(sin), each op rounded to bf16
-      const int D = p.D, half = D / 2;
-      const int s = gr % p.S;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = c + j, hd = (n0 + col) % D;
-        const float t = rbf(v[j]);
-        const float rot = hd < half ? -rbf(crow[col + half])
-                                    : rbf(crow[col - half]);
-        const float cs_ = rbf(p.cos[(size_t)s * D + hd]);
-        const float sn = rbf(p.sin[(size_t)s * D + hd]);
-        v[j] = rbf(t * cs_) + rbf(rot * sn);
-      }
-    }
-    *reinterpret_cast<uint4*>(out + (size_t)gr * p.ldo + n0 + c) = pack8(v);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -283,6 +128,7 @@ enum {
   kResidual,  // y = bf16(x + acc)
   kSwiglu,    // dual B: a = bf16(silu(g) u)
   kStoreF32,  // out = acc (f32)
+  kRope,      // grid z = 3 over wq, wk, wv: rope on q and k (z < 2), bf16
 };
 // B: [K, N] as stored; two [K, N] weights, the same columns of each; or
 // [N, K] as stored (K-major), K split at ksplit over two weights
@@ -305,7 +151,8 @@ struct Tma {
 // A [M, K] (K-major) comes in one 128 x 64 box a k step and B in 32 KB:
 // kKN four 64 x 64 boxes of [K, N] (MN-major), kKNDual two of each of
 // two maps (g's 128 columns, then u's), kNK one 256-row x 64 box of
-// [N, K] (K-major; from map_b2 for k >= ksplit).  One thread of the
+// [N, K] (K-major; from map_b2 for k >= ksplit); kKN reads map_b,
+// map_b2 or map_b3 by grid z (one map but for kRope).  One thread of the
 // loader warp issues a stage's copies on its full mbarrier once both
 // warpgroups have released it on its empty one.  Each warpgroup runs
 // m64n256k16 wgmma from shared memory into f32 accumulators, one k step
@@ -315,9 +162,11 @@ __global__ void __launch_bounds__(Tma::kThreads, 1)
     gemm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
                     const __grid_constant__ CUtensorMap map_b,
                     const __grid_constant__ CUtensorMap map_b2,
+                    const __grid_constant__ CUtensorMap map_b3,
                     const Gemm p) {
   static_assert((BMODE == kKNDual) == (EPI == kSwiglu),
                 "the swiglu epilogue takes a dual B");
+  static_assert(EPI != kRope || BMODE == kKN, "rope reads B as stored");
   constexpr int kTileN = BMODE == kKNDual ? Tma::kBN / 2 : Tma::kBN;
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* sa = reinterpret_cast<bf16*>(smem);
@@ -351,10 +200,13 @@ __global__ void __launch_bounds__(Tma::kThreads, 1)
           tma_load_2d(tb, hi ? &map_b2 : &map_b, hi ? k - p.ksplit : k, n0,
                       full + st);
         } else {
+          const CUtensorMap* mb = blockIdx.z == 0   ? &map_b
+                                  : blockIdx.z == 1 ? &map_b2
+                                                    : &map_b3;
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             tma_load_2d(tb + i * Tma::kBK * 64,
-                        BMODE == kKNDual && i >= 2 ? &map_b2 : &map_b,
+                        BMODE == kKNDual && i >= 2 ? &map_b2 : mb,
                         n0 + 64 * (BMODE == kKNDual ? i & 1 : i), k,
                         full + st);
         }
@@ -431,6 +283,56 @@ __global__ void __launch_bounds__(Tma::kThreads, 1)
   // the other epilogues from registers: this thread's rows r, r + 8 and,
   // in each 8-column block j, the columns 8 j + c, 8 j + c + 1
   const int r0 = m0 + warp * 16 + (lane >> 2), c0 = n0 + 2 * (lane & 3);
+  if constexpr (EPI == kRope) {
+    // q and k: the reference's rounding, t = bf16(acc), rot =
+    // rotate_half(t), out = bf16(bf16(t bf16(cos)) + bf16(rot bf16(sin)))
+    // (pallas_ops.py:1146-1155); v: bf16(acc).  n0 is a multiple of D, so
+    // column 8 j + c of the tile is column (8 j + c) % D of its head, and
+    // its partner (+- D/2) is in block j ^ (D / 16): blocks j and j ^ 8 at
+    // D 128, j and j ^ 4 at D 64, the lower half's rot negated.  Blocks j
+    // and j + 16 share their columns' table entries.
+    const int z = blockIdx.z;
+    bf16* out = static_cast<bf16*>(z == 0 ? p.out[0]
+                                   : z == 1 ? p.out[1]
+                                            : p.out[2]);
+    const bool wide = p.D == 128;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= p.M) continue;
+      const size_t row = (size_t)(r % p.S) * p.D;
+      bf16* orow = out + (size_t)r * p.ldo;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int hd = (c0 - n0 + 8 * j) & (p.D - 1);
+        float2 cs = make_float2(0.f, 0.f), sn = cs;
+        if (z < 2) {
+          cs = __ldg(reinterpret_cast<const float2*>(p.cos + row + hd));
+          sn = __ldg(reinterpret_cast<const float2*>(p.sin + row + hd));
+          cs = make_float2(rbf(cs.x), rbf(cs.y));
+          sn = make_float2(rbf(sn.x), rbf(sn.y));
+        }
+#pragma unroll
+        for (int jj = j; jj < 32; jj += 16) {
+          const int c = c0 + 8 * jj;
+          if (c >= p.N) continue;
+          float v0 = acc[jj][2 * h], v1 = acc[jj][2 * h + 1];
+          if (z < 2) {
+            const bool lo = wide ? (jj & 8) == 0 : (jj & 4) == 0;
+            const float pr0 = wide ? acc[jj ^ 8][2 * h] : acc[jj ^ 4][2 * h];
+            const float pr1 =
+                wide ? acc[jj ^ 8][2 * h + 1] : acc[jj ^ 4][2 * h + 1];
+            const float rot0 = lo ? -rbf(pr0) : rbf(pr0);
+            const float rot1 = lo ? -rbf(pr1) : rbf(pr1);
+            v0 = rbf(rbf(v0) * cs.x) + rbf(rot0 * sn.x);
+            v1 = rbf(rbf(v1) * cs.y) + rbf(rot1 * sn.y);
+          }
+          *reinterpret_cast<uint32_t*>(orow + c) = pack_f32(v0, v1);
+        }
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < kTileN / 8; ++j) {
     const int c = c0 + 8 * j;
@@ -696,26 +598,18 @@ cudaError_t smem_limit(K kernel, int bytes, bool& ready) {
   return err;
 }
 
-cudaError_t gemm_rope(const Gemm& p, int N, cudaStream_t s) {
-  static bool ready = false;
-  cudaError_t err = smem_limit(gemm_kernel, kSmem, ready);
-  if (err != cudaSuccess) return err;
-  dim3 grid(N / kBN, (p.M + kBM - 1) / kBM, 3);
-  gemm_kernel<<<grid, kThreads, kSmem, s>>>(p);
-  return cudaGetLastError();
-}
-
-// B as the BMODE reads it: kKN b [K, N]; kKNDual b, b2 [K, N] (N = the
-// output columns); kNK b [N, ksplit] and, for k >= ksplit, b2 [N, K -
-// ksplit]; each with row stride p.ldb
+// B as the BMODE reads it: kKN b [K, N] (kRope: b, b2, b3 [K, N], one
+// a grid z); kKNDual b, b2 [K, N] (N = the output columns); kNK b [N,
+// ksplit] and, for k >= ksplit, b2 [N, K - ksplit]; each with row stride
+// p.ldb
 template <int EPI, int BMODE>
 cudaError_t gemm_tma(const Gemm& p, const void* b, const void* b2,
-                     cudaStream_t s) {
+                     const void* b3, cudaStream_t s) {
   static bool ready = false;
   cudaError_t err =
       smem_limit(gemm_tma_kernel<EPI, BMODE>, Tma::kSmem, ready);
   if (err != cudaSuccess) return err;
-  CUtensorMap ma, mb, mb2;
+  CUtensorMap ma, mb, mb2, mb3;
   if ((err = tma_map_2d(&ma, p.a, p.M, p.K, p.lda, Tma::kBM)) != cudaSuccess)
     return err;
   if (BMODE == kNK) {
@@ -727,16 +621,20 @@ cudaError_t gemm_tma(const Gemm& p, const void* b, const void* b2,
   } else {
     if ((err = tma_map_2d(&mb, b, p.K, p.N, p.ldb, Tma::kBK)) != cudaSuccess)
       return err;
-    if (BMODE == kKN)
-      mb2 = mb;  // not read
-    else if ((err = tma_map_2d(&mb2, b2, p.K, p.N, p.ldb, Tma::kBK)) !=
-             cudaSuccess)
+    mb2 = mb;  // not read unless given
+    if (b2 && (err = tma_map_2d(&mb2, b2, p.K, p.N, p.ldb, Tma::kBK)) !=
+                  cudaSuccess)
       return err;
   }
+  mb3 = mb;
+  if (b3 && (err = tma_map_2d(&mb3, b3, p.K, p.N, p.ldb, Tma::kBK)) !=
+                cudaSuccess)
+    return err;
   constexpr int tile_n = BMODE == kKNDual ? Tma::kBN / 2 : Tma::kBN;
-  dim3 grid((p.N + tile_n - 1) / tile_n, (p.M + Tma::kBM - 1) / Tma::kBM);
+  dim3 grid((p.N + tile_n - 1) / tile_n, (p.M + Tma::kBM - 1) / Tma::kBM,
+            EPI == kRope ? 3 : 1);
   gemm_tma_kernel<EPI, BMODE><<<grid, Tma::kThreads, Tma::kSmem, s>>>(
-      ma, mb, mb2, p);
+      ma, mb, mb2, mb3, p);
   return cudaGetLastError();
 }
 
@@ -777,10 +675,7 @@ extern "C" int fused_qkv_launch(const void* x, const void* ln,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = rms_norm(x, ln, xn, M, H, eps, s);
   if (err != cudaSuccess) return err;
-  Gemm p = make(xn, H, M, H, H);
-  p.b[0] = static_cast<const bf16*>(wq);
-  p.b[1] = static_cast<const bf16*>(wk);
-  p.b[2] = static_cast<const bf16*>(wv);
+  Gemm p = make(xn, H, M, H, H);  // q, k, v = xn wq, xn wk, xn wv
   p.out[0] = q;
   p.out[1] = k;
   p.out[2] = v;
@@ -789,8 +684,7 @@ extern "C" int fused_qkv_launch(const void* x, const void* ln,
   p.cos = static_cast<const float*>(cos);
   p.S = S;
   p.D = D;
-  p.rope_z = 2;  // q and k
-  return gemm_rope(p, H, s);
+  return gemm_tma<kRope, kKN>(p, wq, wk, wv, s);
 }
 
 extern "C" int fused_attn_out_launch(const void* attn, const void* wo,
@@ -800,7 +694,7 @@ extern "C" int fused_attn_out_launch(const void* attn, const void* wo,
   p.out[0] = y;
   p.x = static_cast<const bf16*>(x);
   p.ldb = p.ldo = H;
-  return gemm_tma<kResidual, kKN>(p, wo, nullptr,
+  return gemm_tma<kResidual, kKN>(p, wo, nullptr, nullptr,
                                   static_cast<cudaStream_t>(stream));
 }
 
@@ -815,13 +709,13 @@ extern "C" int fused_mlp_fwd_launch(const void* x, const void* ln,
   Gemm p = make(xn, H, M, H, I);  // a = silu(xn wg) * (xn wu)
   p.out[0] = a;
   p.ldb = p.ldo = I;
-  err = gemm_tma<kSwiglu, kKNDual>(p, wg, wu, s);
+  err = gemm_tma<kSwiglu, kKNDual>(p, wg, wu, nullptr, s);
   if (err != cudaSuccess) return err;
   Gemm q = make(a, I, M, I, H);  // y = x + a wd
   q.out[0] = y;
   q.x = static_cast<const bf16*>(x);
   q.ldb = q.ldo = H;
-  return gemm_tma<kResidual, kKN>(q, wd, nullptr, s);
+  return gemm_tma<kResidual, kKN>(q, wd, nullptr, nullptr, s);
 }
 
 extern "C" int fused_mlp_bwd_dx_launch(const void* x, const void* ln,
@@ -856,7 +750,7 @@ extern "C" int fused_mlp_bwd_dx_launch(const void* x, const void* ln,
   r.ldb = I;  // wg, wu [H, I]: B^T as stored
   r.ldo = H;
   r.out[0] = dxn;
-  err = gemm_tma<kStoreF32, kNK>(r, wg, wu, s);
+  err = gemm_tma<kStoreF32, kNK>(r, wg, wu, nullptr, s);
   if (err != cudaSuccess) return err;
   rms_norm_bwd_kernel<<<M, kRowThreads, 0, s>>>(
       static_cast<const float*>(dxn), static_cast<const bf16*>(x),

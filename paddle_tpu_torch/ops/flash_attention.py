@@ -20,9 +20,10 @@ hand-written kernels in ``csrc/flash_attention.cu`` (bf16, head dim 64
 or 128, any S >= 1; anything else raises), which read ``[B, S, H, D]``
 in place through its row stride: the reference's ``_to_bh`` transposes
 are gone.  The backward is three launches (a delta pre-pass, the main
-kernel over 128-key tiles, a cast of the f32 dq sum); dq is summed
-across key tiles by atomics, so it is not bit-reproducible on the card.  CPU tensors go to the plain versions,
-which materialise the S x S scores in f32 as the kernels' math does.
+kernel over 128-key tiles, a cast of the f32 dq sum); the key tiles add
+their dq parts in a fixed order, so every output is the same bits from
+call to call.  CPU tensors go to the plain versions, which materialise
+the S x S scores in f32 as the kernels' math does.
 ``causal_attention`` is the ``torch.autograd.Function`` over them.
 """
 from __future__ import annotations
@@ -109,8 +110,8 @@ def _flash_bwd_plain(q, k, v, o, lse, do):
 _ARGTYPES = {
     # q k v o lse B S H d scale stream
     "flash_fwd_launch": 5 * ["p"] + 4 * ["i"] + ["f", "p"],
-    # q k v o do lse dq dk dv delta dq_acc B S H d scale stream
-    "flash_bwd_launch": 11 * ["p"] + 4 * ["i"] + ["f", "p"],
+    # q k v o do lse dq dk dv delta dq_acc turns B S H d scale stream
+    "flash_bwd_launch": 12 * ["p"] + 4 * ["i"] + ["f", "p"],
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -176,8 +177,10 @@ def _launch_fwd(q, k, v):
 
 def _flash_bwd_cuda(q, k, v, o, lse, do):
     """The backward's three launches, uncounted (``flash_bwd`` counts),
-    with their f32 workspaces: delta [B, H, S] and the dq sum
-    [B, S, H, D], both written by the first launch."""
+    with their workspaces: delta [B, H, S] and the dq sum [B, S, H, D]
+    in f32, and the int32 turn counters of the ordered dq sum, one a
+    (b*h, 64-row q tile, warpgroup of 64 keys); the kernels write all
+    three before they read them."""
     B, S, H, D = _check_kernel_args("flash_bwd", q, k, v, o, do)
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     lse = _rows(lse, B, H, S, "flash_bwd lse")
@@ -185,9 +188,11 @@ def _flash_bwd_cuda(q, k, v, o, lse, do):
         torch.empty_like(v)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     acc = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
+    turns = torch.empty(B * H * -(-S // 64) * 2, dtype=torch.int32,
+                        device=q.device)
     err = _fn("flash_bwd_launch")(
-        *_ptrs(q, k, v, o, do, lse, dq, dk, dv, delta, acc), B, S, H, D,
-        1.0 / math.sqrt(D), _build.stream_ptr(q.device))
+        *_ptrs(q, k, v, o, do, lse, dq, dk, dv, delta, acc, turns), B, S,
+        H, D, 1.0 / math.sqrt(D), _build.stream_ptr(q.device))
     _build.check(err, "flash_bwd")
     return dq, dk, dv
 

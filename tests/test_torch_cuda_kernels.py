@@ -493,25 +493,23 @@ def test_flash_fwd_replays_in_a_cuda_graph(cuda):
 
 
 def test_flash_bwd_twice_in_a_row_agrees(cuda):
-    """The f32 dq sum is zeroed by every call's pre-pass: a second call
-    on the same inputs gives the same gradients within the limits (dq
-    sums in another order; dk and dv have one writer each)."""
+    """Every call's pre-pass zeroes the dq turn counters, the key tiles
+    add their dq parts in key-tile order, and dk and dv have one writer
+    each: a second call on the same inputs gives the same bits."""
     q, k, v, do = _qkvd(cuda, 2, 1000, 3, 128, seed=5)
     o, lse = fa.flash_fwd(q, k, v)
     first = fa.flash_bwd(q, k, v, o, lse, do)
     second = fa.flash_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
-        assert _rel(b, a) <= 2e-2 and _row_rel(b, a) <= 2e-2
-    assert torch.equal(first[1], second[1])
-    assert torch.equal(first[2], second[2])
+        assert torch.equal(a, b)
     _check_bwd(second, q, k, v, o, lse, do)
 
 
 def test_flash_bwd_replays_in_a_cuda_graph(cuda):
     """A call captured in a CUDA graph and replayed (as chip_smoke.py
-    times it) gives the eager call's gradients: no host sync, no memset
-    outside the graph."""
+    times it) gives the eager call's gradients, bit for bit: no host
+    sync, no memset outside the graph, the dq sum in a fixed order."""
     q, k, v, do = _qkvd(cuda, 2, 1000, 2, 128, seed=9)
     o, lse = fa.flash_fwd(q, k, v)
     eager = fa.flash_bwd(q, k, v, o, lse, do)
@@ -527,7 +525,7 @@ def test_flash_bwd_replays_in_a_cuda_graph(cuda):
         graph.replay()
     torch.cuda.synchronize()
     for a, b in zip(eager, out):
-        assert _rel(b, a) <= 2e-2 and _row_rel(b, a) <= 2e-2
+        assert torch.equal(a, b)
     _check_bwd(out, q, k, v, o, lse, do)
 
 
@@ -725,35 +723,41 @@ def test_fused_kernels_refuse_what_they_cannot_serve(cuda):
         fb.fused_attn_epilogue(x, x, x, x, wo.t(), head_dim=128)
 
 
-def _mlp_call(t, which):
+def _fused_call(t, which):
+    """A call of the qkv kernel, the MLP forward or its dx, as a tuple of
+    its outputs."""
+    if which == "qkv":
+        return lambda: fb.fused_qkv(t["x"], t["ln"], *t["w"][:3], t["sin"],
+                                    t["cos"], head_dim=t["sin"].shape[1])
     if which == "fwd":
-        return lambda: fb.fused_mlp_fwd(t["x"], t["ln"], t["wg"], t["wu"],
-                                        t["wd"])
-    return lambda: fb.fused_mlp_bwd_dx(t["x"], t["ln"], t["wg"], t["wu"],
-                                       t["wd"], t["dy"])
+        return lambda: (fb.fused_mlp_fwd(t["x"], t["ln"], t["wg"], t["wu"],
+                                         t["wd"]),)
+    return lambda: (fb.fused_mlp_bwd_dx(t["x"], t["ln"], t["wg"], t["wu"],
+                                        t["wd"], t["dy"]),)
 
 
-@pytest.mark.parametrize("which", ["fwd", "bwd_dx"])
-def test_fused_mlp_twice_in_a_row_is_bit_identical(cuda, which):
-    """Every output element of the MLP kernels has one writer and a fixed
-    order of summation: a second call on the same inputs gives the same
-    bits."""
-    call = _mlp_call(_fused_inputs(cuda, 1, 200, 384, 128, 640, seed=12),
-                     which)
+@pytest.mark.parametrize("which", ["qkv", "fwd", "bwd_dx"])
+def test_fused_kernels_twice_in_a_row_are_bit_identical(cuda, which):
+    """Every output element of the qkv and MLP kernels has one writer and
+    a fixed order of summation: a second call on the same inputs gives
+    the same bits (q, k and v each)."""
+    call = _fused_call(_fused_inputs(cuda, 1, 200, 384, 128, 640, seed=12),
+                       which)
     first = call()
     second = call()
     torch.cuda.synchronize()
-    assert torch.equal(first, second)
+    for a, b in zip(first, second, strict=True):
+        assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("which", ["fwd", "bwd_dx"])
-def test_fused_mlp_replays_in_a_cuda_graph(cuda, which):
+@pytest.mark.parametrize("which", ["qkv", "fwd", "bwd_dx"])
+def test_fused_kernels_replay_in_a_cuda_graph(cuda, which):
     """A call captured in a CUDA graph and replayed (as chip_smoke.py
-    times it) writes the eager call's output, bit for bit: the tensor
+    times it) writes the eager call's outputs, bit for bit: the tensor
     maps are built on the host at capture, the workspaces come from the
     graph's pool."""
-    call = _mlp_call(_fused_inputs(cuda, 2, 77, 256, 128, 640, seed=13),
-                     which)
+    call = _fused_call(_fused_inputs(cuda, 2, 77, 256, 64, 640, seed=13),
+                       which)
     eager = call()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -766,7 +770,8 @@ def test_fused_mlp_replays_in_a_cuda_graph(cuda, which):
     for _ in range(2):
         graph.replay()
     torch.cuda.synchronize()
-    assert torch.equal(eager, out)
+    for a, b in zip(eager, out, strict=True):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("policy", ["none", "dots"])

@@ -95,18 +95,52 @@ def _close(got, ref, atol=ATOL, rtol=0.0, msg=""):
                                rtol=rtol, err_msg=msg)
 
 
-def test_qkv_plain_matches_the_pallas_kernel():
-    x, ln, wq, wk, wv, _, sin, cos = _attn_args(0)
-    bq, _ = pallas_ops._fused_attn_config(S, H, D, jnp.float32)
-    ref = pallas_ops._fused_qkv_proj(*_j(x, ln.reshape(1, -1), wq, wk, wv,
-                                         sin, cos), D, bq, EPS)
+# (atol, rtol) of q, k, v per dtype.  f32: the summation order of the
+# products.  bf16: the two sides sum the f32 products in another order,
+# so t = bf16(xn w) can round the other way (one bf16 ulp, 2^-8 of |t|),
+# and rope carries that flip through its bf16 products and sum: 2^-7 of
+# the value plus a floor for values near zero.
+QKV_TOL = {"float32": (ATOL, 0.0), "bfloat16": (1e-2, 2 ** -7)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,seq", [(128, S), (64, S), (128, 200),
+                                    (64, 77)])
+def test_qkv_plain_matches_the_pallas_kernel(hd, seq, dtype):
+    """Both head dims the port's kernels take, S a multiple of the
+    reference's row block and ragged (200, 77: no multiple of the CUDA
+    kernel's 128-row tile), f32 and bf16 (where the rope rounding that
+    the kernel copies shows).  The reference is the Pallas body in
+    interpret mode at the blocks it picks where it takes the shape (D =
+    128, S = 256); elsewhere ``_fused_attn_config`` is None and the
+    reference's ``fused_attention_block`` takes its jnp composition, so
+    that is the reference there: ``_rope_flat(_rms_norm_ref(x) w)``."""
+    x, ln, wq, wk, wv, _, _, _ = _attn_args(0)
+    x = np.ascontiguousarray(x[:, :seq])
+    sin, cos = _rope_np(seq, hd)
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    tdt = getattr(torch, dtype)
+    args = [x, ln, wq, wk, wv]
+    cfg = pallas_ops._fused_attn_config(seq, H, hd, jdt)
+    assert (cfg is not None) == ((hd, seq) == (D, S))
+    ja = [a.astype(jdt) for a in _j(*args)]
+    js, jc = _j(sin, cos)
+    if cfg is not None:
+        ref = pallas_ops._fused_qkv_proj(ja[0], ja[1].reshape(1, -1),
+                                         *ja[2:], js, jc, hd, cfg[0], EPS)
+    else:
+        xn = pallas_ops._rms_norm_ref(ja[0], ja[1], EPS)
+        ref = (pallas_ops._rope_flat(xn @ ja[2], js, jc, hd),
+               pallas_ops._rope_flat(xn @ ja[3], js, jc, hd), xn @ ja[4])
     before = fb.fused_qkv.launches
-    got = fb.fused_qkv(*_t(x, ln, wq, wk, wv, sin, cos), head_dim=D,
-                       eps=EPS)
+    got = fb.fused_qkv(*(t.to(tdt) for t in _t(*args)), *_t(sin, cos),
+                       head_dim=hd, eps=EPS)
     assert fb.fused_qkv.launches == before     # the CPU counts no launch
+    atol, rtol = QKV_TOL[dtype]
     for n, g, r in zip("qkv", got, ref):
-        assert g.shape == (B, S, H) and g.dtype == torch.float32
-        _close(g.numpy(), r, msg=n)
+        assert g.shape == (B, seq, H) and g.dtype == tdt
+        _close(g.float().numpy(), np.asarray(r, np.float32), atol=atol,
+               rtol=rtol, msg=n)
 
 
 @pytest.mark.parametrize("hd", [64, 128])

@@ -227,16 +227,16 @@ def test_unported_branches_raise():
     _, tcfg = _cfgs(fields)
     params = tllama.init_params(tcfg, 0, device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         tllama.forward_pure(tcfg, params, ids, sp_axis="sp")
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         tllama.forward_pure(tcfg, params, ids, cp_mesh=object())
     moe = tllama.LlamaConfig(dtype=torch.float32,
                              **{**fields, "moe_num_experts": 2})
     x = torch.zeros((1, 4, fields["hidden_size"]))
     lp = {k: v[0] for k, v in params["layers"].items()}
     sin, cos = tllama._rope_tables(tcfg, 4, "cpu")
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         tllama.decoder_layer(moe, lp, x, sin, cos)
 
 
