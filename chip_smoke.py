@@ -16,18 +16,28 @@ as stored and K-contiguous, and its two regimes side by side where
 both apply (M = 8, 16).
 
 - serving: a small model's serving step on the card against the CPU
-  (float32 and int8 KV pages), then ``paddle_tpu_torch.bench_serve``'s
-  measuring function three times at the full width and depth of the
-  ``llama7b`` preset (random weights from a seed, int8 weights built
-  once): bf16 KV pages, int8 KV pages, and int8 pages under the
-  shared-prefix workload with the prefix cache on; every launch counted
-  through the int8 matmul and the two ragged paged attention kernels
-  (bf16 pools, int8 pools), and the KV pool bytes held to their
-  formula; one chunk-64 prefill step of the long-context shape
+  (float32 and int8 KV pages); a small float32 model's streams served
+  four ways (spec off, self-draft speculation, speculation with the
+  prefix cache, and that under an injected step failure) on the card
+  and on the CPU, all equal token for token; then
+  ``paddle_tpu_torch.bench_serve``'s measuring function four times at
+  the full width and depth of the ``llama7b`` preset (random weights
+  from a seed, int8 weights built once): bf16 KV pages, int8 KV pages,
+  and int8 pages under the shared-prefix workload with the prefix cache
+  and self-draft speculation at k = 3, and the same with speculation
+  off; every launch counted through the int8 matmul and the two ragged
+  paged attention kernels (bf16 pools, int8 pools) and held to the
+  engine's forwards by kind (target, the draft's mirror and proposals,
+  bisection probes), the KV pool bytes held to their formula and the
+  spec run's peak memory to the spec-off run's plus the draft's pools;
+  crash recovery on the same weights (int8 KV, prefix, speculation): a
+  transient step failure, a request-scoped poison (quarantined by
+  bisection) and a step past its watchdog deadline, every request
+  accounted for; one chunk-64 prefill step of the long-context shape
   (1,024-token prompts) profiled by kernel for each KV type.  Ragged
   paged attention is also held and timed at the long-context cell's
-  shapes (decode at 2048 tokens a request, chunk-64 prefill), for both
-  pool types;
+  shapes (decode at 2048 tokens a request, chunk-64 prefill) and at a
+  speculative step's verify rows, for both pool types;
 - training: the four fused decoder-block kernels against their plain
   versions at the bench shape (timed beside the unfused PyTorch
   composition of each block), a small bf16 train step on the card
@@ -297,8 +307,10 @@ def int_mm_ms(torch, i8, x, copies, ws):
 # chunks across page boundaries; GQA (rep = 4); one decode at a context
 # users serve: 2048 tokens a request (Bmax 128, P 1025); the same with
 # ragged lengths (load balance, split edges, an empty slot, lengths off a
-# page boundary); a GQA decode at 2048 tokens; and the long-context
-# cell's chunk-64 prefill steps with decode rows mixed in
+# page boundary); a GQA decode at 2048 tokens; the long-context cell's
+# chunk-64 prefill steps with decode rows mixed in; and a speculative
+# step in the Tc = chunk bucket: verify rows (q_len 1 + k = 4) at deep
+# positions beside a prefill row, decode rows and an empty slot
 RPA_CASES = [
     ("prefill_tc8", 32, 1, 8, [8, 20, 0, 33, 24, 16, 40, 9],
      [8, 4, 0, 8, 8, 3, 8, 2]),
@@ -312,6 +324,8 @@ RPA_CASES = [
     ("gqa_long_rep4", 8, 4, 1, [2048] * 8, [1] * 8),
     ("prefill_long_tc64", 32, 1, 64, [1024, 64, 577, 0, 1000, 130, 900,
                                       1088], [64, 64, 64, 0, 1, 64, 1, 64]),
+    ("spec_verify", 32, 1, 8, [2048, 1500, 8, 700, 0, 33, 2047, 1024],
+     [4, 4, 8, 1, 0, 1, 4, 4]),
 ]
 RPA_R, RPA_D, RPA_PAGE = 8, 128, 16
 
@@ -577,20 +591,48 @@ def small_reference_check(torch, tllama, convert, rpa):
               f"bytes off by 1, scales rel {sc_err:.3g}")
 
 
-# the three serve runs of one call: (name, kv dtype, workload)
-SERVE_RUNS = (("bf16", "bf16", "uniform"), ("int8", "int8", "uniform"),
-              ("int8_shared_prefix", "int8", "shared-prefix"))
+# the serve runs of one call: (name, kv dtype, workload, SPEC_K); the
+# shared-prefix workload runs as the reference's (prefix cache + self-draft
+# speculation, k = 3) and once with speculation off
+SERVE_RUNS = (("bf16", "bf16", "uniform", None),
+              ("int8", "int8", "uniform", None),
+              ("int8_shared_prefix", "int8", "shared-prefix", "3"),
+              ("int8_shared_prefix_spec0", "int8", "shared-prefix", "0"))
+# what the spec run's peak memory may exceed the spec-off run's by, above
+# the draft's pools (its transients: logits and argmax of a Tc = 1 step)
+SPEC_MEMORY_MARGIN = 128 << 20
+
+
+def check_launches(launches, forwards, L, quant, tag):
+    """Every serving kernel's launches against the engine's forwards by
+    kind: each forward runs 7 L + 1 int8 matmuls and L attention calls,
+    over the target's pools (its step and the probes: row 12 with int8
+    pages, else row 11) or the draft's (mirror and proposals: row 11,
+    whatever the target's pages)."""
+    target = forwards["target"] + forwards["probe"]
+    draft = forwards["mirror"] + forwards["propose"]
+    want = {"int8_matmul": (7 * L + 1) * (target + draft),
+            "ragged_paged_attention": L * (draft + (0 if quant else target)),
+            "ragged_paged_attention_quant": L * target if quant else 0}
+    for k, v in want.items():
+        check(launches[k] == v, f"{tag}: {k} launched {launches[k]} times, "
+              f"expected {v} for the forwards {forwards}")
 
 
 def serve_phase(torch, tllama, bench_serve, card):
     """The serving main path through ``bench_serve``'s measuring
     function: llama7b at full width and depth, int8 weights built once,
-    served three times in one call (bf16 KV; int8 KV; int8 KV with the
-    shared-prefix workload and the prefix cache), each uniform run
-    followed by its profiles (``profile_steps``, ``prefill_profile``).
-    Every launch of the three serving kernels is counted from 0 over each
-    run (its warm-up included) and held against the engine's forward
-    steps; the KV pool bytes against their formula."""
+    served four times in one call (bf16 KV; int8 KV; int8 KV with the
+    shared-prefix workload, the prefix cache and self-draft speculation
+    at k = 3; the same with speculation off), each uniform run followed
+    by its profiles (``profile_steps``, ``prefill_profile``), the spec
+    run by ``profile_steps``.  Every
+    launch of the three serving kernels is counted from 0 over each run
+    (its warm-up included) and held against the engine's forwards by
+    kind; the KV pool bytes against their formula; the spec run's peak
+    memory against the spec-off run's plus the draft's pools.  Returns
+    the runs and the weights (for ``recovery_phase``)."""
+    import os
     cfg = tllama.preset("llama7b")
     L, nkv, d = (cfg.num_hidden_layers, cfg.num_key_value_heads,
                  cfg.head_dim)
@@ -600,10 +642,16 @@ def serve_phase(torch, tllama, bench_serve, card):
     torch.cuda.synchronize()
     print(f"llama7b int8 weights built: {time.perf_counter() - t0:.1f} s")
     runs, outputs = {}, {}
-    for name, kv_dtype, workload in SERVE_RUNS:
+    for name, kv_dtype, workload, spec_k in SERVE_RUNS:
         bench_serve.reset_kernel_launches()
-        run = bench_serve.serve("cuda", kv_dtype=kv_dtype,
-                                workload=workload, params=params)
+        env = "PADDLE_TPU_BENCH_SERVE_SPEC_K"
+        if spec_k is not None:
+            os.environ[env] = spec_k
+        try:
+            run = bench_serve.serve("cuda", kv_dtype=kv_dtype,
+                                    workload=workload, params=params)
+        finally:
+            os.environ.pop(env, None)
         launches = bench_serve.kernel_launches()
         eng, res = run.engine, run.result
         steps = eng._steps
@@ -618,16 +666,11 @@ def serve_phase(torch, tllama, bench_serve, card):
               f"balanced: {eng.kv.audit()}")
         check(isinstance(eng.params["layers"]["wq"], dict),
               f"serve {name}: the weights are not int8")
-        check(launches["int8_matmul"] == (7 * L + 1) * steps,
-              f"serve {name}: int8_matmul launched "
-              f"{launches['int8_matmul']} times over {steps} steps, "
-              f"expected {(7 * L + 1) * steps}")
+        fw = dict(eng.forwards)
+        check(fw["target"] == steps and fw["probe"] == 0,
+              f"serve {name}: forwards {fw} over {steps} steps")
         quant = kv_dtype == "int8"
-        want = {"ragged_paged_attention": 0 if quant else L * steps,
-                "ragged_paged_attention_quant": L * steps if quant else 0}
-        for k, v in want.items():
-            check(launches[k] == v, f"serve {name}: {k} launched "
-                  f"{launches[k]} times over {steps} steps, expected {v}")
+        check_launches(launches, fw, L, quant, f"serve {name}")
         page, P = eng.page_size, eng.num_pages
         pool = 2 * L * nkv * P * page * d * (1 if quant else 2)
         scales = 2 * L * nkv * P * 4 if quant else 0
@@ -637,23 +680,44 @@ def serve_phase(torch, tllama, bench_serve, card):
               f"serve {name}: pool bytes {eng._pool_bytes} (held {held}), "
               f"formula {pool} + {scales}")
         if workload == "shared-prefix":
-            check(res["reuse"]["prefix_hit_tokens"] > 0,
+            reuse = res["reuse"]
+            check(reuse["prefix_hit_tokens"] > 0,
                   f"serve {name}: no prefix hit")
+            if spec_k == "3":
+                check(0 < reuse["spec_accepted"] <= reuse["spec_proposed"],
+                      f"serve {name}: spec accepted {reuse['spec_accepted']}"
+                      f" of {reuse['spec_proposed']}")
+                check(eng._draft.params is eng.params, f"serve {name}: the "
+                      f"self-draft holds a second copy of the weights")
+                check(eng._draft._kp.dtype == torch.bfloat16 and
+                      reuse["draft_pool_bytes"] == 2 * L * nkv * P * page
+                      * d * 2, f"serve {name}: draft pools")
+                check(fw["mirror"] == steps and fw["propose"] > 0,
+                      f"serve {name}: forwards {fw}")
+            else:
+                check(reuse["spec_proposed"] == 0 and eng._draft is None,
+                      f"serve {name}: speculation ran with SPEC_K=0")
         res["launches"] = launches
         res["forward_steps"] = steps
+        res["forwards_all"] = fw
         runs[name] = res
         outputs[name] = [list(r.output) for r in reqs]
         print(f"serve {name} [{card}]: BENCH_SERVE {json.dumps(res)}")
+        reuse = res.get("reuse", {})
         print(f"serve {name} [{card}]: {res['tokens']} tokens in "
               f"{res['wall_seconds']:.3f} s = {res['value']:.2f} tokens/s, "
               f"TTFT p50 {res['ttft_p50_ms']:.2f} ms p95 "
               f"{res['ttft_p95_ms']:.2f} ms, decode step "
-              f"{res['decode_step_ms']:.2f} ms, prefill step "
-              f"{res['prefill_step_ms']:.2f} ms (means), "
+              f"{res['decode_step_ms']} ms ({res['decode_steps']} steps), "
+              f"verify step {res['verify_step_ms']} ms "
+              f"({res['verify_steps']} steps), prefill step "
+              f"{res['prefill_step_ms']} ms (means), forwards "
+              f"{res['forwards']} = {res['forwards_per_step']:.3f} a step, "
+              f"spec acceptance {reuse.get('spec_acceptance_rate')}, "
               f"max_memory_allocated {res['max_memory_allocated']} bytes, "
               f"KV pools {eng._pool_bytes} bytes, launches {launches} over "
-              f"{steps} forward steps")
-        if workload == "uniform":
+              f"{steps} forward steps ({fw})")
+        if workload == "uniform" or spec_k == "3":
             prompts, _, _ = bench_serve.prompts_for(
                 workload, bench_serve.knobs(), cfg.vocab_size)
             profile_steps(torch, eng, prompts[:8], f"{card}, {name} KV")
@@ -667,7 +731,196 @@ def serve_phase(torch, tllama, bench_serve, card):
     print(f"serve [{card}]: int8 KV tokens equal to the bf16 run's: "
           f"{same}/{total} ({100 * same / total:.1f} %; not gated: random "
           f"weights give tiny argmax margins)")
-    return runs
+    on, off = runs["int8_shared_prefix"], runs["int8_shared_prefix_spec0"]
+    extra = on["max_memory_allocated"] - off["max_memory_allocated"]
+    draft = on["reuse"]["draft_pool_bytes"]
+    check(extra <= draft + SPEC_MEMORY_MARGIN, f"serve: the spec run's peak "
+          f"exceeds the spec-off run's by {extra} bytes, more than the draft "
+          f"pools {draft} + {SPEC_MEMORY_MARGIN}")
+    same = sum(a == b for x, y in zip(outputs["int8_shared_prefix"],
+                                      outputs["int8_shared_prefix_spec0"])
+               for a, b in zip(x, y))
+    total = sum(len(x) for x in outputs["int8_shared_prefix"])
+    print(f"serve [{card}]: spec on vs off (int8 KV, shared prefix): "
+          f"{on['value']:.2f} vs {off['value']:.2f} tokens/s, acceptance "
+          f"{on['reuse']['spec_acceptance_rate']:.4f}, forwards a step "
+          f"{on['forwards_per_step']:.3f} vs {off['forwards_per_step']:.3f},"
+          f" peak memory +{extra} bytes (draft pools {draft}); tokens equal "
+          f"{same}/{total} (not gated: int8 pages take the rejected tail "
+          f"into the page absmax, and bf16 verify and decode tiles sum in "
+          f"other orders)")
+    return runs, params
+
+
+# the recovery runs: (name, chaos rule, serve.step deadline in s or None);
+# "{rid}" is the rid of the 4th request.  The hang sleeps 2 s on the host
+# in a step whose deadline is 1 s, far above a llama7b step's device work
+RECOVERY_RUNS = (("transient", "fail@serve.step:step=2,times=1", None),
+                 ("quarantine", "fail@serve.step:rid={rid}", None),
+                 ("hang", "hang@serve.step:step=3,times=1,secs=2.0", 1.0))
+
+
+def recovery_phase(torch, tllama, serving, chaos, watchdog, bench_serve,
+                   params, card):
+    """Crash recovery at llama7b on the card: int8 KV, the prefix cache
+    and self-draft speculation at k = 3, 8 shared-prefix requests of the
+    bench's shape, one fresh engine a run under an injected fault: a
+    transient step failure (everyone finishes, one recovery, one probe),
+    a request-scoped poison (that request ends FAILED with
+    RequestQuarantined, the other 7 finish, at most 1 + 2 ceil(log2 8)
+    probes) and a step that comes back past its serve.step deadline
+    (classified a hang, no probe, everyone replays).  Every run's books
+    balance and every kernel launch equals the engine's forwards by
+    kind, probes included; the recovered step's wall time is printed."""
+    cfg = tllama.preset("llama7b")
+    L = cfg.num_hidden_layers
+    k = bench_serve.knobs()
+    prompts, _, _ = bench_serve.prompts_for("shared-prefix", k,
+                                            cfg.vocab_size)
+    prompts = prompts[:8]
+    n_new, chunk = k["NEW"], k["CHUNK"]
+    out = {}
+    for name, rule, deadline in RECOVERY_RUNS:
+        wd = (watchdog.Watchdog(deadlines={"serve.step": deadline},
+                                dump=False) if deadline else None)
+        eng = serving.LLMEngine(
+            cfg, params, device="cuda", max_running=8, chunk=chunk,
+            page_size=k["PAGE"], max_model_len=k["PROMPT"] + n_new + chunk,
+            kv_dtype="int8", prefix_cache=True, watchdog=wd,
+            spec=serving.SpecDecodeConfig(cfg, params, k=3))
+        probes = []
+        probe = eng._probe
+        eng._probe = lambda group: probes.append(len(group)) or probe(group)
+        rids = [eng.add_request(p, n_new) for p in prompts]
+        poison = rids[3]
+        serving.reset_stats()
+        watchdog.clear_incidents()
+        bench_serve.reset_kernel_launches()
+        walls = []
+        with chaos.installed(chaos.Chaos(rule.format(rid=poison))) as c:
+            while eng.has_work():
+                before = serving.serving_stats()["recoveries"]
+                t0 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0,
+                              serving.serving_stats()["recoveries"] > before))
+                check(len(walls) < 500, f"recovery {name}: no convergence")
+        launches = bench_serve.kernel_launches()
+        stats = serving.serving_stats()
+        reqs = [eng.request(r) for r in rids]
+        fw = dict(eng.forwards)
+        tag = f"recovery {name}"
+        check(len(c.log) >= 1, f"{tag}: the fault never fired")
+        check(stats["recoveries"] == 1, f"{tag}: {stats['recoveries']} "
+              f"recoveries, not 1")
+        check(eng.kv.audit()["ok"], f"{tag}: books {eng.kv.audit()}")
+        check_launches(launches, fw, L, True, tag)
+        check(fw["probe"] <= len(probes), f"{tag}: forwards {fw}")
+        rec = watchdog.last_incident()
+        failed = [r for r in reqs if r.state.value != "finished"]
+        if name == "quarantine":
+            check([r.rid for r in failed] == [poison]
+                  and failed[0].state.value == "failed"
+                  and isinstance(failed[0].error,
+                                 serving.RequestQuarantined),
+                  f"{tag}: request {poison} not quarantined "
+                  f"({[(r.rid, r.state.value) for r in failed]})")
+            check(stats["quarantined"] == 1 and rec["culprit"] == poison,
+                  f"{tag}: {stats['quarantined']} quarantined, incident "
+                  f"{rec}")
+            check(len(probes) <= 1 + 2 * 3, f"{tag}: {len(probes)} probes")
+        else:
+            check(not failed and stats["quarantined"] == 0,
+                  f"{tag}: {len(failed)} requests failed")
+            want = {"transient": "injected", "hang": "hang"}[name]
+            check(rec["failure"] == want, f"{tag}: classified "
+                  f"{rec['failure']}, not {want}")
+            check(len(probes) == (1 if name == "transient" else 0),
+                  f"{tag}: {len(probes)} probes")
+        check(all(len(r.output) == n_new for r in reqs if r not in failed),
+              f"{tag}: a request finished short of {n_new} tokens")
+        rec_ms = [1e3 * w for w, r in walls if r]
+        other = [1e3 * w for w, r in walls if not r]
+        out[name] = dict(recovered_step_ms=rec_ms[0], probes=len(probes),
+                         steps=len(walls), forwards=fw,
+                         mean_other_step_ms=float(np.mean(other)),
+                         failure=rec["failure"], launches=launches)
+        print(f"{tag} [{card}]: rule {c.rules[0]!r}, failure "
+              f"{rec['failure']}, recovered step {rec_ms[0]:.2f} ms "
+              f"(rebuild + {len(probes)} probes; the other "
+              f"{len(other)} steps {np.mean(other):.2f} ms on average), "
+              f"forwards {fw}, launches {launches}, "
+              f"{sum(r.state.value == 'finished' for r in reqs)}/8 "
+              f"finished")
+        eng.shutdown()
+        del eng
+    return out
+
+
+def small_spec_check(torch, tllama, serving, chaos):
+    """Speculation's streams on the card against the CPU: a small
+    float32 model with dense weights (``small_reference_check``'s
+    shape), 8 requests over 2 system prompts, served four ways on each
+    device: spec off, self-draft spec at k = 3, spec with the prefix
+    cache, and spec with the prefix cache under an injected step failure
+    (``fail@serve.step:step=2``).  All eight runs give the same streams,
+    token for token.  A mismatch prints the top-2 logit margin at the
+    first differing position (a near tie reads apart from a fault)."""
+    cfg = tllama.LlamaConfig(vocab_size=512, hidden_size=256,
+                             intermediate_size=512, num_hidden_layers=2,
+                             num_attention_heads=2, num_key_value_heads=1,
+                             max_position_embeddings=128,
+                             dtype=torch.float32, quantized="off")
+    params = tllama.init_params(cfg, 0, device="cpu")
+    rng = np.random.RandomState(4)
+    heads = [[int(t) for t in rng.randint(1, 512, n)] for n in (21, 13)]
+    prompts = [heads[i % 2] + [int(t) for t in rng.randint(1, 512, 2 + i)]
+               for i in range(8)]
+    n_new = 12
+    ways = (("spec_off", False, False, None), ("spec", True, False, None),
+            ("spec_prefix", True, True, None),
+            ("spec_prefix_fail", True, True,
+             "fail@serve.step:step=2,times=1"))
+    streams, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        for name, spec, prefix, rule in ways:
+            eng = serving.LLMEngine(
+                cfg, params, device=dev, max_running=4, chunk=8,
+                page_size=16, max_model_len=64, prefix_cache=prefix,
+                spec=serving.SpecDecodeConfig(cfg, params) if spec else None)
+            serving.reset_stats()
+            with chaos.installed(chaos.Chaos(rule or "")):
+                rids = [eng.add_request(p, n_new) for p in prompts]
+                eng.run()
+            streams[dev, name] = [eng.output_of(r) for r in rids]
+            stats[dev, name] = serving.serving_stats()
+            check(eng.kv.audit()["ok"], f"small spec {dev} {name}: books")
+            check(stats[dev, name]["recoveries"] == (1 if rule else 0),
+                  f"small spec {dev} {name}: recoveries")
+    ref = streams["cpu", "spec_off"]
+    for key, got in streams.items():
+        for i, (a, b) in enumerate(zip(got, ref)):
+            if a == b:
+                continue
+            pos = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            with torch.no_grad():
+                logits = tllama.forward_pure(
+                    cfg, params, torch.tensor([prompts[i] + b[:pos]]))[0, -1]
+            top = torch.topk(logits, 2).values
+            raise RuntimeError(
+                f"check failed: small spec {key}: request {i} differs from "
+                f"the CPU's spec-off stream at token {pos} ({a[pos]} vs "
+                f"{b[pos]}); the CPU's top-2 logit margin there is "
+                f"{(top[0] - top[1]).item():.3g}")
+    acc = {k: (v["spec_accepted"], v["spec_proposed"])
+           for k, v in stats.items()}
+    check(all(a > 0 for (dev, n), (a, p) in acc.items() if n != "spec_off"),
+          f"small spec: no draft accepted: {acc}")
+    print(f"small spec check (f32, dense weights): 8 runs (cpu, cuda) x "
+          f"(spec off, spec k=3, spec + prefix, spec + prefix + a failed "
+          f"step) give the same {sum(map(len, ref))} tokens; accepted / "
+          f"proposed {acc}")
 
 
 def profile_steps(torch, eng, prompts, card):
@@ -1604,7 +1857,7 @@ def main(argv=()):
               f"from the repository root", file=sys.stderr)
         return 2
     from paddle_tpu_torch import bench as tbench
-    from paddle_tpu_torch import bench_serve
+    from paddle_tpu_torch import bench_serve, serving
     from paddle_tpu_torch.models import convert
     from paddle_tpu_torch.models import llama as tllama
     from paddle_tpu_torch.ops import _build
@@ -1612,6 +1865,8 @@ def main(argv=()):
     from paddle_tpu_torch.ops import fused_blocks as fb
     from paddle_tpu_torch.ops import int8_matmul as i8
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.runtime import watchdog
+    from paddle_tpu_torch.testing import chaos
 
     card = torch.cuda.get_device_name(0)
     smi = gpu_line()
@@ -1645,9 +1900,15 @@ def main(argv=()):
     flash, flash_err, flash_row_err, flash_ctl = flash_phase(torch, fa)
     fused = fused_phase(torch, fb)
     small_reference_check(torch, tllama, convert, rpa)
+    small_spec_check(torch, tllama, serving, chaos)
     # the serving path: llama7b (32 layers, int8 weights) on the card,
-    # bf16 KV, int8 KV, int8 KV + shared prefix
-    serve = serve_phase(torch, tllama, bench_serve, card)
+    # bf16 KV, int8 KV, int8 KV + shared prefix with and without
+    # speculation; then crash recovery on the same weights
+    serve, params = serve_phase(torch, tllama, bench_serve, card)
+    recovery = recovery_phase(torch, tllama, serving, chaos, watchdog,
+                              bench_serve, params, card)
+    del params
+    print(f"recovery [{card}]: {json.dumps(recovery)}")
     launches = serve["bf16"]["launches"]
     by_run = {n: r["launches"] for n, r in serve.items()}
     for mode in ("on", "off"):

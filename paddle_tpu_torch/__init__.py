@@ -2,7 +2,8 @@
 
 Layout mirrors ``paddle_tpu``: ``models/llama.py`` (the functional Llama
 core), ``ops/`` (hand-written CUDA kernels, each beside its plain PyTorch
-version) and ``serving/`` (the continuous-batching engine).  Nothing here
+version), ``serving/`` (the continuous-batching engine), ``runtime/``
+(the phase watchdog) and ``testing/`` (fault injection).  Nothing here
 imports JAX or ``paddle_tpu``; the tests hold the two packages against
 each other with inputs made by numpy.
 """

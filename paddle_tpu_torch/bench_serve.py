@@ -16,9 +16,11 @@ and prints ONE line::
 
 with output tokens/s, TTFT and request-latency p50/p95 (exact
 percentiles over the requests' clock stamps, the reference bench's own
-fallback), the step counts, the ``kv`` block and, for the shared-prefix
-workload, the prefix fields of the ``reuse`` block.  It exits non-zero,
-with an ``error`` in the line, when the run failed.
+fallback), the step counts, the forwards by kind, the ``kv`` block, the
+``resilience`` block (shed, recoveries, quarantined, deadline-expired
+counts of the measured run, and its ``slo`` verdicts) and, for the
+shared-prefix workload, the ``reuse`` block.  It exits non-zero, with
+an ``error`` in the line, when the run failed.
 
 The model is the ``llama7b`` preset on the card (int8 weights, as the
 engine quantizes on CUDA) and ``llama-debug`` on the CPU (the reference
@@ -29,17 +31,23 @@ Traffic knobs, as ``bench_serve.py`` reads them (environment,
 length, 24), NEW (tokens per request, 16), MAX_RUNNING (8), CHUNK (8),
 PAGE (16), PAGES (pool pages; default: every slot at max_model_len),
 MAX_QUEUE (8 x MAX_RUNNING), SEED (0, shaped presets), HORIZON_S (60,
-shaped presets), SYS_PROMPTS (2, shared-prefix).  Prompts come from
-``RandomState(0)``; half
+shaped presets), SYS_PROMPTS (2, shared-prefix), SPEC_K (3,
+shared-prefix; 0 turns speculation off), TTFT_SLO_MS and LAT_SLO_MS
+(the SLO targets the ``slo`` block judges; unset by default).  Prompts
+come from ``RandomState(0)``; half
 the requests arrive up front and one more every other step, or, for the
 shaped presets (diurnal, bursty, flash-crowd), on
 ``workloads.step_schedule``'s steps.  One warm-up request runs before
-the clock (one per system prompt for shared-prefix, which also turns on
-the prefix cache).
+the clock (one per system prompt for shared-prefix).
 
-Not carried over from ``bench_serve.py``: speculative decoding (the
-shared-prefix run says ``"spec_k": 0``), the trace, ledger, exporter,
-fleet, resilience and SLO blocks.
+``--workload shared-prefix`` turns on the reference's reuse stack: the
+prefix cache and self-draft speculative decoding (the draft IS the
+target, on the same weights, so acceptance isolates the machinery from
+draft quality) with k = SPEC_K.  Its ``reuse`` block carries the
+prefix hit rate and the spec acceptance rate.
+
+Not carried over from ``bench_serve.py``: the trace, ledger, exporter
+and fleet blocks.
 """
 from __future__ import annotations
 
@@ -64,7 +72,7 @@ from .serving import workloads as _workloads
 
 _ENV = "PADDLE_TPU_BENCH_SERVE_"
 KNOBS = dict(REQUESTS=16, PROMPT=24, NEW=16, MAX_RUNNING=8, CHUNK=8,
-             PAGE=16, SYS_PROMPTS=2, SEED=0)
+             PAGE=16, SYS_PROMPTS=2, SEED=0, SPEC_K=3)
 KV_DTYPES = ("bf16", "int8")
 SHAPED = ("diurnal", "bursty", "flash-crowd")
 
@@ -79,6 +87,9 @@ def knobs(env=None) -> Dict[str, Optional[float]]:
     pages = env.get(_ENV + "PAGES")
     out["PAGES"] = int(pages) if pages else None
     out["HORIZON_S"] = float(env.get(_ENV + "HORIZON_S", "60"))
+    for slo in ("TTFT_SLO_MS", "LAT_SLO_MS"):
+        v = env.get(_ENV + slo)
+        out[slo] = float(v) if v else None
     return out
 
 
@@ -159,11 +170,18 @@ def serve(device=None, *, kv_dtype: str = "bf16",
     shared = workload == "shared-prefix"
     max_model_len = min(cfg.max_position_embeddings,
                         k["PROMPT"] + n_new + chunk)
+    spec_k = k["SPEC_K"] if shared else 0
+    slo = serving.SLOConfig(
+        ttft_p95_s=k["TTFT_SLO_MS"] / 1e3 if k["TTFT_SLO_MS"] else None,
+        latency_p95_s=k["LAT_SLO_MS"] / 1e3 if k["LAT_SLO_MS"] else None)
     eng = serving.LLMEngine(
         cfg, params, device=dev, max_running=k["MAX_RUNNING"], chunk=chunk,
         page_size=page, num_pages=k["PAGES"], max_model_len=max_model_len,
         kv_dtype=None if kv_dtype == "bf16" else kv_dtype,
-        max_queue=k["MAX_QUEUE"], prefix_cache=shared)
+        max_queue=k["MAX_QUEUE"], prefix_cache=shared, slo=slo,
+        # self-draft on the engine's own weights (the same object)
+        spec=(serving.SpecDecodeConfig(cfg, params, k=spec_k)
+              if spec_k else None))
     del params      # the engine holds its own (on CUDA: int8) weights
     prompts, warm, arrivals = prompts_for(workload, k, cfg.vocab_size)
 
@@ -175,8 +193,9 @@ def serve(device=None, *, kv_dtype: str = "bf16",
     if on_card:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    eng._step_wall_s.clear()
+    eng.clear_samples()
     base = serving.serving_stats()
+    fwd_base = dict(eng.forwards)
 
     rids: List[int] = []
     shed = 0
@@ -216,10 +235,16 @@ def serve(device=None, *, kv_dtype: str = "bf16",
         torch.cuda.synchronize(dev)
     wall = time.monotonic() - t_start
     now = serving.serving_stats()
+    res = {key: int(now[key] - base[key])
+           for key in ("shed", "admission_waits", "recoveries",
+                       "quarantined", "deadline_expired", "callback_errors")}
 
     reqs = [eng.request(r) for r in rids]
     done = [r for r in reqs if r.state is serving.RequestState.FINISHED]
-    if len(done) != len(reqs):
+    if len(done) != len(reqs) and not (res["quarantined"]
+                                       or res["deadline_expired"]):
+        # without a terminal resilience event every admitted request
+        # finishes: shedding only ever rejects at the front door
         raise RuntimeError(f"{len(reqs) - len(done)} admitted requests "
                            f"did not finish")
     short = [r.rid for r in done if len(r.output) != n_new]
@@ -230,12 +255,26 @@ def serve(device=None, *, kv_dtype: str = "bf16",
     ttft = [r.first_token_s - r.arrival_s for r in done]
     lat = [r.finish_s - r.arrival_s for r in done]
     hit = int(now["prefix_hit_tokens"] - base["prefix_hit_tokens"])
+    proposed = int(now["spec_proposed"] - base["spec_proposed"])
+    accepted = int(now["spec_accepted"] - base["spec_accepted"])
     prompt_tokens = sum(len(r.prompt) for r in reqs)
     dec = eng._step_wall_s.get(1, [])
     pre = eng._step_wall_s.get(chunk, [])
+    ver = eng._verify_wall_s
+    forwards = {kind: n - fwd_base[kind] for kind, n in eng.forwards.items()}
 
     def ms(v):
-        return 1e3 * v
+        return None if v is None else 1e3 * v
+
+    rep = eng.slo_report()
+    res["slo"] = {
+        "ttft_p95_ms": ms(rep["ttft_p95_s"]),
+        "ttft_slo_ms": ms(rep["ttft_slo_s"]),
+        "ttft_ok": rep["ttft_ok"],
+        "latency_p95_ms": ms(rep["latency_p95_s"]),
+        "latency_slo_ms": ms(rep["latency_slo_s"]),
+        "latency_ok": rep["latency_ok"],
+    }
 
     result = {
         "metric": "serve_tokens_per_sec_chip",
@@ -257,6 +296,12 @@ def serve(device=None, *, kv_dtype: str = "bf16",
         "decode_step_ms": ms(float(np.mean(dec))) if dec else None,
         "prefill_step_ms": ms(float(np.mean(pre))) if pre else None,
         "decode_steps": len(dec), "prefill_steps": len(pre),
+        # steps whose every row verifies drafts (speculation's decode)
+        "verify_step_ms": ms(float(np.mean(ver))) if ver else None,
+        "verify_steps": len(ver),
+        "forwards": forwards,
+        "forwards_per_step": sum(forwards.values()) / steps if steps else 0,
+        "resilience": res,
         "kv": {
             "dtype": kv_dtype,
             "pages": int(eng.num_pages),
@@ -278,7 +323,12 @@ def serve(device=None, *, kv_dtype: str = "bf16",
             "prefill_tokens_saved": hit,
             "prefix_evicted_pages": int(now["prefix_evicted_pages"]
                                         - base["prefix_evicted_pages"]),
-            "spec_k": 0,
+            "spec_k": spec_k,
+            "spec_proposed": proposed,
+            "spec_accepted": accepted,
+            "spec_acceptance_rate": accepted / proposed if proposed else 0.0,
+            "draft_pool_bytes": (eng._draft.pool_bytes if eng._draft
+                                 else 0),
         }
     if on_card:
         result["gpu"] = gpu_line()

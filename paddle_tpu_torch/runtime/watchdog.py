@@ -1,0 +1,255 @@
+"""Phase watchdogs: the port's copy of ``paddle_tpu/runtime/watchdog.py``
+as far as the serving engine needs it.
+
+``Watchdog``
+    Named phases (``serve.step`` here) with per-phase deadlines, from
+    the constructor or from the ``FLAGS_tpu_watchdog_*`` environment
+    variables.  A synchronous state
+    machine — ``begin``/``end``/``poll`` — with an injectable clock, so
+    expiry is testable without real sleeps, plus an optional ticker
+    thread.  On expiry: an all-thread stack dump, an incident record
+    and a typed :class:`PhaseTimeout`.
+
+Incident records accumulate in a bounded in-memory buffer
+(``incidents()``).  Not ported yet (they come with the train runtime,
+ROADMAP A3): ``run_with_deadline``, ``init_with_retries`` and the
+incident sidecar file.
+"""
+from __future__ import annotations
+
+import faulthandler
+import os
+import sys
+import threading
+import time
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, List, Optional
+
+__all__ = ["PhaseTimeout", "Watchdog", "record_incident", "incidents",
+           "clear_incidents", "last_incident", "PHASES",
+           "global_watchdog", "watchdog_enabled"]
+
+# canonical phases, the environment flag holding each deadline (seconds;
+# <= 0 disables that phase's deadline) and the reference's defaults
+# (the train runtime's phases come with it, ROADMAP A3)
+PHASES = {
+    "serve.step": ("FLAGS_tpu_watchdog_serve_step", 120.0),
+}
+
+
+def watchdog_enabled() -> bool:
+    """``FLAGS_tpu_watchdog`` from the environment (default off): the
+    framework's phase sites arm the global watchdog only when it is
+    set."""
+    return os.environ.get("FLAGS_tpu_watchdog", "").lower() in (
+        "1", "true", "yes")
+
+
+class PhaseTimeout(TimeoutError):
+    """A watched phase exceeded its deadline (the job is hung, not
+    crashed — the caller decides whether to recover, save or exit)."""
+
+    def __init__(self, phase: str, elapsed_s: float, deadline_s: float,
+                 detail: str = ""):
+        self.phase = phase
+        self.elapsed_s = float(elapsed_s)
+        self.deadline_s = float(deadline_s)
+        self.detail = detail
+        msg = (f"phase {phase!r} exceeded its {deadline_s:.1f}s deadline "
+               f"(elapsed {elapsed_s:.1f}s)")
+        if detail:
+            msg += f": {detail}"
+        super().__init__(msg)
+
+
+# -- incident records --------------------------------------------------------
+
+_INCIDENTS: List[Dict[str, Any]] = []
+_INCIDENTS_MAX = 64
+_INCIDENTS_LOCK = threading.Lock()
+
+
+def record_incident(kind: str, **fields) -> Dict[str, Any]:
+    """Append a structured incident ``{kind, time, rank, pid,
+    **fields}`` to the bounded in-memory buffer and return it."""
+    rec = {"kind": kind, "time": time.time(),
+           "rank": int(os.environ.get("PADDLE_TRAINER_ID", "0")),
+           "pid": os.getpid()}
+    rec.update(fields)
+    with _INCIDENTS_LOCK:
+        _INCIDENTS.append(rec)
+        del _INCIDENTS[:-_INCIDENTS_MAX]
+    return rec
+
+
+def incidents() -> List[Dict[str, Any]]:
+    with _INCIDENTS_LOCK:
+        return list(_INCIDENTS)
+
+
+def last_incident() -> Optional[Dict[str, Any]]:
+    with _INCIDENTS_LOCK:
+        return _INCIDENTS[-1] if _INCIDENTS else None
+
+
+def clear_incidents():
+    with _INCIDENTS_LOCK:
+        del _INCIDENTS[:]
+
+
+def _dump_all_threads(reason: str):
+    """faulthandler all-thread dump — where exactly is everyone stuck."""
+    try:
+        sys.stderr.write(f"watchdog: {reason}; all-thread stack dump:\n")
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        sys.stderr.flush()
+    # diagnostics must never mask the timeout being reported (stderr may
+    # be a closed pipe under a dying launcher)
+    except (OSError, ValueError):
+        pass
+
+
+class Watchdog:
+    """Deadline bookkeeping for named phases.
+
+    Synchronous core: ``begin(phase)`` arms a deadline, ``end(phase)``
+    disarms and returns the elapsed time, ``poll()`` expires overdue
+    phases (dump + incident + ``on_expire`` callback, then raises
+    :class:`PhaseTimeout` unless ``raise_on_expire=False``).  ``clock``
+    is injectable so tests drive expiry without sleeping.
+
+    A ticker thread (``start_ticker``) polls on real time, so a hung
+    main thread still produces the stack dump and the incident record
+    even though nothing can raise into it.
+    """
+
+    def __init__(self, *, clock: Callable[[], float] = time.monotonic,
+                 deadlines: Optional[Dict[str, float]] = None,
+                 on_expire: Optional[Callable[[PhaseTimeout], None]] = None,
+                 dump: bool = True):
+        self._clock = clock
+        self._deadlines = dict(deadlines or {})
+        self._on_expire = on_expire
+        self._dump = dump
+        self._active: Dict[str, Dict[str, float]] = {}
+        self._lock = threading.Lock()
+        self._ticker: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self.expired: List[PhaseTimeout] = []
+
+    def deadline_for(self, phase: str) -> Optional[float]:
+        """Explicit per-instance deadline, else the phase's flag (or its
+        default), else None (unwatched)."""
+        if phase in self._deadlines:
+            d = self._deadlines[phase]
+            return float(d) if d and d > 0 else None
+        if phase not in PHASES:
+            return None
+        name, default = PHASES[phase]
+        d = float(os.environ.get(name, default))
+        return d if d > 0 else None
+
+    def begin(self, phase: str, deadline_s: Optional[float] = None):
+        d = deadline_s if deadline_s is not None else self.deadline_for(phase)
+        with self._lock:
+            self._active[phase] = {"start": self._clock(),
+                                   "deadline": d, "expired": False}
+
+    def end(self, phase: str) -> float:
+        with self._lock:
+            info = self._active.pop(phase, None)
+        if info is None:
+            return 0.0
+        return self._clock() - info["start"]
+
+    def active_phases(self) -> List[str]:
+        with self._lock:
+            return list(self._active)
+
+    @contextmanager
+    def phase(self, name: str, deadline_s: Optional[float] = None):
+        """Scope a phase; expiry enforcement comes from ``poll()`` (same
+        thread between steps, or the ticker thread during a hang)."""
+        self.begin(name, deadline_s)
+        try:
+            yield self
+        finally:
+            self.end(name)
+
+    def poll(self, raise_on_expire: bool = True) -> List[PhaseTimeout]:
+        """Expire every active phase past its deadline.  Each phase
+        expires at most once (the ticker would otherwise dump stacks
+        every tick while the hang persists)."""
+        now = self._clock()
+        newly: List[PhaseTimeout] = []
+        with self._lock:
+            for phase, info in self._active.items():
+                d = info["deadline"]
+                if d is None or info["expired"]:
+                    continue
+                elapsed = now - info["start"]
+                if elapsed > d:
+                    info["expired"] = True
+                    newly.append(PhaseTimeout(phase, elapsed, d))
+        for exc in newly:
+            self.expired.append(exc)
+            if self._dump:
+                _dump_all_threads(str(exc))
+            record_incident("watchdog_expired", phase=exc.phase,
+                            elapsed_s=round(exc.elapsed_s, 3),
+                            deadline_s=exc.deadline_s)
+            if self._on_expire is not None:
+                try:
+                    self._on_expire(exc)
+                # a user callback must not turn a reported hang into a
+                # different failure
+                except Exception:  # noqa: BLE001
+                    pass
+        if newly and raise_on_expire:
+            raise newly[0]
+        return newly
+
+    # -- ticker ----------------------------------------------------------
+
+    def start_ticker(self, interval_s: float = 1.0):
+        """Poll on a daemon thread so a hung main thread still produces
+        the dump and the incident (it cannot be *raised* into)."""
+        if self._ticker is not None and self._ticker.is_alive():
+            return
+        self._stop.clear()
+
+        def _loop():
+            while not self._stop.wait(interval_s):
+                try:
+                    self.poll(raise_on_expire=False)
+                # the ticker must survive any poll-side error — it is
+                # the last line of hang diagnostics
+                except Exception:  # noqa: BLE001
+                    pass
+
+        self._ticker = threading.Thread(
+            target=_loop, name="ptq-watchdog", daemon=True)
+        self._ticker.start()
+
+    def stop_ticker(self):
+        self._stop.set()
+        if self._ticker is not None:
+            self._ticker.join(timeout=5.0)
+            self._ticker = None
+
+
+# -- process-global watchdog (flag-gated wiring for framework sites) ---------
+
+_GLOBAL: Optional[Watchdog] = None
+_GLOBAL_LOCK = threading.Lock()
+
+
+def global_watchdog() -> Watchdog:
+    """Lazily created shared instance with the 1 s ticker armed, used by
+    the framework's phase sites when ``FLAGS_tpu_watchdog`` is set."""
+    global _GLOBAL
+    with _GLOBAL_LOCK:
+        if _GLOBAL is None:
+            _GLOBAL = Watchdog()
+            _GLOBAL.start_ticker(interval_s=1.0)
+        return _GLOBAL

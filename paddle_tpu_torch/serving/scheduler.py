@@ -1,6 +1,7 @@
 """Continuous (in-flight) batching scheduler: the port's copy of
-``paddle_tpu/serving/scheduler.py``, prefix cache included, without the
-flight-recorder calls and the speculative-decoding path.
+``paddle_tpu/serving/scheduler.py``, with the prefix cache, the
+speculative verify rows and the terminal states of deadlines and
+quarantine, without the flight-recorder calls.
 
 The running batch is a FIXED array of ``max_running`` slots and every
 step is one of two shapes: Tc=1 for pure decode, Tc=chunk when any
@@ -44,6 +45,7 @@ class RequestState(enum.Enum):
     RUNNING = "running"
     FINISHED = "finished"
     CANCELLED = "cancelled"   # cooperative cancel at a step boundary
+    FAILED = "failed"         # deadline expiry or quarantine; see .error
 
 
 @dataclasses.dataclass
@@ -57,8 +59,11 @@ class Request:
     fed: int = 0                          # tokens written to kv
     output: List[int] = dataclasses.field(default_factory=list)
     arrival_s: float = 0.0
+    admitted_s: Optional[float] = None    # first admission (engine clock)
     first_token_s: Optional[float] = None
     finish_s: Optional[float] = None
+    deadline_s: Optional[float] = None    # absolute, engine clock
+    error: Optional[BaseException] = None  # set when state is FAILED
 
     @property
     def known(self) -> List[int]:
@@ -83,6 +88,11 @@ class ScheduledSeq:
     q_len: int      # tokens fed this step
     seq_len: int    # kv length after this step (fed + q_len)
     produces: bool  # True when the step closes the gap and samples
+    # speculative verify chunk: q_len = 1 + spec where the trailing
+    # ``spec`` tokens are draft proposals the target verifies this step
+    # (multi-token verification is a short ragged prefill, so the row
+    # rides the Tc=chunk bucket)
+    spec: int = 0
 
 
 @dataclasses.dataclass
@@ -91,7 +101,8 @@ class StepPlan:
     bucket: int                         # Tc for this step
     preempted: List[Request] = dataclasses.field(default_factory=list)
     # waiting requests that free slots could seat but the page pool
-    # could not cover — they stay queued (never dropped)
+    # could not cover — they stay queued (never dropped); the engine
+    # counts these as admission waits
     admission_blocked: int = 0
     # prompt tokens served from the prefix cache by this step's
     # admissions
@@ -129,6 +140,10 @@ class Scheduler:
         # fixed slot array: index == batch row of the step
         self.slots: List[Optional[Request]] = [None] * self.max_running
         self._slot_of: Dict[int, int] = {}
+        # speculative lookahead: when > 0, every pure-decode row is
+        # widened to a verify chunk of 1 + spec_k tokens (the engine
+        # sets this iff a draft model is attached)
+        self.spec_k: int = 0
 
     # -- queue ----------------------------------------------------------
     def add(self, req: Request) -> None:
@@ -161,7 +176,15 @@ class Scheduler:
 
     # -- internals ------------------------------------------------------
     def _q_len(self, req: Request) -> int:
-        return min(self.chunk, req.num_known - req.fed)
+        gap = req.num_known - req.fed
+        q = min(self.chunk, gap)
+        if (self.spec_k > 0 and gap == 1
+                and 1 + self.spec_k <= self.chunk
+                and req.fed + 1 + self.spec_k <= self.max_model_len
+                and _cdiv(req.fed + 1 + self.spec_k, self.kv.page_size)
+                <= self.kv.max_blocks):
+            q = 1 + self.spec_k
+        return q
 
     def _try_grow(self, req: Request, target: int) -> bool:
         """grow(), with one LRU sweep of unreferenced cached pages when
@@ -200,9 +223,12 @@ class Scheduler:
             self.kv.release(req.rid)
 
     # -- lifecycle ------------------------------------------------------
-    def remove(self, req: Request, now_s: float = 0.0) -> None:
-        """Cancel at a step boundary: free pages and slot if running,
-        drop from the queue if waiting, stamp the terminal state."""
+    def remove(self, req: Request, now_s: float = 0.0,
+               state: RequestState = RequestState.CANCELLED,
+               error: Optional[BaseException] = None) -> None:
+        """Terminal removal at a step boundary (cancel / deadline /
+        quarantine): free pages and slot if running, drop from the
+        queue if waiting, stamp the terminal state."""
         if req.rid in self._slot_of:
             self._release_slot(req)
         else:
@@ -210,8 +236,31 @@ class Scheduler:
                 self.waiting.remove(req)
             except ValueError:
                 pass
-        req.state = RequestState.CANCELLED
+        req.state = state
+        req.error = error
         req.finish_s = now_s
+
+    def reset_running(self) -> List[Request]:
+        """Pool-rebuild support: demote every running request back to
+        WAITING with fed=0 (full history replay), in slot order.  Does
+        NOT touch the kv cache — the caller is replacing it wholesale
+        (after a failed step the donated pools are suspect)."""
+        demoted: List[Request] = []
+        for slot in range(self.max_running):
+            req = self.slots[slot]
+            if req is None:
+                continue
+            self.slots[slot] = None
+            req.state = RequestState.WAITING
+            req.fed = 0
+            demoted.append(req)
+        self._slot_of.clear()
+        return demoted
+
+    def requeue_front(self, reqs: List[Request]) -> None:
+        """Put requests at the head of the queue, preserving order."""
+        for req in reversed(reqs):
+            self.waiting.appendleft(req)
 
     # -- the step boundary ---------------------------------------------
     def finish(self, req: Request, now_s: float = 0.0) -> None:
@@ -235,9 +284,10 @@ class Scheduler:
                 victim = self._evict_youngest(but_not=req)
                 if victim is None:
                     # alone and still can't grow — another tenant holds
-                    # the pages: preempt *itself* rather than crash;
-                    # add() already rejected requests that could never
-                    # fit, so this replays once pages free up
+                    # the pages (chaos `exhaust`, a co-located engine):
+                    # preempt *itself* rather than crash; add() already
+                    # rejected requests that could never fit, so this
+                    # replays once pages free up
                     self._release_slot(req)
                     req.state = RequestState.WAITING
                     req.fed = 0
@@ -290,36 +340,55 @@ class Scheduler:
             if req is None:
                 continue
             q_len = self._q_len(req)
+            gap = req.num_known - req.fed
             seqs.append(ScheduledSeq(
                 request=req, slot=slot, q_len=q_len,
                 seq_len=req.fed + q_len,
-                produces=req.fed + q_len >= req.num_known))
+                produces=req.fed + q_len >= req.num_known,
+                spec=q_len - gap if gap == 1 and q_len > 1 else 0))
         bucket = self.chunk if any(s.q_len > 1 for s in seqs) else 1
         return StepPlan(seqs=seqs, bucket=bucket, preempted=preempted,
                         admission_blocked=admission_blocked,
                         prefix_hit_tokens=prefix_hit_tokens)
 
-    def apply(self, plan: StepPlan, next_tokens: Dict[int, int],
+    def apply(self, plan: StepPlan, next_tokens: Dict[int, object],
               now_s: float = 0.0) -> List[Request]:
         """Commit a computed step: advance fed counters, append sampled
         tokens, fire callbacks, finish completed requests.
         ``next_tokens`` maps slot -> sampled token id for slots whose
-        step produced one.  Returns the requests that finished."""
+        step produced one; a *spec verify* slot maps to the accepted
+        token list instead (1..spec+1 tokens, in stream order).
+        Returns the requests that finished."""
         finished: List[Request] = []
         for s in plan.seqs:
             req = s.request
-            req.fed = s.seq_len
-            self.kv.commit(req.rid, req.fed)
             if not s.produces:
+                req.fed = s.seq_len
+                self.kv.commit(req.rid, req.fed)
                 continue
-            tok = int(next_tokens[s.slot])
-            req.output.append(tok)
-            if req.first_token_s is None:
-                req.first_token_s = now_s
-            done = req.done
-            if req.on_token is not None:
-                req.on_token(req.rid, tok, done)
-            if done:
+            out = next_tokens[s.slot]
+            toks = ([int(t) for t in out] if isinstance(out, (list, tuple))
+                    else [int(out)])
+            appended = 0
+            for tok in toks:
+                req.output.append(tok)
+                appended += 1
+                if req.first_token_s is None:
+                    req.first_token_s = now_s
+                done = req.done
+                if req.on_token is not None:
+                    req.on_token(req.rid, tok, done)
+                if done:
+                    break
+            # a verify chunk's kv is valid only through the accepted
+            # tokens — the rejected tail is stale scratch the next
+            # step's feed overwrites before any read.  Non-spec rows
+            # keep the exact old bookkeeping: every fed token's kv is
+            # real, fed advances by the full chunk.
+            req.fed = (s.seq_len - s.q_len + appended if s.spec
+                       else s.seq_len)
+            self.kv.commit(req.rid, req.fed)
+            if req.done:
                 finished.append(req)
         for req in finished:
             self.finish(req, now_s)

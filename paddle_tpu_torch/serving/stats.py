@@ -16,10 +16,13 @@ def stats_zero() -> Dict[str, float]:
         "engines": 0, "requests_added": 0, "requests_finished": 0,
         "requests_preempted": 0, "steps": 0, "prefill_tokens": 0,
         "decode_tokens": 0, "peak_running": 0, "pool_bytes": 0,
-        # work reuse (prefix cache)
+        # work reuse (prefix cache + speculative decoding)
         "prefix_hit_tokens": 0, "prefix_evicted_pages": 0,
-        # admission control and callback isolation
+        "spec_proposed": 0, "spec_accepted": 0,
+        # resilience: admission control, callback isolation, crash
+        # recovery, deadlines
         "shed": 0, "admission_waits": 0, "callback_errors": 0,
+        "recoveries": 0, "quarantined": 0, "deadline_expired": 0,
         "cancelled": 0,
     }
 

@@ -3,7 +3,8 @@
 On the CPU it serves ``llama-debug`` (the reference bench's default
 shape) with the plain versions and prints one ``BENCH_SERVE`` line with
 the reference's field names, for bf16 and int8 KV pages and for the
-shared-prefix workload; its synthetic workloads are the reference's,
+shared-prefix workload (with and without self-draft speculation), with
+its resilience and SLO blocks; its synthetic workloads are the reference's,
 arrival for arrival; without a card and without ``--device`` it exits
 non-zero with the error in its line.
 """
@@ -20,7 +21,8 @@ FIELDS = ("metric", "value", "unit", "ttft_p50_ms", "ttft_p95_ms",
           "latency_p50_ms", "latency_p95_ms", "requests", "shed_submits",
           "tokens", "steps", "wall_seconds", "prefill_tokens",
           "decode_tokens", "preemptions", "max_running", "chunk",
-          "page_size", "kv", "preset", "device", "chips")
+          "page_size", "kv", "preset", "device", "chips", "resilience",
+          "forwards", "forwards_per_step")
 
 SMALL = {"PADDLE_TPU_BENCH_SERVE_REQUESTS": "6",
          "PADDLE_TPU_BENCH_SERVE_NEW": "5"}
@@ -51,16 +53,55 @@ def test_cpu_run_prints_the_line(kv_dtype, capsys, monkeypatch):
     assert "reuse" not in res
 
 
-def test_shared_prefix_turns_on_the_prefix_cache_only(monkeypatch):
+@pytest.mark.parametrize("spec_k", [0, 3])
+def test_shared_prefix_turns_on_the_prefix_cache_only(spec_k, monkeypatch):
+    # the reference's shared-prefix run: prefix cache plus self-draft
+    # speculation with k = SPEC_K (3 by default; 0 turns it off)
     monkeypatch.setenv("PADDLE_TPU_BENCH_SERVE_REQUESTS", "6")
     monkeypatch.setenv("PADDLE_TPU_BENCH_SERVE_NEW", "4")
+    monkeypatch.setenv("PADDLE_TPU_BENCH_SERVE_SPEC_K", str(spec_k))
     run = bench_serve.serve("cpu", kv_dtype="int8", workload="shared-prefix")
-    reuse = run.result["reuse"]
-    assert reuse["prefix_cache"] and reuse["spec_k"] == 0
+    res, eng = run.result, run.engine
+    reuse = res["reuse"]
+    assert reuse["prefix_cache"] and reuse["spec_k"] == spec_k
     assert reuse["prefix_hit_tokens"] > 0
     assert 0 < reuse["prefix_hit_rate"] <= 1
-    assert run.engine.kv.prefix is not None and run.engine.kv.audit()["ok"]
-    assert all(len(run.engine.output_of(r)) == 4 for r in run.rids)
+    assert eng.kv.prefix is not None and eng.kv.audit()["ok"]
+    assert all(len(eng.output_of(r)) == 4 for r in run.rids)
+    fw = res["forwards"]
+    if spec_k:
+        assert 0 < reuse["spec_accepted"] <= reuse["spec_proposed"]
+        assert reuse["spec_acceptance_rate"] == (
+            reuse["spec_accepted"] / reuse["spec_proposed"])
+        assert fw["mirror"] == fw["target"] and fw["propose"] > 0
+        assert fw["propose"] % spec_k == 0
+        # the self-draft runs on the engine's own weights
+        assert eng._draft.params is eng.params
+        assert reuse["draft_pool_bytes"] == eng._draft.pool_bytes > 0
+        assert res["verify_steps"] > 0 and res["decode_steps"] == 0
+    else:
+        assert reuse["spec_proposed"] == reuse["spec_accepted"] == 0
+        assert eng._draft is None and reuse["draft_pool_bytes"] == 0
+        assert fw["mirror"] == fw["propose"] == 0
+    assert fw["target"] == res["steps"] and fw["probe"] == 0
+    assert res["forwards_per_step"] == sum(fw.values()) / res["steps"]
+
+
+def test_the_line_carries_the_resilience_and_slo_blocks(capsys,
+                                                        monkeypatch):
+    for k, v in SMALL.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("PADDLE_TPU_BENCH_SERVE_TTFT_SLO_MS", "1e9")
+    monkeypatch.setenv("PADDLE_TPU_BENCH_SERVE_LAT_SLO_MS", "1e-9")
+    assert bench_serve.main(["--device", "cpu"]) == 0
+    res = _line(capsys)["resilience"]
+    for key in ("shed", "admission_waits", "recoveries", "quarantined",
+                "deadline_expired", "callback_errors"):
+        assert res[key] == 0, key
+    slo = res["slo"]
+    assert slo["ttft_slo_ms"] == 1e9 and slo["ttft_ok"] is True
+    assert slo["latency_slo_ms"] == 1e-9 and slo["latency_ok"] is False
+    assert 0 < slo["ttft_p95_ms"] <= slo["latency_p95_ms"]
 
 
 @pytest.mark.parametrize("preset", jworkloads.PRESETS)

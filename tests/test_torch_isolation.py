@@ -48,7 +48,8 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     for mod in ("flash_attention", "fused_blocks"):
         assert REPO / "paddle_tpu_torch" / "ops" / f"{mod}.py" in files
     for mod in ("bench_serve.py", "serving/prefix_cache.py",
-                "serving/workloads.py"):
+                "serving/workloads.py", "serving/spec_decode.py",
+                "runtime/watchdog.py", "testing/chaos.py"):
         assert REPO / "paddle_tpu_torch" / mod in files
     bad = []
     for path in files:

@@ -205,15 +205,27 @@ def test_engine_sheds_and_cancels():
 
 
 def test_engine_step_raises_on_non_finite_logits():
-    # no recovery path in the port yet: a poisoned step raises
+    # the always-on non-finite check raises inside the guarded step;
+    # recovery classifies it, bisects and quarantines the poisoned
+    # request instead of raising to the caller
     cfg = _port_cfg(_jax_cfg("off"))
     params = tllama.init_params(cfg, 0, device="cpu")
     params["lm_head"][:, 5] = float("nan")
     eng = tserving.LLMEngine(cfg, params, device="cpu", max_running=2,
                              chunk=4, page_size=8, max_model_len=32)
-    eng.add_request([1, 2, 3], 2)
-    with pytest.raises(FloatingPointError, match="non-finite"):
-        eng.step()
+    rid = eng.add_request([1, 2, 3], 2)
+    tserving.reset_stats()
+    assert eng.step() == []
+    assert eng.state_of(rid) is tserving.RequestState.FAILED
+    err = eng.error_of(rid)
+    assert isinstance(err, tserving.RequestQuarantined)
+    assert "non_finite" in str(err) and "non-finite" in str(err)
+    stats = tserving.serving_stats()
+    assert stats["recoveries"] == 1 and stats["quarantined"] == 1
+    assert eng.forwards == {"target": 1, "mirror": 0, "propose": 0,
+                            "probe": 1}
+    assert not eng.has_work() and eng.kv.audit()["ok"]
+    assert eng.kv.allocator.num_allocated == 0
 
 
 def test_int8_kv_replay_after_preemption_matches_unpreempted():
