@@ -19,7 +19,10 @@ both apply (M = 8, 16).
   (float32 and int8 KV pages); a small float32 model's streams served
   four ways (spec off, self-draft speculation, speculation with the
   prefix cache, and that under an injected step failure) on the card
-  and on the CPU, all equal token for token; then
+  and on the CPU, all equal token for token; the same model's streams
+  behind a router of two replicas on the card, one killed mid-decode,
+  equal to one uninterrupted engine's on the CPU (float32 and int8
+  pages); then
   ``paddle_tpu_torch.bench_serve``'s measuring function four times at
   the full width and depth of the ``llama7b`` preset (random weights
   from a seed, int8 weights built once): bf16 KV pages, int8 KV pages,
@@ -33,7 +36,17 @@ both apply (M = 8, 16).
   crash recovery on the same weights (int8 KV, prefix, speculation): a
   transient step failure, a request-scoped poison (quarantined by
   bisection) and a step past its watchdog deadline, every request
-  accounted for; one chunk-64 prefill step of the long-context shape
+  accounted for; the serving stack (``fleet_phase``): two replicas of
+  the shared-prefix engine (int8 KV, one copy of the weights) behind one
+  router with metrics, the flight recorder and the live exporter on
+  (``/metrics`` scraped over 127.0.0.1 by a second thread and held to
+  ``serving_stats()``, the trace sidecar read back against the engines'
+  clocks, each replica's service model calibrated from its own steps),
+  four times: clean (prefix locality), a replica killed, a replica
+  drained, a replica step hung past the router's deadline; every stream
+  delivered once in full and every launch held to both replicas'
+  forwards; what metrics and tracing cost the bf16 serve run (off, on,
+  on, off); one chunk-64 prefill step of the long-context shape
   (1,024-token prompts) profiled by kernel for each KV type.  Ragged
   paged attention is also held and timed at the long-context cell's
   shapes (decode at 2048 tokens a request, chunk-64 prefill) and at a
@@ -66,6 +79,7 @@ train step fused and unfused.
 """
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -604,11 +618,15 @@ SPEC_MEMORY_MARGIN = 128 << 20
 
 
 def check_launches(launches, forwards, L, quant, tag):
-    """Every serving kernel's launches against the engine's forwards by
-    kind: each forward runs 7 L + 1 int8 matmuls and L attention calls,
-    over the target's pools (its step and the probes: row 12 with int8
-    pages, else row 11) or the draft's (mirror and proposals: row 11,
-    whatever the target's pages)."""
+    """Every serving kernel's launches against the engines' forwards by
+    kind (one engine's ``forwards`` dict, or a list of them summed: the
+    replicas behind a router): each forward runs 7 L + 1 int8 matmuls
+    and L attention calls, over the target's pools (its step and the
+    probes: row 12 with int8 pages, else row 11) or the draft's (mirror
+    and proposals: row 11, whatever the target's pages)."""
+    if isinstance(forwards, list):
+        forwards = {kind: sum(f[kind] for f in forwards)
+                    for kind in forwards[0]}
     target = forwards["target"] + forwards["probe"]
     draft = forwards["mirror"] + forwards["propose"]
     want = {"int8_matmul": (7 * L + 1) * (target + draft),
@@ -632,7 +650,6 @@ def serve_phase(torch, tllama, bench_serve, card):
     kind; the KV pool bytes against their formula; the spec run's peak
     memory against the spec-off run's plus the draft's pools.  Returns
     the runs and the weights (for ``recovery_phase``)."""
-    import os
     cfg = tllama.preset("llama7b")
     L, nkv, d = (cfg.num_hidden_layers, cfg.num_key_value_heads,
                  cfg.head_dim)
@@ -921,6 +938,512 @@ def small_spec_check(torch, tllama, serving, chaos):
           f"(spec off, spec k=3, spec + prefix, spec + prefix + a failed "
           f"step) give the same {sum(map(len, ref))} tokens; accepted / "
           f"proposed {acc}")
+
+
+# the fleet runs: (name, chaos rule or None, router step after which
+# replica b is drained or None, the router's step_timeout_s or None).
+# The hang sleeps 2 s on the host in replica a's 4th step, past the
+# router's 1 s budget (run_with_deadline), with no engine watchdog
+FLEET_RUNS = (("clean", None, None, None),
+              ("kill", "kill@serve.replica.a.step:step=3", None, None),
+              ("drain", None, 4, None),
+              ("hang", "hang@serve.step:step=3,times=1,secs=2", None, 1.0))
+# what the scraped /metrics is held to: serving_stats() key -> the series
+# counting it (summed over its label sets; a series never created is 0)
+STAT_SERIES = {
+    "prefill_tokens": "serve_prefill_tokens_total",
+    "decode_tokens": "serve_decode_tokens_total",
+    "requests_finished": "serve_request_latency_seconds_count",
+    "requests_preempted": "serve_preemptions_total",
+    "prefix_hit_tokens": "serve_prefix_hit_tokens_total",
+    "shed": "serve_shed_total", "cancelled": "serve_cancelled_total",
+    "recoveries": "serve_recoveries_total",
+    "quarantined": "serve_quarantined_total",
+    "deadline_expired": "serve_deadline_expired_total",
+    "failovers": "serve_failovers_total",
+    "replicas_dead": "serve_replica_dead_total",
+    "drains": "serve_drains_total"}
+FLEET_TRACE_DIR = "chiprun_out/fleet_trace"
+
+
+def scrape(port, path):
+    """GET one exporter endpoint over 127.0.0.1; (status, body)."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10) as r:
+        return r.status, r.read().decode()
+
+
+def prom_sums(text):
+    """Prometheus text -> {series name: value summed over label sets}."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            name = name.split("{")[0]
+            out[name] = out.get(name, 0.0) + float(value)
+    return out
+
+
+class Scraper:
+    """A second thread scraping /metrics, /healthz and /slo every 50 ms
+    while the engines step (what a monitoring agent does)."""
+
+    def __init__(self, port):
+        import threading
+        self.port, self.scrapes, self.errors = port, 0, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self):
+        while not self._stop.wait(0.05):
+            try:
+                for path in ("/metrics", "/healthz", "/slo"):
+                    status, _ = scrape(self.port, path)
+                    check(status == 200, f"{path} answered {status}")
+                self.scrapes += 1
+            except Exception as exc:  # noqa: BLE001 — reported below
+                self.errors.append(repr(exc))
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=30)
+        check(not self._thread.is_alive(), "the scraper did not stop")
+
+
+def fleet_run(torch, cfg, params, bench_serve, prompts, group, run, card):
+    """One fleet run: fresh int8-KV engines ``a`` and ``b`` (prefix cache,
+    max_running 8, chunk 8, pages of 16, speculation off) over the same
+    weights behind one ``Router(locality_prefix=8)``, the bench's
+    shared-prefix traffic (half up front, one more every other router
+    step), metrics, trace and the exporter on, and the run's fault.
+    Checks the books of every stream, the kernels' launches against
+    both replicas' forwards, the scraped /metrics against
+    ``serving_stats()``, the sidecar's request lifecycles against the
+    engines' clock stamps and each live replica's service model."""
+    import threading
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.profiler import exporter, metrics, trace
+    from paddle_tpu_torch.runtime import watchdog
+    from paddle_tpu_torch.serving import autoscale, router as router_mod
+    from paddle_tpu_torch.testing import chaos
+    name, rule, drain_at, timeout = run
+    tag = f"fleet {name}"
+    k = bench_serve.knobs()
+    n_new, chunk = k["NEW"], k["CHUNK"]
+    L = cfg.num_hidden_layers
+    metrics.reset()
+    trace.clear()
+    serving.reset_stats()
+    router_mod.reset_replica_stats()
+    autoscale.reset_fleet_stats()
+    watchdog.clear_incidents()
+    engines = {n: serving.LLMEngine(
+        cfg, params, device="cuda", max_running=8, chunk=chunk,
+        page_size=k["PAGE"], max_model_len=k["PROMPT"] + n_new + chunk,
+        kv_dtype="int8", prefix_cache=True) for n in ("a", "b")}
+    wa, wb = (e.params["layers"]["wq"] for e in engines.values())
+    check(isinstance(wa, dict) and wa["q"].data_ptr() == wb["q"].data_ptr(),
+          f"{tag}: the replicas hold two copies of the weights")
+    router = serving.Router(list(engines.items()), locality_prefix=8,
+                            step_timeout_s=timeout)
+    exp = exporter.active()
+    check(exp is not None and exp.host == "127.0.0.1" and exp.port > 0,
+          f"{tag}: the exporter did not start on 127.0.0.1")
+    delivered = {}
+
+    def on_tok(gid, tok, done):
+        delivered.setdefault(gid, []).append(tok)
+
+    scraper = Scraper(exp.port)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bench_serve.reset_kernel_launches()
+    half = len(prompts) // 2
+    t0 = time.monotonic()
+    gids = [router.submit(p, n_new, on_token=on_tok) for p in prompts[:half]]
+    pending = list(prompts[half:])
+    steps = drained = 0
+    with chaos.installed(chaos.Chaos(rule or "")) as c:
+        while router.has_work() or pending:
+            if pending and steps % 2 == 1:
+                gids.append(router.submit(pending.pop(0), n_new,
+                                          on_token=on_tok))
+            router.step()
+            steps += 1
+            if steps == drain_at:
+                drained = router.drain("b")
+                check(not engines["b"].has_work(), f"{tag}: b kept work")
+            check(steps < 2000, f"{tag}: the router did not converge")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    # a step abandoned at its deadline runs on to its end: every count
+    # is read after it
+    for t in threading.enumerate():
+        if t.name.startswith("ptq-deadline-"):
+            t.join(timeout=120)
+            check(not t.is_alive(), f"{tag}: an abandoned step never ended")
+    torch.cuda.synchronize()
+    launches = bench_serve.kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    scraper.stop()
+    stats = serving.serving_stats()
+    states = router.replica_states()
+    if rule:
+        check(len(c.log) >= 1, f"{tag}: the fault never fired")
+
+    # every stream: all its tokens, each delivered once
+    for g in gids:
+        check(router.is_finished(g) and router.error_of(g) is None,
+              f"{tag}: gid {g} did not finish")
+        check(delivered.get(g) == router.output_of(g)
+              and len(delivered[g]) == n_new, f"{tag}: gid {g} delivered "
+              f"{len(delivered.get(g, []))} tokens for {n_new}")
+    fw = [e.forwards for e in engines.values()]
+    check(all(f["probe"] == f["mirror"] == f["propose"] == 0 for f in fw),
+          f"{tag}: forwards {fw}")
+    check_launches(launches, fw, L, True, tag)
+    check(launches["ragged_paged_attention"] == 0,
+          f"{tag}: row 11 ran over int8 pools")
+    evs = trace.events()
+    places = [e for e in evs if e["name"] == "route/place"]
+    migrations = sum(router._requests[g].migrations for g in gids)
+    # the tokens each failed-over stream had delivered: what its survivor
+    # re-prefilled after the prompt
+    moved_at = [e["delivered"] for e in evs if e["name"] == "route/failover"]
+    if name == "clean":
+        check(states == {"a": "live", "b": "live"}, f"{tag}: {states}")
+        first = {}
+        for e in places:
+            if e["migration"] == 0:
+                first.setdefault(group[gids.index(e["gid"])],
+                                 set()).add(e["replica"])
+        check(all(len(v) == 1 for v in first.values()),
+              f"{tag}: a system prompt's requests spread over replicas "
+              f"{first}")
+    elif name in ("kill", "hang"):
+        check(states == {"a": "dead", "b": "live"}, f"{tag}: {states}")
+        check(stats["replicas_dead"] == 1 and stats["failovers"] >= 1,
+              f"{tag}: {stats['replicas_dead']} dead, "
+              f"{stats['failovers']} failovers")
+        check(engines["b"].kv.audit()["ok"], f"{tag}: b's books "
+              f"{engines['b'].kv.audit()}")
+        if name == "hang":
+            rec = [r for r in watchdog.incidents()
+                   if r["kind"] == "watchdog_expired"]
+            check(rec and rec[-1]["phase"] == "serve.replica.a",
+                  f"{tag}: no run_with_deadline expiry: {rec}")
+    else:
+        check(states == {"a": "live", "b": "draining"}, f"{tag}: {states}")
+        cut = next(i for i, e in enumerate(evs)
+                   if e["name"] == "route/drain")
+        late = [e for e in evs[cut:] if e["name"] == "route/place"]
+        check(drained >= 1 and late and all(e["replica"] == "a"
+                                             for e in late),
+              f"{tag}: {drained} migrated; placed after the drain: "
+              f"{[e['replica'] for e in late]}")
+        check(stats["drains"] == 1, f"{tag}: {stats['drains']} drains")
+    for n, e in engines.items():
+        if states[n] != "dead":
+            check(e.kv.audit()["ok"], f"{tag}: {n}'s books")
+
+    # the scraped counters equal serving_stats(); the other endpoints
+    status, body = scrape(exp.port, "/metrics")
+    sums = prom_sums(body)
+    bad = {key: (sums.get(series, 0.0), stats[key])
+           for key, series in STAT_SERIES.items()
+           if sums.get(series, 0.0) != stats[key]}
+    check(status == 200 and not bad, f"{tag}: /metrics against "
+          f"serving_stats(): {bad}")
+    health = json.loads(scrape(exp.port, "/healthz")[1])
+    check(health["router"]["replicas"] == states, f"{tag}: /healthz "
+          f"{health.get('router')}")
+    slo = json.loads(scrape(exp.port, "/slo")[1])
+    check(slo["router"]["live_replicas"] == router.live_replicas()
+          and len(slo["engines"]) == 2, f"{tag}: /slo {slo['router']}")
+    check(not scraper.errors and scraper.scrapes >= 1, f"{tag}: "
+          f"{scraper.scrapes} scrapes, errors {scraper.errors[:3]}")
+
+    # the sidecar reads back, each request's lifecycle against its stamps
+    out_dir = os.path.join(FLEET_TRACE_DIR, name)
+    os.makedirs(out_dir, exist_ok=True)
+    path = trace.write_sidecar(trace.sidecar_path(out_dir),
+                               extra={"bench": "fleet", "run": name})
+    header, side = trace.read_sidecar(path)
+    check(header["dropped"] == 0 and len(side) == len(evs),
+          f"{tag}: sidecar {len(side)} events of {len(evs)}, dropped "
+          f"{header['dropped']}")
+    by_rid = {}
+    for e in side:
+        if e.get("kind") == "request":
+            by_rid.setdefault(e["rid"], []).append(e)
+    for n, eng in engines.items():
+        for rid, req in eng._requests.items():
+            tl = by_rid.get(rid, [])
+            first = {}
+            for e in tl:
+                first.setdefault(e["phase"], e["t"])
+            terminal = sum(e["phase"] in trace.TERMINAL_PHASES for e in tl)
+            check(terminal == 1 if states[n] != "dead" else terminal <= 1,
+                  f"{tag}: request {rid} on {n} has {terminal} terminal "
+                  f"events")
+            check(first.get("queued") == req.arrival_s,
+                  f"{tag}: request {rid} queued at {first.get('queued')}")
+            if req.first_token_s is not None:
+                queue = first["admitted"] - first["queued"]
+                prefill = first["first_token"] - first["admitted"]
+                check(abs(queue + prefill - (req.first_token_s
+                                             - req.arrival_s)) < 1e-9,
+                      f"{tag}: request {rid}: queue + prefill "
+                      f"{queue + prefill} != TTFT "
+                      f"{req.first_token_s - req.arrival_s}")
+
+    # each replica's service model, from its own steps on the card
+    tokens = sum(len(delivered[g]) for g in gids)
+    offered = len(gids) / wall
+    mean_prompt = sum(map(len, prompts)) // len(prompts)
+    fleet = {}
+    for n, eng in engines.items():
+        measured = {b: len(eng._step_wall_s.get(b, [])) for b in (1, chunk)}
+        sm = eng.service_model()
+        if states[n] == "live":
+            check(sm.calibrated and all(measured.values()),
+                  f"{tag}: {n}'s service model lacks a measured bucket "
+                  f"({measured}); it would print the placeholders")
+        elif not all(measured.values()):
+            fleet[n] = {"calibrated": False, "steps_measured": measured}
+            continue
+        fleet[n] = {
+            "calibrated": sm.calibrated, "steps_measured": measured,
+            "decode_step_ms": 1e3 * sm.decode_step_s,
+            "prefill_chunk_ms": 1e3 * sm.prefill_chunk_s,
+            "concurrency": sm.concurrency,
+            "capacity_rps": sm.capacity_rps(mean_prompt, n_new),
+            "replicas_for_offered": autoscale.replicas_for(
+                sm, offered, prompt_len=mean_prompt, new_tokens=n_new)}
+    reqs = [router._requests[g] for g in gids]
+    ttft = [1e3 * (r.first_token_s - r.arrival_s) for r in reqs]
+    res = dict(tokens_per_s=tokens / wall, wall_s=wall, tokens=tokens,
+               ttft_p50_ms=float(np.percentile(ttft, 50)),
+               ttft_p95_ms=float(np.percentile(ttft, 95)),
+               router_steps=steps, failovers=int(stats["failovers"]),
+               migrations=migrations, delivered_at_failover=moved_at,
+               drained=drained, states=states,
+               max_memory_allocated=peak,
+               pool_bytes=engines["a"]._pool_bytes, launches=launches,
+               forwards={n: dict(e.forwards) for n, e in engines.items()},
+               offered_rps=offered, fleet=fleet, scrapes=scraper.scrapes,
+               sidecar=path, events=len(evs))
+    print(f"{tag} [{card}]: {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:.2f} tokens/s, TTFT p50 {res['ttft_p50_ms']:.2f}"
+          f" ms p95 {res['ttft_p95_ms']:.2f} ms, {steps} router steps, "
+          f"{res['failovers']} failovers ({moved_at} tokens delivered "
+          f"before each), {migrations} migrations, "
+          f"{drained} drained, states {states}, max_memory_allocated "
+          f"{peak} bytes, launches {launches}, forwards {res['forwards']}, "
+          f"{scraper.scrapes} scrapes, sidecar {path} ({len(evs)} events)")
+    for n, f in fleet.items():
+        print(f"{tag} [{card}]: replica {n} fleet block {json.dumps(f)} "
+              f"(offered {offered:.3f} rps)")
+    for e in engines.values():
+        e.shutdown()
+    streams = [router.output_of(g) for g in gids]
+    exporter.shutdown()
+    return res, streams
+
+
+def fleet_phase(torch, tllama, bench_serve, params, card):
+    """The serving stack's fleet at llama7b on the card: two replicas of
+    the bench's shared-prefix engine (int8 weights shared, int8 KV)
+    behind one router, with metrics, the flight recorder and the live
+    exporter on, four times on fresh engines: clean, a replica killed at
+    its 4th router step, replica b drained after router step 4, and a
+    replica step hung past the router's 1 s budget.  Returns the runs."""
+    from paddle_tpu_torch import flags
+    cfg = tllama.preset("llama7b")
+    k = bench_serve.knobs()
+    prompts, heads, _ = bench_serve.prompts_for("shared-prefix", k,
+                                                cfg.vocab_size)
+    group = [next(i for i, h in enumerate(heads) if p[:len(h)] == h)
+             for p in prompts]
+    flags.set_flags({"FLAGS_tpu_metrics": True, "FLAGS_tpu_trace": True,
+                     "FLAGS_tpu_metrics_port": -1})
+    runs, streams = {}, {}
+    try:
+        for run in FLEET_RUNS:
+            runs[run[0]], streams[run[0]] = fleet_run(
+                torch, cfg, params, bench_serve, prompts, group, run, card)
+    finally:
+        flags.set_flags({"FLAGS_tpu_metrics": False,
+                         "FLAGS_tpu_trace": False,
+                         "FLAGS_tpu_metrics_port": 0})
+    clean = streams["clean"]
+    total = sum(map(len, clean))
+    for name in ("kill", "drain", "hang"):
+        same = sum(a == b for x, y in zip(streams[name], clean)
+                   for a, b in zip(x, y))
+        whole = sum(x == y for x, y in zip(streams[name], clean))
+        runs[name]["tokens_equal_clean"] = same
+        runs[name]["streams_equal_clean"] = whole
+        print(f"fleet {name} [{card}]: tokens equal to the clean run's "
+              f"{same}/{total}, streams {whole}/{len(clean)} (not gated: a "
+              f"failed-over stream re-prefills prompt + delivered in Tc = 8 "
+              f"chunks where it decoded at Tc = 1; bf16/int8 tiles sum in "
+              f"other orders and random weights' margins are tiny)")
+    return runs
+
+
+def small_router_check(torch, tllama, serving, chaos):
+    """Failover's streams on the card against the CPU: a small float32
+    model (``small_spec_check``'s), 8 requests over 2 system prompts,
+    served by two replicas on the card behind a router whose replica a
+    is killed at its 7th step (streams mid-decode fail over to b as
+    prompt + delivered), against one uninterrupted engine on the CPU;
+    over float32 pages (row 11) and int8 pages (row 12).  Every stream
+    equal token for token, each token delivered once."""
+    cfg = tllama.LlamaConfig(vocab_size=512, hidden_size=256,
+                             intermediate_size=512, num_hidden_layers=2,
+                             num_attention_heads=2, num_key_value_heads=1,
+                             max_position_embeddings=128,
+                             dtype=torch.float32, quantized="off")
+    params = tllama.init_params(cfg, 0, device="cpu")
+    rng = np.random.RandomState(4)
+    heads = [[int(t) for t in rng.randint(1, 512, n)] for n in (21, 13)]
+    prompts = [heads[i % 2] + [int(t) for t in rng.randint(1, 512, 2 + i)]
+               for i in range(8)]
+    n_new = 12
+    for kv in (None, "int8"):
+        def engine(dev):
+            return serving.LLMEngine(cfg, params, device=dev, max_running=4,
+                                     chunk=8, page_size=16, max_model_len=64,
+                                     kv_dtype=kv)
+
+        ref_eng = engine("cpu")
+        rids = [ref_eng.add_request(p, n_new) for p in prompts]
+        ref_eng.run()
+        ref = [ref_eng.output_of(r) for r in rids]
+        serving.reset_stats()
+        router = serving.Router([("a", engine("cuda")),
+                                 ("b", engine("cuda"))])
+        delivered = {}
+        gids = [router.submit(p, n_new, on_token=lambda g, t, d:
+                              delivered.setdefault(g, []).append(t))
+                for p in prompts]
+        with chaos.installed(chaos.Chaos("kill@serve.replica.a.step:step=7")):
+            out = router.run(max_steps=1000)
+        moved = [router._requests[g] for g in gids
+                 if router._requests[g].migrations]
+        stats = serving.serving_stats()
+        tag = f"small router ({kv or 'f32'} pages)"
+        check(router.replica_states() == {"a": "dead", "b": "live"}
+              and stats["failovers"] == len(moved) >= 1, f"{tag}: "
+              f"{router.replica_states()}, {stats['failovers']} failovers")
+        for i, g in enumerate(gids):
+            check(out[g] == ref[i] and delivered[g] == ref[i],
+                  f"{tag}: stream {i} differs from the CPU's uninterrupted "
+                  f"stream: {out[g]} vs {ref[i]}")
+        print(f"{tag}: 8 streams on the card behind a router, replica a "
+              f"killed at step 7, {len(moved)} failed over to b, equal to "
+              f"the CPU's uninterrupted streams ({sum(map(len, ref))} "
+              f"tokens, each delivered once)")
+
+
+def instrumentation_us(flags, metrics, trace, calls=20000):
+    """Host microseconds a call of each instrumentation primitive the
+    engine's step runs, with its flag on: a request event, a span, a
+    counter, a gauge and a histogram update; and with the flags off,
+    what the step pays instead: the trace calls themselves (each returns
+    at its flag) and ``metrics.enabled()``, which guards every metric
+    update of the engine."""
+    off = {
+        "request_event": lambda i: trace.request_event("decode", i, t=0.0,
+                                                       tokens=1),
+        "span": lambda i: trace.span("serve/step", step=i).__enter__()
+        .__exit__(None, None, None),
+        "metrics_enabled": lambda i: metrics.enabled(),
+    }
+    prims = {
+        "request_event": lambda i: trace.request_event("decode", i, t=0.0,
+                                                       tokens=1),
+        "span": lambda i: trace.span("serve/step", step=i).__enter__()
+        .__exit__(None, None, None),
+        "counter": lambda i: metrics.counter(
+            "serve_decode_tokens_total", "Decode tokens generated").inc(1),
+        "gauge": lambda i: metrics.gauge(
+            "serve_queue_depth", "Requests waiting for admission").set(i),
+        "histogram": lambda i: metrics.histogram(
+            "serve_ttft_seconds", "Time to first token").observe(1e-3 * i),
+    }
+    out = {}
+    for on in (True, False):
+        flags.set_flags({"FLAGS_tpu_metrics": on, "FLAGS_tpu_trace": on})
+        for name, fn in (prims if on else off).items():
+            t0 = time.perf_counter()
+            for i in range(calls):
+                fn(i)
+            out[f"{name}_{'on' if on else 'off'}"] = (
+                1e6 * (time.perf_counter() - t0) / calls)
+    flags.set_flags({"FLAGS_tpu_metrics": False, "FLAGS_tpu_trace": False})
+    metrics.reset()
+    trace.clear()
+    return out
+
+
+OBS_TURNS = (False, True, True, False, False, True, True, False)
+
+
+def obs_cost_phase(torch, bench_serve, params, card):
+    """What metrics and the flight recorder cost a user of the card: the
+    bench's bf16-KV serve run at llama7b with ``FLAGS_tpu_metrics`` and
+    ``FLAGS_tpu_trace`` off and on, in turns off, on, on, off twice in
+    one call after one discarded warm-up run (medians a side), and the
+    host cost of each instrumentation primitive.  The on-runs must
+    record (series and events), the off-runs nothing."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.profiler import metrics, trace
+    bench_serve.serve("cuda", kv_dtype="bf16", params=params)
+    turns = []
+    for on in OBS_TURNS:
+        metrics.reset()
+        trace.clear()
+        flags.set_flags({"FLAGS_tpu_metrics": on, "FLAGS_tpu_trace": on})
+        try:
+            res = bench_serve.serve("cuda", kv_dtype="bf16",
+                                    params=params).result
+        finally:
+            flags.set_flags({"FLAGS_tpu_metrics": False,
+                             "FLAGS_tpu_trace": False})
+        n_series, n_events = len(metrics.snapshot()), len(trace.events())
+        check((n_series > 0 and n_events > 0) if on
+              else (n_series == n_events == 0),
+              f"obs cost: observability {on}: {n_series} series, "
+              f"{n_events} events")
+        turns.append(dict(on=on, tokens_per_s=res["value"],
+                          decode_step_ms=res["decode_step_ms"],
+                          prefill_step_ms=res["prefill_step_ms"],
+                          ttft_p50_ms=res["ttft_p50_ms"], steps=res["steps"],
+                          series=n_series, events=n_events))
+        print(f"obs cost [{card}]: metrics + trace {'on ' if on else 'off'}:"
+              f" {res['value']:.2f} tokens/s, decode step "
+              f"{res['decode_step_ms']:.3f} ms, prefill step "
+              f"{res['prefill_step_ms']:.3f} ms (means), TTFT p50 "
+              f"{res['ttft_p50_ms']:.2f} ms, {n_series} series, {n_events} "
+              f"events over {res['steps']} steps")
+    out = {"turns": turns}
+    for on in (False, True):
+        side = [t for t in turns if t["on"] == on]
+        out["on" if on else "off"] = {
+            k: float(np.median([t[k] for t in side]))
+            for k in ("tokens_per_s", "decode_step_ms", "prefill_step_ms")}
+    out["host_us_per_call"] = instrumentation_us(flags, metrics, trace)
+    on_turn = next(t for t in turns if t["on"])
+    out["events_per_step"] = on_turn["events"] / on_turn["steps"]
+    print(f"obs cost [{card}]: medians off {json.dumps(out['off'])}, on "
+          f"{json.dumps(out['on'])}; host us a call "
+          f"{json.dumps(out['host_us_per_call'])}; "
+          f"{out['events_per_step']:.2f} trace events a step")
+    return out
 
 
 def profile_steps(torch, eng, prompts, card):
@@ -1753,7 +2276,6 @@ def load_parent(root):
     its own sources into its own ``build/``."""
     import importlib
     import importlib.util
-    import os
     pkg = os.path.join(root, "paddle_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         "parent_paddle_tpu_torch", os.path.join(pkg, "__init__.py"),
@@ -1901,16 +2423,29 @@ def main(argv=()):
     fused = fused_phase(torch, fb)
     small_reference_check(torch, tllama, convert, rpa)
     small_spec_check(torch, tllama, serving, chaos)
+    small_router_check(torch, tllama, serving, chaos)
     # the serving path: llama7b (32 layers, int8 weights) on the card,
     # bf16 KV, int8 KV, int8 KV + shared prefix with and without
     # speculation; then crash recovery on the same weights
     serve, params = serve_phase(torch, tllama, bench_serve, card)
     recovery = recovery_phase(torch, tllama, serving, chaos, watchdog,
                               bench_serve, params, card)
-    del params
     print(f"recovery [{card}]: {json.dumps(recovery)}")
+    # the serving stack on the same weights: two replicas behind a router
+    # (clean, kill, drain, hang), then what observability costs
+    fleet = fleet_phase(torch, tllama, bench_serve, params, card)
+    print(f"fleet [{card}]: {json.dumps(fleet)}")
+    extra = (fleet["clean"]["max_memory_allocated"]
+             - serve["int8"]["max_memory_allocated"])
+    print(f"fleet [{card}]: the clean run's peak memory over the int8 serve "
+          f"run's: {extra} bytes (one replica's KV pools: "
+          f"{fleet['clean']['pool_bytes']})")
+    obs_cost = obs_cost_phase(torch, bench_serve, params, card)
+    print(f"obs cost [{card}]: {json.dumps(obs_cost)}")
+    del params
     launches = serve["bf16"]["launches"]
     by_run = {n: r["launches"] for n, r in serve.items()}
+    by_run.update({f"fleet_{n}": r["launches"] for n, r in fleet.items()})
     for mode in ("on", "off"):
         small_train_check(torch, tllama, mode)
     # the train path: bench.py's ~0.95B model, S = 2048, on the card, at

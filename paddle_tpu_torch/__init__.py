@@ -2,8 +2,10 @@
 
 Layout mirrors ``paddle_tpu``: ``models/llama.py`` (the functional Llama
 core), ``ops/`` (hand-written CUDA kernels, each beside its plain PyTorch
-version), ``serving/`` (the continuous-batching engine), ``runtime/``
-(the phase watchdog) and ``testing/`` (fault injection).  Nothing here
+version), ``serving/`` (the continuous-batching engine, the multi-replica
+router and fleet planning), ``profiler/`` (metrics, the flight recorder,
+the live exporter), ``runtime/`` (the phase watchdog, heartbeats),
+``testing/`` (fault injection) and ``flags`` (the global flag registry).  Nothing here
 imports JAX or ``paddle_tpu``; the tests hold the two packages against
 each other with inputs made by numpy.
 """

@@ -6,6 +6,7 @@ repository root:
     python -m paddle_tpu_torch.bench_serve --kv-dtype int8   # int8 KV pages
     python -m paddle_tpu_torch.bench_serve --workload shared-prefix
     python -m paddle_tpu_torch.bench_serve --device cpu      # CPU shape
+    python -m paddle_tpu_torch.bench_serve --trace-out DIR   # + sidecar
 
 It drives ``serving.LLMEngine`` with ``bench_serve.py``'s staggered
 open-loop traffic (requests keep arriving while the batch is in flight,
@@ -18,8 +19,11 @@ with output tokens/s, TTFT and request-latency p50/p95 (exact
 percentiles over the requests' clock stamps, the reference bench's own
 fallback), the step counts, the forwards by kind, the ``kv`` block, the
 ``resilience`` block (shed, recoveries, quarantined, deadline-expired
-counts of the measured run, and its ``slo`` verdicts) and, for the
-shared-prefix workload, the ``reuse`` block.  It exits non-zero, with
+counts of the measured run, and its ``slo`` verdicts), the ``fleet``
+block (the engine's ``service_model()`` calibrated from this run's step
+times by bucket, its capacity in requests/s and ``replicas_for`` at the
+offered rate) and, for the shared-prefix workload, the ``reuse`` block.
+It exits non-zero, with
 an ``error`` in the line, when the run failed.
 
 The model is the ``llama7b`` preset on the card (int8 weights, as the
@@ -46,8 +50,17 @@ target, on the same weights, so acceptance isolates the machinery from
 draft quality) with k = SPEC_K.  Its ``reuse`` block carries the
 prefix hit rate and the spec acceptance rate.
 
-Not carried over from ``bench_serve.py``: the trace, ledger, exporter
-and fleet blocks.
+``--trace-out DIR`` (or TRACE_OUT) turns on the flight recorder
+(``FLAGS_tpu_trace``) for the measured run and writes its JSONL sidecar
+(``trace_rank0.jsonl``) into DIR; the line carries its path as
+``trace_sidecar``; ``tools/trace_report.py`` reads it.  With
+``FLAGS_tpu_metrics_port`` set (``paddle_tpu_torch.flags`` or the
+environment) the engine starts the live exporter and the line carries
+the bound ``metrics_port``.
+
+Not carried over from ``bench_serve.py``: the ledger block
+(``--ledger-out``), which waits for the profiler tooling of ROADMAP A3;
+no code of the port writes the perf ledger.
 """
 from __future__ import annotations
 
@@ -62,12 +75,16 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from . import flags as _flags
 from .bench import gpu_line
 from .device import resolve_device
 from .models import llama
 from .ops import int8_matmul as i8
 from .ops import ragged_paged_attention as rpa
+from .profiler import exporter as _exporter
+from .profiler import trace as _trace
 from . import serving
+from .serving import autoscale as _autoscale
 from .serving import workloads as _workloads
 
 _ENV = "PADDLE_TPU_BENCH_SERVE_"
@@ -151,10 +168,25 @@ def _pct(vals, q):
 
 
 def serve(device=None, *, kv_dtype: str = "bf16",
-          workload: str = "uniform", params=None) -> ServeRun:
+          workload: str = "uniform", params=None,
+          trace_out: Optional[str] = None) -> ServeRun:
     """One bench run.  ``params`` (the preset's, already on the device,
     int8 or not) skips the weight build, so a caller can serve several
-    runs from one set of weights."""
+    runs from one set of weights.  ``trace_out`` (default: the TRACE_OUT
+    knob) names the directory of the run's trace sidecar; it turns
+    ``FLAGS_tpu_trace`` on for the run."""
+    if trace_out is None:
+        trace_out = os.environ.get(_ENV + "TRACE_OUT") or None
+    tracing = _flags.flag("FLAGS_tpu_trace")
+    if trace_out:
+        _flags.set_flags({"FLAGS_tpu_trace": True})
+    try:
+        return _serve(device, kv_dtype, workload, params, trace_out)
+    finally:
+        _flags.set_flags({"FLAGS_tpu_trace": tracing})
+
+
+def _serve(device, kv_dtype, workload, params, trace_out) -> ServeRun:
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     _workloads.validate(workload)
@@ -194,6 +226,8 @@ def serve(device=None, *, kv_dtype: str = "bf16",
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     eng.clear_samples()
+    if trace_out:
+        _trace.clear()      # the measured run's lifecycle events only
     base = serving.serving_stats()
     fwd_base = dict(eng.forwards)
 
@@ -266,6 +300,27 @@ def serve(device=None, *, kv_dtype: str = "bf16",
     def ms(v):
         return None if v is None else 1e3 * v
 
+    # the fleet block: the service model calibrated from this run's step
+    # times by bucket, and the capacity arithmetic the autoscaler plans
+    # with (its uncalibrated placeholders never stand for a measurement:
+    # ``calibrated`` says which)
+    sm = eng.service_model()
+    mean_prompt = (prompt_tokens // len(reqs)) if reqs else k["PROMPT"]
+    offered_rps = (len(rids) + shed) / wall if wall else 0.0
+    fleet = {
+        "calibrated": sm.calibrated,
+        "prefill_chunk_ms": ms(sm.prefill_chunk_s),
+        "decode_step_ms": ms(sm.decode_step_s),
+        "prefill_steps_measured": len(pre),
+        "decode_steps_measured": len(dec),
+        "concurrency": sm.concurrency,
+        "capacity_rps_per_chip": sm.capacity_rps(mean_prompt, n_new),
+        "offered_rps": offered_rps,
+        "min_chips_for_offered": _autoscale.replicas_for(
+            sm, offered_rps, prompt_len=max(mean_prompt, 1),
+            new_tokens=n_new),
+    }
+
     rep = eng.slo_report()
     res["slo"] = {
         "ttft_p95_ms": ms(rep["ttft_p95_s"]),
@@ -302,6 +357,7 @@ def serve(device=None, *, kv_dtype: str = "bf16",
         "forwards": forwards,
         "forwards_per_step": sum(forwards.values()) / steps if steps else 0,
         "resilience": res,
+        "fleet": fleet,
         "kv": {
             "dtype": kv_dtype,
             "pages": int(eng.num_pages),
@@ -330,6 +386,15 @@ def serve(device=None, *, kv_dtype: str = "bf16",
             "draft_pool_bytes": (eng._draft.pool_bytes if eng._draft
                                  else 0),
         }
+    if trace_out:
+        os.makedirs(trace_out, exist_ok=True)
+        result["trace_sidecar"] = _trace.write_sidecar(
+            _trace.sidecar_path(trace_out),
+            extra={"bench": "serve", "workload": workload,
+                   "requests": len(rids)})
+    exp = _exporter.active()
+    if exp is not None:
+        result["metrics_port"] = exp.port
     if on_card:
         result["gpu"] = gpu_line()
         result["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
@@ -344,10 +409,13 @@ def main(argv=None) -> int:
     ap.add_argument("--kv-dtype", default="bf16", choices=KV_DTYPES)
     ap.add_argument("--workload", default="uniform",
                     help=" | ".join(_workloads.PRESETS))
+    ap.add_argument("--trace-out", default=None, metavar="DIR",
+                    help="write the measured run's trace sidecar into DIR")
     args = ap.parse_args(argv)
     try:
         result = serve(args.device, kv_dtype=args.kv_dtype,
-                       workload=args.workload).result
+                       workload=args.workload,
+                       trace_out=args.trace_out).result
         ok = True
     except BaseException as exc:  # noqa: BLE001 - the line must print
         result = {"metric": "serve_tokens_per_sec_chip", "value": None,

@@ -1,3 +1,3 @@
-"""Runtime health for the port: the phase watchdog
-(``runtime/watchdog.py``) that the serving engine's ``serve.step``
-phase runs under."""
+"""Runtime health for the port: the phase watchdog and deadline executor
+(``runtime/watchdog.py``) and replica liveness by heartbeat
+(``runtime/health.py``)."""

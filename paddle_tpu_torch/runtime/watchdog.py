@@ -1,19 +1,24 @@
-"""Phase watchdogs: the port's copy of ``paddle_tpu/runtime/watchdog.py``
-as far as the serving engine needs it.
+"""Phase watchdogs and the deadline executor: the port's copy of
+``paddle_tpu/runtime/watchdog.py`` as far as serving needs it.
 
 ``Watchdog``
     Named phases (``serve.step`` here) with per-phase deadlines, from
-    the constructor or from the ``FLAGS_tpu_watchdog_*`` environment
-    variables.  A synchronous state
+    the constructor or from the ``FLAGS_tpu_watchdog_*`` flags
+    (``paddle_tpu_torch.flags``).  A synchronous state
     machine — ``begin``/``end``/``poll`` — with an injectable clock, so
     expiry is testable without real sleeps, plus an optional ticker
-    thread.  On expiry: an all-thread stack dump, an incident record
-    and a typed :class:`PhaseTimeout`.
+    thread.  On expiry: an all-thread stack dump,
+    ``watchdog_expired_total{phase=}``, an incident record and a typed
+    :class:`PhaseTimeout`.
+
+``run_with_deadline``
+    Daemon-thread executor: run ``fn`` with a wall-clock budget, raise
+    :class:`PhaseTimeout` if it does not land (the router bounds each
+    replica's step with it).
 
 Incident records accumulate in a bounded in-memory buffer
 (``incidents()``).  Not ported yet (they come with the train runtime,
-ROADMAP A3): ``run_with_deadline``, ``init_with_retries`` and the
-incident sidecar file.
+ROADMAP A3): ``init_with_retries`` and the incident sidecar file.
 """
 from __future__ import annotations
 
@@ -25,24 +30,25 @@ import time
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional
 
-__all__ = ["PhaseTimeout", "Watchdog", "record_incident", "incidents",
-           "clear_incidents", "last_incident", "PHASES",
-           "global_watchdog", "watchdog_enabled"]
+from .. import flags as _flags
 
-# canonical phases, the environment flag holding each deadline (seconds;
-# <= 0 disables that phase's deadline) and the reference's defaults
-# (the train runtime's phases come with it, ROADMAP A3)
+__all__ = ["PhaseTimeout", "Watchdog", "run_with_deadline",
+           "record_incident", "incidents", "clear_incidents",
+           "last_incident", "PHASES", "global_watchdog",
+           "watchdog_enabled"]
+
+# canonical phases and the flag holding each deadline (seconds; <= 0
+# disables that phase's deadline; the train runtime's phases come with
+# it, ROADMAP A3)
 PHASES = {
-    "serve.step": ("FLAGS_tpu_watchdog_serve_step", 120.0),
+    "serve.step": "FLAGS_tpu_watchdog_serve_step",
 }
 
 
 def watchdog_enabled() -> bool:
-    """``FLAGS_tpu_watchdog`` from the environment (default off): the
-    framework's phase sites arm the global watchdog only when it is
-    set."""
-    return os.environ.get("FLAGS_tpu_watchdog", "").lower() in (
-        "1", "true", "yes")
+    """``FLAGS_tpu_watchdog`` (default off): the framework's phase sites
+    arm the global watchdog only when it is set."""
+    return bool(_flags.flag("FLAGS_tpu_watchdog"))
 
 
 class PhaseTimeout(TimeoutError):
@@ -79,6 +85,11 @@ def record_incident(kind: str, **fields) -> Dict[str, Any]:
     with _INCIDENTS_LOCK:
         _INCIDENTS.append(rec)
         del _INCIDENTS[:-_INCIDENTS_MAX]
+    from ..profiler import metrics
+    if metrics.enabled():
+        metrics.counter("health_incidents_total",
+                        "Structured runtime-health incidents",
+                        kind=kind).inc()
     return rec
 
 
@@ -107,6 +118,13 @@ def _dump_all_threads(reason: str):
     # be a closed pipe under a dying launcher)
     except (OSError, ValueError):
         pass
+
+
+def _expired_metric(phase: str):
+    from ..profiler import metrics
+    if metrics.enabled():
+        metrics.counter("watchdog_expired_total",
+                        "Phase-deadline expiries", phase=phase).inc()
 
 
 class Watchdog:
@@ -138,15 +156,15 @@ class Watchdog:
         self.expired: List[PhaseTimeout] = []
 
     def deadline_for(self, phase: str) -> Optional[float]:
-        """Explicit per-instance deadline, else the phase's flag (or its
-        default), else None (unwatched)."""
+        """Explicit per-instance deadline, else the phase's flag, else
+        None (unwatched)."""
         if phase in self._deadlines:
             d = self._deadlines[phase]
             return float(d) if d and d > 0 else None
-        if phase not in PHASES:
+        flag_name = PHASES.get(phase)
+        if flag_name is None:
             return None
-        name, default = PHASES[phase]
-        d = float(os.environ.get(name, default))
+        d = float(_flags.flag(flag_name))
         return d if d > 0 else None
 
     def begin(self, phase: str, deadline_s: Optional[float] = None):
@@ -195,6 +213,7 @@ class Watchdog:
             self.expired.append(exc)
             if self._dump:
                 _dump_all_threads(str(exc))
+            _expired_metric(exc.phase)
             record_incident("watchdog_expired", phase=exc.phase,
                             elapsed_s=round(exc.elapsed_s, 3),
                             deadline_s=exc.deadline_s)
@@ -253,3 +272,44 @@ def global_watchdog() -> Watchdog:
             _GLOBAL = Watchdog()
             _GLOBAL.start_ticker(interval_s=1.0)
         return _GLOBAL
+
+
+def run_with_deadline(fn: Callable[[], Any], window_s: float, *,
+                      phase: str = "deadline", dump: bool = True):
+    """Run ``fn()`` on a daemon thread with a wall-clock budget.
+
+    Returns ``fn``'s value; re-raises its exception.  If the budget
+    expires first: all-thread stack dump + ``watchdog_expired_total``
+    + incident record, then :class:`PhaseTimeout`.  The worker thread is
+    abandoned (daemon) — by construction it is hung on something
+    uninterruptible, which is exactly why the caller needs its control
+    flow back.  It keeps running to its end and may still touch what
+    ``fn`` closes over, so the caller drops references only.
+    """
+    box: Dict[str, Any] = {}
+    done = threading.Event()
+
+    def _work():
+        try:
+            box["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised in caller
+            box["exc"] = e
+        finally:
+            done.set()
+
+    th = threading.Thread(target=_work, name=f"ptq-deadline-{phase}",
+                          daemon=True)
+    th.start()
+    if not done.wait(window_s):
+        exc = PhaseTimeout(phase, window_s, window_s,
+                           detail="still running at deadline")
+        if dump:
+            _dump_all_threads(str(exc))
+        _expired_metric(phase)
+        record_incident("watchdog_expired", phase=phase,
+                        elapsed_s=window_s, deadline_s=window_s,
+                        detail="run_with_deadline")
+        raise exc
+    if "exc" in box:
+        raise box["exc"]
+    return box["value"]

@@ -29,9 +29,19 @@ speculative decoding (``spec``), deadlines and SLO report (``slo``,
     recovery itself (a CUDA error that left the context unusable fails
     the rebuild's allocation again) propagates to the caller.
 
-Not ported yet: tracing and metrics (``profiler/{trace,metrics,
-exporter}.py``, ``request_timeline``), ``service_model`` and the
-router (ROADMAP A1).
+Observability, as the reference's: ``serve_*`` metrics (queue depth,
+running batch, token counters, TTFT and request-latency histograms,
+shed / recovery / quarantine / deadline counters) behind
+``FLAGS_tpu_metrics``, the flight recorder's request lifecycle events
+behind ``FLAGS_tpu_trace`` (``request_timeline``; a deadline expiry
+dumps the request's timeline into its incident record), and the live
+exporter started from the constructor when ``FLAGS_tpu_metrics_port``
+is set.  Each disabled path is one dict lookup.  ``service_model()``
+turns the measured step times into the fleet's ``ServiceModel``, and
+``prefix_lookup()`` is the router's locality signal
+(``serving/router.py``).  The reference's xmem reservation is reported
+as its ``xmem_reserved_bytes`` gauge only; the xmem module itself
+comes with ROADMAP A3.
 """
 from __future__ import annotations
 
@@ -47,6 +57,9 @@ import torch
 from ..device import resolve_device
 from ..models import llama as _llama
 from ..models.convert import params_to
+from ..profiler import exporter as _exporter
+from ..profiler import metrics as _metrics
+from ..profiler import trace as _trace
 from ..runtime.watchdog import (PhaseTimeout, Watchdog, global_watchdog,
                                 record_incident, watchdog_enabled)
 from ..testing.chaos import ChaosError, ReplicaKilled, chaos_point
@@ -57,7 +70,8 @@ from .scheduler import (AdmissionGate, Request, RequestState, Scheduler,
                         StepPlan)
 from .spec_decode import DraftModel, SpecDecodeConfig, greedy_accept
 
-__all__ = ["LLMEngine", "SLOConfig", "serving_stats", "reset_stats"]
+__all__ = ["LLMEngine", "SLOConfig", "serving_stats", "reset_stats",
+           "summary_lines"]
 
 _LOG = logging.getLogger("paddle_tpu_torch.serving")
 
@@ -69,6 +83,54 @@ reset_stats = _stats.reset_stats
 # the target's step, the draft's mirror of it and its proposals, and the
 # bisection probes of a recovery
 FORWARD_KINDS = ("target", "mirror", "propose", "probe")
+
+
+def summary_lines() -> List[str]:
+    """The "Serving" summary block (the reference's Profiler section)."""
+    s = _STATS
+    lines = ["Serving"]
+    if not s["engines"]:
+        lines.append("  (no LLMEngine instantiated)")
+        return lines
+    lines.append(
+        f"  requests: {int(s['requests_added'])} added  "
+        f"{int(s['requests_finished'])} finished  "
+        f"{int(s['requests_preempted'])} preempted")
+    lines.append(
+        f"  steps: {int(s['steps'])}  "
+        f"tokens: {int(s['prefill_tokens'])} prefill  "
+        f"{int(s['decode_tokens'])} decode  "
+        f"peak batch: {int(s['peak_running'])}")
+    lines.append(f"  kv pools: {s['pool_bytes'] / 2**20:.1f} MiB")
+    if s["prefix_hit_tokens"] or s["spec_proposed"]:
+        lines.append(
+            f"  reuse: {int(s['prefix_hit_tokens'])} prefix-hit tokens "
+            f"({int(s['prefix_evicted_pages'])} pages evicted)  "
+            f"spec: {int(s['spec_accepted'])}/{int(s['spec_proposed'])} "
+            f"drafts accepted")
+    lines.append(
+        f"  resilience: {int(s['recoveries'])} recoveries  "
+        f"{int(s['quarantined'])} quarantined  "
+        f"{int(s['shed'])} shed  "
+        f"{int(s['deadline_expired'])} deadline-expired  "
+        f"{int(s['cancelled'])} cancelled")
+    lines.append(
+        f"  replicas: {int(s['failovers'])} failovers  "
+        f"{int(s['replicas_dead'])} dead  "
+        f"{int(s['drains'])} drains  "
+        f"callback errors: {int(s['callback_errors'])}")
+    from . import router as _router  # function-local: router imports us
+    lines.extend(_router.replica_summary_lines())
+    return lines
+
+
+def _pool_gauge(nbytes: int) -> None:
+    """The reference's xmem reservation gauge for the KV pools."""
+    if _metrics.enabled():
+        _metrics.gauge(
+            "xmem_reserved_bytes",
+            "Long-lived HBM reservation (paged-KV pools etc.)",
+            pool="serving.kv_pages").set(max(int(nbytes), 0))
 
 
 @dataclasses.dataclass
@@ -104,6 +166,10 @@ class _SafeCallback:
             _LOG.warning(
                 "on_token callback for request %s raised %r; disarming "
                 "the callback, stream continues", rid, exc)
+            if _metrics.enabled():
+                _metrics.counter(
+                    "serve_callback_errors_total",
+                    "User on_token callbacks that raised").inc()
 
 
 def _kv_dtype(kv_dtype, model_dtype) -> torch.dtype:
@@ -173,7 +239,8 @@ class LLMEngine:
     per-request deadline, ``watchdog`` overrides the flag-gated global
     watchdog (``FLAGS_tpu_watchdog``) for the ``serve.step`` phase.
     ``forwards`` counts the forwards run so far by kind
-    (``FORWARD_KINDS``)."""
+    (``FORWARD_KINDS``).  With ``FLAGS_tpu_metrics_port`` set the
+    constructor starts (or attaches to) the live exporter."""
 
     def __init__(self, cfg, params, *, device=None, max_running: int = 8,
                  chunk: int = 16, page_size: int = 16,
@@ -244,6 +311,9 @@ class LLMEngine:
                             + self._scale_bytes)
         self._requests: Dict[int, Request] = {}
         self._steps = 0
+        # rids scheduled in the previous step — the edge detector for
+        # per-request "admitted" trace events (incl. re-admissions)
+        self._sched_rids: set = set()
         self._prefix_enabled = bool(prefix_cache)
         if self._prefix_enabled:
             self.kv.enable_prefix_cache()
@@ -274,6 +344,9 @@ class LLMEngine:
             self.scheduler.spec_k = self._spec_k
         _STATS["engines"] += 1
         _STATS["pool_bytes"] += self._pool_bytes
+        _pool_gauge(self._pool_bytes)
+
+        _exporter.maybe_serve("engine", self)
 
     def _alloc_pools(self) -> None:
         """Fresh pools: zeros, and scales of 1.0 with int8 pages (an
@@ -305,6 +378,14 @@ class LLMEngine:
         depth = self.scheduler.num_waiting
         if self._gate.check(depth):
             _STATS["shed"] += 1
+            if _metrics.enabled():
+                _metrics.counter(
+                    "serve_shed_total",
+                    "Requests rejected by admission control").inc()
+            # rid -1: the request was never created, but the shed event
+            # still belongs in the flight recorder's serving timeline
+            _trace.request_event("shed", -1, t=self._clock(),
+                                 queue_depth=depth)
             raise AdmissionRejected(
                 f"admission queue at {depth}/{self.max_queue}; "
                 f"shedding until it drains below {self.max_queue // 2} "
@@ -322,7 +403,15 @@ class LLMEngine:
                                   else now + float(deadline_s)))
         self.scheduler.add(req)
         self._requests[req.rid] = req
+        _trace.request_event("queued", req.rid, t=now,
+                             prompt_len=len(req.prompt),
+                             max_new_tokens=req.max_new_tokens,
+                             deadline_s=req.deadline_s)
         _STATS["requests_added"] += 1
+        if _metrics.enabled():
+            _metrics.gauge("serve_queue_depth",
+                           "Requests waiting for admission").set(
+                self.scheduler.num_waiting)
         return req.rid
 
     def request(self, rid: int) -> Request:
@@ -354,6 +443,9 @@ class LLMEngine:
         self.scheduler.remove(req, now_s=self._clock(),
                               state=RequestState.CANCELLED)
         _STATS["cancelled"] += 1
+        if _metrics.enabled():
+            _metrics.counter("serve_cancelled_total",
+                             "Requests cancelled by the caller").inc()
         return True
 
     # -- the step --------------------------------------------------------
@@ -430,6 +522,8 @@ class LLMEngine:
         for req in active:
             if req.deadline_s is None or now <= req.deadline_s:
                 continue
+            _trace.request_event("deadline_expired", req.rid, t=now,
+                                 overrun_s=now - req.deadline_s)
             self.scheduler.remove(
                 req, now_s=now, state=RequestState.FAILED,
                 error=DeadlineExceeded(
@@ -437,6 +531,17 @@ class LLMEngine:
                     f"{now - req.deadline_s:.3f}s "
                     f"({len(req.output)} tokens streamed)"))
             _STATS["deadline_expired"] += 1
+            if _trace.enabled():
+                # post-mortem: the expired request's full lifecycle
+                # rides into the incident buffer
+                record_incident(
+                    "serve_deadline_expired", rid=int(req.rid),
+                    overrun_s=float(now - req.deadline_s),
+                    timeline=self.request_timeline(req.rid)[-32:])
+            if _metrics.enabled():
+                _metrics.counter(
+                    "serve_deadline_expired_total",
+                    "Requests failed at their deadline").inc()
 
     def step(self) -> List[int]:
         """One continuous-batching iteration.  Returns the request ids
@@ -445,13 +550,28 @@ class LLMEngine:
         now = self._clock()
         self._expire_deadlines(now)
         plan = self.scheduler.schedule()
+        tracing = _trace.enabled()
+        if tracing:
+            for req in plan.preempted:
+                _trace.request_event("preempted", req.rid, t=now)
         for s in plan.seqs:
-            if s.request.admitted_s is None:
+            req = s.request
+            if tracing and req.rid not in self._sched_rids:
+                _trace.request_event(
+                    "admitted", req.rid, t=now, slot=s.slot,
+                    prefix_hit=req.fed,
+                    readmission=req.admitted_s is not None)
+            if req.admitted_s is None:
                 # first admission only: a replay keeps the original
                 # stamp, so queue time stays arrival -> admission
-                s.request.admitted_s = now
+                req.admitted_s = now
+        self._sched_rids = {s.request.rid for s in plan.seqs}
         if plan.admission_blocked:
             _STATS["admission_waits"] += 1
+            if _metrics.enabled():
+                _metrics.counter(
+                    "serve_admission_wait_total",
+                    "Steps where free slots waited on pool pages").inc()
         # COW forks from this schedule's prefix matches must land on
         # the device before any forward reads (or the allocator
         # recycles) the pages involved
@@ -464,7 +584,9 @@ class LLMEngine:
 
         t_fwd = self._clock()
         try:
-            nxt, drafts = self._guarded_forward(plan, Tc)
+            with _trace.span("serve/step", step=self._steps,
+                             batch=len(plan.seqs), bucket=Tc):
+                nxt, drafts = self._guarded_forward(plan, Tc)
         except ReplicaKilled:
             # whole-replica death is not a step-recoverable fault
             raise
@@ -486,14 +608,29 @@ class LLMEngine:
                 spec_proposed += s.spec
                 spec_accepted += len(emitted) - 1
                 decode += len(emitted)
+                if tracing:
+                    _trace.request_event(
+                        "spec", s.request.rid, t=now, proposed=s.spec,
+                        accepted=len(emitted) - 1)
             elif s.produces:
                 out[s.slot] = int(nxt[s.slot, s.q_len - 1])
                 if s.q_len == 1:
                     decode += 1
+                    if tracing:
+                        _trace.request_event("decode", s.request.rid,
+                                             t=now, tokens=1)
                 else:
                     prefill += s.q_len
+                    if tracing:
+                        _trace.request_event(
+                            "prefill", s.request.rid, t=now,
+                            tokens=s.q_len, last_chunk=True)
             else:
                 prefill += s.q_len
+                if tracing:
+                    _trace.request_event(
+                        "prefill", s.request.rid, t=now,
+                        tokens=s.q_len, last_chunk=False)
         finished = self.scheduler.apply(plan, out, now_s=now)
         self._steps += 1
 
@@ -522,7 +659,55 @@ class LLMEngine:
             self._latency_s.append(now - r.arrival_s)
             if r.first_token_s is not None:
                 self._decode_s.append(now - r.first_token_s)
+        if _metrics.enabled():
+            self._step_metrics(plan, finished, now, prefill, decode,
+                               spec_proposed, spec_accepted)
         return [r.rid for r in finished]
+
+    def _step_metrics(self, plan: StepPlan, finished: List[Request],
+                      now: float, prefill: int, decode: int,
+                      spec_proposed: int, spec_accepted: int) -> None:
+        """The step's ``serve_*`` gauges, counters and histograms, under
+        the reference's names (only called with metrics on)."""
+        _metrics.gauge("serve_queue_depth",
+                       "Requests waiting for admission").set(
+            self.scheduler.num_waiting)
+        _metrics.gauge("serve_running_batch",
+                       "Requests in the running batch").set(
+            self.scheduler.num_running + len(finished))
+        _metrics.counter("serve_prefill_tokens_total",
+                         "Prompt tokens fed to the model").inc(prefill)
+        _metrics.counter("serve_decode_tokens_total",
+                         "Decode tokens generated").inc(decode)
+        if plan.preempted:
+            _metrics.counter(
+                "serve_preemptions_total",
+                "Requests preempted for pool pressure").inc(
+                len(plan.preempted))
+        if plan.prefix_hit_tokens:
+            _metrics.counter(
+                "serve_prefix_hit_tokens_total",
+                "Prompt tokens served from the prefix cache").inc(
+                plan.prefix_hit_tokens)
+        if spec_proposed:
+            _metrics.counter(
+                "serve_spec_proposed_total",
+                "Draft tokens proposed for verification").inc(
+                spec_proposed)
+            _metrics.counter(
+                "serve_spec_accepted_total",
+                "Draft tokens accepted by the target").inc(spec_accepted)
+        for s in plan.seqs:
+            r = s.request
+            if r.first_token_s is not None and r.first_token_s == now:
+                _metrics.histogram(
+                    "serve_ttft_seconds",
+                    "Time to first token").observe(now - r.arrival_s)
+        for r in finished:
+            _metrics.histogram(
+                "serve_request_latency_seconds",
+                "Request arrival to completion").observe(
+                now - r.arrival_s)
 
     def _guarded_forward(self, plan: StepPlan, Tc: int):
         """The step's device work under the serve.step watchdog phase
@@ -601,6 +786,12 @@ class LLMEngine:
             self._draft.reset()
         demoted = self.scheduler.reset_running()
         self.scheduler.requeue_front(demoted)
+        self._sched_rids.clear()
+        if _trace.enabled():
+            now = self._clock()
+            for req in demoted:
+                _trace.request_event("replay", req.rid, t=now,
+                                     replayed_tokens=req.num_known)
         return demoted
 
     def _probe(self, group: List[Request]) -> bool:
@@ -673,7 +864,11 @@ class LLMEngine:
             # probing a genuinely hung fault would hang recovery too;
             # hangs replay wholesale instead
             culprit = self._bisect(suspects)
+        _trace.event("serve/recovery", kind="engine", failure=failure,
+                     step=int(self._steps), batch=len(suspects))
         if culprit is not None:
+            _trace.request_event("quarantine", culprit.rid,
+                                 t=self._clock(), failure=failure)
             self.scheduler.remove(
                 culprit, now_s=self._clock(),
                 state=RequestState.FAILED,
@@ -681,6 +876,11 @@ class LLMEngine:
                     f"request {culprit.rid} quarantined: bisection "
                     f"blamed it for a {failure} step failure ({exc})"))
             _STATS["quarantined"] += 1
+            if _metrics.enabled():
+                _metrics.counter(
+                    "serve_quarantined_total",
+                    "Requests quarantined by step-failure "
+                    "bisection").inc()
         _STATS["recoveries"] += 1
         record_incident(
             "serve_step_failure", failure=failure, step=int(self._steps),
@@ -688,6 +888,11 @@ class LLMEngine:
             culprit=(None if culprit is None else int(culprit.rid)),
             replayed=len(suspects) - (culprit is not None),
             error=str(exc)[:200])
+        if _metrics.enabled():
+            _metrics.counter(
+                "serve_recoveries_total",
+                "Engine step failures recovered via pool-rebuild "
+                "replay", failure=failure).inc()
         _LOG.warning(
             "serve.step failure (%s) at step %d: rebuilt pools, "
             "replaying %d request(s)%s", failure, self._steps,
@@ -734,6 +939,34 @@ class LLMEngine:
         }
         return rep
 
+    def service_model(self):
+        """Measured per-replica service model for fleet planning
+        (:class:`~paddle_tpu_torch.serving.autoscale.ServiceModel`):
+        the median step wall time per bucket (Tc = 1, Tc = chunk) on the
+        engine clock — the median leaves out one-off first-call steps —
+        plus this engine's capacity knobs.  With no step of a bucket
+        measured, that bucket keeps the uncalibrated placeholder."""
+        from .autoscale import ServiceModel
+        return ServiceModel.from_step_samples(
+            self._step_wall_s, max_running=self.max_running,
+            chunk=self.chunk, page_size=self.page_size,
+            num_pages=self.num_pages, max_model_len=self.max_model_len,
+            max_queue=self.max_queue)
+
+    def request_timeline(self, rid: int) -> List[dict]:
+        """Every flight-recorder event for one request (requires
+        ``FLAGS_tpu_trace``; empty list otherwise) — the post-mortem
+        view dumped into the incident buffer on deadline expiry."""
+        return _trace.request_timeline(rid)
+
+    def prefix_lookup(self, prompt) -> int:
+        """How many tokens of ``prompt`` this engine's prefix cache
+        would serve without prefill (0 when the cache is off).  Side-
+        effect free — the router's locality-placement signal."""
+        if self.kv.prefix is None:
+            return 0
+        return self.kv.prefix.peek([int(t) for t in prompt])
+
     def clear_samples(self) -> None:
         """Drop the step-time and SLO samples taken so far (a bench's
         warm-up)."""
@@ -759,6 +992,7 @@ class LLMEngine:
     def shutdown(self) -> None:
         """Drop the pools (the draft's too)."""
         _STATS["pool_bytes"] -= self._pool_bytes
+        _pool_gauge(0)
         self._kp = self._vp = self._ks = self._vs = None
         if self._draft is not None:
             self._draft.shutdown()

@@ -126,6 +126,14 @@ class PrefixCache:
                     best, best_len = child, m
         return full, best, best_len
 
+    def peek(self, tokens: List[int]) -> int:
+        """Dry-run match length (no refs taken, no LRU touch) — the
+        router's placement signal: how many of ``tokens`` this replica
+        would serve from cache."""
+        cap = max(len(tokens) - 1, 0)
+        full, _best, best_len = self._walk(tokens, cap)
+        return len(full) * self.page_size + best_len
+
     def match(self, tokens: List[int], cap: Optional[int] = None):
         """Longest cached prefix of ``tokens``, capped at ``cap`` tokens
         (default ``len(tokens) - 1`` — at least one token must always be

@@ -1,7 +1,8 @@
 """Continuous (in-flight) batching scheduler: the port's copy of
 ``paddle_tpu/serving/scheduler.py``, with the prefix cache, the
-speculative verify rows and the terminal states of deadlines and
-quarantine, without the flight-recorder calls.
+speculative verify rows, the terminal states of deadlines and
+quarantine, and the flight recorder's lifecycle events (first token and
+every terminal transition).
 
 The running batch is a FIXED array of ``max_running`` slots and every
 step is one of two shapes: Tc=1 for pure decode, Tc=chunk when any
@@ -32,6 +33,7 @@ import itertools
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional
 
+from ..profiler import trace as _trace
 from .kv_cache import PagedKVCache, _cdiv
 
 __all__ = ["AdmissionGate", "Request", "RequestState", "Scheduler",
@@ -126,6 +128,10 @@ class AdmissionGate:
         if not self.shedding and depth >= self.max_queue:
             self.shedding = True
         return self.shedding
+
+    @property
+    def recover_below(self) -> int:
+        return self.max_queue // 2
 
 
 class Scheduler:
@@ -239,6 +245,13 @@ class Scheduler:
         req.state = state
         req.error = error
         req.finish_s = now_s
+        # the terminal trace event is emitted HERE, at the single site
+        # every terminal transition funnels through, so "exactly one
+        # terminal event per admitted request" holds by construction
+        _trace.request_event(state.value, req.rid, t=now_s,
+                             tokens=len(req.output),
+                             error=(None if error is None
+                                    else str(error)[:200]))
 
     def reset_running(self) -> List[Request]:
         """Pool-rebuild support: demote every running request back to
@@ -268,6 +281,8 @@ class Scheduler:
         self._release_slot(req)
         req.state = RequestState.FINISHED
         req.finish_s = now_s
+        _trace.request_event("finish", req.rid, t=now_s,
+                             tokens=len(req.output))
 
     def schedule(self) -> StepPlan:
         """Build the next step: grow running requests' tables (with
@@ -375,6 +390,7 @@ class Scheduler:
                 appended += 1
                 if req.first_token_s is None:
                     req.first_token_s = now_s
+                    _trace.request_event("first_token", req.rid, t=now_s)
                 done = req.done
                 if req.on_token is not None:
                     req.on_token(req.rid, tok, done)

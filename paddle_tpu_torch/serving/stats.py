@@ -1,8 +1,9 @@
 """Process-wide serving stats — deliberately stdlib-only.
 
-One mutable dict, updated by every engine in the process (the port's
-copy of ``paddle_tpu/serving/stats.py``, with the keys of the modules
-ported so far; the same names mean the same counts).
+One mutable dict, updated by every engine and router in the process
+(the port's copy of ``paddle_tpu/serving/stats.py``; the same names
+mean the same counts).  It lives apart from ``engine.py`` so the router
+can bump the shared counters without importing the engine.
 """
 from __future__ import annotations
 
@@ -19,11 +20,10 @@ def stats_zero() -> Dict[str, float]:
         # work reuse (prefix cache + speculative decoding)
         "prefix_hit_tokens": 0, "prefix_evicted_pages": 0,
         "spec_proposed": 0, "spec_accepted": 0,
-        # resilience: admission control, callback isolation, crash
-        # recovery, deadlines
+        # resilience counters (engine.py + router.py)
         "shed": 0, "admission_waits": 0, "callback_errors": 0,
         "recoveries": 0, "quarantined": 0, "deadline_expired": 0,
-        "cancelled": 0,
+        "cancelled": 0, "failovers": 0, "replicas_dead": 0, "drains": 0,
     }
 
 

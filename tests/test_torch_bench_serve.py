@@ -6,16 +6,28 @@ the reference's field names, for bf16 and int8 KV pages and for the
 shared-prefix workload (with and without self-draft speculation), with
 its resilience and SLO blocks; its synthetic workloads are the reference's,
 arrival for arrival; without a card and without ``--device`` it exits
-non-zero with the error in its line.
+non-zero with the error in its line.  The line's ``fleet`` block is the
+engine's service model calibrated from the run's own step times;
+``--trace-out`` writes a sidecar that ``tools/trace_report.py`` reads;
+with ``FLAGS_tpu_metrics_port`` set the line carries the bound port and
+the exporter serves the run's counters.
 """
 import json
+import os
+import subprocess
+import sys
+import urllib.request
 
 import pytest
 import torch
 
 from paddle_tpu.serving import workloads as jworkloads
-from paddle_tpu_torch import bench_serve
+from paddle_tpu_torch import bench_serve, flags, serving
+from paddle_tpu_torch.profiler import exporter, metrics, trace
+from paddle_tpu_torch.serving import autoscale as tautoscale
 from paddle_tpu_torch.serving import workloads as tworkloads
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 FIELDS = ("metric", "value", "unit", "ttft_p50_ms", "ttft_p95_ms",
           "latency_p50_ms", "latency_p95_ms", "requests", "shed_submits",
@@ -138,3 +150,76 @@ def test_without_a_card_or_a_device_it_exits_non_zero(capsys, monkeypatch):
     assert bench_serve.main([]) != 0
     res = _line(capsys)
     assert "no CUDA device" in res["error"] and res["value"] is None
+
+
+def test_the_line_carries_the_fleet_block(monkeypatch):
+    for k, v in SMALL.items():
+        monkeypatch.setenv(k, v)
+    run = bench_serve.serve("cpu")
+    res, eng = run.result, run.engine
+    fleet = res["fleet"]
+    sm = eng.service_model()
+    assert fleet["calibrated"] is True and sm.calibrated
+    # calibrated from this run's steps of both buckets, not placeholders
+    assert fleet["decode_steps_measured"] == res["decode_steps"] > 0
+    assert fleet["prefill_steps_measured"] == res["prefill_steps"] > 0
+    assert fleet["decode_step_ms"] == 1e3 * sm.decode_step_s
+    assert fleet["prefill_chunk_ms"] == 1e3 * sm.prefill_chunk_s
+    assert fleet["concurrency"] == sm.concurrency
+    mean_prompt = sum(len(eng.request(r).prompt) for r in run.rids) // 6
+    assert fleet["capacity_rps_per_chip"] == sm.capacity_rps(mean_prompt, 5)
+    assert fleet["offered_rps"] == 6 / res["wall_seconds"]
+    assert fleet["min_chips_for_offered"] == tautoscale.replicas_for(
+        sm, fleet["offered_rps"], prompt_len=mean_prompt, new_tokens=5)
+    assert "trace_sidecar" not in res and "metrics_port" not in res
+
+
+def test_trace_out_writes_a_sidecar_trace_report_reads(tmp_path, capsys,
+                                                       monkeypatch):
+    for k, v in SMALL.items():
+        monkeypatch.setenv(k, v)
+    out = tmp_path / "trace"
+    assert bench_serve.main(["--device", "cpu", "--trace-out",
+                             str(out)]) == 0
+    res = _line(capsys)
+    path = res["trace_sidecar"]
+    assert path == str(out / "trace_rank0.jsonl")
+    assert not flags.flag("FLAGS_tpu_trace"), "the flag outlived the run"
+    header, evs = trace.read_sidecar(path)
+    assert header["bench"] == "serve" and header["requests"] == 6
+    rids = {e["rid"] for e in evs if e.get("phase") == "queued"}
+    assert len(rids) == 6      # the measured run's requests only
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "trace_report.py"),
+         str(out)], capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout)
+    assert report["requests"]["count"] == report["requests"]["terminal"] == 6
+    trace.clear()
+
+
+def test_metrics_port_serves_the_run(capsys, monkeypatch):
+    for k, v in SMALL.items():
+        monkeypatch.setenv(k, v)
+    flags.set_flags({"FLAGS_tpu_metrics_port": -1,
+                     "FLAGS_tpu_metrics": True})
+    exporter.shutdown()
+    metrics.reset()
+    serving.reset_stats()
+    try:
+        assert bench_serve.main(["--device", "cpu"]) == 0
+        res = _line(capsys)
+        port = res["metrics_port"]
+        assert port == exporter.active().port > 0
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=10) as r:
+            body = r.read().decode()
+        line = next(ln for ln in body.splitlines()
+                    if ln.startswith("serve_decode_tokens_total "))
+        assert float(line.split()[1]) == \
+            serving.serving_stats()["decode_tokens"]
+    finally:
+        flags.set_flags({"FLAGS_tpu_metrics_port": 0,
+                         "FLAGS_tpu_metrics": False})
+        exporter.shutdown()
+        metrics.reset()
