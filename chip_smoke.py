@@ -61,7 +61,16 @@ both apply (M = 8, 16).
   and the flash backward), the same unfused (every launch counted
   through the two flash wrappers), and one profiled step of each, its
   device rows summed into classes (GEMMs by library, the port's kernels,
-  elementwise, optimizer, copies) that must add up to the busy time.
+  elementwise, optimizer, copies) that must add up to the busy time;
+- distributed training (``paddle_tpu_torch.distributed``): a small bf16
+  model's step as 4 ranks on the card over gloo (dp=2 x mp=2, dp=2 x
+  sharding=2 with ZeRO-1, dp=4 with the overlapped reduction) against
+  world size 1 on the card (``small_dist_check``); bench.py's shape
+  through ``Plan().train_step`` at world size 1 over NCCL in turns with
+  ``bench.train_step`` (the same launches and loss bits), then as 2
+  ranks over gloo at mp=2 and at dp=2 with ZeRO-1 (per-rank peak
+  memory, weight and state bytes against their reckoning;
+  ``dist_train_phase``).
 
 Any failure exits non-zero.  The last two lines of standard output are
 the card's name and power limit (from nvidia-smi) and, last,
@@ -2270,6 +2279,335 @@ def print_profile(prof, wall_us, head, top):
               f"{e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# the distributed train step (paddle_tpu_torch.distributed and
+# models.llama.build_train_step): ranks as processes on the one card
+# ---------------------------------------------------------------------------
+
+# a 2-layer model the flash kernels take (bf16, head dim 64), the
+# composition on every topology (fused_blocks "off") so that world size 1
+# runs the same kernels as the tensor-parallel layer
+DIST_SMALL = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                  num_hidden_layers=2, num_attention_heads=4,
+                  num_key_value_heads=4, max_position_embeddings=256,
+                  fused_blocks="off")
+DIST_SMALL_SHAPE = (4, 128, 3)          # global batch, sequence, steps
+DIST_SMALL_CASES = (("dp2xmp2", dict(dp=2, mp=2), {}),
+                    ("dp2xsharding2", dict(dp=2, sharding=2), {}),
+                    ("dp4_overlap", dict(dp=4), dict(overlap=True)))
+# bf16 against world size 1 (the CPU tests' float32 tolerances do not
+# apply: the flash kernels take bf16 only).  A loss moves by the
+# summation order of bf16 partial sums, ~1e-3 of ln V; a parameter by
+# at most 2 lr a step plus one bf16 step of its value (~2^-8 of it).
+DIST_LOSS_ATOL = 2e-2      # the CPU's bf16 run of the small check: 1.8e-4
+DIST_LR = 3e-4
+
+
+def dist_batches(torch, vocab, B, S, steps, device):
+    rng = np.random.default_rng(0)
+    return [{"input_ids": torch.from_numpy(rng.integers(0, vocab, (B, S))
+                                           ).to(device),
+             "labels": torch.from_numpy(rng.integers(0, vocab, (B, S))
+                                        ).to(device)}
+            for _ in range(steps)]
+
+
+def dist_small_rank(device, cases):
+    """What each rank of ``small_dist_check`` runs (and world size 1 in
+    the calling process): every case's train step from the same seed,
+    with its losses, the gathered params and its own shards."""
+    import torch
+    from paddle_tpu_torch.distributed import init_mesh
+    from paddle_tpu_torch.models import llama as tllama
+    cfg = tllama.LlamaConfig(dtype=torch.bfloat16, **DIST_SMALL)
+    B, S, steps = DIST_SMALL_SHAPE
+    out = []
+    for name, topo_kw, step_kw in cases:
+        topo = init_mesh(**topo_kw)
+        step, init = tllama.build_train_step(cfg, topo, device=device,
+                                             **step_kw)
+        params, opt = init(0)
+        losses = []
+        for b in dist_batches(torch, cfg.vocab_size, B, S, steps, device):
+            losses.append(step(params, opt, topo.shard_batch(b))[2]["loss"]
+                          .item())
+        out.append(dict(
+            name=name, losses=losses, coords=topo.coords,
+            overlap=step.overlap,
+            params=tllama._paths(tllama.gather_params(cfg, params, topo)),
+            local={k: v.detach().float().cpu().numpy()
+                   for k, v in tllama._paths(params).items()}))
+    return out
+
+
+def dist_param_check(got, ref, steps, what):
+    """Each entry within 2 lr a step plus one bf16 step of the larger
+    magnitude; returns the worst excess over 2 lr steps in bf16 steps."""
+    worst = 0.0
+    for k, r in ref.items():
+        d = np.abs(got[k] - r)
+        ulp = np.maximum(np.abs(r), np.abs(got[k])) * 2.0 ** -8
+        check(bool((d <= 2 * DIST_LR * steps + ulp).all()),
+              f"{what}: {k} off by {float(d.max())}")
+        worst = max(worst, float(((d - 2 * DIST_LR * steps) / np.maximum(
+            ulp, 1e-30)).max()))
+    return worst
+
+
+def small_dist_check(torch, dist, device="cuda"):
+    """The distributed step of a small bf16 model as 4 ranks on the one
+    card over gloo (NCCL takes one rank a card): dp=2 x mp=2, dp=2 x
+    sharding=2 (ZeRO over sharding) and dp=4 with the overlapped
+    reduction, 3 steps each, held to the same model's world-size-1 step
+    on the card (losses within ``DIST_LOSS_ATOL``, params by
+    ``dist_param_check``); the ranks of one replica set hold the same
+    bits."""
+    t0 = time.perf_counter()
+    ref = dist_small_rank(device, [("ws1", {}, {})])[0]
+    ranks = dist.spawn(dist_small_rank, 4, (device, DIST_SMALL_CASES),
+                       device=device, backend="gloo", timeout=300)
+    steps = DIST_SMALL_SHAPE[2]
+    rows = {}
+    for i, (name, _, step_kw) in enumerate(DIST_SMALL_CASES):
+        res = [r[i] for r in ranks]
+        err = max(abs(a - b) for r in res
+                  for a, b in zip(r["losses"], ref["losses"]))
+        check(err <= DIST_LOSS_ATOL, f"small dist {name}: losses "
+              f"{res[0]['losses']} vs world size 1 {ref['losses']}")
+        ulps = max(dist_param_check(r["params"], ref["params"], steps,
+                                    f"small dist {name}") for r in res)
+        by_mp = {}
+        for r in res:
+            by_mp.setdefault(r["coords"]["mp"], []).append(r["local"])
+        for group in by_mp.values():
+            for other in group[1:]:
+                check(all(np.array_equal(other[k], v)
+                          for k, v in group[0].items()),
+                      f"small dist {name}: replicas differ")
+        check(res[0]["overlap"] == bool(step_kw.get("overlap")),
+              f"small dist {name}: overlap {res[0]['overlap']}")
+        rows[name] = dict(losses=res[0]["losses"], loss_err=err,
+                          param_excess_bf16_steps=ulps)
+    print(f"small dist check ({time.perf_counter() - t0:.1f} s, 4 ranks "
+          f"over gloo on one card, bf16): world size 1 losses "
+          f"{ref['losses']}; " + json.dumps(rows))
+    return rows
+
+
+def dist_ws1_turn(torch, tbench, tllama, dist, kind, steps, warmup):
+    """One turn of world size 1 at bench.py's shape: ``bench.train_step``
+    or ``Plan().train_step`` (over the NCCL process group), warmup +
+    ``steps`` timed steps; peak memory from after the params exist."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = tllama.LlamaConfig(remat_policy="dots", **tbench.MODEL)
+    B = 4
+    batch = tbench.make_batch(cfg, B, tbench.SEQ, dev)
+    gc_cuda(torch)
+    # what earlier phases of this process still hold: the turn's own
+    # peak is the peak over it
+    base = torch.cuda.memory_allocated(dev)
+    if kind == "bench":
+        params = tllama.init_params(cfg, 0, device=dev)
+        for t in tbench.leaves(params):
+            t.requires_grad_(True)
+        opt = tbench.make_optimizer(params)
+
+        def step():
+            return tbench.train_step(cfg, params, opt, batch)
+    else:
+        step_fn, init_fn = dist.Plan().train_step(cfg, device=dev)
+        params, opt = init_fn(0)
+
+        def step():
+            return step_fn(params, opt, batch)[2]["ce"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    launches0 = {n: w.launches for n, w in tbench.KERNELS.items()}
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step())
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    n_params = sum(t.numel() for t in tbench.leaves(params))
+    res = dict(
+        kind=kind, step_ms=1e3 * dt,
+        mfu=100.0 * tbench.model_flops(n_params, B, tbench.SEQ, cfg) / dt
+        / tbench.peak_bf16_flops(torch.cuda.get_device_name(dev)),
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+        peak_over_base=torch.cuda.max_memory_allocated(dev) - base,
+        losses=[float(x) for x in losses],
+        launches_per_step={n: (w.launches - launches0[n]) / steps
+                           for n, w in tbench.KERNELS.items()},
+        weight_bytes=sum(t.numel() * t.element_size()
+                         for t in tbench.leaves(params)))
+    if kind == "bench":
+        res["state_bytes"] = sum(v.numel() * v.element_size()
+                                 for st in opt.state.values()
+                                 for v in st.values()
+                                 if torch.is_tensor(v) and v.dim() > 0)
+    else:
+        res["state_bytes"] = opt.state_bytes()
+    del params, opt, step
+    gc_cuda(torch)
+    return res
+
+
+def gc_cuda(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dist_big_rank(topo_kw, steps):
+    """What each rank of ``dist_train_phase``'s 2-rank worlds runs: the
+    distributed step at bench.py's shape on this rank's rows, with its
+    losses, step times, peak memory while ``init_fn`` draws the full
+    params and after, what stays allocated once it returns (its shards
+    only: the full draw is freed), the bytes of its weights and
+    optimizer state, and its kernel launches."""
+    import torch
+    from paddle_tpu_torch import bench as tbench
+    from paddle_tpu_torch.distributed import init_mesh
+    from paddle_tpu_torch.models import llama as tllama
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = tllama.LlamaConfig(remat_policy="dots", **tbench.MODEL)
+    topo = init_mesh(**topo_kw)
+    step, init = tllama.build_train_step(cfg, topo, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init(0)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    after_init = torch.cuda.memory_allocated(dev)
+    batch = topo.shard_batch(tbench.make_batch(cfg, 4, tbench.SEQ, dev))
+    for w in tbench.KERNELS.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(params, opt, batch)[2]["loss"].item())
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return dict(coords=topo.coords, losses=losses, step_ms=ms,
+                init_max_memory_allocated=init_peak,
+                memory_allocated_after_init=after_init,
+                max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+                weight_bytes=sum(t.numel() * t.element_size()
+                                 for t in tbench.leaves(params)),
+                state_bytes=opt.state_bytes(),
+                launches={n: w.launches for n, w in tbench.KERNELS.items()})
+
+
+# each side runs first in half the pairs
+DIST_TURNS = ("bench", "dist", "dist", "bench", "dist", "bench", "bench",
+              "dist")
+DIST_BIG = (("mp2", dict(mp=2)), ("dp2_zero", dict(dp=2)))
+
+
+def dist_train_phase(torch, tbench, tllama, dist, card):
+    """The distributed train step at bench.py's ~0.95B shape (S = 2048,
+    B = 4, bf16, "dots", the fused blocks by the default policy).
+
+    World size 1 through ``Plan().train_step`` over an NCCL process
+    group, in turns with ``bench.train_step`` (``DIST_TURNS``, 2 warmup
+    + 5 timed steps a turn): step ms, MFU, peak memory and
+    kernel launches a step, which must equal the bench step's, and the
+    losses, which must be the same bits (the same code runs).  Then
+    mp=2 and dp=2 with ZeRO-1, each as 2 ranks on the card over gloo
+    (host-staged collectives: their times are no throughput), 2 steps:
+    per-rank peak memory, weight and optimizer-state bytes against the
+    reckoning (weights / mp; AdamW states / 2), losses against world
+    size 1 within ``DIST_LOSS_ATOL``, every train kernel launched."""
+    t0 = time.perf_counter()
+    for w in tbench.KERNELS.values():
+        w.launches = 0
+    dist.init_parallel_env("cuda", world_size=1, rank=0)
+    check(torch.distributed.get_backend() == "nccl",
+          f"world size 1 runs over {torch.distributed.get_backend()}")
+    torch.distributed.barrier()      # the NCCL communicator forms
+    # (a world of one runs no collective in the step itself)
+    turns = [dist_ws1_turn(torch, tbench, tllama, dist, kind, 5, 2)
+             for kind in DIST_TURNS]
+    dist.shutdown()
+    ws1_launches = {n: w.launches for n, w in tbench.KERNELS.items()}
+    print(f"dist train [{card}]: world size 1 turns {json.dumps(turns)}")
+    bench_t = [t for t in turns if t["kind"] == "bench"]
+    dist_t = [t for t in turns if t["kind"] == "dist"]
+    for t in dist_t:
+        check(t["launches_per_step"] == bench_t[0]["launches_per_step"],
+              f"dist launches a step {t['launches_per_step']} vs bench "
+              f"{bench_t[0]['launches_per_step']}")
+        check(t["losses"] == bench_t[0]["losses"],
+              f"dist losses {t['losses']} vs bench {bench_t[0]['losses']}")
+        check(t["weight_bytes"] == bench_t[0]["weight_bytes"]
+              and t["state_bytes"] == bench_t[0]["state_bytes"],
+              "world size 1 holds other bytes than the bench step")
+    ref = bench_t[0]
+    W, S1 = ref["weight_bytes"], ref["state_bytes"]
+    cfg = tllama.LlamaConfig(**tbench.MODEL)
+    H, L = cfg.hidden_size, cfg.num_hidden_layers
+    norms = (2 * L + 1) * H * 2            # ln1, ln2, norm_f in bf16
+    reckon = {"mp2": dict(weight_bytes=(W - norms) // 2 + norms),
+              "dp2_zero": dict(weight_bytes=W)}
+    reckon["mp2"]["state_bytes"] = 2 * reckon["mp2"]["weight_bytes"]
+    reckon["dp2_zero"]["state_bytes"] = S1 // 2
+    gc_cuda(torch)
+    big = {}
+    for name, topo_kw in DIST_BIG:
+        ranks = dist.spawn(dist_big_rank, 2, (topo_kw, 2), device="cuda",
+                           backend="gloo", timeout=600)
+        print(f"dist train [{card}]: {name} ranks {json.dumps(ranks)}")
+        # the layer is whole at mp = 1: the fused blocks (whose attention
+        # runs flash_fwd's kernel uncounted) and flash_bwd
+        path = (("flash_fwd", "flash_bwd") if topo_kw.get("mp", 1) > 1
+                else ("fused_qkv", "fused_attn_epilogue", "fused_mlp_fwd",
+                      "fused_mlp_bwd_dx", "flash_bwd"))
+        for r in ranks:
+            for k in ("weight_bytes", "state_bytes"):
+                check(r[k] == reckon[name][k], f"{name}: {k} {r[k]} vs "
+                      f"reckoned {reckon[name][k]}")
+            # the full draw is freed: what stays is the shards (16 MiB of
+            # slack: dp=2 kept 2,097,152 bytes more, not identified; a kept
+            # draw at mp=2 is ~1e9)
+            check(r["memory_allocated_after_init"]
+                  <= r["weight_bytes"] + (16 << 20),
+                  f"{name}: {r['memory_allocated_after_init']} bytes stay "
+                  f"allocated after init, the shards are "
+                  f"{r['weight_bytes']}")
+            saved = (W - r["weight_bytes"]) + (S1 - r["state_bytes"])
+            check(ref["peak_over_base"] - r["max_memory_allocated"]
+                  >= 0.9 * saved, f"{name}: peak {r['max_memory_allocated']}"
+                  f" vs world size 1's {ref['peak_over_base']}")
+            err = max(abs(a - b) for a, b in zip(r["losses"], ref["losses"]))
+            check(err <= DIST_LOSS_ATOL, f"{name}: losses {r['losses']} vs "
+                  f"world size 1 {ref['losses'][:2]}")
+            for n in path:
+                check(r["launches"][n] > 0, f"{name}: {n} never launched")
+        big[name] = dict(
+            ranks=[{k: r[k] for k in ("coords", "losses", "step_ms",
+                                      "init_max_memory_allocated",
+                                      "max_memory_allocated",
+                                      "weight_bytes", "state_bytes",
+                                      "launches")} for r in ranks],
+            reckoned=reckon[name])
+    for n in ("fused_qkv", "fused_attn_epilogue", "fused_mlp_fwd",
+              "fused_mlp_bwd_dx", "flash_bwd"):
+        check(ws1_launches[n] > 0, f"world size 1: {n} never launched")
+    out = dict(turns=turns, ws1_launches=ws1_launches, big=big,
+               seconds=time.perf_counter() - t0)
+    print(f"dist train [{card}]: {json.dumps(out)}")
+    print(f"dist train [{card}]: world size 1 step ms "
+          f"{[round(t['step_ms'], 2) for t in turns]} in turns {DIST_TURNS}"
+          f" (MFU {[round(t['mfu'], 2) for t in turns]} %), peaks over "
+          f"what the process held {[t['peak_over_base'] for t in turns]}; "
+          f"per-rank peaks "
+          + ", ".join(f"{n} {[r['max_memory_allocated'] for r in b['ranks']]}"
+                      for n, b in big.items()))
+    return out
+
+
 def load_parent(root):
     """``root``/paddle_tpu_torch imported as ``parent_paddle_tpu_torch``:
     the package imports itself only relatively, so its kernels build from
@@ -2380,6 +2718,7 @@ def main(argv=()):
         return 2
     from paddle_tpu_torch import bench as tbench
     from paddle_tpu_torch import bench_serve, serving
+    from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.models import convert
     from paddle_tpu_torch.models import llama as tllama
     from paddle_tpu_torch.ops import _build
@@ -2459,6 +2798,17 @@ def main(argv=()):
           f"%), same call")
     train_profile(torch, tbench, tllama, card)
     train_profile(torch, tbench, tllama, card, "off")
+    # the distributed train step: a small model's topologies as 4 ranks
+    # on the card against world size 1, then bench.py's shape at world
+    # size 1 over NCCL (in turns with bench.train_step) and as 2 ranks
+    # (mp=2, dp=2 + ZeRO-1) over gloo
+    small_dist_check(torch, dist)
+    dist_res = dist_train_phase(torch, tbench, tllama, dist, card)
+    dist_launches = {
+        n: dict(ws1_per_step=dist_res["turns"][1]["launches_per_step"][n],
+                **{f"{b}_rank0": dist_res["big"][b]["ranks"][0]["launches"][n]
+                   for b in dist_res["big"]})
+        for n in tbench.KERNELS}
 
     # one step of the main path: 225 int8 matmuls at M = 8 (decode), 64
     # (the default cell's prefill) and 512 (the long-context prefill),
@@ -2555,6 +2905,7 @@ def main(argv=()):
                            for n in lines[1:]],
             launches=train_launches[name],
             launches_fused_step=fused_launches[name],
+            launches_dist=dist_launches[name],
             max_abs_err=flash_err[key],
             row_rel_err=flash_row_err[key], row_rel_max=ROW_REL_MAX,
             control_row_rel_err=min(
@@ -2589,6 +2940,7 @@ def main(argv=()):
             else f"{src} + paddle_tpu_torch/ops/csrc/flash_attention.cu",
             replaces=f"paddle_tpu/ops/pallas_ops.py:{line}",
             launches=fused_launches[name], max_abs_err=r["max_abs_err"],
+            launches_dist=dist_launches[name],
             row_rel_err=r["row_rel_err"], row_rel_max=ROW_REL_MAX,
             norm_rel_err=r["norm_rel_err"],
             control_row_rel_err=r["control_row_rel_err"], ms=r["ms"],

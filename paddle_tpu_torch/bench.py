@@ -107,9 +107,8 @@ def leaves(tree):
 
 def make_optimizer(params):
     """AdamW over every leaf, norms and embed included (optax ``adamw``
-    with no mask)."""
-    return torch.optim.AdamW(leaves(params), lr=3e-4, betas=(0.9, 0.95),
-                             eps=1e-8, weight_decay=0.1)
+    with no mask): ``llama.adamw``, the distributed step's too."""
+    return llama.adamw(leaves(params))
 
 
 def train_step(cfg, params, opt, batch):

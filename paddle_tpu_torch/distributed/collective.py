@@ -1,0 +1,200 @@
+"""Collectives on plain tensors over the topology's axis groups (the
+functional half of ``paddle_tpu/distributed/collective.py``).
+
+The reference's collectives are XLA ops over named mesh axes.  Here a
+``group`` is an axis name or a tuple of them (resolved through the
+topology ``mesh.init_mesh`` built), what ``HybridTopology.group``
+returns (a ``torch.distributed`` ``ProcessGroup``, or ``ONE_RANK``), or
+None for the whole world.  Over a group of one rank every operation is
+the identity and moves nothing, so a world of one process runs the same
+code with no process group.
+
+Every call over more than one rank records the reference's metrics at
+the same point (``collective_calls_total``, ``collective_bytes_total``
+of the input bytes and the ``collective_latency_seconds`` histogram of
+host wall time, each by ``op``) when ``FLAGS_tpu_metrics`` is on, and a
+``collective/<op>`` span when ``FLAGS_tpu_trace`` is on.  The eager
+``Tensor`` facade and the chaos points stay out (ROADMAP A4, A3).
+"""
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from ..profiler import metrics as _metrics
+from ..profiler import trace as _trace
+
+__all__ = ["ReduceOp", "all_reduce", "all_gather", "reduce_scatter",
+           "broadcast", "all_to_all", "barrier", "resolve_group"]
+
+
+class ReduceOp:
+    SUM = "sum"
+    MAX = "max"
+    MIN = "min"
+    AVG = "avg"
+
+
+# AVG is SUM then a division: gloo has no AVG
+_TORCH_OPS = {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.SUM,
+              "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+# torch 2.13 renamed the tensor forms (``*_single``); the old names take
+# the same arguments
+_reduce_scatter_tensor = getattr(dist, "reduce_scatter_single",
+                                 dist.reduce_scatter_tensor)
+_all_gather_tensor = getattr(dist, "all_gather_single",
+                             dist.all_gather_into_tensor)
+
+
+class _Done:
+    """The handle an asynchronous call over a group of one returns."""
+
+    def wait(self):
+        return True
+
+
+def resolve_group(group) -> Optional[dist.ProcessGroup]:
+    """The process group ``group`` names, or None when it is one rank."""
+    from .mesh import ONE_RANK, get_topology
+    if isinstance(group, (str, tuple)):
+        group = get_topology().group(group)
+    if group is ONE_RANK:
+        return None
+    if group is None:
+        if not (dist.is_initialized() and dist.get_world_size() > 1):
+            return None
+        group = dist.group.WORLD
+    return group if dist.get_world_size(group) > 1 else None
+
+
+class _Recorded:
+    """Metrics and the trace span of one collective call."""
+
+    __slots__ = ("op", "nbytes", "t0", "span")
+
+    def __init__(self, op: str, tensor: torch.Tensor):
+        self.op = op
+        self.nbytes = tensor.numel() * tensor.element_size()
+        self.t0 = time.perf_counter() if _metrics.enabled() else None
+        self.span = _trace.span(f"collective/{op}", op=op)
+
+    def __enter__(self):
+        self.span.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.span.__exit__(*exc)
+        if self.t0 is not None and exc[0] is None:
+            op = self.op
+            _metrics.counter("collective_calls_total",
+                             "Collective invocations", op=op).inc()
+            _metrics.counter("collective_bytes_total",
+                             "Input bytes handed to collectives",
+                             op=op).inc(self.nbytes)
+            _metrics.histogram(
+                "collective_latency_seconds",
+                "Host wall time per collective call (launch time for an "
+                "asynchronous one)", op=op).observe(
+                    time.perf_counter() - self.t0)
+        return False
+
+
+def all_reduce(tensor: torch.Tensor, op: str = ReduceOp.SUM, group=None,
+               async_op: bool = False):
+    """Reduce ``tensor`` in place over the group.  Returns the tensor, or
+    with ``async_op`` a handle whose ``wait()`` orders later work after
+    the reduction (``avg`` is not asynchronous)."""
+    pg = resolve_group(group)
+    if pg is None:
+        return _Done() if async_op else tensor
+    if op not in _TORCH_OPS:
+        raise ValueError(f"unknown reduce op {op!r}")
+    if async_op and op == ReduceOp.AVG:
+        raise ValueError("an asynchronous all_reduce takes no 'avg'")
+    with _Recorded("all_reduce", tensor):
+        work = dist.all_reduce(tensor, op=_TORCH_OPS[op], group=pg,
+                               async_op=async_op)
+    if async_op:
+        return work
+    if op == ReduceOp.AVG:
+        tensor.div_(dist.get_world_size(pg))
+    return tensor
+
+
+def all_gather(tensor: torch.Tensor, group=None, dim: int = 0
+               ) -> torch.Tensor:
+    """The group's tensors concatenated along ``dim``, in group-rank
+    order (the reference's tiled gather)."""
+    pg = resolve_group(group)
+    if pg is None:
+        return tensor
+    n = dist.get_world_size(pg)
+    x = tensor.movedim(dim, 0).contiguous()
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    with _Recorded("all_gather", tensor):
+        _all_gather_tensor(out, x, group=pg)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(tensor: torch.Tensor, op: str = ReduceOp.SUM,
+                   group=None, dim: int = 0) -> torch.Tensor:
+    """Reduce over the group, then keep this rank's block of ``dim``
+    (the reference's tiled ``psum_scatter``); ``dim`` must divide by the
+    group size."""
+    pg = resolve_group(group)
+    if pg is None:
+        return tensor
+    n = dist.get_world_size(pg)
+    if tensor.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(tensor.shape)} does not "
+                         f"split over {n} ranks")
+    if op not in (ReduceOp.SUM, ReduceOp.AVG):
+        raise ValueError(f"reduce_scatter takes 'sum' or 'avg', not {op!r}")
+    x = tensor.movedim(dim, 0).contiguous()
+    out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    with _Recorded("reduce_scatter", tensor):
+        _reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=pg)
+    if op == ReduceOp.AVG:
+        out.div_(n)
+    return out.movedim(0, dim)
+
+
+def broadcast(tensor: torch.Tensor, src: int = 0, group=None
+              ) -> torch.Tensor:
+    """Overwrite ``tensor`` in place with group rank ``src``'s."""
+    pg = resolve_group(group)
+    if pg is None:
+        return tensor
+    with _Recorded("broadcast", tensor):
+        dist.broadcast(tensor, dist.get_global_rank(pg, src), group=pg)
+    return tensor
+
+
+def all_to_all(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """Split dim 0 into one block per rank, send block ``i`` to group
+    rank ``i`` and stack what arrives in rank order (the reference's
+    ``lax.all_to_all`` with split and concat axis 0)."""
+    pg = resolve_group(group)
+    if pg is None:
+        return tensor
+    n = dist.get_world_size(pg)
+    if tensor.shape[0] % n:
+        raise ValueError(f"dim 0 of {tuple(tensor.shape)} does not split "
+                         f"over {n} ranks")
+    x = tensor.contiguous()
+    out = torch.empty_like(x)
+    with _Recorded("alltoall", tensor):
+        dist.all_to_all_single(out, x, group=pg)
+    return out
+
+
+def barrier(group=None) -> None:
+    pg = resolve_group(group)
+    if pg is not None:
+        dist.barrier(group=pg)

@@ -1,0 +1,193 @@
+"""The hybrid-parallel topology over ``torch.distributed`` ranks (the
+port of ``paddle_tpu/distributed/mesh.py``'s ``HybridTopology``).
+
+The reference lays its devices out as one ``jax.sharding.Mesh`` of shape
+``(dp, pp, sharding, sp, mp)`` and lets XLA insert the collectives.  Here
+each rank is one process: rank ``r`` takes the coordinates of device
+``r`` in the reference's ``np.reshape(devices, (dp, pp, sharding, sp,
+mp))`` (``mp`` innermost, so the ranks of one tensor-parallel group are
+neighbours), and every slice of an axis with more than one rank is a
+process group of its own.  An axis slice of one rank is ``ONE_RANK``,
+over which the collectives of ``collective.py`` are the identity, so a
+world of one process needs no process group at all.
+
+Pipeline (``pp``) and context (``sp``) parallelism are not ported yet
+and raise (ROADMAP A2).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch.distributed as dist
+
+__all__ = ["HybridTopology", "init_mesh", "get_topology", "set_topology",
+           "ONE_RANK"]
+
+# what the unported axes raise with: the ROADMAP A2 items still left
+PIPELINE_TODO = ("pipeline parallelism is not ported yet (ROADMAP A2, item "
+                 "1: the pipeline, pipeline.py 1F1B and interleaved)")
+RING_TODO = ("context parallelism is not ported yet (ROADMAP A2, item 2: "
+             "ring attention, sequence_parallel.py)")
+
+_GLOBAL_TOPO: list = [None]
+
+AxisName = Union[str, Tuple[str, ...]]
+
+
+class _OneRank:
+    """The group of an axis slice that is this rank alone: every
+    collective over it is the identity."""
+
+    def __repr__(self):
+        return "ONE_RANK"
+
+
+ONE_RANK = _OneRank()
+
+
+def _world() -> Tuple[int, int]:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+class HybridTopology:
+    """Axis names and degrees over the ranks of the default process
+    group, with this rank's coordinates and one process group per axis
+    slice.
+
+    ``HybridTopology()`` with every degree 1 is pure data parallelism
+    over the whole world, as the reference's default.  The degrees must
+    multiply to the world size: a rank outside the topology would have
+    nothing to run."""
+
+    AXES = ("dp", "pp", "sharding", "sp", "mp")
+
+    def __init__(self, dp=1, pp=1, sharding=1, mp=1, sp=1):
+        if pp > 1:
+            raise NotImplementedError(f"pp={pp}: {PIPELINE_TODO}")
+        if sp > 1:
+            raise NotImplementedError(f"sp={sp}: {RING_TODO}")
+        rank, world = _world()
+        want = dp * pp * sharding * sp * mp
+        if want == 1:
+            dp = want = world   # default: pure dp over every rank
+        if want != world:
+            raise ValueError(
+                f"topology {dp}x{pp}x{sharding}x{sp}x{mp}={want} needs "
+                f"{want} ranks; the process group has {world}")
+        self.dims: Dict[str, int] = {"dp": dp, "pp": pp,
+                                     "sharding": sharding, "sp": sp,
+                                     "mp": mp}
+        self.rank = rank
+        self.mesh = np.arange(world).reshape(
+            tuple(self.dims[a] for a in self.AXES))
+        self.coords: Dict[str, int] = dict(zip(
+            self.AXES, (int(c) for c in np.unravel_index(rank,
+                                                         self.mesh.shape))))
+        # the groups of axes with more than one rank; every rank creates
+        # every group, in the same order (new_group is collective over
+        # the whole world)
+        self._groups: Dict[Tuple[str, ...], dist.ProcessGroup] = {}
+        for axes in (("dp",), ("sharding",), ("mp",), ("dp", "sharding")):
+            if all(self.dims[a] > 1 for a in axes):
+                self._groups[axes] = self._new_group(axes)
+
+    def _new_group(self, axes: Tuple[str, ...]) -> dist.ProcessGroup:
+        idx = [self.AXES.index(a) for a in axes]
+        n = self.axis_size(axes)
+        rows = np.moveaxis(self.mesh, idx, range(-len(idx), 0)).reshape(-1, n)
+        mine = None
+        for row in rows:
+            g = dist.new_group([int(r) for r in row])
+            if self.rank in row:
+                mine = g
+        return mine
+
+    # -- axes -----------------------------------------------------------
+    @staticmethod
+    def _axes(axis: AxisName) -> Tuple[str, ...]:
+        return (axis,) if isinstance(axis, str) else tuple(axis)
+
+    def group(self, axis: AxisName):
+        """The process group of this rank's slice of ``axis`` (a name or
+        a tuple of names), or ``ONE_RANK`` when the slice is this rank
+        alone."""
+        axes = tuple(a for a in self._axes(axis) if self.dims[a] > 1)
+        if not axes:
+            return ONE_RANK
+        return self._groups[axes]
+
+    def axis_size(self, axis: AxisName) -> int:
+        return int(np.prod([self.dims[a] for a in self._axes(axis)]))
+
+    def axis_index(self, axis: AxisName) -> int:
+        """This rank's index along ``axis`` (row-major over a tuple):
+        also its rank in ``group(axis)``."""
+        idx = 0
+        for a in self._axes(axis):
+            idx = idx * self.dims[a] + self.coords[a]
+        return idx
+
+    # -- the reference's surface ------------------------------------------
+    def world_size(self):
+        return int(np.prod(list(self.dims.values())))
+
+    @property
+    def dp_degree(self):
+        return self.dims["dp"]
+
+    @property
+    def sharding_degree(self):
+        return self.dims["sharding"]
+
+    @property
+    def mp_degree(self):
+        return self.dims["mp"]
+
+    @property
+    def batch_axes(self) -> AxisName:
+        """The axes the global batch splits over: with a carved-out
+        ``sharding`` (ZeRO) axis the data-parallel world is dp x
+        sharding."""
+        return ("dp", "sharding") if self.dims["sharding"] > 1 else "dp"
+
+    def shard_batch(self, batch: Dict[str, object]) -> Dict[str, object]:
+        """This rank's rows of a global batch (the reference's
+        ``P(batch_axes, None)`` placement): the batch ranks take equal
+        contiguous blocks of rows in the order of their index."""
+        n, i = self.axis_size(self.batch_axes), self.axis_index(
+            self.batch_axes)
+        out = {}
+        for k, v in batch.items():
+            rows = v.shape[0]
+            if rows % n:
+                raise ValueError(f"batch of {rows} rows does not split "
+                                 f"over {n} batch ranks")
+            out[k] = v[i * rows // n:(i + 1) * rows // n]
+        return out
+
+    def __repr__(self):
+        dims = ", ".join(f"{a}={d}" for a, d in self.dims.items())
+        return f"HybridTopology({dims}, rank={self.rank})"
+
+
+def init_mesh(dp=1, pp=1, sharding=1, mp=1, sp=1) -> HybridTopology:
+    """Build the topology over the current process group and make it the
+    process's own (``get_topology``)."""
+    topo = HybridTopology(dp, pp, sharding, mp, sp=sp)
+    _GLOBAL_TOPO[0] = topo
+    return topo
+
+
+def set_topology(topo: Optional[HybridTopology]) -> None:
+    _GLOBAL_TOPO[0] = topo
+
+
+def get_topology(create: bool = True) -> Optional[HybridTopology]:
+    """The topology ``init_mesh`` built; with none yet, the default (pure
+    dp over the world), unless ``create`` is False."""
+    if _GLOBAL_TOPO[0] is None and create:
+        init_mesh()
+    return _GLOBAL_TOPO[0]

@@ -1,0 +1,147 @@
+"""Tensor parallelism over the ``mp`` axis, written out (the reference
+gets it from GSPMD and ``llama.param_specs``).
+
+A layer's column-parallel products (``wq``/``wk``/``wv``,
+``w_gate``/``w_up``, ``lm_head``) take their input through ``enter`` and
+its row-parallel products (``wo``/``w_down``) hand their partial sums to
+``leave``: Megatron's ``f``/``g`` pair, as ``torch.autograd.Function``s.
+
+- Without sequence parallelism, ``enter`` is the identity forward and an
+  all-reduce of the gradient backward; ``leave`` all-reduces forward and
+  is the identity backward.  Every rank holds every row.
+- With sequence parallelism (``sp``, the reference's ``sp_axis="mp"``)
+  the activations between the blocks hold S/mp rows of the sequence:
+  ``enter`` all-gathers them along the sequence forward and
+  reduce-scatters the gradient backward; ``leave`` reduce-scatters the
+  partial sums forward and all-gathers the gradient backward.  Norms and
+  residuals then run on S/mp rows.
+
+``embedding`` is the vocab-parallel lookup (rows outside this rank's
+vocab block are zero, then ``leave``); ``cross_entropy`` the
+vocab-parallel logsumexp cross-entropy over ``[B, S, V/mp]`` logits
+(max and sum all-reduces, the target logit from its owner), so no rank
+builds the full logits.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from . import collective as C
+
+__all__ = ["TensorParallel", "enter", "leave", "embedding",
+           "cross_entropy"]
+
+SEQ = 1   # the sequence dim of [B, S, ...] activations
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """One rank's place in its ``mp`` group."""
+    group: dist.ProcessGroup
+    size: int
+    rank: int
+    sp: bool
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        if tp.sp:
+            return C.all_gather(x, tp.group, dim=SEQ)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        if tp.sp:
+            return C.reduce_scatter(g, group=tp.group, dim=SEQ), None
+        return C.all_reduce(g.clone(memory_format=torch.contiguous_format),
+                            group=tp.group), None
+
+
+class _Leave(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        if tp.sp:
+            return C.reduce_scatter(x, group=tp.group, dim=SEQ)
+        # a copy: the product's output may be what the "dots" remat
+        # policy keeps
+        return C.all_reduce(x.clone(memory_format=torch.contiguous_format),
+                            group=tp.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        if tp.sp:
+            return C.all_gather(g, tp.group, dim=SEQ), None
+        return g, None
+
+
+def enter(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """Into a column-parallel product: every row of the sequence."""
+    return _Enter.apply(x, tp)
+
+
+def leave(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """Out of a row-parallel product: the sum over the group (of this
+    rank's rows under ``sp``)."""
+    return _Leave.apply(x, tp)
+
+
+def embedding(ids: torch.Tensor, embed: torch.Tensor,
+              tp: TensorParallel) -> torch.Tensor:
+    """Vocab-parallel lookup: ``embed`` is this rank's [V/mp, H] block
+    of rows; ids outside it look up zeros, and ``leave`` sums the
+    group's lookups."""
+    lo = tp.rank * embed.shape[0]
+    local = ids - lo
+    mine = (local >= 0) & (local < embed.shape[0])
+    x = F.embedding(torch.where(mine, local, 0), embed)
+    x = x * mine[..., None].to(x.dtype)
+    return leave(x, tp)
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """Per-token ``logsumexp(logits) - logits[label]`` over logits split
+    by vocab blocks across the group."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, tp):
+        v = logits.shape[-1]
+        lo = tp.rank * v
+        m = logits.amax(dim=-1)
+        C.all_reduce(m, op=C.ReduceOp.MAX, group=tp.group)
+        e = torch.exp(logits - m[..., None])
+        s = e.sum(dim=-1)
+        local = labels - lo
+        mine = (local >= 0) & (local < v)
+        idx = torch.where(mine, local, 0)
+        tgt = logits.gather(-1, idx[..., None])[..., 0] * mine.to(
+            logits.dtype)
+        C.all_reduce(s, group=tp.group)
+        C.all_reduce(tgt, group=tp.group)
+        # e becomes the softmax in place: what the backward needs
+        e.div_(s[..., None])
+        ctx.save_for_backward(e, idx, mine)
+        return torch.log(s) + m - tgt
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, mine = ctx.saved_tensors
+        grad = p * g[..., None]
+        grad.scatter_add_(-1, idx[..., None],
+                          -(g * mine.to(g.dtype))[..., None])
+        return grad, None, None
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  tp: TensorParallel) -> torch.Tensor:
+    """Per-token cross-entropy [B, S] from this rank's [B, S, V/mp]
+    block of the logits (float32)."""
+    return _CrossEntropy.apply(logits, labels, tp)

@@ -1,0 +1,123 @@
+"""ZeRO-1: optimizer states sharded over the zero axis (the port of the
+reference's ``zero_shard_spec``, ``paddle_tpu/models/llama.py:922-937``).
+
+The zero axis is ``sharding`` when the topology carves one out, else
+``dp``.  Each leaf's state shard is the reference's choice: the largest
+dimension not already split (by ``mp``) whose global size divides by the
+zero degree, the lower index on a tie, so every rank's state has
+exactly the shape of the JAX state leaf's ``sharding.shard_shape``.  A
+leaf with no such dimension, or every leaf under ``zero=False``, keeps
+its whole state on every rank.
+
+A step reduce-scatters each sharded leaf's gradient over the zero axis
+(then sums it over the rest of the batch axes), runs the optimizer on
+this rank's block of the parameter (in place: a view, so no copy of the
+weights is kept), and all-gathers the parameter back; an unsharded leaf's
+gradient is all-reduced over the batch axes and the optimizer updates
+the parameter itself.  The optimizer is any ``torch.optim`` optimizer a
+factory builds over the tensors it is handed.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from . import collective as C
+
+__all__ = ["zero_axis", "zero_shard_dim", "ZeroOptimizer"]
+
+
+def zero_axis(topo) -> str:
+    return "sharding" if topo.dims["sharding"] > 1 else "dp"
+
+
+def zero_shard_dim(spec: Sequence[Optional[str]], shape: Sequence[int],
+                   axis: str, degree: int) -> Optional[int]:
+    """The dimension of a leaf of global ``shape`` placed by ``spec``
+    (one axis name or None a dimension) that its optimizer state splits
+    over ``axis`` of ``degree`` ranks, or None."""
+    dims = list(spec) + [None] * (len(shape) - len(spec))
+    if axis in dims or not shape:
+        return None
+    for i, d in sorted(enumerate(shape), key=lambda t: -t[1]):
+        if dims[i] is None and d % degree == 0 and d >= degree:
+            return i
+    return None
+
+
+class ZeroOptimizer:
+    """The optimizer state of one rank (``build_train_step``'s
+    ``opt_state``).
+
+    ``params``: this rank's parameters by path (its ``mp`` shards, in
+    the order the optimizer takes them); ``specs``: each path's
+    placement."""
+
+    def __init__(self, params: Dict[str, torch.Tensor],
+                 specs: Dict[str, Tuple], topo,
+                 make_optimizer: Callable[[List[torch.Tensor]], object],
+                 zero: bool = True):
+        self.axis = zero_axis(topo)
+        n = topo.axis_size(self.axis) if zero else 1
+        k = topo.axis_index(self.axis)
+        self.group = topo.group(self.axis)
+        self.batch_group = topo.group(topo.batch_axes)
+        # the batch axes besides the zero axis (dp, when it is sharding)
+        self.rest_group = topo.group(tuple(
+            a for a in ("dp", "sharding") if a != self.axis))
+        self.leaves = []   # (path, param, shard dim or None, state tensor)
+        for path, p in params.items():
+            spec = specs[path]
+            shape = [s * (topo.dims[a] if a else 1)
+                     for s, a in zip(p.shape, spec)]
+            d = zero_shard_dim(spec, shape, self.axis, n) if n > 1 else None
+            # the optimizer steps the parameter itself, or this rank's
+            # block of it in place (a view: no copy of the weights)
+            t = p if d is None else p.detach().narrow(
+                d, k * (p.shape[d] // n), p.shape[d] // n)
+            self.leaves.append((path, p, d, t))
+        self.degree, self.index = n, k
+        self.opt = make_optimizer([t for *_, t in self.leaves])
+
+    def step(self, reduced: bool = False) -> None:
+        """Reduce the gradients over the batch axes (unless ``reduced``:
+        they already hold the sum), step, put the parameters back
+        together, and drop the gradients."""
+        for _, p, d, t in self.leaves:
+            if d is None:
+                if not reduced:
+                    C.all_reduce(p.grad, group=self.batch_group)
+                continue
+            size = p.shape[d] // self.degree
+            if reduced:
+                g = p.grad.narrow(d, self.index * size, size).contiguous()
+            else:
+                g = C.reduce_scatter(p.grad, group=self.group,
+                                     dim=d).contiguous()
+                C.all_reduce(g, group=self.rest_group)
+            t.grad = g
+        self.opt.step()
+        with torch.no_grad():
+            for _, p, d, t in self.leaves:
+                if d is not None:
+                    # gathered into a new tensor: the block is a view of p
+                    p.copy_(C.all_gather(t, self.group, dim=d))
+                    t.grad = None
+                p.grad = None
+
+    def state_shapes(self) -> Dict[str, Tuple[Tuple[int, ...], ...]]:
+        """Each path's optimizer-state tensor shapes (the per-step
+        scalars left out)."""
+        return {path: tuple(tuple(v.shape)
+                            for v in self.opt.state[t].values()
+                            if torch.is_tensor(v) and v.dim() > 0)
+                for path, _, _, t in self.leaves}
+
+    def state_bytes(self) -> int:
+        """Bytes of optimizer state this rank holds (the per-step scalars
+        left out)."""
+        return sum(v.numel() * v.element_size()
+                   for *_, t in self.leaves
+                   for v in self.opt.state[t].values()
+                   if torch.is_tensor(v) and v.dim() > 0)

@@ -16,8 +16,14 @@ int8 weight is a ``{"q": int8 [L, K, N], "scale": f32 [L, 1, N]}`` leaf
   fused decoder blocks (``ops.fused_blocks``) where the
   ``fused_blocks`` policy engages them, else the unfused dense
   composition with attention in the flash kernels
-  (``ops.flash_attention.causal_attention``).  MoE and context
-  parallelism raise.
+  (``ops.flash_attention.causal_attention``).
+- Under a topology with ``mp`` > 1 the same forward runs tensor
+  parallel over the rank's ``mp`` shards (``shard_params``), with
+  sequence-parallel activations under ``sp_axis="mp"``
+  (``distributed.tensor_parallel``); ``build_train_step`` is the
+  reference's hybrid dp x sharding x mp train step with ZeRO-1 and the
+  overlapped data-parallel gradient reduction.  MoE, pipeline and
+  context parallelism raise (ROADMAP A2).
 """
 from __future__ import annotations
 
@@ -30,6 +36,12 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from . import convert
+from ..distributed import collective as dcoll
+from ..distributed import mesh as dmesh
+from ..distributed import overlap as doverlap
+from ..distributed import tensor_parallel as tpar
+from ..distributed.zero import ZeroOptimizer
 from ..ops import fused_blocks as fb
 from ..ops.flash_attention import causal_attention
 from ..ops.int8_matmul import int8_matmul, quantize_int8
@@ -37,7 +49,14 @@ from ..ops.ragged_paged_attention import ragged_paged_attention
 
 __all__ = ["LlamaConfig", "PRESETS", "preset", "init_params",
            "quantize_params", "forward_paged", "decoder_layer",
-           "run_layer_stack", "forward_pure", "loss_fn"]
+           "run_layer_stack", "forward_pure", "loss_fn", "param_specs",
+           "shard_params", "gather_params", "adamw", "build_train_step"]
+
+# what each unported branch raises with: the ROADMAP A2 item still left
+_MOE = ("MoE layers are not ported yet (ROADMAP A2, item 3: MoE, "
+        "_moe_mlp with experts over dp and its aux loss)")
+_PIPELINE = dmesh.PIPELINE_TODO
+_RING = dmesh.RING_TODO
 
 
 @dataclasses.dataclass
@@ -52,7 +71,7 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     dtype: Any = torch.bfloat16
-    # MoE is not ported yet: any value > 0 makes forward_paged raise
+    # MoE is not ported yet (ROADMAP A2): any value > 0 raises
     moe_num_experts: int = 0
     # int8 weight path: "auto" (or None) = on CUDA only, "on" =
     # everywhere (the CPU runs the plain int8 version, what parity tests
@@ -114,9 +133,7 @@ def init_params(cfg: LlamaConfig, seed: int = 0, *,
     Layer leaves are drawn one layer at a time, so the float32 draw never
     holds more than one layer's weight."""
     if cfg.moe_num_experts > 0:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP A2: distributed train "
-            "runtime, _moe_mlp)")
+        raise NotImplementedError(_MOE)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -223,7 +240,7 @@ def quantize_params(cfg: LlamaConfig, params):
     leaf (per-output-channel absmax, ``quantize_int8``).  Idempotent:
     already-quantized leaves pass through."""
     if cfg.moe_num_experts > 0:
-        raise NotImplementedError("MoE layers are not ported yet")
+        raise NotImplementedError(_MOE)
     out = dict(params)
     layers = dict(params["layers"])
     for nm in _QUANT_WEIGHTS:
@@ -289,9 +306,7 @@ def forward_paged(cfg: LlamaConfig, params, tokens, k_pages, v_pages,
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales come together")
     if cfg.moe_num_experts > 0:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP A2: distributed train "
-            "runtime, _moe_mlp)")
+        raise NotImplementedError(_MOE)
     R, Tc = tokens.shape
     nh, nkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
@@ -424,7 +439,7 @@ def _quant_window_writer(start, qpos, valid, lens, q_lens, block_tables,
 
 
 # ---------------------------------------------------------------------------
-# the train half: forward_pure -> loss_fn (single device, unfused blocks)
+# the train half: forward_pure -> loss_fn, tensor parallel over mp
 # ---------------------------------------------------------------------------
 
 def _apply_rope(x, sin, cos):
@@ -436,14 +451,16 @@ def _apply_rope(x, sin, cos):
             + rot * sin[None, :, None, :].to(x.dtype))
 
 
-def _attention(cfg: LlamaConfig, lp, x, sin, cos):
+def _attention(cfg: LlamaConfig, lp, x, sin, cos, mp: int = 1):
     """Self-attention of one layer (the reference's non-context-parallel
     branch): qkv projections, rope, GQA kv-head repeat (``jnp.repeat``
     = ``repeat_interleave``), causal flash attention, output
-    projection."""
-    B, S, H = x.shape
-    nh, nkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                  cfg.head_dim)
+    projection.  With ``mp`` > 1 the weights are this rank's blocks
+    (its H/mp heads and KV/mp kv heads) and the result is its partial
+    sum of the output projection."""
+    B, S, _ = x.shape
+    nh, nkv, d = (cfg.num_attention_heads // mp,
+                  cfg.num_key_value_heads // mp, cfg.head_dim)
     q = _apply_rope(_qmm(x, lp["wq"]).reshape(B, S, nh, d), sin, cos)
     k = _apply_rope(_qmm(x, lp["wk"]).reshape(B, S, nkv, d), sin, cos)
     v = _qmm(x, lp["wv"]).reshape(B, S, nkv, d)
@@ -452,19 +469,23 @@ def _attention(cfg: LlamaConfig, lp, x, sin, cos):
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     out = causal_attention(q, k, v)
-    return _qmm(out.reshape(B, S, H), lp["wo"])
+    return _qmm(out.reshape(B, S, nh * d), lp["wo"])
 
 
-def _fused_block_modes(cfg: LlamaConfig, x):
+def _fused_block_modes(cfg: LlamaConfig, x, tp=None):
     """(use_fused_attention, use_fused_mlp) for the activation ``x``
     (reference llama.py:405-430).  ``fused_blocks`` None means "auto",
     the reference flag's default: "auto" engages on CUDA tensors only,
     "on" on any device, "off" never.  The fused attention block also
     needs as many kv heads as heads and a head dim the flash kernels
     take; the fused MLP needs no MoE; both need the kernels' shapes
-    (``fused_blocks.fused_*_ok``)."""
+    (``fused_blocks.fused_*_ok``) and a whole layer: under tensor
+    parallelism (``tp``) each rank holds a block of the products and the
+    kernels' residual add would run on every rank, so the layer takes
+    the composition."""
     mode = cfg.fused_blocks or "auto"
-    if mode == "off" or (mode == "auto" and x.device.type != "cuda"):
+    if (tp is not None or mode == "off"
+            or (mode == "auto" and x.device.type != "cuda")):
         return False, False
     H = cfg.hidden_size
     attn_ok = (cfg.num_key_value_heads == cfg.num_attention_heads
@@ -474,32 +495,44 @@ def _fused_block_modes(cfg: LlamaConfig, x):
     return attn_ok, mlp_ok
 
 
-def decoder_layer(cfg: LlamaConfig, lp, x, sin, cos):
+def decoder_layer(cfg: LlamaConfig, lp, x, sin, cos, tp=None):
     """One decoder block on a per-layer param slice (no leading L axis):
     the fused blocks where ``_fused_block_modes`` engages them, else the
-    unfused dense composition (reference llama.py:433-465).  It returns
-    the hidden state alone; the reference's MoE aux loss comes with MoE
-    (ROADMAP A2)."""
+    unfused dense composition (reference llama.py:433-465).  Under
+    tensor parallelism (``tp``, a ``tensor_parallel.TensorParallel``)
+    the slice holds this rank's blocks, the norms and residuals run on
+    the rows ``x`` holds (S/mp of them under sequence parallelism), and
+    each block's products sit between ``enter`` and ``leave``.  It
+    returns the hidden state alone; the reference's MoE aux loss comes
+    with MoE (ROADMAP A2)."""
     if cfg.moe_num_experts > 0:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP A2: distributed train "
-            "runtime, _moe_mlp)")
-    fused_attn, fused_mlp = _fused_block_modes(cfg, x)
+        raise NotImplementedError(_MOE)
+    fused_attn, fused_mlp = _fused_block_modes(cfg, x, tp)
     if isinstance(lp.get("wq"), dict) or isinstance(lp.get("w_gate"), dict):
         # int8 quantize_params leaves: the fused kernels take dense
         # weights, so quantized layers take the unfused composition
         fused_attn = fused_mlp = False
+    if tp is None:
+        into = out = (lambda t: t)
+    else:
+        def into(t):
+            return tpar.enter(t, tp)
+
+        def out(t):
+            return tpar.leave(t, tp)
+    mp = 1 if tp is None else tp.size
     eps = cfg.rms_norm_eps
     if fused_attn:
         h = fb.fused_attention_block(x, lp["ln1"], lp["wq"], lp["wk"],
                                      lp["wv"], lp["wo"], sin, cos,
                                      head_dim=cfg.head_dim, eps=eps)
     else:
-        h = x + _attention(cfg, lp, _rms_norm(x, lp["ln1"], eps), sin, cos)
+        h = x + out(_attention(cfg, lp, into(_rms_norm(x, lp["ln1"], eps)),
+                               sin, cos, mp))
     if fused_mlp:
         return fb.fused_mlp_block(h, lp["ln2"], lp["w_gate"], lp["w_up"],
                                   lp["w_down"], eps=eps)
-    return h + _dense_mlp(lp, _rms_norm(h, lp["ln2"], eps))
+    return h + out(_dense_mlp(lp, into(_rms_norm(h, lp["ln2"], eps))))
 
 
 # matmul ops whose outputs the "dots" policy keeps (jax's dots_saveable)
@@ -511,7 +544,8 @@ def _dots_context():
     return create_selective_checkpoint_contexts(_DOT_OPS)
 
 
-def run_layer_stack(cfg: LlamaConfig, stacked, x, sin, cos):
+def run_layer_stack(cfg: LlamaConfig, stacked, x, sin, cos, tp=None,
+                    grad_sync=None):
     """The layers in a Python loop (the reference's ``lax.scan``); returns
     the hidden state.
 
@@ -527,21 +561,35 @@ def run_layer_stack(cfg: LlamaConfig, stacked, x, sin, cos):
     outputs either), so a step launches each twice per layer.  The
     kernels are launched through ctypes outside the dispatcher; their
     outputs are made by ``torch.empty`` of the same shapes on recompute,
-    so checkpoint's saved-tensor metadata check holds.
+    so checkpoint's saved-tensor metadata check holds.  Under tensor
+    parallelism the recompute runs the layer's forward collectives
+    again too (``enter``/``leave`` are not matmul ops): every rank runs
+    the same backward graph, so they run in the same order on every
+    rank.
 
     The stacked leaves are split with one ``unbind`` each, whose
     backward writes every layer's gradient into one stacked tensor (a
-    per-layer index would add a full-size zero tensor per layer)."""
+    per-layer index would add a full-size zero tensor per layer).
+    ``grad_sync`` (a ``distributed.overlap.Reducer``): each layer's
+    slices go through ``reduce_in_backward``, and every ``unbind``'s
+    backward first waits for the reductions started so far (the
+    reference's ``grad_sync_axis``)."""
     names = list(stacked)
     L = stacked[names[0]].shape[0]
-    per_layer = [dict(zip(names, parts)) for parts in
-                 zip(*(stacked[n].unbind(0) for n in names))]
+    parts = {n: stacked[n].unbind(0) for n in names}
+    if grad_sync is not None:
+        for n in names:
+            if parts[n][0].grad_fn is not None:
+                parts[n][0].grad_fn.register_prehook(grad_sync.wait_all)
+    per_layer = [{n: parts[n][l] for n in names} for l in range(L)]
 
     def layer(lp, h):
-        return decoder_layer(cfg, lp, h, sin, cos)
+        return decoder_layer(cfg, lp, h, sin, cos, tp)
 
     for l in range(L):
         lp = per_layer[l]
+        if grad_sync is not None:
+            lp = doverlap.reduce_tree_in_backward(lp, grad_sync)
         if not cfg.use_remat:
             x = layer(lp, x)
         elif cfg.remat_policy == "full":
@@ -552,34 +600,284 @@ def run_layer_stack(cfg: LlamaConfig, stacked, x, sin, cos):
     return x
 
 
-def forward_pure(cfg: LlamaConfig, params, input_ids, sp_axis=None,
-                 cp_mesh=None):
-    """Full forward: ids [B, S] -> logits [B, S, V] f32.  Runs on the
-    device the params are on; sequence and context parallelism are not
-    ported (ROADMAP A2) and raise."""
-    if sp_axis is not None or cp_mesh is not None:
+def _check_tensor_parallel(cfg: LlamaConfig, mp: int):
+    """The shapes tensor parallelism over ``mp`` ranks splits evenly."""
+    for what, n in (("num_attention_heads", cfg.num_attention_heads),
+                    ("num_key_value_heads", cfg.num_key_value_heads),
+                    ("vocab_size", cfg.vocab_size),
+                    ("intermediate_size", cfg.intermediate_size)):
+        if n % mp:
+            raise ValueError(f"{what}={n} does not split over mp={mp}")
+
+
+def _tensor_parallel(topo, sp_axis):
+    """The tensor-parallel context of a forward: None unless the topology
+    (``topo``, else the one ``init_mesh`` built) has mp > 1."""
+    if sp_axis not in (None, "mp"):
         raise NotImplementedError(
-            "sequence and context parallelism are not ported yet (ROADMAP "
-            "A2: distributed train runtime, ring attention)")
+            f"sequence sharding over {sp_axis!r}: {_RING}")
+    if topo is None:
+        topo = dmesh.get_topology(create=False)
+    if topo is None or topo.mp_degree == 1:
+        return None
+    return tpar.TensorParallel(topo.group("mp"), topo.mp_degree,
+                               topo.coords["mp"], sp_axis == "mp")
+
+
+def _forward(cfg: LlamaConfig, params, input_ids, tp, grad_sync):
     if isinstance(params["lm_head"], dict):
         raise NotImplementedError("training takes dense weights, not "
                                   "quantize_params leaves")
     embed = params["embed"]
-    S = input_ids.shape[1]
+    ids = input_ids.to(embed.device).long()
+    S = ids.shape[1]
     sin, cos = _rope_tables(cfg, S, embed.device)
-    x = F.embedding(input_ids.to(embed.device).long(), embed)
-    x = run_layer_stack(cfg, params["layers"], x, sin, cos)
+    if tp is None:
+        x = F.embedding(ids, embed)
+    else:
+        _check_tensor_parallel(cfg, tp.size)
+        if embed.shape[0] * tp.size != cfg.vocab_size:
+            raise ValueError(f"embed {tuple(embed.shape)} is not a block "
+                             f"of mp={tp.size} (shard_params)")
+        if tp.sp and S % tp.size:
+            raise ValueError(f"sequence {S} does not split over "
+                             f"mp={tp.size}")
+        x = tpar.embedding(ids, embed, tp)
+    x = run_layer_stack(cfg, params["layers"], x, sin, cos, tp=tp,
+                        grad_sync=grad_sync)
     x = _rms_norm(x, params["norm_f"], cfg.rms_norm_eps)
+    if tp is not None:
+        x = tpar.enter(x, tp)
     return _qmm(x, params["lm_head"]).float()
 
 
-def loss_fn(cfg: LlamaConfig, params, batch, sp_axis=None, cp_mesh=None):
+def forward_pure(cfg: LlamaConfig, params, input_ids, sp_axis=None,
+                 cp_mesh=None, *, topo=None, grad_sync=None):
+    """Full forward: ids [B, S] -> logits [B, S, V] f32, on the device
+    the params are on.
+
+    Under a topology with mp > 1 (``topo``, else the one ``init_mesh``
+    built) the params are this rank's shards (``shard_params``), the
+    layers run tensor parallel, and the result is this rank's
+    [B, S, V/mp] block of the logits.  ``sp_axis="mp"`` (what the
+    reference's train step passes) keeps S/mp rows of the activations
+    between the blocks; with mp = 1 it changes nothing, as in the
+    reference on one device.  ``grad_sync``: see ``run_layer_stack``.
+    Context parallelism (``cp_mesh``) raises (ROADMAP A2)."""
+    if cp_mesh is not None:
+        raise NotImplementedError(_RING)
+    return _forward(cfg, params, input_ids, _tensor_parallel(topo, sp_axis),
+                    grad_sync)
+
+
+def loss_fn(cfg: LlamaConfig, params, batch, sp_axis=None, cp_mesh=None,
+            *, topo=None, grad_sync=None):
     """Mean next-token cross-entropy over every token (no ignore index),
     in the reference's logsumexp form: (total, ce).  With no MoE aux
-    loss ported, total is ce."""
-    logits = forward_pure(cfg, params, batch["input_ids"], sp_axis, cp_mesh)
+    loss ported, total is ce.  Under tensor parallelism the
+    cross-entropy is vocab-parallel (``tensor_parallel.cross_entropy``):
+    no rank builds the full logits."""
+    if cp_mesh is not None:
+        raise NotImplementedError(_RING)
+    tp = _tensor_parallel(topo, sp_axis)
+    logits = _forward(cfg, params, batch["input_ids"], tp, grad_sync)
     labels = batch["labels"].to(logits.device).long()
+    if tp is not None:
+        ce = tpar.cross_entropy(logits, labels, tp).mean()
+        return ce, ce
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, labels[..., None])[..., 0]
     ce = (lse - tgt).mean()
     return ce, ce
+
+
+# ---------------------------------------------------------------------------
+# the hybrid-parallel train step (reference llama.py:803-1033)
+# ---------------------------------------------------------------------------
+
+def param_specs(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Which axis each dimension of each leaf splits over (None: not
+    split), the reference's PartitionSpecs (llama.py:165-200) as
+    tuples: column-parallel ``wq``/``wk``/``wv``/``w_gate``/``w_up``
+    and ``lm_head`` (output dim over mp), row-parallel ``wo``/``w_down``
+    (input dim over mp), vocab-parallel ``embed``, the leading layer
+    axis over pp."""
+    if cfg.moe_num_experts > 0:
+        raise NotImplementedError(_MOE)
+    col, row, norm = ("pp", None, "mp"), ("pp", "mp", None), ("pp", None)
+    return {
+        "embed": ("mp", None),
+        "layers": {"ln1": norm, "wq": col, "wk": col, "wv": col,
+                   "wo": row, "ln2": norm, "w_gate": col, "w_up": col,
+                   "w_down": row},
+        "norm_f": (None,),
+        "lm_head": (None, "mp"),
+    }
+
+
+def _paths(tree, prefix=""):
+    """{"embed": ..., "layers/wq": ...}: the leaves by path, in the
+    tree's order."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_paths(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _map_specs(fn, tree, specs):
+    return {k: (_map_specs(fn, v, specs[k]) if isinstance(v, dict)
+                else fn(v, specs[k])) for k, v in tree.items()}
+
+
+def shard_params(cfg: LlamaConfig, params, topo=None, *, device=None):
+    """This rank's shards of full params (numpy arrays or tensors; the
+    topology ``topo``, else ``init_mesh``'s) on ``device`` (the card
+    unless the caller names another), by ``param_specs``.  A split leaf
+    is a copy of its block, so the full params can be freed; a leaf
+    nothing splits is the input itself when that is a tensor already on
+    the device."""
+    if topo is None:
+        topo = dmesh.get_topology()
+    dev = resolve_device(device)
+
+    def shard(leaf, spec):
+        split = False
+        for dim, axis in enumerate(spec):
+            n = topo.dims[axis] if axis else 1
+            if n == 1:
+                continue
+            if leaf.shape[dim] % n:
+                raise ValueError(f"dim {dim} of {tuple(leaf.shape)} does "
+                                 f"not split over {axis}={n}")
+            b = leaf.shape[dim] // n
+            k = topo.coords[axis]
+            leaf = leaf[(slice(None),) * dim + (slice(k * b, (k + 1) * b),)]
+            split = True
+        if not torch.is_tensor(leaf):
+            return convert._tensor(leaf, dev)
+        leaf = leaf.detach().to(dev)
+        return leaf.clone(memory_format=torch.contiguous_format) if split \
+            else leaf
+
+    return _map_specs(shard, params, param_specs(cfg))
+
+
+def gather_params(cfg: LlamaConfig, params, topo=None):
+    """Full params as numpy arrays from every rank's shards (collective
+    over mp: every rank calls it).  bf16 leaves come back as float32
+    (numpy has no bfloat16; every bf16 value is a float32 value)."""
+    if topo is None:
+        topo = dmesh.get_topology()
+
+    def gather(t, spec):
+        t = t.detach()
+        for dim, axis in enumerate(spec):
+            if axis:
+                t = dcoll.all_gather(t, topo.group(axis), dim=dim)
+        t = t.cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return _map_specs(gather, params, param_specs(cfg))
+
+
+def adamw(tensors):
+    """The train step's optimizer: optax ``adamw(3e-4, b1=0.9, b2=0.95,
+    weight_decay=0.1)`` (every leaf decays, moments in the param
+    dtype)."""
+    return torch.optim.AdamW(tensors, lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+                             weight_decay=0.1)
+
+
+def build_train_step(cfg: LlamaConfig, topo=None, optimizer=None,
+                     use_pp=None, zero=True, schedule="gpipe",
+                     overlap=False, device=None):
+    """The full training step over the hybrid topology (``topo``, else
+    ``init_mesh``'s), on ``device`` (the card unless the caller names
+    another; the process group's backend must take its tensors).
+    Returns ``(step_fn, init_fn)``:
+
+    - ``init_fn(seed=0, *, params=None)`` -> ``(params, opt_state)``:
+      every rank draws the same full params from a generator seeded
+      with ``seed`` (``init_params``), keeps its shards and frees the
+      rest; or starts from ``params``, this rank's shards
+      (``shard_params``).  ``opt_state`` is a ``ZeroOptimizer``.
+    - ``step_fn(params, opt_state, batch)`` -> ``(params, opt_state,
+      {"loss", "ce"})``: ``batch`` is this rank's rows of the global
+      batch (``topo.shard_batch``); the params and the state are updated
+      in place and returned.  The loss is the mean over every token of
+      the global batch, as the reference's ``jnp.mean``.
+
+    The forward is the reference's ``loss_fn(..., sp_axis="mp")``:
+    tensor parallel with sequence-parallel activations over mp.  Each
+    rank's loss is scaled by 1/(dp x sharding) so that the gradients'
+    sum over the batch axes is the global mean's.  ZeRO-1 over the
+    zero axis (``zero=True``; ``distributed.zero``).  ``overlap=True``
+    on a pure data-parallel topology (dp > 1, mp = sharding = 1, as the
+    reference, llama.py:876-880) reduces each layer's gradients inside
+    the backward (``reduce_in_backward``) and the tail in 4 MiB buckets
+    (``bucketed_psum``); other topologies ignore it.  ``optimizer``: a
+    factory from a list of tensors to a ``torch.optim`` optimizer
+    (default ``adamw``).  Pipeline parallelism raises (ROADMAP A2)."""
+    if schedule not in ("gpipe", "1f1b", "interleaved"):
+        raise ValueError(
+            f"unknown pipeline schedule {schedule!r}; expected 'gpipe', "
+            "'1f1b' or 'interleaved'")
+    if use_pp or schedule != "gpipe":
+        raise NotImplementedError(_PIPELINE)
+    if cfg.moe_num_experts > 0:
+        raise NotImplementedError(_MOE)
+    if topo is None:
+        topo = dmesh.get_topology()
+    dev = resolve_device(device)
+    mp = topo.mp_degree
+    _check_tensor_parallel(cfg, mp)
+    specs = _paths(param_specs(cfg))
+    make_optimizer = optimizer or adamw
+    n_batch = topo.axis_size(topo.batch_axes)
+    overlap_dp = (overlap and topo.dp_degree > 1 and mp == 1
+                  and topo.sharding_degree == 1)
+    # leaves every mp rank holds whole: under sequence parallelism each
+    # rank's gradient of them comes from its own S/mp rows
+    mp_partial = [p for p, s in specs.items() if "mp" not in s] \
+        if mp > 1 else []
+    tail = [k for k in param_specs(cfg) if k != "layers"]
+
+    def init_fn(seed: int = 0, *, params=None):
+        if params is None:
+            full = init_params(cfg, seed, device=dev)
+            params = shard_params(cfg, full, topo, device=dev)
+            del full
+        flat = _paths(params)
+        for t in flat.values():
+            t.requires_grad_(True)
+        return params, ZeroOptimizer(flat, specs, topo, make_optimizer,
+                                     zero=zero)
+
+    def step_fn(params, opt_state, batch):
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        reducer = doverlap.Reducer(topo.group("dp")) if overlap_dp else None
+        total, ce = loss_fn(cfg, params, batch, sp_axis="mp", topo=topo,
+                            grad_sync=reducer)
+        (total / n_batch if n_batch > 1 else total).backward()
+        if reducer is not None:
+            reducer.wait_all()
+            reduced = doverlap.bucketed_psum(
+                {k: params[k].grad for k in tail}, reducer.group)
+            for k, g in reduced.items():
+                params[k].grad = g
+        flat = _paths(params)
+        for path in mp_partial:
+            dcoll.all_reduce(flat[path].grad, group=topo.group("mp"))
+        opt_state.step(reduced=overlap_dp)
+        loss = torch.stack([total.detach(), ce.detach()])
+        if n_batch > 1:
+            dcoll.all_reduce(loss, op="avg", group=topo.group(
+                topo.batch_axes))
+        return params, opt_state, {"loss": loss[0], "ce": loss[1]}
+
+    step_fn.topology = topo
+    step_fn.overlap = overlap_dp
+    return step_fn, init_fn

@@ -19,7 +19,8 @@ Routes:
 * ``/metrics`` — the metric registry in Prometheus text exposition
   format (``profiler.metrics.to_prometheus``).
 * ``/healthz`` — liveness: uptime, pid, watchdog incident count, per-role
-  attachment state (engine running/queue depth, router replica states).
+  attachment state (engine running/queue depth, router replica states,
+  train-loop step progress).
 * ``/slo`` — every attached engine's ``slo_report()`` plus, when a router
   with an autoscaler is attached, the ``SLOBurnGauge`` burn-rate windows,
   the last autoscale recommendation and ``fleet_stats()``.
@@ -28,11 +29,10 @@ Routes:
 * ``/trace/tail?n=`` — tail of the flight-recorder trace ring
   (``profiler/trace.py``).
 
-``Router`` and ``LLMEngine`` call :func:`maybe_serve` at construction;
-one process-wide exporter serves all attached objects.  Scrapes read
-through the registry's own lock and touch only snapshot-style accessors
-— they never block ``step()``.  Not ported yet: the train loop's
-attachment (its loop comes with ROADMAP A2).
+``Router``, ``LLMEngine`` and ``Plan.run_train_loop`` call
+:func:`maybe_serve` at construction; one process-wide exporter serves
+all attached objects.  Scrapes read through the registry's own lock and
+touch only snapshot-style accessors — they never block ``step()``.
 """
 from __future__ import annotations
 
@@ -71,7 +71,7 @@ def _json_default(o: Any) -> Any:
 
 
 class MetricsExporter:
-    """One HTTP endpoint serving every attached engine and router."""
+    """One HTTP endpoint serving every attached engine/router/train loop."""
 
     def __init__(self, port: int, host: str = "127.0.0.1"):
         self.requested_port = port
@@ -83,6 +83,7 @@ class MetricsExporter:
         self._attach_lock = threading.Lock()
         self._engines: List[Any] = []
         self._router: Any = None
+        self._train_status: Any = None  # zero-arg callable -> dict
 
     # -- lifecycle --------------------------------------------------------
 
@@ -139,6 +140,8 @@ class MetricsExporter:
                     self._engines.append(obj)
             elif role == "router":
                 self._router = obj
+            elif role == "train":
+                self._train_status = obj  # callable returning a dict
 
     # -- request handling -------------------------------------------------
 
@@ -206,12 +209,18 @@ class MetricsExporter:
         with self._attach_lock:
             engines = list(self._engines)
             router = self._router
+            train = self._train_status
         out["engines"] = [self._engine_health(e) for e in engines]
         if router is not None:
             try:
                 out["router"] = {"replicas": router.replica_states()}
             except Exception as e:
                 out["router"] = {"error": str(e)}
+        if train is not None:
+            try:
+                out["train"] = dict(train())
+            except Exception as e:
+                out["train"] = {"error": str(e)}
         return out
 
     @staticmethod

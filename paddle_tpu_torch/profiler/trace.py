@@ -26,7 +26,7 @@ dicts (Perfetto-loadable).
 
 Not ported yet: the pipeline-schedule helpers
 (``record_pipeline_schedule``, ``pipeline_schedule_events``), which
-come with the distributed train runtime (ROADMAP A2).
+come with the pipeline (ROADMAP A2, item 1).
 """
 from __future__ import annotations
 

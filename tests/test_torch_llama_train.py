@@ -227,6 +227,11 @@ def test_unported_branches_raise():
     _, tcfg = _cfgs(fields)
     params = tllama.init_params(tcfg, 0, device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.long)
+    # sequence parallelism over mp is ported: on one rank it changes
+    # nothing, as in the reference on one device
+    torch.testing.assert_close(
+        tllama.forward_pure(tcfg, params, ids, sp_axis="mp"),
+        tllama.forward_pure(tcfg, params, ids), atol=0, rtol=0)
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         tllama.forward_pure(tcfg, params, ids, sp_axis="sp")
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):

@@ -1,0 +1,187 @@
+"""What the port's ranks run in the distributed tests: functions that
+``paddle_tpu_torch.distributed.spawn`` calls in fresh processes.  This
+module imports torch, numpy and the port only (never JAX), so a spawned
+rank never loads JAX; the test files that hold the ranks' results
+against the JAX reference import it."""
+import numpy as np
+import torch
+
+from paddle_tpu_torch.distributed import collective as C
+from paddle_tpu_torch.distributed import init_mesh
+from paddle_tpu_torch.distributed.plan import Plan
+from paddle_tpu_torch.models import llama as tllama
+from paddle_tpu_torch.ops import fused_blocks as fb
+from paddle_tpu_torch.profiler import metrics
+
+
+def _cfg(fields, **kw):
+    return tllama.LlamaConfig(dtype=torch.float32,
+                              **{"fused_blocks": "off", **fields, **kw})
+
+
+def _local(params):
+    return {k: v.detach().numpy().copy()
+            for k, v in tllama._paths(params).items()}
+
+
+def _calls():
+    """The collective calls by op since ``metrics.reset()``."""
+    return {k.split('op="')[1].split('"')[0]: v
+            for k, v in metrics.snapshot().items()
+            if k.startswith("collective_calls_total")}
+
+
+def train_cases(fields, np_params, batches, cases):
+    """Each case ``(topology kwargs, build_train_step kwargs)``: the
+    train step from ``np_params`` over ``batches`` (global batches),
+    with this rank's losses, the gathered params, its local shards, its
+    optimizer-state shapes, its coordinates and the collectives of its
+    first step."""
+    torch.set_num_threads(1)
+    from paddle_tpu_torch import flags
+    flags.set_flags({"FLAGS_tpu_metrics": True})
+    cfg = _cfg(fields)
+    out = []
+    for topo_kw, step_kw in cases:
+        topo = init_mesh(**topo_kw)
+        step, init = tllama.build_train_step(cfg, topo, device="cpu",
+                                             **step_kw)
+        params, opt = init(params=tllama.shard_params(
+            cfg, np_params, topo, device="cpu"))
+        losses = []
+        for i, b in enumerate(batches):
+            metrics.reset()
+            params, opt, m = step(params, opt, topo.shard_batch(
+                {k: torch.from_numpy(v) for k, v in b.items()}))
+            losses.append((m["loss"].item(), m["ce"].item()))
+            calls = _calls() if i == 0 else calls
+        out.append({"losses": losses, "coords": topo.coords, "calls": calls,
+                    "params": tllama.gather_params(cfg, params, topo),
+                    "local": _local(params),
+                    "state_shapes": opt.state_shapes(),
+                    "overlap": step.overlap})
+    return out
+
+
+def collectives_vs_numpy(seed):
+    """Every collective over every axis group of a dp=2 x mp=2 world,
+    on float32 and bfloat16 data from ``default_rng(seed + rank)``;
+    returns the inputs and outputs for the test to recompute."""
+    torch.set_num_threads(1)
+    topo = init_mesh(dp=2, mp=2)
+    rng = np.random.default_rng(seed + topo.rank)
+    res = {"coords": topo.coords, "rank": topo.rank}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(rng.standard_normal((4, 8)).astype(
+            np.float32)).to(dt)
+        r = {"x": x.float().numpy()}
+        for axis in ("dp", "mp", None):
+            g = topo.group(axis) if axis else None
+            tag = axis or "world"
+            for op in ("sum", "max", "min", "avg"):
+                r[f"all_reduce/{op}/{tag}"] = C.all_reduce(
+                    x.clone(), op=op, group=g).float().numpy()
+            r[f"all_gather/0/{tag}"] = C.all_gather(x, g).float().numpy()
+            r[f"all_gather/1/{tag}"] = C.all_gather(x, g, dim=1).float(
+            ).numpy()
+            r[f"reduce_scatter/0/{tag}"] = C.reduce_scatter(
+                x, group=g).float().numpy()
+            r[f"reduce_scatter/1/{tag}"] = C.reduce_scatter(
+                x, group=g, dim=1).float().numpy()
+            r[f"broadcast/1/{tag}"] = C.broadcast(
+                x.clone(), src=1, group=g).float().numpy()
+            r[f"all_to_all/{tag}"] = C.all_to_all(x, group=g).float(
+            ).numpy()
+            work = C.all_reduce(y := x.clone(), group=g, async_op=True)
+            work.wait()
+            r[f"all_reduce_async/{tag}"] = y.float().numpy()
+        C.barrier()
+        res[str(dt)] = r
+    return res
+
+
+def collective_counts(fields, np_params, batch, policies):
+    """One dp=2 x mp=2 step under each remat policy (None = no remat)
+    with metrics on: the collective calls by op, and whether a fused
+    block was ever entered (the config asks for them: "on")."""
+    torch.set_num_threads(1)
+    from paddle_tpu_torch import flags
+    flags.set_flags({"FLAGS_tpu_metrics": True})
+    entered = []
+
+    def refuse(*a, **k):
+        entered.append(1)
+        raise AssertionError("a fused block under tensor parallelism")
+
+    fb.fused_attention_block = fb.fused_mlp_block = refuse
+    topo = init_mesh(dp=2, mp=2)
+    out = {}
+    for policy in policies:
+        cfg = _cfg(fields, fused_blocks="on", use_remat=policy is not None,
+                   remat_policy=policy or "dots")
+        step, init = tllama.build_train_step(cfg, topo, device="cpu")
+        params, opt = init(params=tllama.shard_params(cfg, np_params, topo,
+                                                      device="cpu"))
+        metrics.reset()
+        _, _, m = step(params, opt, topo.shard_batch(
+            {k: torch.from_numpy(v) for k, v in batch.items()}))
+        out[str(policy)] = {"calls": _calls(), "loss": m["loss"].item()}
+    out["fused_entered"] = len(entered)
+    return out
+
+
+def train_loop(fields, np_params, batches, plan_kw, scale_at):
+    """``Plan.run_train_loop`` from ``np_params``; then the same loop
+    with a resize requested at step ``scale_at``, which must raise."""
+    torch.set_num_threads(1)
+    cfg = _cfg(fields)
+    plan = Plan(**plan_kw)
+    hist = plan.run_train_loop(cfg, [{k: torch.from_numpy(v)
+                                      for k, v in b.items()}
+                                     for b in batches],
+                               params=np_params, device="cpu")
+
+    class Store:
+        def __init__(self):
+            self.d = {}
+
+        def get(self, k):
+            return self.d.get(k)
+
+    store = Store()
+
+    def feed():
+        for i, b in enumerate(batches):
+            if i == scale_at:
+                store.d["elastic/job/world_size"] = b"1"
+            yield {k: torch.from_numpy(v) for k, v in b.items()}
+
+    try:
+        plan.run_train_loop(cfg, feed(), params=np_params, device="cpu",
+                            job_id="job", scale_store=store)
+        raised = None
+    except NotImplementedError as exc:
+        raised = str(exc)
+    return {"history": hist, "raised": raised}
+
+
+def ws1_steps(fields, steps, seed=0):
+    """World size 1 through ``Plan().train_step`` on the card (over
+    whatever process group ``spawn`` formed) from ``init_params(seed)``:
+    the losses, the params and the backend."""
+    import torch.distributed as dist
+    cfg = tllama.LlamaConfig(dtype=torch.bfloat16, **fields)
+    step, init = Plan().train_step(cfg, device="cuda")
+    params, opt = init(seed)
+    batch = ws1_batch(cfg, "cuda")
+    losses = [step(params, opt, batch)[2]["ce"].item() for _ in range(steps)]
+    return {"backend": dist.get_backend(), "losses": losses,
+            "params": {k: v.detach().cpu()
+                       for k, v in tllama._paths(params).items()}}
+
+
+def ws1_batch(cfg, device, B=2, S=128):
+    rng = np.random.default_rng(0)
+    return {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                                ).to(device)
+            for k in ("input_ids", "labels")}
