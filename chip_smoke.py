@@ -70,7 +70,20 @@ both apply (M = 8, 16).
   ``bench.train_step`` (the same launches and loss bits), then as 2
   ranks over gloo at mp=2 and at dp=2 with ZeRO-1 (per-rank peak
   memory, weight and state bytes against their reckoning;
-  ``dist_train_phase``).
+  ``dist_train_phase``);
+- the pipeline and context parallelism: the small model under every
+  schedule at dp=2 x pp=2, GPipe with ring attention at pp=2 x sp=2
+  and sp=2 alone against world size 1 (``small_pp_check``); bench.py's
+  shape as 2 ranks at pp=2 under GPipe, 1F1B lockstep and overlapped
+  and interleaved (v=2), 8 microbatches (``pipeline_phase``: weight and
+  state bytes against their reckoning, 1F1B's peak below GPipe's,
+  launches and ``ppermute`` bytes against the schedule's count, losses
+  against world size 1), and at sp=2 (``cp_phase``: the fused MLP on
+  the rank's rows, the ring's ``ppermute`` calls and bytes against the
+  code's count); ``python -m paddle_tpu_torch.bench --multichip``'s
+  line (8 ranks, the recorded schedule equal to the static one).
+  Several ranks on the one card run over gloo, whose point-to-point
+  calls cross through host memory: their times are no throughput.
 
 Any failure exits non-zero.  The last two lines of standard output are
 the card's name and power limit (from nvidia-smi) and, last,
@@ -2334,7 +2347,8 @@ def dist_small_rank(device, cases):
         out.append(dict(
             name=name, losses=losses, coords=topo.coords,
             overlap=step.overlap,
-            params=tllama._paths(tllama.gather_params(cfg, params, topo)),
+            params=tllama._paths(tllama.gather_params(
+                cfg, params, topo, virtual_pp=step.virtual_pp)),
             local={k: v.detach().float().cpu().numpy()
                    for k, v in tllama._paths(params).items()}))
     return out
@@ -2608,6 +2622,316 @@ def dist_train_phase(torch, tbench, tllama, dist, card):
     return out
 
 
+# the pipeline and context-parallel checks of a small bf16 model (the
+# composition: flash_fwd and flash_bwd on every path): a 4-rank world
+# runs dp=2 x pp=2 under each schedule (2 layers: interleaved takes v=1,
+# one layer a rank) and pp=2 x sp=2 on GPipe; a 2-rank world sp=2
+PP_SMALL_CASES = (
+    ("dp2xpp2_gpipe", dict(dp=2, pp=2), dict(schedule="gpipe")),
+    ("dp2xpp2_1f1b", dict(dp=2, pp=2), dict(schedule="1f1b")),
+    ("dp2xpp2_1f1b_overlap", dict(dp=2, pp=2),
+     dict(schedule="1f1b", overlap=True)),
+    ("dp2xpp2_interleaved", dict(dp=2, pp=2),
+     dict(schedule="interleaved", virtual_pp=1)),
+    ("pp2xsp2_gpipe", dict(pp=2, sp=2), dict(schedule="gpipe")))
+CP_SMALL_CASES = (("sp2", dict(sp=2), {}),)
+TAIL = ("embed", "norm_f", "lm_head")
+
+
+def small_pp_check(torch, dist, device="cuda"):
+    """The pipeline schedules and context parallelism of the small bf16
+    model as gloo ranks on the one card (``PP_SMALL_CASES``,
+    ``CP_SMALL_CASES``), 3 steps each from the same seed, held to its
+    world-size-1 step on the card: losses within ``DIST_LOSS_ATOL``,
+    params by ``dist_param_check``; the ranks that hold one block of the
+    params (over dp and sp) the same bits, the embedding, norm and head
+    the same bits on every stage; 1F1B overlapped the same bits as
+    lockstep."""
+    t0 = time.perf_counter()
+    ref = dist_small_rank(device, [("ws1", {}, {})])[0]
+    steps = DIST_SMALL_SHAPE[2]
+    worlds = ((4, PP_SMALL_CASES), (2, CP_SMALL_CASES))
+    rows = {}
+    by_name = {}
+    for n, cases in worlds:
+        ranks = dist.spawn(dist_small_rank, n, (device, cases),
+                           device=device, backend="gloo", timeout=300)
+        for i, (name, _, _) in enumerate(cases):
+            res = by_name[name] = [r[i] for r in ranks]
+            err = max(abs(a - b) for r in res
+                      for a, b in zip(r["losses"], ref["losses"]))
+            check(err <= DIST_LOSS_ATOL, f"small pp {name}: losses "
+                  f"{res[0]['losses']} vs world size 1 {ref['losses']}")
+            ulps = max(dist_param_check(r["params"], ref["params"], steps,
+                                        f"small pp {name}") for r in res)
+            blocks = {}
+            for r in res:
+                blocks.setdefault((r["coords"]["pp"], r["coords"]["mp"]),
+                                  []).append(r["local"])
+            for group in blocks.values():
+                for other in group[1:]:
+                    check(all(np.array_equal(other[k], v)
+                              for k, v in group[0].items()),
+                          f"small pp {name}: replicas differ")
+            for r in res[1:]:
+                check(all(np.array_equal(r["local"][k], res[0]["local"][k])
+                          for k in TAIL), f"small pp {name}: the tail "
+                      "differs between stages")
+            rows[name] = dict(losses=res[0]["losses"], loss_err=err,
+                              param_excess_bf16_steps=ulps)
+    lock, over = by_name["dp2xpp2_1f1b"], by_name["dp2xpp2_1f1b_overlap"]
+    for a, b in zip(lock, over):
+        check(a["losses"] == b["losses"]
+              and all(np.array_equal(a["local"][k], v)
+                      for k, v in b["local"].items()),
+              "small pp: 1F1B overlapped differs from lockstep")
+    print(f"small pp check ({time.perf_counter() - t0:.1f} s, gloo ranks "
+          f"on one card, bf16): world size 1 losses {ref['losses']}; "
+          + json.dumps(rows))
+    return rows
+
+
+# bench.py's shape through the pipeline: 2 ranks at pp=2, a global batch
+# of 8 rows in 8 microbatches, each schedule 2 steps
+PP_BIG_CASES = (("gpipe", dict(schedule="gpipe")),
+                ("1f1b", dict(schedule="1f1b")),
+                ("1f1b_overlap", dict(schedule="1f1b", overlap=True)),
+                ("interleaved", dict(schedule="interleaved", virtual_pp=2)))
+PP_BIG_BATCH, PP_BIG_MICRO, BIG_STEPS = 8, 8, 2
+
+
+def big_rank(topo_kw, cases, B, steps):
+    """What each rank of ``pipeline_phase`` and ``cp_phase`` runs: the
+    distributed step at bench.py's shape for each case ``(name, build
+    kwargs)``, from seed 0, on this rank's rows of one batch: losses,
+    step ms (host clock), the step peak over what the rank held before
+    the steps, the bytes of its weights and optimizer state, its
+    kernel launches (counts set to 0 just before the steps) and its
+    ``ppermute`` calls and bytes a step."""
+    import gc
+    import torch
+    from paddle_tpu_torch import bench as tbench
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.distributed import init_mesh
+    from paddle_tpu_torch.models import llama as tllama
+    from paddle_tpu_torch.profiler import metrics
+    flags.set_flags({"FLAGS_tpu_metrics": True})
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = tllama.LlamaConfig(remat_policy="dots", **tbench.MODEL)
+    topo = init_mesh(**topo_kw)
+    batch = topo.shard_batch(tbench.make_batch(cfg, B, tbench.SEQ, dev))
+    out = {}
+    for name, kw in cases:
+        step, init = tllama.build_train_step(cfg, topo, device=dev, **kw)
+        params, opt = init(0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for w in tbench.KERNELS.values():
+            w.launches = 0
+        losses, ms, p2p = [], [], []
+        for _ in range(steps):
+            metrics.reset()
+            t0 = time.perf_counter()
+            losses.append(step(params, opt, batch)[2]["loss"].item())
+            ms.append(1e3 * (time.perf_counter() - t0))
+            snap = metrics.snapshot()
+            p2p.append([snap.get(f'collective_{k}_total{{op="ppermute"}}',
+                                 0.0) for k in ("calls", "bytes")])
+        out[name] = dict(
+            losses=losses, step_ms=ms,
+            max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+            peak_over_base=torch.cuda.max_memory_allocated(dev) - base,
+            weight_bytes=sum(t.numel() * t.element_size()
+                             for t in tbench.leaves(params)),
+            state_bytes=opt.state_bytes(),
+            launches={n: w.launches for n, w in tbench.KERNELS.items()},
+            ppermute_calls_bytes=p2p)
+        del params, opt, step, init
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(coords=topo.coords, runs=out)
+
+
+def ws1_losses(torch, tbench, tllama, B, steps):
+    """``bench.train_step`` at bench.py's shape on ``B`` rows (the same
+    batch as the ranks'), ``steps`` steps: the losses and the peak over
+    what the process held."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = tllama.LlamaConfig(remat_policy="dots", **tbench.MODEL)
+    gc_cuda(torch)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = tllama.init_params(cfg, 0, device=dev)
+    for t in tbench.leaves(params):
+        t.requires_grad_(True)
+    opt = tbench.make_optimizer(params)
+    batch = tbench.make_batch(cfg, B, tbench.SEQ, dev)
+    losses = [float(tbench.train_step(cfg, params, opt, batch))
+              for _ in range(steps)]
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del params, opt
+    gc_cuda(torch)
+    return losses, peak
+
+
+def pp_reckoning(tllama, tbench, pp):
+    """Bytes of a pp rank's weights: its L/pp layers and the embedding,
+    head and final norm whole."""
+    cfg = tllama.LlamaConfig(**tbench.MODEL)
+    H, I, V, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                  cfg.num_hidden_layers)
+    KV = cfg.num_key_value_heads * cfg.head_dim
+    layer = (2 * H * H + 2 * H * KV + 3 * H * I + 2 * H) * 2
+    return dict(layers=layer * L // pp, tail=(2 * V * H + H) * 2)
+
+
+def schedule_launches(L_local, n_micro, schedule):
+    """Launches a step of the fused path's train kernels on one stage:
+    each unit of a rank runs its layers forward once; GPipe's and the
+    interleaved schedule's backward recomputes each layer once under
+    "dots" (the fused forward kernels are not kept), 1F1B's backward
+    unit recomputes the stage from its kept input and then each layer
+    again; the backward kernels run once a layer and microbatch."""
+    fwd = {"gpipe": 2, "interleaved": 2, "1f1b": 3}[schedule]
+    per = L_local * n_micro
+    return {"flash_fwd": 0, "flash_bwd": per, "fused_qkv": fwd * per,
+            "fused_attn_epilogue": fwd * per, "fused_mlp_fwd": fwd * per,
+            "fused_mlp_bwd_dx": per}
+
+
+def pipeline_phase(torch, tbench, tllama, dist, card):
+    """bench.py's ~0.95B model (S = 2048, bf16, "dots", the fused blocks
+    by the default policy) through the pipeline as 2 ranks at pp=2 over
+    gloo (host-staged: step times are no throughput), global batch 8 in
+    8 microbatches: GPipe, 1F1B lockstep and overlapped, interleaved
+    with v=2, 2 steps each in one world.  Per rank: weight and AdamW
+    state bytes equal their reckoning; 1F1B's step peak below GPipe's;
+    the launches of rows 1-10 equal the schedule's count; the losses
+    within ``DIST_LOSS_ATOL`` of world size 1's on the same 8 rows; 1F1B
+    overlapped the same loss bits as lockstep; the ranks' ``ppermute``
+    bytes a step equal two transfers of a microbatch's activation a hop
+    between consecutive global stages."""
+    t0 = time.perf_counter()
+    ws1, ws1_peak = ws1_losses(torch, tbench, tllama, PP_BIG_BATCH,
+                               BIG_STEPS)
+    cases = tuple((n, dict(kw, n_microbatches=PP_BIG_MICRO))
+                  for n, kw in PP_BIG_CASES)
+    ranks = dist.spawn(big_rank, 2, (dict(pp=2), cases, PP_BIG_BATCH,
+                                     BIG_STEPS), device="cuda",
+                       backend="gloo", timeout=900)
+    rk = pp_reckoning(tllama, tbench, 2)
+    weights = rk["layers"] + rk["tail"]
+    L_local = tllama.LlamaConfig(**tbench.MODEL).num_hidden_layers // 2
+    for r in ranks:
+        runs = r["runs"]
+        for name, kw in PP_BIG_CASES:
+            x = runs[name]
+            check(x["weight_bytes"] == weights
+                  and x["state_bytes"] == 2 * weights,
+                  f"pipeline {name}: weights {x['weight_bytes']} / states "
+                  f"{x['state_bytes']} vs reckoned {weights} / "
+                  f"{2 * weights}")
+            want = schedule_launches(L_local, PP_BIG_MICRO, kw["schedule"])
+            check(x["launches"] == {n: BIG_STEPS * c
+                                    for n, c in want.items()},
+                  f"pipeline {name}: launches {x['launches']} vs "
+                  f"{BIG_STEPS} x {want}")
+            err = max(abs(a - b) for a, b in zip(x["losses"], ws1))
+            check(err <= DIST_LOSS_ATOL, f"pipeline {name}: losses "
+                  f"{x['losses']} vs world size 1 {ws1}")
+        check(runs["1f1b"]["max_memory_allocated"]
+              < runs["gpipe"]["max_memory_allocated"],
+              f"pipeline: 1F1B peak {runs['1f1b']['max_memory_allocated']}"
+              f" not below GPipe's {runs['gpipe']['max_memory_allocated']}")
+        check(runs["1f1b"]["losses"] == runs["1f1b_overlap"]["losses"],
+              "pipeline: 1F1B overlapped losses differ from lockstep")
+    # every hop between consecutive global stages carries a microbatch's
+    # activation forward and its gradient back, once a step
+    cfg = tllama.LlamaConfig(**tbench.MODEL)
+    edge = (PP_BIG_BATCH // PP_BIG_MICRO) * tbench.SEQ * cfg.hidden_size * 2
+    for name, kw in PP_BIG_CASES:
+        hops = 2 * kw.get("virtual_pp", 1) - 1
+        for i in range(BIG_STEPS):
+            sent = sum(r["runs"][name]["ppermute_calls_bytes"][i][1]
+                       for r in ranks)
+            check(sent == 2 * hops * PP_BIG_MICRO * edge,
+                  f"pipeline {name}: {sent} bytes sent a step vs 2 x "
+                  f"{hops} hops x {PP_BIG_MICRO} x {edge}")
+    out = dict(ws1_losses=ws1, ws1_peak_over_base=ws1_peak,
+               reckoned_weight_bytes=weights, ranks=ranks,
+               seconds=time.perf_counter() - t0)
+    print(f"pipeline [{card}]: {json.dumps(out)}")
+    print(f"pipeline [{card}]: per-rank step peaks "
+          + ", ".join(f"{n} {[r['runs'][n]['max_memory_allocated'] for r in ranks]}"
+                      for n, _ in PP_BIG_CASES)
+          + f"; world size 1 (B = 8) peak over base {ws1_peak}")
+    return out
+
+
+CP_BIG_BATCH = 4
+
+
+def cp_phase(torch, tbench, tllama, dist, card, ws1, ws1_peak):
+    """bench.py's shape context parallel: 2 ranks at sp=2 over gloo, B =
+    4, 2 steps; ``ws1``/``ws1_peak``: world size 1's losses and peak on
+    the same batch (``dist_train_phase``'s bench turn).  Losses within
+    ``DIST_LOSS_ATOL``; the fused MLP kernels launched on the rank's
+    S/2 rows and the fused attention block not (attention is the
+    ring); ``ppermute`` calls and bytes a step equal the code's count:
+    2 (k, v) x (sp - 1) x L blocks a forward, again in the remat
+    recompute and again, reversed, in the backward."""
+    t0 = time.perf_counter()
+    ranks = dist.spawn(big_rank, 2, (dict(sp=2), (("sp2", {}),),
+                                     CP_BIG_BATCH, BIG_STEPS),
+                       device="cuda", backend="gloo", timeout=600)
+    cfg = tllama.LlamaConfig(**tbench.MODEL)
+    sp, L = 2, cfg.num_hidden_layers
+    block = (CP_BIG_BATCH * tbench.SEQ // sp * cfg.num_key_value_heads
+             * cfg.head_dim * 2)
+    calls = 3 * 2 * (sp - 1) * L
+    for r in ranks:
+        x = r["runs"]["sp2"]
+        err = max(abs(a - b) for a, b in zip(x["losses"], ws1))
+        check(err <= DIST_LOSS_ATOL, f"cp: losses {x['losses']} vs world "
+              f"size 1 {ws1}")
+        la = x["launches"]
+        check(la["fused_mlp_fwd"] > 0 and la["fused_mlp_bwd_dx"] > 0
+              and la["fused_qkv"] == la["fused_attn_epilogue"] == 0
+              and la["flash_fwd"] == la["flash_bwd"] == 0,
+              f"cp: launches {la}")
+        check(la["fused_mlp_fwd"] == BIG_STEPS * 2 * L
+              and la["fused_mlp_bwd_dx"] == BIG_STEPS * L,
+              f"cp: fused MLP launches {la}")
+        for c, b in x["ppermute_calls_bytes"]:
+            check(c == calls and b == calls * block, f"cp: ppermute {c} "
+                  f"calls / {b} bytes a step vs {calls} / {calls * block}")
+    out = dict(ranks=ranks, ws1_losses=ws1, ws1_peak_over_base=ws1_peak,
+               ppermute_block_bytes=block, ppermute_calls=calls,
+               seconds=time.perf_counter() - t0)
+    print(f"cp [{card}]: {json.dumps(out)}")
+    return out
+
+
+def multichip_line(card):
+    """``python -m paddle_tpu_torch.bench --multichip``'s measuring
+    function once on the card (8 gloo ranks, trace on): the recorded
+    schedule matches the static one and overlap serializes fewer
+    transfers than lockstep."""
+    from paddle_tpu_torch import bench as tbench
+    t0 = time.perf_counter()
+    res = tbench.multichip(trace_out="chiprun_out/multichip_trace")
+    ov = res["detail"]["overlap"]
+    check(ov["measured"]["matches_static"], f"multichip: {ov}")
+    check(ov["serialized_transfers"] < ov["serialized_transfers_lockstep"],
+          f"multichip: {ov}")
+    check(res["detail"]["loss"] == res["detail"]["loss_lockstep"],
+          "multichip: overlapped and lockstep losses differ")
+    print(f"multichip [{card}] ({time.perf_counter() - t0:.1f} s): "
+          + json.dumps(res))
+    return res
+
+
 def load_parent(root):
     """``root``/paddle_tpu_torch imported as ``parent_paddle_tpu_torch``:
     the package imports itself only relatively, so its kernels build from
@@ -2809,6 +3133,22 @@ def main(argv=()):
                 **{f"{b}_rank0": dist_res["big"][b]["ranks"][0]["launches"][n]
                    for b in dist_res["big"]})
         for n in tbench.KERNELS}
+    # the pipeline and context parallelism: a small model's schedules and
+    # sp against world size 1, then bench.py's shape at pp=2 under every
+    # schedule and at sp=2 (2 ranks over gloo each), then the bench's
+    # --multichip line
+    small_pp_check(torch, dist)
+    pp_res = pipeline_phase(torch, tbench, tllama, dist, card)
+    bench_turn = next(t for t in dist_res["turns"] if t["kind"] == "bench")
+    cp_res = cp_phase(torch, tbench, tllama, dist, card,
+                      bench_turn["losses"][:BIG_STEPS],
+                      bench_turn["peak_over_base"])
+    multichip_line(card)
+    # a rank's launches over the 2 steps of each schedule / of sp=2
+    pp_launches = {n: {s: pp_res["ranks"][0]["runs"][s]["launches"][n]
+                       for s, _ in PP_BIG_CASES} for n in tbench.KERNELS}
+    sp_launches = {n: cp_res["ranks"][0]["runs"]["sp2"]["launches"][n]
+                   for n in tbench.KERNELS}
 
     # one step of the main path: 225 int8 matmuls at M = 8 (decode), 64
     # (the default cell's prefill) and 512 (the long-context prefill),
@@ -2906,6 +3246,7 @@ def main(argv=()):
             launches=train_launches[name],
             launches_fused_step=fused_launches[name],
             launches_dist=dist_launches[name],
+            launches_pp=pp_launches[name], launches_sp=sp_launches[name],
             max_abs_err=flash_err[key],
             row_rel_err=flash_row_err[key], row_rel_max=ROW_REL_MAX,
             control_row_rel_err=min(
@@ -2941,6 +3282,7 @@ def main(argv=()):
             replaces=f"paddle_tpu/ops/pallas_ops.py:{line}",
             launches=fused_launches[name], max_abs_err=r["max_abs_err"],
             launches_dist=dist_launches[name],
+            launches_pp=pp_launches[name], launches_sp=sp_launches[name],
             row_rel_err=r["row_rel_err"], row_rel_max=ROW_REL_MAX,
             norm_rel_err=r["norm_rel_err"],
             control_row_rel_err=r["control_row_rel_err"], ms=r["ms"],

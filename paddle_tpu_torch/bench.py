@@ -3,6 +3,7 @@
 
     python -m paddle_tpu_torch.bench                 # on the card
     python -m paddle_tpu_torch.bench --device cpu    # CPU smoke shape
+    python -m paddle_tpu_torch.bench --multichip [--trace-out DIR]
 
 On the card it trains the ~0.95B Llama of ``bench.py`` (vocab 32000,
 hidden 2048, intermediate 5632, 16 layers, 16 heads of 128, bf16) at
@@ -16,6 +17,21 @@ On the card the layers take the fused decoder blocks (``fused_blocks``
 engaged), the CPU smoke shape the unfused layer with plain attention;
 any error other than running out of memory ends the run.
 
+``--multichip`` is the port of ``bench.py``'s ``multichip_main``
+(``bench.py:308-468``): ``Plan(dp=2, pp=2, mp=2, schedule="1f1b")``
+as 8 ranks (``distributed.spawn``; on one card over gloo, whose
+point-to-point calls cross through host memory), the 1F1B schedule
+overlapped against lockstep on the same model and batch, 1 + 5 steps
+each.  It reports both step times (host-staged gloo on one card: no
+throughput), the losses, the static schedule's overlap fractions and
+serialized transfers, the measured ones scored from the schedule the
+flight recorder took (with ``--trace-out``: one sidecar a rank there,
+``matches_static``), the modeled collective bytes a step and the
+collective metrics.  The model is ``bench.py``'s tiny float32 one on
+the CPU; on the card the flash kernels need bfloat16 and head dim 64,
+so it is that model at hidden 256 (4 heads of 64), intermediate 512,
+in bfloat16.
+
 It prints one JSON line on every exit path and exits non-zero when the
 run failed.  MFU is ``bench.py``'s formula (6 N tokens + causal
 attention 6 B S^2 hidden L) over the card's dense bf16 peak, looked up
@@ -27,6 +43,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -219,21 +236,182 @@ def measure(device=None, iters=None, warmup=None, fused_blocks=None):
     return result
 
 
+# bench.py:335-352, the multichip preset: dp=2 x pp=2 x mp=2, 1F1B over
+# 4 microbatches of a global batch of 8 x 32
+MULTICHIP_PLAN = dict(dp=2, pp=2, mp=2)
+MULTICHIP_MICRO, MULTICHIP_SHAPE, MULTICHIP_ITERS = 4, (8, 32), 5
+MULTICHIP_MODEL = dict(vocab_size=256, hidden_size=64,
+                       intermediate_size=128, num_hidden_layers=4,
+                       num_attention_heads=4, num_key_value_heads=4,
+                       max_position_embeddings=64, dtype=torch.float32,
+                       use_remat=False)
+# on the card: the flash kernels take bf16 at head dim 64 or 128
+MULTICHIP_MODEL_CARD = dict(MULTICHIP_MODEL, hidden_size=256,
+                            intermediate_size=512, dtype=torch.bfloat16)
+
+
+def _multichip_rank(device, trace_out):
+    """One rank of ``multichip``: the overlapped 1F1B plan, then the
+    lockstep one, on the same model and batch."""
+    from . import flags
+    from .distributed import collective as C
+    from .distributed.plan import Plan
+    from .profiler import metrics, trace
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    else:
+        torch.set_num_threads(1)      # 8 ranks share the host's cores
+    flags.set_flags({"FLAGS_tpu_metrics": True,
+                     "FLAGS_tpu_trace": trace_out is not None})
+    cfg = llama.LlamaConfig(**(MULTICHIP_MODEL_CARD if dev.type == "cuda"
+                               else MULTICHIP_MODEL))
+    B, S = MULTICHIP_SHAPE
+    batch_host = make_batch(cfg, B, S, "cpu")
+
+    def run(overlap):
+        plan = Plan(schedule="1f1b", n_microbatches=MULTICHIP_MICRO,
+                    overlap=overlap, **MULTICHIP_PLAN)
+        step, init = plan.train_step(
+            cfg, device=dev,
+            optimizer=lambda ts: torch.optim.SGD(ts, lr=1e-3))
+        params, opt = init(0)
+        batch = step.plan_topology.shard_batch(
+            {k: v.to(dev) for k, v in batch_host.items()})
+        _, _, m = step(params, opt, batch)          # the first step
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(MULTICHIP_ITERS):
+            _, _, m = step(params, opt, batch)
+        loss = m["loss"].item()
+        return 1e3 * (time.perf_counter() - t0) / MULTICHIP_ITERS, loss, \
+            sum(t.numel() for t in leaves(params))
+
+    overlap_ms, loss_o, n_local = run(True)
+    events_o = trace.events() if trace_out else []
+    lockstep_ms, loss_l, _ = run(False)
+    events = trace.events() if trace_out else []
+    rank = torch.distributed.get_rank()
+    sidecar = None
+    if trace_out:
+        os.makedirs(trace_out, exist_ok=True)
+        sidecar = trace.write_sidecar(
+            trace.sidecar_path(trace_out, rank),
+            extra={"bench": "multichip", "devices": 8})
+    n_params = sum(t.numel() for t in leaves(llama.init_params(
+        cfg, 0, device="cpu")))
+    # the instrumented collective API once at gradient volume, so the
+    # metrics carry a measured entry of that size
+    C.all_reduce(torch.zeros(n_params // 64, device=dev))
+    coll = {k: v for k, v in metrics.snapshot().items()
+            if k.startswith("collective_")}
+    return dict(rank=rank, overlap_ms=overlap_ms, lockstep_ms=lockstep_ms,
+                loss=loss_o, loss_lockstep=loss_l, n_params=n_params,
+                itemsize=torch.finfo(cfg.dtype).bits // 8,
+                events_overlap=events_o,
+                events_lockstep=events[len(events_o):],
+                sidecar=sidecar, collective_metrics=coll,
+                device=(torch.cuda.get_device_name(dev)
+                        if dev.type == "cuda" else "cpu"))
+
+
+def multichip(device=None, trace_out=None, timeout=600.0):
+    """The ``--multichip`` result dict (see the module docstring)."""
+    from .distributed import overlap as ov
+    from .distributed.launch import spawn
+    from .profiler import trace
+    dev = resolve_device(device)
+    dp, pp = MULTICHIP_PLAN["dp"], MULTICHIP_PLAN["pp"]
+    n_micro = MULTICHIP_MICRO
+    B, S = MULTICHIP_SHAPE
+    ranks = spawn(_multichip_rank, 8, (dev.type, trace_out),
+                  device=dev.type, backend="gloo", timeout=timeout)
+    r0 = ranks[0]
+    ev_o = ov.schedule_events(pp, n_micro, overlap=True)
+    ev_l = ov.schedule_events(pp, n_micro, overlap=False)
+    st_o, st_l = ov.transfer_stats(ev_o), ov.transfer_stats(ev_l)
+    cfg = MULTICHIP_MODEL_CARD if dev.type == "cuda" else MULTICHIP_MODEL
+    edge_bytes = (B // dp // n_micro) * S * cfg["hidden_size"] \
+        * r0["itemsize"]
+    result = {
+        "metric": "llama_train_multichip_step",
+        "value": round(r0["overlap_ms"], 2),
+        "unit": "ms_per_step",
+        "vs_baseline": round(r0["lockstep_ms"] / r0["overlap_ms"], 3),
+        "detail": {
+            "plan": dict(MULTICHIP_PLAN, schedule="1f1b",
+                         n_microbatches=n_micro, overlap=True),
+            "devices": 8, "device": r0["device"],
+            "gpu": gpu_line() if dev.type == "cuda" else None,
+            "transport": "gloo" + (" (point-to-point through host "
+                                   "memory)" if dev.type == "cuda" else ""),
+            "batch": B, "seq": S,
+            "step_ms_overlap": round(r0["overlap_ms"], 2),
+            "step_ms_lockstep": round(r0["lockstep_ms"], 2),
+            "loss": round(r0["loss"], 6),
+            "loss_lockstep": round(r0["loss_lockstep"], 6),
+            "overlap": {
+                "overlap_fraction": round(ov.overlap_fraction(ev_o), 3),
+                "overlap_fraction_lockstep":
+                    round(ov.overlap_fraction(ev_l), 3),
+                "serialized_transfers": st_o["serialized_transfers"],
+                "serialized_transfers_lockstep":
+                    st_l["serialized_transfers"],
+                "total_transfers": st_o["total_transfers"],
+            },
+            "collective_bytes_modeled": {
+                "pipeline_p2p_per_step": 2 * n_micro * (pp - 1) * edge_bytes,
+                "grad_allreduce_per_step": r0["n_params"] * r0["itemsize"],
+            },
+            "collective_metrics": r0["collective_metrics"],
+        },
+    }
+    if trace_out:
+        meas_o = trace.pipeline_schedule_events(r0["events_overlap"])
+        meas_l = trace.pipeline_schedule_events(r0["events_lockstep"])
+        result["detail"]["overlap"]["measured"] = {
+            "overlap_fraction": round(
+                ov.measured_overlap(meas_o)["overlap_fraction"], 3),
+            "overlap_fraction_lockstep": round(
+                ov.measured_overlap(meas_l)["overlap_fraction"], 3),
+            "matches_static": meas_o == ev_o and meas_l == ev_l,
+        }
+        result["detail"]["trace_sidecar"] = r0["sidecar"]
+    if st_o["serialized_transfers"] >= st_l["serialized_transfers"]:
+        raise AssertionError("overlap schedule must serialize strictly "
+                             "fewer transfers")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs "
                          "bench.py's CPU smoke shape)")
+    ap.add_argument("--multichip", action="store_true",
+                    help="dp=2 x pp=2 x mp=2 1F1B, overlapped against "
+                         "lockstep, as 8 ranks over gloo")
+    ap.add_argument("--trace-out", default=None, metavar="DIR",
+                    help="with --multichip: the flight recorder on, one "
+                         "sidecar a rank in DIR")
     args = ap.parse_args(argv)
+    metric = ("llama_train_multichip_step" if args.multichip
+              else "llama_train_mfu_1card")
     try:
-        result = measure(args.device)
-        ok = all(math.isfinite(x) for x in (result["loss_step0"],
-                                             result["loss_last"]))
+        if args.multichip:
+            result = multichip(args.device, args.trace_out)
+            ok = all(math.isfinite(result["detail"][k])
+                     for k in ("loss", "loss_lockstep"))
+        else:
+            result = measure(args.device)
+            ok = all(math.isfinite(x) for x in (result["loss_step0"],
+                                                 result["loss_last"]))
         if not ok:
             result["error"] = "non-finite loss"
     except BaseException as exc:  # noqa: BLE001 - the line must print
-        result = {"metric": "llama_train_mfu_1card", "value": None,
-                  "unit": "percent_mfu",
+        result = {"metric": metric, "value": None,
+                  "unit": ("ms_per_step" if args.multichip
+                           else "percent_mfu"),
                   "error": f"{type(exc).__name__}: {exc}"[-2000:]}
         ok = False
         if not isinstance(exc, Exception):

@@ -9,6 +9,16 @@ None for the whole world.  Over a group of one rank every operation is
 the identity and moves nothing, so a world of one process runs the same
 code with no process group.
 
+``ppermute`` is the reference's ``lax.ppermute`` over one axis: every
+rank sends to the rank ``shift`` places on and receives from the rank
+``shift`` places back, with every send and receive posted before any is
+waited on (a ring of blocking sends could deadlock).  A pipeline names,
+per call, whether this rank sends and whether it receives (a stage with
+no work on a tick moves nothing); both ends of an edge derive that from
+the same schedule.  ``ppermute_grad`` is its autograd form: the
+backward applies the reverse shift to the gradient, the reference's
+transpose of ``ppermute``.
+
 Every call over more than one rank records the reference's metrics at
 the same point (``collective_calls_total``, ``collective_bytes_total``
 of the input bytes and the ``collective_latency_seconds`` histogram of
@@ -19,7 +29,7 @@ host wall time, each by ``op``) when ``FLAGS_tpu_metrics`` is on, and a
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -28,7 +38,8 @@ from ..profiler import metrics as _metrics
 from ..profiler import trace as _trace
 
 __all__ = ["ReduceOp", "all_reduce", "all_gather", "reduce_scatter",
-           "broadcast", "all_to_all", "barrier", "resolve_group"]
+           "broadcast", "all_to_all", "ppermute", "ppermute_grad",
+           "barrier", "resolve_group", "group_rank"]
 
 
 class ReduceOp:
@@ -71,14 +82,23 @@ def resolve_group(group) -> Optional[dist.ProcessGroup]:
     return group if dist.get_world_size(group) > 1 else None
 
 
+def group_rank(group) -> Tuple[int, int]:
+    """(size, this rank's index) of ``group``; (1, 0) for one rank."""
+    pg = resolve_group(group)
+    if pg is None:
+        return 1, 0
+    return dist.get_world_size(pg), dist.get_rank(pg)
+
+
 class _Recorded:
     """Metrics and the trace span of one collective call."""
 
     __slots__ = ("op", "nbytes", "t0", "span")
 
-    def __init__(self, op: str, tensor: torch.Tensor):
+    def __init__(self, op: str, tensor: torch.Tensor, nbytes=None):
         self.op = op
-        self.nbytes = tensor.numel() * tensor.element_size()
+        self.nbytes = (tensor.numel() * tensor.element_size()
+                       if nbytes is None else nbytes)
         self.t0 = time.perf_counter() if _metrics.enabled() else None
         self.span = _trace.span(f"collective/{op}", op=op)
 
@@ -192,6 +212,118 @@ def all_to_all(tensor: torch.Tensor, group=None) -> torch.Tensor:
     with _Recorded("alltoall", tensor):
         dist.all_to_all_single(out, x, group=pg)
     return out
+
+
+class _P2P:
+    """The posted sends and receives of one ``ppermute``: ``wait()``
+    returns what arrived (None when this rank receives nothing)."""
+
+    def __init__(self, works, out, staged, keep=None):
+        self.works, self.out, self.staged = works, out, staged
+        self.keep = keep        # a staged send's host buffer, until sent
+
+    def wait(self) -> Optional[torch.Tensor]:
+        for w in self.works:
+            w.wait()
+        self.works = self.keep = []
+        if self.staged is not None:
+            self.out.copy_(self.staged)
+            self.staged = None
+        return self.out
+
+
+def ppermute(tensor: torch.Tensor, group, shift: int = 1, *,
+             send: bool = True, recv: bool = True, async_op: bool = False):
+    """Send ``tensor`` to the group rank ``shift`` places on and receive
+    a tensor of its shape and type from the rank ``shift`` places back
+    (the reference's ``lax.ppermute`` with the pairs ``(i, i + shift)``).
+    ``send``/``recv`` False: this rank sends or receives nothing on this
+    call (``tensor`` is then only the template of what arrives); the
+    peers must agree.  Returns what arrived (None when ``recv`` is
+    False), or with ``async_op`` a handle whose ``wait()`` returns it.
+    Over one rank it is the identity; a call that neither sends nor
+    receives moves and records nothing.  Sends and receives of a negative
+    shift travel under their own tag, so the two directions of a pair
+    never match each other's messages."""
+    pg = resolve_group(group)
+    if pg is None or not (send or recv):
+        out = tensor if (pg is None and send and recv) else None
+        return _P2P([], out, None) if async_op else out
+    n, i = dist.get_world_size(pg), dist.get_rank(pg)
+    dst = dist.get_global_rank(pg, (i + shift) % n)
+    src = dist.get_global_rank(pg, (i - shift) % n)
+    tag = 0 if shift >= 0 else 1
+    out = torch.empty_like(tensor, memory_format=torch.contiguous_format) \
+        if recv else None
+    works = []
+    staged = x = None
+    stage = tensor.is_cuda and dist.get_backend(pg) in _HOST_P2P
+    with _Recorded("ppermute", tensor,
+                   tensor.numel() * tensor.element_size() if send else 0):
+        if recv:
+            staged = _host(out) if stage else None
+            works.append(dist.irecv(out if staged is None else staged,
+                                    src=src, group=pg, tag=tag))
+        if send:
+            x = tensor.contiguous()
+            if stage:
+                x = _host(x, copy=True)
+            works.append(dist.isend(x, dst=dst, group=pg, tag=tag))
+    handle = _P2P(works, out, staged, [x])
+    return handle if async_op else handle.wait()
+
+
+# backends whose point-to-point calls read a CUDA tensor's pointer as
+# host memory (gloo: "writev ... Bad address" on the H100 machine's
+# torch 2.11.0+cu128), so a device tensor crosses through a pinned host
+# copy; their collectives take CUDA tensors
+_HOST_P2P = ("gloo",)
+
+
+def _host(t: torch.Tensor, copy: bool = False) -> torch.Tensor:
+    """A pinned host buffer of ``t``'s shape (and bytes, with ``copy``)."""
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    if copy:
+        h.copy_(t)
+    return h
+
+
+class _PPermuteGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, anchor, group, shift, send, recv):
+        ctx.args = (group, shift, send, recv)
+        ctx.meta = (x.shape, x.dtype, x.device)
+        out = ppermute(x, group, shift, send=send, recv=recv)
+        if out is None:
+            # nothing arrives: an empty tensor the caller ties into its
+            # loss, so that the backward still receives the gradient
+            return x.new_empty((0,))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        group, shift, send, recv = ctx.args
+        shape, dtype, device = ctx.meta
+        # the reverse shift: the gradient of what arrived goes back to its
+        # sender, the gradient of what was sent comes back from its peer
+        tmpl = g.contiguous() if recv else torch.empty(
+            shape, dtype=dtype, device=device)
+        gx = ppermute(tmpl, group, -shift, send=recv, recv=send)
+        return gx, None, None, None, None, None
+
+
+def ppermute_grad(x: torch.Tensor, group, shift: int = 1, *,
+                  send: bool = True, recv: bool = True,
+                  anchor: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``ppermute`` as an autograd function: the backward sends the
+    gradient of what arrived back to its sender and receives the
+    gradient of ``x`` from the rank it went to.  With ``recv`` False it
+    returns an empty tensor; the caller ties it into its loss so the
+    backward runs.  ``anchor``, a tensor that requires grad, puts a call
+    that only receives (``x`` then a template) into the graph."""
+    if anchor is None:
+        anchor = x.new_empty((0,))
+    return _PPermuteGrad.apply(x, anchor, group, shift, send, recv)
 
 
 def barrier(group=None) -> None:

@@ -11,8 +11,10 @@ process group of its own.  An axis slice of one rank is ``ONE_RANK``,
 over which the collectives of ``collective.py`` are the identity, so a
 world of one process needs no process group at all.
 
-Pipeline (``pp``) and context (``sp``) parallelism are not ported yet
-and raise (ROADMAP A2).
+Under context parallelism (``sp`` > 1) the ranks of one ``sp`` slice
+hold the same rows of the batch and each its block of the sequence
+(``sequence_block``); under pipeline parallelism (``pp`` > 1) the ranks
+of one ``pp`` slice hold the same rows and each its block of the layers.
 """
 from __future__ import annotations
 
@@ -24,11 +26,12 @@ import torch.distributed as dist
 __all__ = ["HybridTopology", "init_mesh", "get_topology", "set_topology",
            "ONE_RANK"]
 
-# what the unported axes raise with: the ROADMAP A2 items still left
-PIPELINE_TODO = ("pipeline parallelism is not ported yet (ROADMAP A2, item "
-                 "1: the pipeline, pipeline.py 1F1B and interleaved)")
-RING_TODO = ("context parallelism is not ported yet (ROADMAP A2, item 2: "
-             "ring attention, sequence_parallel.py)")
+# the axis sets a step reduces over (one group each where every axis of
+# the set has more than one rank): the single axes, the batch axes, and
+# the batch axes with sp (context-parallel ranks hold partial gradients)
+_GROUP_AXES = (("dp",), ("pp",), ("sharding",), ("sp",), ("mp",),
+               ("dp", "sharding"), ("dp", "sp"), ("sharding", "sp"),
+               ("dp", "sharding", "sp"))
 
 _GLOBAL_TOPO: list = [None]
 
@@ -65,10 +68,6 @@ class HybridTopology:
     AXES = ("dp", "pp", "sharding", "sp", "mp")
 
     def __init__(self, dp=1, pp=1, sharding=1, mp=1, sp=1):
-        if pp > 1:
-            raise NotImplementedError(f"pp={pp}: {PIPELINE_TODO}")
-        if sp > 1:
-            raise NotImplementedError(f"sp={sp}: {RING_TODO}")
         rank, world = _world()
         want = dp * pp * sharding * sp * mp
         if want == 1:
@@ -90,7 +89,7 @@ class HybridTopology:
         # every group, in the same order (new_group is collective over
         # the whole world)
         self._groups: Dict[Tuple[str, ...], dist.ProcessGroup] = {}
-        for axes in (("dp",), ("sharding",), ("mp",), ("dp", "sharding")):
+        for axes in _GROUP_AXES:
             if all(self.dims[a] > 1 for a in axes):
                 self._groups[axes] = self._new_group(axes)
 
@@ -139,8 +138,16 @@ class HybridTopology:
         return self.dims["dp"]
 
     @property
+    def pp_degree(self):
+        return self.dims["pp"]
+
+    @property
     def sharding_degree(self):
         return self.dims["sharding"]
+
+    @property
+    def sp_degree(self):
+        return self.dims["sp"]
 
     @property
     def mp_degree(self):
@@ -167,6 +174,19 @@ class HybridTopology:
                                  f"over {n} batch ranks")
             out[k] = v[i * rows // n:(i + 1) * rows // n]
         return out
+
+    def sequence_block(self, seq_len: int) -> range:
+        """This rank's block of a sequence of ``seq_len`` positions under
+        context parallelism (the reference's ``P(None, "sp")`` placement
+        of the sequence dim): equal contiguous blocks in the order of
+        the ``sp`` index.  The range is both the slice of the sequence
+        dim and the block's absolute positions (its rope rows)."""
+        n, i = self.dims["sp"], self.coords["sp"]
+        if seq_len % n:
+            raise ValueError(f"sequence {seq_len} does not split over "
+                             f"sp={n}")
+        b = seq_len // n
+        return range(i * b, (i + 1) * b)
 
     def __repr__(self):
         dims = ", ".join(f"{a}={d}" for a, d in self.dims.items())

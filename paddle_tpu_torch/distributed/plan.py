@@ -49,8 +49,11 @@ def _scale_key(job_id: str) -> str:
 def _wrap_step_tracing(plan: "Plan", step_fn: Callable) -> Callable:
     """Per-rank train-step spans for the flight recorder: each call
     emits a shared-name barrier event (what ``trace.merge_ranks`` aligns
-    rank clocks on) and runs in a ``train/step`` span.  Tracing off:
-    one dict lookup a step."""
+    rank clocks on) and runs in a ``train/step`` span; the first traced
+    step of a pipelined plan also records the 1F1B schedule
+    (``trace.record_pipeline_schedule``), from which
+    ``tools/trace_report.py`` scores the measured overlap with the
+    simulator's own events.  Tracing off: one dict lookup a step."""
     counter = {"n": 0}
 
     def traced(params, opt_state, batch):
@@ -58,12 +61,17 @@ def _wrap_step_tracing(plan: "Plan", step_fn: Callable) -> Callable:
             return step_fn(params, opt_state, batch)
         n = counter["n"]
         counter["n"] += 1
+        if n == 0 and plan.pp > 1 and plan.schedule != "none":
+            _trace.record_pipeline_schedule(
+                plan.pp, plan.n_microbatches or plan.pp,
+                overlap=plan.overlap, step=n)
         _trace.barrier(f"train/step{n}")
         with _trace.span("train/step", step=n, dp=plan.dp, pp=plan.pp,
                          schedule=plan.schedule, overlap=plan.overlap):
             return step_fn(params, opt_state, batch)
 
-    for attr in ("topology", "overlap", "plan", "plan_topology"):
+    for attr in ("topology", "overlap", "schedule", "n_microbatches",
+                 "virtual_pp", "plan", "plan_topology"):
         if hasattr(step_fn, attr):
             setattr(traced, attr, getattr(step_fn, attr))
     return traced
@@ -137,9 +145,10 @@ class Plan:
     def train_step(self, cfg, *, optimizer=None, zero=True,
                    verify: Optional[bool] = None, device=None):
         """``(step_fn, init_fn)`` for this plan: ``models.llama
-        .build_train_step`` on the plan's topology with its overlap
-        flag, on ``device`` (the card unless the caller names another).
-        ``verify=True`` raises (ROADMAP A5)."""
+        .build_train_step`` on the plan's topology with its schedule,
+        microbatch count and overlap flag, on ``device`` (the card
+        unless the caller names another).  ``verify=True`` raises
+        (ROADMAP A5)."""
         if verify:
             raise NotImplementedError(f"Plan.train_step(verify=True): "
                                       f"{_NO_SPMD}")
@@ -147,7 +156,9 @@ class Plan:
         topo = self.topology()
         use_pp = self.pp > 1 and self.schedule != "none"
         step_fn, init_fn = build_train_step(
-            cfg, topo, optimizer=optimizer, use_pp=use_pp or None,
+            cfg, topo, optimizer=optimizer, use_pp=use_pp,
+            n_microbatches=self.n_microbatches or (self.pp if use_pp
+                                                   else None),
             zero=zero, schedule=self.schedule if use_pp else "gpipe",
             overlap=self.overlap, device=device)
         step_fn.plan = self
@@ -241,7 +252,8 @@ class Plan:
             params, opt_state = init_fn(seed)
         else:
             params, opt_state = init_fn(params=shard_params(
-                cfg, params, topo, device=device))
+                cfg, params, topo, device=device,
+                virtual_pp=step_fn.virtual_pp))
 
         def _poll_scale():
             if scale_store is None:

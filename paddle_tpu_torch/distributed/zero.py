@@ -50,9 +50,11 @@ class ZeroOptimizer:
     """The optimizer state of one rank (``build_train_step``'s
     ``opt_state``).
 
-    ``params``: this rank's parameters by path (its ``mp`` shards, in
-    the order the optimizer takes them); ``specs``: each path's
-    placement."""
+    ``params``: this rank's parameters by path (its ``mp`` and ``pp``
+    shards, in the order the optimizer takes them); ``specs``: each
+    path's placement.  Under context parallelism (sp > 1) each rank's
+    gradients are partial sums over ``sp`` too, and are summed over it
+    with the batch axes."""
 
     def __init__(self, params: Dict[str, torch.Tensor],
                  specs: Dict[str, Tuple], topo,
@@ -62,10 +64,13 @@ class ZeroOptimizer:
         n = topo.axis_size(self.axis) if zero else 1
         k = topo.axis_index(self.axis)
         self.group = topo.group(self.axis)
-        self.batch_group = topo.group(topo.batch_axes)
-        # the batch axes besides the zero axis (dp, when it is sharding)
+        batch = topo.batch_axes
+        batch = (batch,) if isinstance(batch, str) else tuple(batch)
+        self.batch_group = topo.group(batch + ("sp",))
+        # the batch axes besides the zero axis (dp, when it is sharding),
+        # and sp
         self.rest_group = topo.group(tuple(
-            a for a in ("dp", "sharding") if a != self.axis))
+            a for a in ("dp", "sharding") if a != self.axis) + ("sp",))
         self.leaves = []   # (path, param, shard dim or None, state tensor)
         for path, p in params.items():
             spec = specs[path]
@@ -81,9 +86,9 @@ class ZeroOptimizer:
         self.opt = make_optimizer([t for *_, t in self.leaves])
 
     def step(self, reduced: bool = False) -> None:
-        """Reduce the gradients over the batch axes (unless ``reduced``:
-        they already hold the sum), step, put the parameters back
-        together, and drop the gradients."""
+        """Reduce the gradients over the batch axes and sp (unless
+        ``reduced``: they already hold the sum), step, put the parameters
+        back together, and drop the gradients."""
         for _, p, d, t in self.leaves:
             if d is None:
                 if not reduced:

@@ -20,10 +20,14 @@ int8 weight is a ``{"q": int8 [L, K, N], "scale": f32 [L, 1, N]}`` leaf
 - Under a topology with ``mp`` > 1 the same forward runs tensor
   parallel over the rank's ``mp`` shards (``shard_params``), with
   sequence-parallel activations under ``sp_axis="mp"``
-  (``distributed.tensor_parallel``); ``build_train_step`` is the
-  reference's hybrid dp x sharding x mp train step with ZeRO-1 and the
-  overlapped data-parallel gradient reduction.  MoE, pipeline and
-  context parallelism raise (ROADMAP A2).
+  (``distributed.tensor_parallel``).  Under ``sp`` > 1 it runs context
+  parallel: this rank's block of the sequence, attention by ring
+  attention over the ``sp`` ranks (``distributed.sequence_parallel``).
+  ``build_train_step`` is the reference's hybrid train step: dp x
+  sharding x sp x mp with ZeRO-1 and the overlapped data-parallel
+  gradient reduction, or the pipeline over ``pp``
+  (``distributed.pipeline``: GPipe, with context parallelism inside it,
+  1F1B lockstep or overlapped, interleaved).  MoE raises (ROADMAP A2).
 """
 from __future__ import annotations
 
@@ -40,6 +44,8 @@ from . import convert
 from ..distributed import collective as dcoll
 from ..distributed import mesh as dmesh
 from ..distributed import overlap as doverlap
+from ..distributed import pipeline as dpipe
+from ..distributed import sequence_parallel as dseq
 from ..distributed import tensor_parallel as tpar
 from ..distributed.zero import ZeroOptimizer
 from ..ops import fused_blocks as fb
@@ -52,11 +58,9 @@ __all__ = ["LlamaConfig", "PRESETS", "preset", "init_params",
            "run_layer_stack", "forward_pure", "loss_fn", "param_specs",
            "shard_params", "gather_params", "adamw", "build_train_step"]
 
-# what each unported branch raises with: the ROADMAP A2 item still left
+# what the unported branch raises with: the ROADMAP A2 item still left
 _MOE = ("MoE layers are not ported yet (ROADMAP A2, item 3: MoE, "
         "_moe_mlp with experts over dp and its aux loss)")
-_PIPELINE = dmesh.PIPELINE_TODO
-_RING = dmesh.RING_TODO
 
 
 @dataclasses.dataclass
@@ -451,19 +455,25 @@ def _apply_rope(x, sin, cos):
             + rot * sin[None, :, None, :].to(x.dtype))
 
 
-def _attention(cfg: LlamaConfig, lp, x, sin, cos, mp: int = 1):
-    """Self-attention of one layer (the reference's non-context-parallel
-    branch): qkv projections, rope, GQA kv-head repeat (``jnp.repeat``
-    = ``repeat_interleave``), causal flash attention, output
-    projection.  With ``mp`` > 1 the weights are this rank's blocks
-    (its H/mp heads and KV/mp kv heads) and the result is its partial
-    sum of the output projection."""
+def _attention(cfg: LlamaConfig, lp, x, sin, cos, mp: int = 1, cp=None):
+    """Self-attention of one layer: qkv projections, rope, GQA kv-head
+    repeat (``jnp.repeat`` = ``repeat_interleave``), causal flash
+    attention, output projection.  With ``mp`` > 1 the weights are this
+    rank's blocks (its H/mp heads and KV/mp kv heads) and the result is
+    its partial sum of the output projection.  Under context
+    parallelism (``cp``, the ``sp`` group) ``x`` is this rank's block of
+    the sequence and attention is ring attention over the group, which
+    expands the kv heads at use (the reference's context-parallel
+    branch, llama.py:239-251)."""
     B, S, _ = x.shape
     nh, nkv, d = (cfg.num_attention_heads // mp,
                   cfg.num_key_value_heads // mp, cfg.head_dim)
     q = _apply_rope(_qmm(x, lp["wq"]).reshape(B, S, nh, d), sin, cos)
     k = _apply_rope(_qmm(x, lp["wk"]).reshape(B, S, nkv, d), sin, cos)
     v = _qmm(x, lp["wv"]).reshape(B, S, nkv, d)
+    if cp is not None:
+        out = dseq.ring_attention(q, k, v, cp)
+        return _qmm(out.reshape(B, S, nh * d), lp["wo"])
     if nkv != nh:
         rep = nh // nkv
         k = k.repeat_interleave(rep, dim=2)
@@ -472,13 +482,15 @@ def _attention(cfg: LlamaConfig, lp, x, sin, cos, mp: int = 1):
     return _qmm(out.reshape(B, S, nh * d), lp["wo"])
 
 
-def _fused_block_modes(cfg: LlamaConfig, x, tp=None):
+def _fused_block_modes(cfg: LlamaConfig, x, tp=None, cp=None):
     """(use_fused_attention, use_fused_mlp) for the activation ``x``
     (reference llama.py:405-430).  ``fused_blocks`` None means "auto",
     the reference flag's default: "auto" engages on CUDA tensors only,
     "on" on any device, "off" never.  The fused attention block also
-    needs as many kv heads as heads and a head dim the flash kernels
-    take; the fused MLP needs no MoE; both need the kernels' shapes
+    needs as many kv heads as heads, a head dim the flash kernels take
+    and no context parallelism (``cp``: attention is the ring); the
+    fused MLP needs no MoE and runs on the rank's rows of the sequence
+    under ``cp``; both need the kernels' shapes
     (``fused_blocks.fused_*_ok``) and a whole layer: under tensor
     parallelism (``tp``) each rank holds a block of the products and the
     kernels' residual add would run on every rank, so the layer takes
@@ -488,26 +500,29 @@ def _fused_block_modes(cfg: LlamaConfig, x, tp=None):
             or (mode == "auto" and x.device.type != "cuda")):
         return False, False
     H = cfg.hidden_size
-    attn_ok = (cfg.num_key_value_heads == cfg.num_attention_heads
+    attn_ok = (cp is None
+               and cfg.num_key_value_heads == cfg.num_attention_heads
                and fb.fused_attention_ok(H, cfg.head_dim))
     mlp_ok = (cfg.moe_num_experts == 0
               and fb.fused_mlp_ok(H, cfg.intermediate_size))
     return attn_ok, mlp_ok
 
 
-def decoder_layer(cfg: LlamaConfig, lp, x, sin, cos, tp=None):
+def decoder_layer(cfg: LlamaConfig, lp, x, sin, cos, tp=None, cp=None):
     """One decoder block on a per-layer param slice (no leading L axis):
     the fused blocks where ``_fused_block_modes`` engages them, else the
     unfused dense composition (reference llama.py:433-465).  Under
     tensor parallelism (``tp``, a ``tensor_parallel.TensorParallel``)
     the slice holds this rank's blocks, the norms and residuals run on
     the rows ``x`` holds (S/mp of them under sequence parallelism), and
-    each block's products sit between ``enter`` and ``leave``.  It
+    each block's products sit between ``enter`` and ``leave``.  Under
+    context parallelism (``cp``, the ``sp`` group) ``x`` is this rank's
+    block of the sequence and ``sin``/``cos`` its positions' rows.  It
     returns the hidden state alone; the reference's MoE aux loss comes
     with MoE (ROADMAP A2)."""
     if cfg.moe_num_experts > 0:
         raise NotImplementedError(_MOE)
-    fused_attn, fused_mlp = _fused_block_modes(cfg, x, tp)
+    fused_attn, fused_mlp = _fused_block_modes(cfg, x, tp, cp)
     if isinstance(lp.get("wq"), dict) or isinstance(lp.get("w_gate"), dict):
         # int8 quantize_params leaves: the fused kernels take dense
         # weights, so quantized layers take the unfused composition
@@ -528,7 +543,7 @@ def decoder_layer(cfg: LlamaConfig, lp, x, sin, cos, tp=None):
                                      head_dim=cfg.head_dim, eps=eps)
     else:
         h = x + out(_attention(cfg, lp, into(_rms_norm(x, lp["ln1"], eps)),
-                               sin, cos, mp))
+                               sin, cos, mp, cp))
     if fused_mlp:
         return fb.fused_mlp_block(h, lp["ln2"], lp["w_gate"], lp["w_up"],
                                   lp["w_down"], eps=eps)
@@ -545,7 +560,7 @@ def _dots_context():
 
 
 def run_layer_stack(cfg: LlamaConfig, stacked, x, sin, cos, tp=None,
-                    grad_sync=None):
+                    grad_sync=None, cp=None):
     """The layers in a Python loop (the reference's ``lax.scan``); returns
     the hidden state.
 
@@ -573,7 +588,10 @@ def run_layer_stack(cfg: LlamaConfig, stacked, x, sin, cos, tp=None,
     ``grad_sync`` (a ``distributed.overlap.Reducer``): each layer's
     slices go through ``reduce_in_backward``, and every ``unbind``'s
     backward first waits for the reductions started so far (the
-    reference's ``grad_sync_axis``)."""
+    reference's ``grad_sync_axis``).  ``cp``: context parallelism (see
+    ``decoder_layer``); the recompute runs the ring's shifts again, the
+    same on every rank of the ring.  A pipeline stage or virtual chunk
+    runs its contiguous block of layers through it unchanged."""
     names = list(stacked)
     L = stacked[names[0]].shape[0]
     parts = {n: stacked[n].unbind(0) for n in names}
@@ -584,7 +602,7 @@ def run_layer_stack(cfg: LlamaConfig, stacked, x, sin, cos, tp=None,
     per_layer = [{n: parts[n][l] for n in names} for l in range(L)]
 
     def layer(lp, h):
-        return decoder_layer(cfg, lp, h, sin, cos, tp)
+        return decoder_layer(cfg, lp, h, sin, cos, tp, cp)
 
     for l in range(L):
         lp = per_layer[l]
@@ -614,8 +632,10 @@ def _tensor_parallel(topo, sp_axis):
     """The tensor-parallel context of a forward: None unless the topology
     (``topo``, else the one ``init_mesh`` built) has mp > 1."""
     if sp_axis not in (None, "mp"):
-        raise NotImplementedError(
-            f"sequence sharding over {sp_axis!r}: {_RING}")
+        raise ValueError(
+            f"sp_axis must be None or 'mp' (sequence-parallel activations "
+            f"over mp), got {sp_axis!r}; context parallelism over 'sp' "
+            f"comes from the topology's sp degree")
     if topo is None:
         topo = dmesh.get_topology(create=False)
     if topo is None or topo.mp_degree == 1:
@@ -624,31 +644,75 @@ def _tensor_parallel(topo, sp_axis):
                                topo.coords["mp"], sp_axis == "mp")
 
 
-def _forward(cfg: LlamaConfig, params, input_ids, tp, grad_sync):
+def _context_parallel(topo):
+    """The ``sp`` group of a topology with sp > 1 (``topo``, else the one
+    ``init_mesh`` built), else None."""
+    if topo is None:
+        topo = dmesh.get_topology(create=False)
+    if topo is None or topo.sp_degree == 1:
+        return None
+    return topo.group("sp")
+
+
+def _embed(cfg: LlamaConfig, params, ids, tp):
+    """The embedding lookup (vocab-parallel under ``tp``)."""
     if isinstance(params["lm_head"], dict):
         raise NotImplementedError("training takes dense weights, not "
                                   "quantize_params leaves")
     embed = params["embed"]
-    ids = input_ids.to(embed.device).long()
-    S = ids.shape[1]
-    sin, cos = _rope_tables(cfg, S, embed.device)
     if tp is None:
-        x = F.embedding(ids, embed)
-    else:
-        _check_tensor_parallel(cfg, tp.size)
-        if embed.shape[0] * tp.size != cfg.vocab_size:
-            raise ValueError(f"embed {tuple(embed.shape)} is not a block "
-                             f"of mp={tp.size} (shard_params)")
-        if tp.sp and S % tp.size:
-            raise ValueError(f"sequence {S} does not split over "
-                             f"mp={tp.size}")
-        x = tpar.embedding(ids, embed, tp)
-    x = run_layer_stack(cfg, params["layers"], x, sin, cos, tp=tp,
-                        grad_sync=grad_sync)
+        return F.embedding(ids, embed)
+    _check_tensor_parallel(cfg, tp.size)
+    if embed.shape[0] * tp.size != cfg.vocab_size:
+        raise ValueError(f"embed {tuple(embed.shape)} is not a block "
+                         f"of mp={tp.size} (shard_params)")
+    if tp.sp and ids.shape[1] % tp.size:
+        raise ValueError(f"sequence {ids.shape[1]} does not split over "
+                         f"mp={tp.size}")
+    return tpar.embedding(ids, embed, tp)
+
+
+def _logits(cfg: LlamaConfig, params, x, tp):
+    """Final norm and ``lm_head``: f32 logits (this rank's vocab block
+    under ``tp``)."""
     x = _rms_norm(x, params["norm_f"], cfg.rms_norm_eps)
     if tp is not None:
         x = tpar.enter(x, tp)
     return _qmm(x, params["lm_head"]).float()
+
+
+def _ce(logits, labels, tp):
+    """Mean next-token cross-entropy over the tokens of ``labels``, in
+    the reference's logsumexp form (vocab-parallel under ``tp``)."""
+    labels = labels.to(logits.device).long()
+    if tp is not None:
+        return tpar.cross_entropy(logits, labels, tp).mean()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, labels[..., None])[..., 0]
+    return (lse - tgt).mean()
+
+
+def _rope_rows(cfg: LlamaConfig, S: int, device, topo, cp):
+    """The rope tables of a sequence of ``S``, cut to this rank's block
+    of positions under context parallelism; with that block (a range)."""
+    sin, cos = _rope_tables(cfg, S, device)
+    if cp is None:
+        return sin, cos, range(S)
+    if topo is None:
+        topo = dmesh.get_topology()
+    blk = topo.sequence_block(S)
+    return sin[blk.start:blk.stop], cos[blk.start:blk.stop], blk
+
+
+def _forward(cfg: LlamaConfig, params, input_ids, tp, grad_sync, cp=None,
+             topo=None):
+    embed = params["embed"]
+    ids = input_ids.to(embed.device).long()
+    sin, cos, blk = _rope_rows(cfg, ids.shape[1], embed.device, topo, cp)
+    x = _embed(cfg, params, ids[:, blk.start:blk.stop], tp)
+    x = run_layer_stack(cfg, params["layers"], x, sin, cos, tp=tp,
+                        grad_sync=grad_sync, cp=cp)
+    return _logits(cfg, params, x, tp)
 
 
 def forward_pure(cfg: LlamaConfig, params, input_ids, sp_axis=None,
@@ -657,17 +721,44 @@ def forward_pure(cfg: LlamaConfig, params, input_ids, sp_axis=None,
     the params are on.
 
     Under a topology with mp > 1 (``topo``, else the one ``init_mesh``
-    built) the params are this rank's shards (``shard_params``), the
-    layers run tensor parallel, and the result is this rank's
-    [B, S, V/mp] block of the logits.  ``sp_axis="mp"`` (what the
-    reference's train step passes) keeps S/mp rows of the activations
-    between the blocks; with mp = 1 it changes nothing, as in the
-    reference on one device.  ``grad_sync``: see ``run_layer_stack``.
-    Context parallelism (``cp_mesh``) raises (ROADMAP A2)."""
+    built; ``cp_mesh``, the reference's argument, names one too) the
+    params are this rank's shards (``shard_params``), the layers run
+    tensor parallel, and the result is this rank's [B, S, V/mp] block
+    of the logits.  ``sp_axis="mp"`` (what the reference's train step
+    passes) keeps S/mp rows of the activations between the blocks; with
+    mp = 1 it changes nothing, as in the reference on one device.  With
+    sp > 1 the forward is context parallel (the reference's
+    ``cp_mesh``): ``input_ids`` are the whole sequence on every rank of
+    an ``sp`` slice, each rank runs its block of it
+    (``HybridTopology.sequence_block``) with ring attention, and the
+    result is that block's logits [B, S/sp, V(/mp)]; ``sp_axis`` is
+    ignored there, as in the reference.  ``grad_sync``: see
+    ``run_layer_stack``."""
     if cp_mesh is not None:
-        raise NotImplementedError(_RING)
-    return _forward(cfg, params, input_ids, _tensor_parallel(topo, sp_axis),
-                    grad_sync)
+        topo = cp_mesh
+    cp = _context_parallel(topo)
+    tp = _tensor_parallel(topo, None if cp is not None else sp_axis)
+    return _forward(cfg, params, input_ids, tp, grad_sync, cp, topo)
+
+
+class _SeqMean(torch.autograd.Function):
+    """The mean of a scalar over the ``sp`` ranks; each rank's gradient
+    of the (replicated) mean is 1/n of the upstream one."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        n, _ = dcoll.group_rank(group)
+        ctx.n = n
+        return dcoll.all_reduce(x.clone(), op="avg", group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def seq_mean(x, cp):
+    """``x`` averaged over the context-parallel ranks (identity without)."""
+    return x if cp is None else _SeqMean.apply(x, cp)
 
 
 def loss_fn(cfg: LlamaConfig, params, batch, sp_axis=None, cp_mesh=None,
@@ -676,18 +767,22 @@ def loss_fn(cfg: LlamaConfig, params, batch, sp_axis=None, cp_mesh=None,
     in the reference's logsumexp form: (total, ce).  With no MoE aux
     loss ported, total is ce.  Under tensor parallelism the
     cross-entropy is vocab-parallel (``tensor_parallel.cross_entropy``):
-    no rank builds the full logits."""
+    no rank builds the full logits.  Under context parallelism (sp > 1;
+    see ``forward_pure``) each rank's mean over its block is averaged
+    over the ``sp`` ranks, so the value is the mean over the whole
+    sequence; each rank's gradient is its share, and the sum of the
+    ranks' gradients the gradient of the mean."""
     if cp_mesh is not None:
-        raise NotImplementedError(_RING)
-    tp = _tensor_parallel(topo, sp_axis)
-    logits = _forward(cfg, params, batch["input_ids"], tp, grad_sync)
-    labels = batch["labels"].to(logits.device).long()
-    if tp is not None:
-        ce = tpar.cross_entropy(logits, labels, tp).mean()
-        return ce, ce
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, labels[..., None])[..., 0]
-    ce = (lse - tgt).mean()
+        topo = cp_mesh
+    cp = _context_parallel(topo)
+    tp = _tensor_parallel(topo, None if cp is not None else sp_axis)
+    logits = _forward(cfg, params, batch["input_ids"], tp, grad_sync, cp,
+                      topo)
+    labels = batch["labels"]
+    if cp is not None:
+        blk = (topo or dmesh.get_topology()).sequence_block(labels.shape[1])
+        labels = labels[:, blk.start:blk.stop]
+    ce = seq_mean(_ce(logits, labels, tp), cp)
     return ce, ce
 
 
@@ -732,16 +827,31 @@ def _map_specs(fn, tree, specs):
                 else fn(v, specs[k])) for k, v in tree.items()}
 
 
-def shard_params(cfg: LlamaConfig, params, topo=None, *, device=None):
+def _chunk_rows(L: int, pp: int, v: int, chunks):
+    """The layer rows of the given global chunks of an interleaved
+    layout (``pp * v`` chunks of ``L / (pp * v)`` layers), in order."""
+    if L % (pp * v):
+        raise ValueError(f"{L} layers do not split into pp={pp} x "
+                         f"virtual_pp={v} chunks")
+    n = L // (pp * v)
+    return [r for g in chunks for r in range(g * n, (g + 1) * n)]
+
+
+def shard_params(cfg: LlamaConfig, params, topo=None, *, device=None,
+                 virtual_pp=None):
     """This rank's shards of full params (numpy arrays or tensors; the
     topology ``topo``, else ``init_mesh``'s) on ``device`` (the card
     unless the caller names another), by ``param_specs``.  A split leaf
     is a copy of its block, so the full params can be freed; a leaf
     nothing splits is the input itself when that is a tensor already on
-    the device."""
+    the device.  ``virtual_pp`` = v > 1 (the interleaved schedule): pp
+    rank ``d`` holds the layers of global chunks ``d, pp + d, ...,
+    (v - 1) pp + d`` in that order (the reference's reorder of the layer
+    axis, ``pipeline.py:373-385``, done once here)."""
     if topo is None:
         topo = dmesh.get_topology()
     dev = resolve_device(device)
+    v = virtual_pp or 1
 
     def shard(leaf, spec):
         split = False
@@ -754,7 +864,12 @@ def shard_params(cfg: LlamaConfig, params, topo=None, *, device=None):
                                  f"not split over {axis}={n}")
             b = leaf.shape[dim] // n
             k = topo.coords[axis]
-            leaf = leaf[(slice(None),) * dim + (slice(k * b, (k + 1) * b),)]
+            if axis == "pp" and v > 1:
+                leaf = leaf[_chunk_rows(leaf.shape[0], n, v,
+                                        [c * n + k for c in range(v)])]
+            else:
+                leaf = leaf[(slice(None),) * dim
+                            + (slice(k * b, (k + 1) * b),)]
             split = True
         if not torch.is_tensor(leaf):
             return convert._tensor(leaf, dev)
@@ -765,18 +880,28 @@ def shard_params(cfg: LlamaConfig, params, topo=None, *, device=None):
     return _map_specs(shard, params, param_specs(cfg))
 
 
-def gather_params(cfg: LlamaConfig, params, topo=None):
+def gather_params(cfg: LlamaConfig, params, topo=None, *,
+                  virtual_pp=None):
     """Full params as numpy arrays from every rank's shards (collective
-    over mp: every rank calls it).  bf16 leaves come back as float32
-    (numpy has no bfloat16; every bf16 value is a float32 value)."""
+    over mp and pp: every rank calls it), layers in global order (the
+    interleaved layout of ``virtual_pp`` undone).  bf16 leaves come back
+    as float32 (numpy has no bfloat16; every bf16 value is a float32
+    value)."""
     if topo is None:
         topo = dmesh.get_topology()
+    v = virtual_pp or 1
 
     def gather(t, spec):
         t = t.detach()
         for dim, axis in enumerate(spec):
             if axis:
                 t = dcoll.all_gather(t, topo.group(axis), dim=dim)
+                n = topo.dims[axis]
+                if axis == "pp" and v > 1:
+                    # position (d, c) holds global chunk c * pp + d
+                    t = t[_chunk_rows(t.shape[0], n, v,
+                                      [(g % n) * v + g // n
+                                       for g in range(n * v)])]
         t = t.cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
@@ -792,8 +917,9 @@ def adamw(tensors):
 
 
 def build_train_step(cfg: LlamaConfig, topo=None, optimizer=None,
-                     use_pp=None, zero=True, schedule="gpipe",
-                     overlap=False, device=None):
+                     use_pp=None, n_microbatches=None, zero=True,
+                     schedule="gpipe", virtual_pp=None, overlap=False,
+                     device=None):
     """The full training step over the hybrid topology (``topo``, else
     ``init_mesh``'s), on ``device`` (the card unless the caller names
     another; the process group's backend must take its tensors).
@@ -803,52 +929,85 @@ def build_train_step(cfg: LlamaConfig, topo=None, optimizer=None,
       every rank draws the same full params from a generator seeded
       with ``seed`` (``init_params``), keeps its shards and frees the
       rest; or starts from ``params``, this rank's shards
-      (``shard_params``).  ``opt_state`` is a ``ZeroOptimizer``.
+      (``shard_params``, with ``virtual_pp=step_fn.virtual_pp`` under
+      the interleaved schedule).  ``opt_state`` is a ``ZeroOptimizer``.
     - ``step_fn(params, opt_state, batch)`` -> ``(params, opt_state,
       {"loss", "ce"})``: ``batch`` is this rank's rows of the global
-      batch (``topo.shard_batch``); the params and the state are updated
-      in place and returned.  The loss is the mean over every token of
-      the global batch, as the reference's ``jnp.mean``.
+      batch (``topo.shard_batch``: the ``pp`` and ``sp`` ranks of a row
+      set take the same rows); the params and the state are updated in
+      place and returned.  The loss is the mean over every token of the
+      global batch, as the reference's ``jnp.mean``.
 
-    The forward is the reference's ``loss_fn(..., sp_axis="mp")``:
-    tensor parallel with sequence-parallel activations over mp.  Each
-    rank's loss is scaled by 1/(dp x sharding) so that the gradients'
-    sum over the batch axes is the global mean's.  ZeRO-1 over the
-    zero axis (``zero=True``; ``distributed.zero``).  ``overlap=True``
-    on a pure data-parallel topology (dp > 1, mp = sharding = 1, as the
-    reference, llama.py:876-880) reduces each layer's gradients inside
-    the backward (``reduce_in_backward``) and the tail in 4 MiB buckets
-    (``bucketed_psum``); other topologies ignore it.  ``optimizer``: a
-    factory from a list of tensors to a ``torch.optim`` optimizer
-    (default ``adamw``).  Pipeline parallelism raises (ROADMAP A2)."""
+    Without a pipeline the forward is the reference's ``loss_fn(...,
+    sp_axis="mp")``: tensor parallel with sequence-parallel activations
+    over mp; under sp > 1 context parallel (ring attention, no
+    sequence-parallel activations), as the reference's ``cp_mesh``
+    branch.  Each rank's loss is scaled by 1/(dp x sharding) so that the
+    gradients' sum over the batch axes (and sp) is the global mean's.
+    ZeRO-1 over the zero axis (``zero=True``; ``distributed.zero``)
+    inside each pipeline stage.  ``overlap=True`` on a pure
+    data-parallel topology (dp > 1, mp = sharding = sp = 1, no pipeline,
+    as the reference, llama.py:876-880) reduces each layer's gradients
+    inside the backward (``reduce_in_backward``) and the tail in 4 MiB
+    buckets (``bucketed_psum``); with ``schedule="1f1b"`` it runs the
+    overlapped 1F1B schedule; other topologies ignore it.
+
+    ``use_pp`` (default: pp > 1) runs the pipeline over ``pp``
+    (``distributed.pipeline``) with ``n_microbatches`` (default pp)
+    microbatches of this rank's rows: ``schedule`` "gpipe" (context
+    parallelism runs inside it under sp > 1), "1f1b" or "interleaved"
+    (``virtual_pp`` chunks a rank; default 2 where the layers split so,
+    else 1).  The embedding, final norm and head are whole on every
+    stage; their gradients are summed over ``pp``, so their replicas
+    stay the same bits.  ``optimizer``: a factory from a list of
+    tensors to a ``torch.optim`` optimizer (default ``adamw``)."""
     if schedule not in ("gpipe", "1f1b", "interleaved"):
         raise ValueError(
             f"unknown pipeline schedule {schedule!r}; expected 'gpipe', "
             "'1f1b' or 'interleaved'")
-    if use_pp or schedule != "gpipe":
-        raise NotImplementedError(_PIPELINE)
+    if virtual_pp is not None and schedule != "interleaved":
+        raise ValueError(
+            "virtual_pp only applies to schedule='interleaved'")
     if cfg.moe_num_experts > 0:
         raise NotImplementedError(_MOE)
     if topo is None:
         topo = dmesh.get_topology()
     dev = resolve_device(device)
-    mp = topo.mp_degree
+    pp, mp = topo.pp_degree, topo.mp_degree
+    use_pp = (pp > 1) if use_pp is None else bool(use_pp)
+    if pp > 1 and not use_pp:
+        raise ValueError(f"pp={pp} shards the layers over stages: it "
+                         "needs the pipeline (use_pp)")
+    cp = topo.sp_degree > 1
+    if use_pp and cp and schedule != "gpipe":
+        raise ValueError(
+            "context parallelism (sp > 1) composes with pipeline "
+            "parallelism on the GPipe schedule only (ring attention "
+            "inside the pp x sp shard_map); use schedule='gpipe' or "
+            "drop one axis")
     _check_tensor_parallel(cfg, mp)
+    n_micro = n_microbatches or pp
+    v = None
+    if use_pp and schedule == "interleaved":
+        v = virtual_pp or (2 if cfg.num_hidden_layers % (pp * 2) == 0
+                           else 1)
     specs = _paths(param_specs(cfg))
     make_optimizer = optimizer or adamw
     n_batch = topo.axis_size(topo.batch_axes)
-    overlap_dp = (overlap and topo.dp_degree > 1 and mp == 1
-                  and topo.sharding_degree == 1)
+    overlap_dp = (overlap and not use_pp and not cp and topo.dp_degree > 1
+                  and mp == 1 and topo.sharding_degree == 1)
     # leaves every mp rank holds whole: under sequence parallelism each
     # rank's gradient of them comes from its own S/mp rows
+    seq_par = mp > 1 and not use_pp and not cp
     mp_partial = [p for p, s in specs.items() if "mp" not in s] \
-        if mp > 1 else []
+        if seq_par else []
     tail = [k for k in param_specs(cfg) if k != "layers"]
 
     def init_fn(seed: int = 0, *, params=None):
         if params is None:
             full = init_params(cfg, seed, device=dev)
-            params = shard_params(cfg, full, topo, device=dev)
+            params = shard_params(cfg, full, topo, device=dev,
+                                  virtual_pp=v)
             del full
         flat = _paths(params)
         for t in flat.values():
@@ -856,11 +1015,26 @@ def build_train_step(cfg: LlamaConfig, topo=None, optimizer=None,
         return params, ZeroOptimizer(flat, specs, topo, make_optimizer,
                                      zero=zero)
 
-    def step_fn(params, opt_state, batch):
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    def loss_and_grads(params, batch):
+        """(total, ce) with every parameter's gradient (its part) set."""
+        if use_pp and schedule == "1f1b":
+            total, ce, grads = dpipe.pipeline_1f1b_value_and_grad(
+                cfg, topo, n_micro, params, batch, overlap=overlap,
+                scale=1.0 / n_batch)
+            for path, g in _paths(grads).items():
+                _paths(params)[path].grad = g
+            return total, ce
         reducer = doverlap.Reducer(topo.group("dp")) if overlap_dp else None
-        total, ce = loss_fn(cfg, params, batch, sp_axis="mp", topo=topo,
-                            grad_sync=reducer)
+        if use_pp and schedule == "interleaved":
+            total, ce = dpipe.pipeline_interleaved_loss_fn(
+                cfg, topo, n_micro, v, params, batch)
+        elif use_pp:
+            total, ce = dpipe.pipeline_loss_fn(
+                cfg, topo, n_micro, params, batch,
+                cp_axis="sp" if cp else None)
+        else:
+            total, ce = loss_fn(cfg, params, batch, sp_axis="mp",
+                                topo=topo, grad_sync=reducer)
         (total / n_batch if n_batch > 1 else total).backward()
         if reducer is not None:
             reducer.wait_all()
@@ -868,6 +1042,18 @@ def build_train_step(cfg: LlamaConfig, topo=None, optimizer=None,
                 {k: params[k].grad for k in tail}, reducer.group)
             for k, g in reduced.items():
                 params[k].grad = g
+        if use_pp:
+            # the embedding's gradient is stage 0's, the head's the last
+            # stage's: the sum gives every stage both, the same bits
+            for k in tail:
+                if params[k].grad is None:
+                    params[k].grad = torch.zeros_like(params[k])
+                dcoll.all_reduce(params[k].grad, group=topo.group("pp"))
+        return total, ce
+
+    def step_fn(params, opt_state, batch):
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        total, ce = loss_and_grads(params, batch)
         flat = _paths(params)
         for path in mp_partial:
             dcoll.all_reduce(flat[path].grad, group=topo.group("mp"))
@@ -880,4 +1066,7 @@ def build_train_step(cfg: LlamaConfig, topo=None, optimizer=None,
 
     step_fn.topology = topo
     step_fn.overlap = overlap_dp
+    step_fn.schedule = schedule if use_pp else None
+    step_fn.n_microbatches = n_micro if use_pp else None
+    step_fn.virtual_pp = v
     return step_fn, init_fn

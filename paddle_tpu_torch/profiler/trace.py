@@ -24,9 +24,10 @@ aligns ranks on shared :func:`barrier` events into one timeline, and
 :func:`chrome_events` converts any event list into Chrome trace_event
 dicts (Perfetto-loadable).
 
-Not ported yet: the pipeline-schedule helpers
-(``record_pipeline_schedule``, ``pipeline_schedule_events``), which
-come with the pipeline (ROADMAP A2, item 1).
+The pipeline's 1F1B schedule log (:func:`record_pipeline_schedule`,
+read back by :func:`pipeline_schedule_events`) stores each scheduled
+unit verbatim, so ``tools/trace_report.py``'s ``pipeline_overlap``
+scores a port sidecar with the simulator's own rule.
 """
 from __future__ import annotations
 
@@ -45,7 +46,7 @@ __all__ = [
     "TraceRecorder",
     "request_timeline", "TERMINAL_PHASES", "write_sidecar", "read_sidecar",
     "merge_ranks", "merge_sidecars", "chrome_events", "sidecar_path",
-    "SCHEMA",
+    "record_pipeline_schedule", "pipeline_schedule_events", "SCHEMA",
 ]
 
 # Same discipline as profiler.metrics: the disabled path must cost one
@@ -278,6 +279,50 @@ def request_timeline(rid: str,
     src = _RECORDER.events() if evs is None else evs
     return [e for e in src
             if e.get("kind") == "request" and e.get("rid") == rid]
+
+
+# ---------------------------------------------------------------------------
+# pipeline schedule events (measured-overlap source)
+# ---------------------------------------------------------------------------
+
+def record_pipeline_schedule(pp: int, n_micro: int, *, overlap: bool,
+                             step: Optional[int] = None,
+                             recorder: Optional[TraceRecorder] = None
+                             ) -> Optional[int]:
+    """Emit the 1F1B schedule log of one *executed* pipeline step into
+    the trace. The schedule is fully determined by (pp, n_micro,
+    overlap) — the same arithmetic ``pipeline.pipeline_1f1b_value_and_grad``
+    runs its tick loop on — so the host-side log is exact, not sampled. Each schedule event is stored
+    verbatim under the ``ev`` key; ``tools/trace_report.py`` recomputes
+    ``transfer_stats``/``overlap_fraction`` from those dicts with the
+    simulator's own serialization rule. Returns the number of schedule
+    events recorded, or None when tracing is off."""
+    if not _FLAG_DICT.get(_FLAG_NAME, False):
+        return None
+    from ..distributed.overlap import schedule_events
+    evs = schedule_events(int(pp), int(n_micro), overlap=bool(overlap))
+    rec = _RECORDER if recorder is None else recorder
+    rec.event("pipeline/schedule", kind="pipeline_meta", pp=int(pp),
+              n_micro=int(n_micro), overlap=bool(overlap), step=step,
+              n_events=len(evs))
+    for e in evs:
+        rec.event(f"pipeline/{e['kind']}", kind="pipeline", step=step,
+                  ev=dict(e))
+    return len(evs)
+
+
+def pipeline_schedule_events(evs: Optional[Iterable[dict]] = None,
+                             step: Optional[int] = None) -> List[dict]:
+    """Extract the raw schedule-event dicts back out of a trace (the
+    inverse of :func:`record_pipeline_schedule`), sorted with the
+    simulator's key so ordering comparisons are bit-equal."""
+    src = _RECORDER.events() if evs is None else evs
+    out = [dict(e["ev"]) for e in src
+           if e.get("kind") == "pipeline"
+           and (step is None or e.get("step") == step)]
+    out.sort(key=lambda e: (e["tick"], e["stage"] if "stage" in e
+                            else e["src"]))
+    return out
 
 
 # ---------------------------------------------------------------------------

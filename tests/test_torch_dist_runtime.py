@@ -72,10 +72,16 @@ def test_world_of_one_topology_needs_no_process_group():
 
 
 def test_pipeline_and_context_parallel_topologies_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+    """pp and sp are ported: a world of one cannot hold two stages or two
+    sequence blocks, and the pipeline needs a pipelined step."""
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         HybridTopology(pp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         HybridTopology(sp=2)
+    topo = HybridTopology()
+    assert (topo.pp_degree, topo.sp_degree) == (1, 1)
+    assert topo.sequence_block(8) == range(0, 8)
+    assert topo.group("pp") is ONE_RANK and topo.group("sp") is ONE_RANK
 
 
 # ---------------------------------------------------------------------------
@@ -355,8 +361,15 @@ def test_unported_plan_paths_raise():
         Plan().verify_callable(lambda x: x)
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         Plan().train_step(cfg, verify=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        tllama.build_train_step(cfg, schedule="1f1b", device="cpu")
+    # the pipeline is ported (its schedules apply under pp > 1); MoE is
+    # ROADMAP A2's next item
+    moe = tllama.LlamaConfig(dtype=torch.float32,
+                             **{**FIELDS, "moe_num_experts": 2})
+    with pytest.raises(NotImplementedError, match="ROADMAP A2, item 3"):
+        tllama.build_train_step(moe, device="cpu")
+    with pytest.raises(ValueError, match="virtual_pp"):
+        tllama.build_train_step(cfg, schedule="1f1b", virtual_pp=2,
+                                device="cpu")
     with pytest.raises(ValueError, match="schedule"):
         tllama.build_train_step(cfg, schedule="zigzag", device="cpu")
 

@@ -28,6 +28,7 @@ import torch
 
 from paddle_tpu.models import llama as jllama
 from paddle_tpu_torch import bench as tbench
+from paddle_tpu_torch.distributed import HybridTopology
 from paddle_tpu_torch.models import convert
 from paddle_tpu_torch.models import llama as tllama
 
@@ -232,10 +233,13 @@ def test_unported_branches_raise():
     torch.testing.assert_close(
         tllama.forward_pure(tcfg, params, ids, sp_axis="mp"),
         tllama.forward_pure(tcfg, params, ids), atol=0, rtol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+    # context parallelism comes from the topology's sp degree: on one
+    # rank (sp = 1) it changes nothing; sp_axis is only ever "mp"
+    with pytest.raises(ValueError, match="sp_axis"):
         tllama.forward_pure(tcfg, params, ids, sp_axis="sp")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        tllama.forward_pure(tcfg, params, ids, cp_mesh=object())
+    torch.testing.assert_close(
+        tllama.forward_pure(tcfg, params, ids, cp_mesh=HybridTopology()),
+        tllama.forward_pure(tcfg, params, ids), atol=0, rtol=0)
     moe = tllama.LlamaConfig(dtype=torch.float32,
                              **{**fields, "moe_num_experts": 2})
     x = torch.zeros((1, 4, fields["hidden_size"]))

@@ -46,8 +46,9 @@ def train_cases(fields, np_params, batches, cases):
         topo = init_mesh(**topo_kw)
         step, init = tllama.build_train_step(cfg, topo, device="cpu",
                                              **step_kw)
+        v = step.virtual_pp
         params, opt = init(params=tllama.shard_params(
-            cfg, np_params, topo, device="cpu"))
+            cfg, np_params, topo, device="cpu", virtual_pp=v))
         losses = []
         for i, b in enumerate(batches):
             metrics.reset()
@@ -56,7 +57,8 @@ def train_cases(fields, np_params, batches, cases):
             losses.append((m["loss"].item(), m["ce"].item()))
             calls = _calls() if i == 0 else calls
         out.append({"losses": losses, "coords": topo.coords, "calls": calls,
-                    "params": tllama.gather_params(cfg, params, topo),
+                    "params": tllama.gather_params(cfg, params, topo,
+                                                   virtual_pp=v),
                     "local": _local(params),
                     "state_shapes": opt.state_shapes(),
                     "overlap": step.overlap})
@@ -185,3 +187,86 @@ def ws1_batch(cfg, device, B=2, S=128):
     return {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
                                 ).to(device)
             for k in ("input_ids", "labels")}
+
+
+def close_params(got, ref, steps, lr=3e-4):
+    """The gathered params after ``steps`` AdamW steps against the
+    reference's: every entry within 2 * lr * steps, at most 0.5 % of
+    entries beyond 2e-5 (Adam's first steps are ~sign(g) * lr, so a
+    gradient that is ~0 may round to either sign)."""
+    flips = total = 0
+    for k, r in ref.items():
+        d = np.abs(got[k] - r)
+        assert d.max() <= 2 * lr * steps, (k, d.max())
+        flips += int((d > 2e-5).sum())
+        total += d.size
+    assert flips <= 0.005 * total, (flips, total)
+
+
+def _grads_np(tree):
+    return {k: v.detach().numpy().copy()
+            for k, v in tllama._paths(tree).items()}
+
+
+def pipeline_cases(fields, np_params, batch, cases):
+    """Each case ``(schedule, n_micro, kwargs)`` on a world of pp ranks
+    (pp = the world): the pipelined loss and this rank's gradients
+    (``1f1b``: ``pipeline_1f1b_value_and_grad``, with the units and sends
+    its loop ran; ``gpipe``/``interleaved``: the loss function's
+    ``backward()``), from ``np_params`` (float32, no remat, as the
+    reference's pipeline tests)."""
+    torch.set_num_threads(1)
+    from paddle_tpu_torch.distributed import pipeline as P
+    cfg = _cfg(fields, use_remat=False)
+    topo = init_mesh(pp=torch.distributed.get_world_size())
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = []
+    for schedule, n_micro, kw in cases:
+        v = kw.get("v")
+        params = tllama.shard_params(cfg, np_params, topo, device="cpu",
+                                     virtual_pp=v)
+        res = {"stage": topo.coords["pp"]}
+        if schedule == "1f1b":
+            log = []
+            loss, ce, grads = P.pipeline_1f1b_value_and_grad(
+                cfg, topo, n_micro, params, tb, overlap=kw["overlap"],
+                log=log)
+            res.update(log=log, grads=_grads_np(grads))
+        else:
+            for t in tllama._paths(params).values():
+                t.requires_grad_(True)
+            if schedule == "gpipe":
+                loss, ce = P.pipeline_loss_fn(cfg, topo, n_micro, params, tb)
+            else:
+                loss, ce = P.pipeline_interleaved_loss_fn(
+                    cfg, topo, n_micro, v, params, tb)
+            loss.backward()
+            res["grads"] = {k: (t.grad.numpy().copy() if t.grad is not None
+                                else np.zeros(t.shape, np.float32))
+                            for k, t in tllama._paths(params).items()}
+        res.update(loss=loss.item(), ce=ce.item())
+        out.append(res)
+    return out
+
+
+def attention_cases(inputs, cases):
+    """Each case ``(kind, causal, grad)`` on a world of n ranks at sp=n:
+    ``ring``/``ulysses``'s sharded wrapper on the global q, k, v of
+    ``inputs[i]``, the global output, and with ``grad`` this rank's part
+    of the gradients of sum(out ** 2)."""
+    torch.set_num_threads(1)
+    from paddle_tpu_torch.distributed import sequence_parallel as SP
+    init_mesh(sp=torch.distributed.get_world_size())
+    out = []
+    for i, (kind, causal, grad) in enumerate(cases):
+        q, k, v = (torch.from_numpy(a).requires_grad_(grad)
+                   for a in inputs[i])
+        fn = (SP.ring_attention_sharded if kind == "ring"
+              else SP.ulysses_attention_sharded)
+        o = fn(q, k, v, "sp", causal=causal)
+        res = {"out": o.detach().numpy().copy()}
+        if grad:
+            (o ** 2).sum().backward()
+            res["grads"] = [t.grad.numpy().copy() for t in (q, k, v)]
+        out.append(res)
+    return out
