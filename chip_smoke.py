@@ -83,7 +83,18 @@ both apply (M = 8, 16).
   code's count); ``python -m paddle_tpu_torch.bench --multichip``'s
   line (8 ranks, the recorded schedule equal to the static one).
   Several ranks on the one card run over gloo, whose point-to-point
-  calls cross through host memory: their times are no throughput.
+  calls cross through host memory: their times are no throughput;
+- the MoE layer (experts over dp): a small model's routing in f32, its
+  bf16 train loss and its served streams on the card against the CPU
+  (``small_moe_check``); bench.py's shape as the reference's llama1b
+  preset with 8 experts (4.73e9 parameters) trained at world size 1
+  (``moe_train_phase``: step ms, tokens/s, peak memory, the dropped
+  share of the assignments, rows 1-8 launched and rows 9-10 not), as 2
+  gloo ranks at dp=2 with 4 experts a rank (``moe_dist_phase``: weight
+  and state bytes, losses against world size 1, every collective's
+  calls and bytes against the code's count) and served by ``LLMEngine``
+  over bf16 and int8 KV pages (``moe_serve_phase``: the launches of rows
+  11-13 against the forwards).
 
 Any failure exits non-zero.  The last two lines of standard output are
 the card's name and power limit (from nvidia-smi) and, last,
@@ -945,7 +956,8 @@ def small_spec_check(torch, tllama, serving, chaos):
             pos = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
             with torch.no_grad():
                 logits = tllama.forward_pure(
-                    cfg, params, torch.tensor([prompts[i] + b[:pos]]))[0, -1]
+                    cfg, params, torch.tensor([prompts[i] + b[:pos]]))[0][
+                        0, -1]
             top = torch.topk(logits, 2).values
             raise RuntimeError(
                 f"check failed: small spec {key}: request {i} differs from "
@@ -2932,6 +2944,429 @@ def multichip_line(card):
     return res
 
 
+# the MoE phases' model: bench.py's ~0.95B shape as the reference's
+# llama1b preset with 8 experts (top 2, capacity factor 1.25, the
+# reference's defaults), S = 2048, B = 4, bf16, "dots"
+MOE_EXPERTS, MOE_B, MOE_STEPS = 8, 4, 5
+MOE_DIST_STEPS = 2
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _reset_peak(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak(torch, dev):
+    """Peak device memory since ``_reset_peak`` (0 off the card, where
+    the phases are rehearsed at a tiny size)."""
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _device(torch, device):
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def moe_cfg(tllama, **kw):
+    return tllama.preset("llama1b", moe_num_experts=MOE_EXPERTS,
+                         remat_policy="dots", **kw)
+
+
+def moe_reckoning(cfg, dp=1):
+    """(parameters, expert parameters, weight bytes a rank at dp (the
+    experts split over it; the router f32), AdamW state bytes a rank
+    (ZeRO over dp halves every other leaf's two moments; every leaf here
+    has a dim that splits))."""
+    H, I, L, E, V = (cfg.hidden_size, cfg.intermediate_size,
+                     cfg.num_hidden_layers, cfg.moe_num_experts,
+                     cfg.vocab_size)
+    dense = 2 * V * H + L * (4 * H * H + 2 * H) + H
+    router = L * H * E
+    experts = L * E * 3 * H * I
+    item = cfg.dtype.itemsize
+    weights = item * dense + 4 * router + item * experts // dp
+    states = 2 * (item * dense + 4 * router) // dp \
+        + 2 * (item * experts // dp)
+    return dense + router + experts, experts, weights, states
+
+
+def moe_collective_reckoning(cfg, rows, seq, dp, opt):
+    """Calls and bytes by op of one train step of a rank at dp (= the
+    batch ranks; no mp, sp or pp), from the code: per MoE layer and
+    forward pass (2 under remat: the forward and its recompute) an
+    all-gather of the per-row expert counts ([rows, E] int64), the
+    dispatch's reduce-scatter of the [E, C, H] buffer, the combine's
+    all-gather of this rank's [E/dp, C, H] outputs and the aux's
+    all-reduce of [2E] f32; the backward a reduce-scatter of the
+    combine's gradient, an all-gather of the dispatch's and an
+    all-reduce of the aux's.  Then ``opt``'s ZeRO reductions (a
+    reduce-scatter and an all-gather a sharded leaf, an all-reduce an
+    unsharded one over a group of more than one rank: none for an
+    expert leaf at dp alone) and the loss's all-reduce of 2 f32."""
+    from paddle_tpu_torch.distributed import ONE_RANK
+    E, K, H, L = (cfg.moe_num_experts, cfg.moe_top_k, cfg.hidden_size,
+                  cfg.num_hidden_layers)
+    C = max(1, int(cfg.moe_capacity_factor * rows * seq * dp * K / E))
+    buf = E * C * H * cfg.dtype.itemsize
+    mine = buf // dp
+    fwd = 2 if cfg.use_remat else 1
+    calls = {"all_gather": L * (2 * fwd + 1),
+             "reduce_scatter": L * (fwd + 1),
+             "all_reduce": L * (fwd + 1) + 1}
+    nbytes = {"all_gather": L * (fwd * (rows * E * 8 + mine) + mine),
+              "reduce_scatter": L * (fwd + 1) * buf,
+              "all_reduce": L * (fwd + 1) * 2 * E * 4 + 8}
+    for path, p, d, t in opt.leaves:
+        batch_group, rest_group = opt.sum_groups[path]
+        nb = p.numel() * p.element_size()
+        if d is None:
+            if batch_group is not ONE_RANK:
+                calls["all_reduce"] += 1
+                nbytes["all_reduce"] += nb
+            continue
+        tb = t.numel() * t.element_size()
+        calls["reduce_scatter"] += 1
+        nbytes["reduce_scatter"] += nb
+        calls["all_gather"] += 1
+        nbytes["all_gather"] += tb
+        if rest_group is not ONE_RANK:
+            calls["all_reduce"] += 1
+            nbytes["all_reduce"] += tb
+    return {"calls": calls, "bytes": nbytes}
+
+
+def collectives_by_op(metrics):
+    """{"calls": {op: n}, "bytes": {op: n}} since ``metrics.reset()``."""
+    out = {"calls": {}, "bytes": {}}
+    for k, v in metrics.snapshot().items():
+        for name, key in (("collective_calls_total", "calls"),
+                          ("collective_bytes_total", "bytes")):
+            if k.startswith(name + "{"):
+                out[key][k.split('op="')[1].split('"')[0]] = int(v)
+    return out
+
+
+def moe_train_phase(torch, tbench, tllama, dist, card, device="cuda"):
+    """The MoE model's train step at world size 1 through
+    ``Plan().train_step`` (no process group): 1 warmup + ``MOE_STEPS``
+    timed steps on bench.py's batch.  Step ms, tokens/s, peak memory
+    over what the process held, the dropped share of the (t, k)
+    assignments (``llama.moe_routing``), the launches a step of rows 1-8
+    (rows 9-10 must stay 0: the MoE layer takes the MLP's place) and the
+    weight bytes against their reckoning."""
+    cfg = moe_cfg(tllama)
+    n, n_exp, W, _ = moe_reckoning(cfg)
+    dev = _device(torch, device)
+    if dev.type == "cuda":
+        gc_cuda(torch)
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    t0 = time.perf_counter()
+    step, init = dist.Plan().train_step(cfg, device=dev)
+    params, opt = init(0)
+    _sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    leaves = tbench.leaves(params)
+    check(sum(t.numel() for t in leaves) == n, "moe: parameter count")
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    check(weight_bytes == W, f"moe: weights {weight_bytes} B vs {W}")
+    batch = tbench.make_batch(cfg, MOE_B, tbench.SEQ, dev)
+    _reset_peak(torch, dev)
+    out = []
+    with tllama.moe_routing() as routing:
+        out.append(step(params, opt, batch)[2])
+        for w in tbench.KERNELS.values():
+            w.launches = 0
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        for _ in range(MOE_STEPS):
+            out.append(step(params, opt, batch)[2])
+        _sync(torch, dev)
+        dt = (time.perf_counter() - t1) / MOE_STEPS
+        losses = [float(m["loss"]) for m in out]
+        ces = [float(m["ce"]) for m in out]
+        dropped = routing.dropped_share()
+    launches = {k: w.launches // MOE_STEPS
+                for k, w in tbench.KERNELS.items()}
+    L = cfg.num_hidden_layers
+    want = {"flash_fwd": 0, "flash_bwd": L, "fused_qkv": 2 * L,
+            "fused_attn_epilogue": 2 * L, "fused_mlp_fwd": 0,
+            "fused_mlp_bwd_dx": 0}
+    check(launches == want and all(
+        w.launches % MOE_STEPS == 0 for w in tbench.KERNELS.values()),
+        f"moe train launches a step {launches}, expected {want}")
+    check(all(math.isfinite(x) for x in losses + ces),
+          f"moe losses {losses}, ce {ces}")
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(ces[0] - ln_v) <= 0.5, f"moe step-0 ce {ces[0]}")
+    # the aux a layer, E sum(me ce), is 1 for a uniform router and at
+    # most E
+    aux0 = (losses[0] - ces[0]) / 0.01
+    check(0 < aux0 <= L * cfg.moe_num_experts, f"moe step-0 aux {aux0}")
+    check(0 <= dropped < 0.5, f"moe dropped share {dropped}")
+    classes = None
+    if dev.type == "cuda":
+        # where the step's time goes: one more step under the profiler,
+        # every device row summed into the train profile's classes (the
+        # expert products are cuBLAS batched GEMMs)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            step(params, opt, batch)
+            _sync(torch, dev)
+            wall_us = 1e6 * (time.perf_counter() - t1)
+        head = f"profile moe train [{card}]: 1 step"
+        print_profile(prof, wall_us, head, 20)
+        classes = profile_classes(prof, head, {}, {})
+    res = dict(step_ms=1e3 * dt, tokens_per_s=MOE_B * tbench.SEQ / dt,
+               profile_classes=classes,
+               losses=losses, ce=ces, aux_step0=aux0, dropped_share=dropped,
+               max_memory_allocated=_peak(torch, dev),
+               peak_over_base=_peak(torch, dev) - base,
+               weight_bytes=weight_bytes, state_bytes=opt.state_bytes(),
+               parameters=n, expert_parameters=n_exp,
+               launches_per_step=launches, init_s=init_s)
+    print(f"moe train [{card}]: {json.dumps(res)}")
+    del params, opt, step, init, batch
+    if dev.type == "cuda":
+        gc_cuda(torch)
+    return res
+
+
+def moe_dist_rank(steps, device="cuda"):
+    """What each rank of ``moe_dist_phase`` runs: the MoE model's step at
+    dp=2 (4 experts a rank) on its rows of bench.py's batch, with its
+    losses, step times, peak memory, weight and state bytes, kernel
+    launches and the collectives of each step beside their reckoning."""
+    import torch
+    from paddle_tpu_torch import bench as tbench
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.distributed import init_mesh
+    from paddle_tpu_torch.models import llama as tllama
+    from paddle_tpu_torch.profiler import metrics
+    dev = _device(torch, device)
+    cfg = moe_cfg(tllama)
+    topo = init_mesh(dp=2)
+    step, init = tllama.build_train_step(cfg, topo, device=dev)
+    params, opt = init(0)
+    batch = step.shard_batch(tbench.make_batch(cfg, MOE_B, tbench.SEQ, dev))
+    flags.set_flags({"FLAGS_tpu_metrics": True})
+    for w in tbench.KERNELS.values():
+        w.launches = 0
+    _reset_peak(torch, dev)
+    losses, ms, colls = [], [], []
+    for _ in range(steps):
+        metrics.reset()
+        t0 = time.perf_counter()
+        losses.append(step(params, opt, batch)[2]["loss"].item())
+        ms.append(1e3 * (time.perf_counter() - t0))
+        colls.append(collectives_by_op(metrics))
+    return dict(coords=topo.coords, losses=losses, step_ms=ms,
+                max_memory_allocated=_peak(torch, dev),
+                weight_bytes=sum(t.numel() * t.element_size()
+                                 for t in tbench.leaves(params)),
+                state_bytes=opt.state_bytes(),
+                launches={n: w.launches for n, w in tbench.KERNELS.items()},
+                collectives=colls,
+                reckoned=moe_collective_reckoning(
+                    cfg, MOE_B // 2, tbench.SEQ, 2, opt))
+
+
+def moe_dist_phase(torch, tllama, dist, card, ws1, device="cuda"):
+    """The MoE model as 2 gloo ranks on the card at dp=2, its experts
+    split over dp (4 a rank), ``MOE_DIST_STEPS`` steps: per-rank weight
+    and state bytes against ``moe_reckoning``, losses within
+    ``DIST_LOSS_ATOL`` of world size 1's on the same rows (``ws1``:
+    ``moe_train_phase``'s), every step's collective calls and bytes by op
+    equal to ``moe_collective_reckoning``, rows 7-8 and the flash
+    backward launched, rows 9-10 not."""
+    t0 = time.perf_counter()
+    cfg = moe_cfg(tllama)
+    _, _, W, S = moe_reckoning(cfg, dp=2)
+    ranks = dist.spawn(moe_dist_rank, 2, (MOE_DIST_STEPS, device),
+                       device=device, backend="gloo", timeout=900)
+    for r in ranks:
+        check(r["weight_bytes"] == W and r["state_bytes"] == S,
+              f"moe dp2: weights {r['weight_bytes']} / states "
+              f"{r['state_bytes']} vs reckoned {W} / {S}")
+        err = max(abs(a - b) for a, b in zip(r["losses"], ws1["losses"]))
+        check(err <= DIST_LOSS_ATOL, f"moe dp2: losses {r['losses']} vs "
+              f"world size 1 {ws1['losses'][:MOE_DIST_STEPS]}")
+        for i, c in enumerate(r["collectives"]):
+            check(c == r["reckoned"], f"moe dp2 step {i}: collectives {c} "
+                  f"vs the code's count {r['reckoned']}")
+        for n in ("fused_qkv", "fused_attn_epilogue", "flash_bwd"):
+            check(r["launches"][n] > 0, f"moe dp2: {n} never launched")
+        for n in ("fused_mlp_fwd", "fused_mlp_bwd_dx", "flash_fwd"):
+            check(r["launches"][n] == 0, f"moe dp2: {n} launched")
+    out = dict(ranks=[{k: r[k] for k in (
+        "coords", "losses", "step_ms", "max_memory_allocated",
+        "weight_bytes", "state_bytes", "launches")} for r in ranks],
+        collectives_per_step=ranks[0]["collectives"][0],
+        reckoned_weight_bytes=W, reckoned_state_bytes=S,
+        loss_err=max(abs(a - b) for r in ranks
+                     for a, b in zip(r["losses"], ws1["losses"])),
+        seconds=time.perf_counter() - t0)
+    print(f"moe dist [{card}]: {json.dumps(out)}")
+    return out
+
+
+MOE_SERVE_RUNS = (("bf16", None), ("int8", "int8"))
+
+
+def moe_serve_phase(torch, tllama, serving, bench_serve, card,
+                    device="cuda"):
+    """``LLMEngine`` on the MoE model (random weights from seed 0; the
+    engine quantizes at build, which under MoE is ``lm_head`` alone, as
+    the reference), 16 requests of 2-24 prompt tokens and 16 new tokens
+    (half up front, the rest one every other step), over bf16 and int8
+    KV pages: tokens/s, TTFT, step ms, peak memory, and the launches of
+    rows 11-13 held to the forwards (row 13 once a forward, rows 11 / 12
+    once a layer a forward)."""
+    cfg = moe_cfg(tllama)
+    L = cfg.num_hidden_layers
+    dev = _device(torch, device)
+    t0 = time.perf_counter()
+    params = tllama.init_params(cfg, 0, device=dev)
+    _sync(torch, dev)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(16)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size,
+                                             int(rng.integers(2, 25)))]
+               for _ in range(16)]
+    n_new = 16
+    runs = {}
+    for name, kv_dtype in MOE_SERVE_RUNS:
+        eng = serving.LLMEngine(cfg, params, device=dev, max_running=16,
+                                chunk=16, page_size=16, max_model_len=64,
+                                kv_dtype=kv_dtype)
+        check(isinstance(eng.params["lm_head"], dict) and not isinstance(
+            eng.params["layers"]["w_gate"], dict),
+            f"moe serve {name}: lm_head int8, the layers dense")
+        eng.add_request(prompts[0][:4], 2)          # warm-up
+        eng.run()
+        _reset_peak(torch, dev)
+        eng.clear_samples()
+        bench_serve.reset_kernel_launches()
+        fw0 = dict(eng.forwards)
+        t1 = time.monotonic()
+        rids = [eng.add_request(p, n_new) for p in prompts[:8]]
+        pending, steps = list(prompts[8:]), 0
+        with tllama.moe_routing() as routing:
+            while eng.has_work() or pending:
+                if pending and steps % 2 == 1:
+                    rids.append(eng.add_request(pending.pop(0), n_new))
+                eng.step()
+                steps += 1
+                check(steps < 10000, f"moe serve {name}: no convergence")
+            _sync(torch, dev)
+            wall = time.monotonic() - t1
+            dropped = routing.dropped_share()
+        reqs = [eng.request(r) for r in rids]
+        check(all(len(r.output) == n_new for r in reqs)
+              and all(0 <= t < cfg.vocab_size for r in reqs
+                      for t in r.output),
+              f"moe serve {name}: a request short or out of the vocabulary")
+        check(eng.kv.audit()["ok"], f"moe serve {name}: page books")
+        fw = {k: v - fw0[k] for k, v in eng.forwards.items()}
+        launches = bench_serve.kernel_launches()
+        quant = kv_dtype == "int8"
+        want = {"int8_matmul": fw["target"],
+                "ragged_paged_attention": 0 if quant else L * fw["target"],
+                "ragged_paged_attention_quant": L * fw["target"] if quant
+                else 0}
+        check(launches == want, f"moe serve {name}: launches {launches} vs "
+              f"{want} for the forwards {fw}")
+        ttft = sorted(r.first_token_s - r.arrival_s for r in reqs)
+        dec = eng._step_wall_s.get(1, [])
+        pre = eng._step_wall_s.get(16, [])
+        runs[name] = dict(
+            tokens_per_s=16 * n_new / wall, wall_s=wall, steps=steps,
+            ttft_p50_ms=1e3 * ttft[len(ttft) // 2],
+            ttft_max_ms=1e3 * ttft[-1],
+            decode_step_ms=1e3 * sum(dec) / len(dec) if dec else None,
+            prefill_step_ms=1e3 * sum(pre) / len(pre) if pre else None,
+            max_memory_allocated=_peak(torch, dev),
+            dropped_share=dropped, forwards=fw, launches=launches)
+        print(f"moe serve {name} [{card}]: {json.dumps(runs[name])}")
+        del eng
+    del params
+    if dev.type == "cuda":
+        gc_cuda(torch)
+    runs["weights_build_s"] = build_s
+    return runs
+
+
+def small_moe_check(torch, tllama, serving):
+    """A small MoE model on the card against the CPU's plain path: the
+    routing of one MoE layer (``_moe_route``) in f32 on both devices
+    (the same experts chosen and kept); one bf16 train step on the card
+    (the fused attention block, the flash backward) against f32 on the
+    CPU, loss atol 1e-2 (``small_train_check``'s bound); and an f32 MoE
+    model with an int8 head served on both devices, equal streams."""
+    kw = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+              num_hidden_layers=2, num_attention_heads=2,
+              num_key_value_heads=2, max_position_embeddings=128,
+              moe_num_experts=4, remat_policy="dots")
+    cfg32 = tllama.LlamaConfig(dtype=torch.float32, **kw)
+    base = tllama.init_params(cfg32, 0, device="cpu")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2 * 64, 256)).astype(
+        np.float32))
+    route = {dev: tllama._moe_route(cfg32, base["layers"]["router"][0].to(
+        dev), x.to(dev), 2) for dev in ("cpu", "cuda")}
+    for i, what in ((2, "experts"), (3, "kept")):
+        check(torch.equal(route["cpu"][i], route["cuda"][i].cpu()),
+              f"small moe: the card chose other {what} than the CPU")
+    batch = {"input_ids": torch.from_numpy(rng.integers(0, 512, (2, 64))),
+             "labels": torch.from_numpy(rng.integers(0, 512, (2, 64)))}
+    losses = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        cfg = tllama.LlamaConfig(dtype=dtype, **kw)
+        params = _tree(tllama.init_params(
+            tllama.LlamaConfig(dtype=torch.bfloat16, **kw), 0,
+            device="cpu"), lambda t: t.to(dev, torch.float32 if t.dtype ==
+                                          torch.float32 else dtype)
+            .requires_grad_())
+        total, ce = tllama.loss_fn(cfg, params, _tree(
+            batch, lambda t: t.to(dev)))
+        total.backward()
+        losses[dev] = total.item()
+    err = abs(losses["cpu"] - losses["cuda"])
+    check(math.isfinite(losses["cuda"]) and err <= 1e-2,
+          f"small moe: loss {losses}")
+    scfg = tllama.LlamaConfig(vocab_size=512, hidden_size=256,
+                              intermediate_size=512, num_hidden_layers=2,
+                              num_attention_heads=2, num_key_value_heads=1,
+                              max_position_embeddings=128, moe_num_experts=4,
+                              dtype=torch.float32, quantized="on")
+    sparams = tllama.init_params(scfg, 0, device="cpu")
+    prompts = [[int(t) for t in rng.integers(1, 512, 3 + 2 * i)]
+               for i in range(6)]
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        eng = serving.LLMEngine(scfg, sparams, device=dev, max_running=4,
+                                chunk=8, page_size=16, max_model_len=64)
+        rids = [eng.add_request(p, 12) for p in prompts]
+        eng.run()
+        streams[dev] = [eng.output_of(r) for r in rids]
+    check(streams["cpu"] == streams["cuda"],
+          f"small moe: the card's streams {streams['cuda']} vs the CPU's "
+          f"{streams['cpu']}")
+    print(f"small moe check: routing equal (f32, {x.shape[0]} tokens), "
+          f"train loss bf16 card {losses['cuda']:.6f} vs f32 CPU "
+          f"{losses['cpu']:.6f} (|diff| {err:.3g}, atol 1e-2), 6 streams "
+          f"equal (f32, int8 head)")
+
+
 def load_parent(root):
     """``root``/paddle_tpu_torch imported as ``parent_paddle_tpu_torch``:
     the package imports itself only relatively, so its kernels build from
@@ -3111,6 +3546,7 @@ def main(argv=()):
     by_run.update({f"fleet_{n}": r["launches"] for n, r in fleet.items()})
     for mode in ("on", "off"):
         small_train_check(torch, tllama, mode)
+    small_moe_check(torch, tllama, serving)
     # the train path: bench.py's ~0.95B model, S = 2048, on the card, at
     # the default policy (the fused blocks), then unfused (the yardstick,
     # and the path that runs flash_fwd)
@@ -3144,6 +3580,17 @@ def main(argv=()):
                       bench_turn["losses"][:BIG_STEPS],
                       bench_turn["peak_over_base"])
     multichip_line(card)
+    # the MoE layer: bench.py's shape with 8 experts at world size 1, as 2
+    # ranks at dp=2 (4 experts a rank), and served
+    check(moe_reckoning(moe_cfg(tllama))[:2] == (4_728_358_912,
+                                                 4_328_521_728),
+          "moe: the model's parameters are not the reckoned 4.73e9")
+    moe_train = moe_train_phase(torch, tbench, tllama, dist, card)
+    moe_dist = moe_dist_phase(torch, tllama, dist, card, moe_train)
+    moe_serve = moe_serve_phase(torch, tllama, serving, bench_serve, card)
+    moe_launches = {n: dict(ws1_per_step=moe_train["launches_per_step"][n],
+                            dp2_rank0=moe_dist["ranks"][0]["launches"][n])
+                    for n in tbench.KERNELS}
     # a rank's launches over the 2 steps of each schedule / of sp=2
     pp_launches = {n: {s: pp_res["ranks"][0]["runs"][s]["launches"][n]
                        for s, _ in PP_BIG_CASES} for n in tbench.KERNELS}
@@ -3190,7 +3637,9 @@ def main(argv=()):
                                       "plain_ms", "library_ms")}
                    for r in int8_rows],
          "regimes": int8_regimes,
-         "launches_by_run": {n: v["int8_matmul"] for n, v in by_run.items()}},
+         "launches_by_run": {n: v["int8_matmul"] for n, v in by_run.items()},
+         "launches_moe_serve": {n: moe_serve[n]["launches"]["int8_matmul"]
+                                for n, _ in MOE_SERVE_RUNS}},
         {"name": "ragged_paged_attention", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
          "replaces": "paddle_tpu/ops/pallas_ops.py:1781",
@@ -3205,7 +3654,9 @@ def main(argv=()):
                      "page 16",
          "cases": cases["dense"],
          "launches_by_run": {n: v["ragged_paged_attention"]
-                             for n, v in by_run.items()}},
+                             for n, v in by_run.items()},
+         "launches_moe_serve": {n: moe_serve[n]["launches"][
+             "ragged_paged_attention"] for n, _ in MOE_SERVE_RUNS}},
         {"name": "ragged_paged_attention_quant", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
          "replaces": "paddle_tpu/ops/pallas_ops.py:1841",
@@ -3220,7 +3671,9 @@ def main(argv=()):
                          ("ms", "plain_ms", "bound_ms", "library_ms")},
          "cases": cases["quant"],
          "launches_by_run": {n: v["ragged_paged_attention_quant"]
-                             for n, v in by_run.items()}},
+                             for n, v in by_run.items()},
+         "launches_moe_serve": {n: moe_serve[n]["launches"][
+             "ragged_paged_attention_quant"] for n, _ in MOE_SERVE_RUNS}},
     ]}
     # the flash wrappers, per call at the bench shape; each replaces a
     # resident body and its streamed twin (one TPU VMEM-capacity split),
@@ -3247,6 +3700,7 @@ def main(argv=()):
             launches_fused_step=fused_launches[name],
             launches_dist=dist_launches[name],
             launches_pp=pp_launches[name], launches_sp=sp_launches[name],
+            launches_moe=moe_launches[name],
             max_abs_err=flash_err[key],
             row_rel_err=flash_row_err[key], row_rel_max=ROW_REL_MAX,
             control_row_rel_err=min(
@@ -3283,6 +3737,7 @@ def main(argv=()):
             launches=fused_launches[name], max_abs_err=r["max_abs_err"],
             launches_dist=dist_launches[name],
             launches_pp=pp_launches[name], launches_sp=sp_launches[name],
+            launches_moe=moe_launches[name],
             row_rel_err=r["row_rel_err"], row_rel_max=ROW_REL_MAX,
             norm_rel_err=r["norm_rel_err"],
             control_row_rel_err=r["control_row_rel_err"], ms=r["ms"],
@@ -3292,6 +3747,8 @@ def main(argv=()):
             per=per, launches_per=note))
     check(len(kernels["kernels"]) == 9, "the kernels line lists "
           f"{len(kernels['kernels'])} kernels, not 9")
+    print(f"moe [{card}]: train {json.dumps(moe_train)}; dist "
+          f"{json.dumps(moe_dist)}; serve {json.dumps(moe_serve)}")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

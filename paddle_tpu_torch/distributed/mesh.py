@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 __all__ = ["HybridTopology", "init_mesh", "get_topology", "set_topology",
@@ -160,19 +161,32 @@ class HybridTopology:
         sharding."""
         return ("dp", "sharding") if self.dims["sharding"] > 1 else "dp"
 
-    def shard_batch(self, batch: Dict[str, object]) -> Dict[str, object]:
+    def shard_batch(self, batch: Dict[str, object],
+                    microbatches: int = 1) -> Dict[str, object]:
         """This rank's rows of a global batch (the reference's
         ``P(batch_axes, None)`` placement): the batch ranks take equal
-        contiguous blocks of rows in the order of their index."""
+        contiguous blocks of rows in the order of their index.  With
+        ``microbatches`` = m > 1 (a pipeline's), the rows split into m
+        global microbatches first and each batch rank takes its block
+        of every one, in order: its microbatch ``i`` is then its share
+        of the global microbatch ``i``, which the reference's pipeline
+        splits off the global batch (a MoE layer routes its tokens
+        together)."""
         n, i = self.axis_size(self.batch_axes), self.axis_index(
             self.batch_axes)
         out = {}
         for k, v in batch.items():
             rows = v.shape[0]
-            if rows % n:
+            if rows % (n * microbatches):
                 raise ValueError(f"batch of {rows} rows does not split "
-                                 f"over {n} batch ranks")
-            out[k] = v[i * rows // n:(i + 1) * rows // n]
+                                 f"over {n} batch ranks x {microbatches} "
+                                 f"microbatches")
+            b = rows // (n * microbatches)
+            blocks = [v[(m * n + i) * b:(m * n + i + 1) * b]
+                      for m in range(microbatches)]
+            out[k] = blocks[0] if microbatches == 1 else (
+                torch.cat(blocks) if torch.is_tensor(v)
+                else np.concatenate(blocks))
         return out
 
     def sequence_block(self, seq_len: int) -> range:

@@ -40,6 +40,20 @@ exactly the schedule's (``distributed.overlap.schedule_events``).
 Under tensor parallelism the stages run tensor parallel with every row
 on every ``mp`` rank (no sequence-parallel activations), as the
 reference's stage body leaves ``mp`` to GSPMD with no ``sp_axis``.
+
+Under MoE each stage's layers return their aux loss, and the schedules
+add it as the reference's do (``pipeline.py:85-95``, ``261-279``,
+``415-430``): GPipe sums it over the ticks a stage computes and over
+``pp`` and divides by the microbatch count (and averages it over ``sp``
+under context parallelism, where each sequence block is routed on its
+own); 1F1B adds ``aux_b / n_micro`` per backward unit and seeds its
+gradient with ``0.01 / n_micro``; the interleaved schedule sums it over
+its units and ``pp`` and does not divide by the microbatch count (the
+reference's own scaling, which differs from its other two schedules).
+A microbatch's tokens are routed together over the ``dp`` ranks
+(``expert_parallel``): each rank's microbatch ``m`` is its share of the
+global microbatch ``m`` (``HybridTopology.shard_batch(...,
+microbatches=n_micro)``), whose tokens the reference routes together.
 """
 from __future__ import annotations
 
@@ -99,20 +113,27 @@ def _context(cfg, topo, params, S, cp_axis):
     cp = topo.group(cp_axis) if cp_axis is not None else None
     sin, cos, blk = llama._rope_rows(cfg, S, params["embed"].device, topo,
                                      cp)
-    return tp, cp, sin, cos, blk
+    ep = llama._expert_parallel(cfg, topo, False)
+    return tp, cp, ep, sin, cos, blk
+
+
+def _add(acc, a):
+    return a if acc is None else acc + a
 
 
 def pipeline_forward(cfg, topo, n_micro, params, ids, cp_axis=None):
-    """ids [B, S] (this rank's rows) -> (h, sinks): GPipe over ``pp``.
-    ``h`` [B, S(/sp), H] is the last stage's output stack (None on the
-    other stages); ``sinks`` what ``_tie`` must fold into the loss.
+    """ids [B, S] (this rank's rows) -> (h, aux, sinks): GPipe over
+    ``pp``.  ``h`` [B, S(/sp), H] is the last stage's output stack (None
+    on the other stages); ``aux`` this stage's MoE aux summed over its
+    microbatches (None without MoE); ``sinks`` what ``_tie`` must fold
+    into the loss.
     ``cp_axis``: shard the sequence over this axis inside the pipeline
     and run ring attention in every stage."""
     from ..models import llama
     topo, pp, s, group = _stage(topo)
     ids = ids.to(params["embed"].device).long()
-    tp, cp, sin, cos, blk = _context(cfg, topo, params, ids.shape[1],
-                                     cp_axis)
+    tp, cp, ep, sin, cos, blk = _context(cfg, topo, params, ids.shape[1],
+                                         cp_axis)
     ids_mb = _micro(ids[:, blk.start:blk.stop], n_micro)
     layers = params["layers"]
     mb, Sl, H = ids_mb.shape[1], ids_mb.shape[2], params["embed"].shape[1]
@@ -121,14 +142,17 @@ def pipeline_forward(cfg, topo, n_micro, params, ids, cp_axis=None):
     anchor = tmpl.new_empty((0,)).requires_grad_(True)
     outputs: List[torch.Tensor] = []
     sinks: List[torch.Tensor] = []
-    state = None
+    state = aux = None
     for t in range(n_micro + pp - 1):
         m = t - s
         active = 0 <= m < n_micro
         y = None
         if active:
             x = llama._embed(cfg, params, ids_mb[m], tp) if s == 0 else state
-            y = llama.run_layer_stack(cfg, layers, x, sin, cos, tp=tp, cp=cp)
+            y, a = llama.run_layer_stack(cfg, layers, x, sin, cos, tp=tp,
+                                         cp=cp, ep=ep)
+            if cfg.moe_num_experts:
+                aux = _add(aux, a)
             if s == pp - 1:
                 outputs.append(y)
         send = active and s < pp - 1
@@ -142,18 +166,20 @@ def pipeline_forward(cfg, topo, n_micro, params, ids, cp_axis=None):
             else:
                 sinks.append(got)
     h = torch.cat(outputs) if outputs else None
-    return h, sinks
+    return h, aux, sinks
 
 
 def _head_loss(cfg, params, h, labels, tp):
-    """Norm, ``lm_head`` and the cross-entropy of the collected outputs:
-    (total, ce), total = ce without MoE's aux term."""
+    """Norm, ``lm_head`` and the cross-entropy of the collected outputs."""
     from ..models import llama
-    ce = llama._ce(llama._logits(cfg, params, h, tp), labels, tp)
-    return ce, ce
+    return llama._ce(llama._logits(cfg, params, h, tp), labels, tp)
 
 
-def _pipeline_loss(cfg, topo, params, batch, h, sinks, cp_axis):
+def _pipeline_loss(cfg, topo, params, batch, h, aux, sinks, cp_axis):
+    """(total, ce) from the last stage's outputs and every stage's aux
+    (already scaled as its schedule wants), the same on every rank:
+    ``[total, ce]`` is summed over ``pp`` in one call (the stages that
+    do not own a term add 0)."""
     from ..models import llama
     topo, pp, s, group = _stage(topo)
     tp = llama._tensor_parallel(topo, None)
@@ -162,21 +188,25 @@ def _pipeline_loss(cfg, topo, params, batch, h, sinks, cp_axis):
         if cp_axis is not None:
             blk = topo.sequence_block(labels.shape[1])
             labels = labels[:, blk.start:blk.stop]
-        total, _ = _head_loss(cfg, params, h, labels, tp)
+        ce = _head_loss(cfg, params, h, labels, tp)
     else:
-        total = params["embed"].new_zeros((), dtype=torch.float32)
-    total = _PPSum.apply(_tie(total, sinks), group)
+        ce = params["embed"].new_zeros((), dtype=torch.float32)
+    total = ce if aux is None else ce + 0.01 * aux
+    both = _PPSum.apply(torch.stack([_tie(total, sinks), ce.detach()]),
+                        group)
     if cp_axis is not None:
-        total = llama.seq_mean(total, topo.group(cp_axis))
-    return total, total.detach()
+        both = llama.seq_mean(both, topo.group(cp_axis))
+    return both[0], both[1].detach()
 
 
 def pipeline_loss_fn(cfg, topo, n_micro, params, batch, cp_axis=None):
     """The pipelined loss (``llama.build_train_step``'s GPipe schedule):
     (total, ce), the same value on every rank."""
-    h, sinks = pipeline_forward(cfg, topo, n_micro, params,
-                                batch["input_ids"], cp_axis=cp_axis)
-    return _pipeline_loss(cfg, topo, params, batch, h, sinks, cp_axis)
+    h, aux, sinks = pipeline_forward(cfg, topo, n_micro, params,
+                                     batch["input_ids"], cp_axis=cp_axis)
+    return _pipeline_loss(cfg, topo, params, batch, h,
+                          None if aux is None else aux / n_micro, sinks,
+                          cp_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -206,8 +236,10 @@ def pipeline_1f1b_value_and_grad(cfg, topo, n_micro, params, batch,
     dev = params["embed"].device
     ids = _micro(batch["input_ids"].to(dev).long(), n_micro)
     labels = _micro(batch["labels"].to(dev).long(), n_micro)
-    tp, _, sin, cos, _ = _context(cfg, topo, params, ids.shape[2], None)
+    tp, _, ep, sin, cos, _ = _context(cfg, topo, params, ids.shape[2],
+                                      None)
     first, last = s == 0, s == pp - 1
+    moe = cfg.moe_num_experts > 0
     inv_nm = 1.0 / n_micro
     # leaves of our own: the gradients land in their .grad
     leaves = {k: ({n: t.detach().requires_grad_(True) for n, t in v.items()}
@@ -217,10 +249,14 @@ def pipeline_1f1b_value_and_grad(cfg, topo, n_micro, params, batch,
     xs_buf: List[Optional[torch.Tensor]] = [None] * BUF
     mb, S, H = ids.shape[1], ids.shape[2], params["embed"].shape[1]
     tmpl = torch.empty((mb, S, H), dtype=params["embed"].dtype, device=dev)
-    ce_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    # [ce, aux] summed over this stage's units
+    sums = torch.zeros((2,), dtype=torch.float32, device=dev)
+    # the aux's gradient seed (the reference's 0.01 / n_micro)
+    aux_seed = torch.full((), 0.01 * inv_nm * scale, dtype=torch.float32,
+                          device=dev)
 
     def stage(x):
-        return llama.run_layer_stack(cfg, layers, x, sin, cos, tp=tp)
+        return llama.run_layer_stack(cfg, layers, x, sin, cos, tp=tp, ep=ep)
 
     def shifts(y, dx, fm_next, bm_next, async_op):
         """Post this tick's forward and backward shifts: send what this
@@ -274,7 +310,7 @@ def pipeline_1f1b_value_and_grad(cfg, topo, n_micro, params, batch,
             with torch.no_grad():
                 x_in = llama._embed(cfg, leaves, ids[fm], tp) if first \
                     else fwd_in
-                y = stage(x_in)
+                y, _ = stage(x_in)
             xs_buf[fm % BUF] = None if first else x_in
             record("fwd", t, fm)
         # ---- backward unit
@@ -284,11 +320,18 @@ def pipeline_1f1b_value_and_grad(cfg, topo, n_micro, params, batch,
             else:
                 x = xs_buf[bm % BUF].detach().requires_grad_(True)
             xs_buf[bm % BUF] = None
-            y_b = stage(x)
+            y_b, aux_b = stage(x)
+            if moe:
+                sums[1] += aux_b.detach() * inv_nm
             if last:
-                ce_m, _ = _head_loss(cfg, leaves, y_b, labels[bm], tp)
-                torch.autograd.backward(ce_m * (inv_nm * scale))
-                ce_sum = ce_sum + ce_m.detach() * inv_nm
+                ce_m = _head_loss(cfg, leaves, y_b, labels[bm], tp)
+                sums[0] += ce_m.detach() * inv_nm
+                loss_m = ce_m * (inv_nm * scale)
+                if moe:
+                    loss_m = loss_m + aux_b * aux_seed
+                torch.autograd.backward(loss_m)
+            elif moe:
+                torch.autograd.backward([y_b, aux_b], [bwd_in, aux_seed])
             else:
                 torch.autograd.backward(y_b, bwd_in)
             dx = None if first else x.grad
@@ -307,9 +350,10 @@ def pipeline_1f1b_value_and_grad(cfg, topo, n_micro, params, batch,
     tail = {k: grad(leaves[k]) for k in ("embed", "norm_f", "lm_head")}
     for g in tail.values():
         C.all_reduce(g, group=group)
-    C.all_reduce(ce_sum, group=group)
+    C.all_reduce(sums, group=group)
+    ce = sums[0]
     grads = dict(tail, layers={k: grad(v) for k, v in layers.items()})
-    return ce_sum, ce_sum, grads
+    return (ce + 0.01 * sums[1] if moe else ce), ce, grads
 
 
 # ---------------------------------------------------------------------------
@@ -317,13 +361,13 @@ def pipeline_1f1b_value_and_grad(cfg, topo, n_micro, params, batch,
 # ---------------------------------------------------------------------------
 
 def pipeline_interleaved_forward(cfg, topo, n_micro, v, params, ids):
-    """ids -> (h, sinks) as ``pipeline_forward``, over ``v`` virtual chunks
-    a rank (the reference's ``pipeline.py:330-438``): microbatches stream
-    in groups of ``pp`` through T = n_micro * v + pp - 1 ticks; at tick
-    ``t`` rank ``d`` runs work ``r = t - d``, i.e. chunk ``(r % (v pp))
-    // pp`` of microbatch ``(r // (v pp)) pp + r % pp``, on the input
-    rank ``d - 1`` made the tick before (rank 0 from rank pp - 1, or the
-    embedding for chunk 0).  ``params["layers"]`` holds this rank's
+    """ids -> (h, aux, sinks) as ``pipeline_forward``, over ``v`` virtual
+    chunks a rank (the reference's ``pipeline.py:330-438``): microbatches
+    stream in groups of ``pp`` through T = n_micro * v + pp - 1 ticks; at
+    tick ``t`` rank ``d`` runs work ``r = t - d``, i.e. chunk ``(r % (v
+    pp)) // pp`` of microbatch ``(r // (v pp)) pp + r % pp``, on the
+    input rank ``d - 1`` made the tick before (rank 0 from rank pp - 1,
+    or the embedding for chunk 0).  ``params["layers"]`` holds this rank's
     chunks in order (``llama.shard_params(..., virtual_pp=v)``)."""
     from ..models import llama
     topo, pp, d, group = _stage(topo)
@@ -331,7 +375,8 @@ def pipeline_interleaved_forward(cfg, topo, n_micro, v, params, ids):
         raise ValueError(f"the interleaved schedule streams microbatches "
                          f"in groups of pp={pp}; n_micro={n_micro}")
     ids = ids.to(params["embed"].device).long()
-    tp, _, sin, cos, _ = _context(cfg, topo, params, ids.shape[1], None)
+    tp, _, ep, sin, cos, _ = _context(cfg, topo, params, ids.shape[1],
+                                      None)
     ids_mb = _micro(ids, n_micro)
     L = next(iter(params["layers"].values())).shape[0]
     if L % v:
@@ -352,7 +397,7 @@ def pipeline_interleaved_forward(cfg, topo, n_micro, v, params, ids):
 
     outputs: Dict[int, torch.Tensor] = {}
     sinks: List[torch.Tensor] = []
-    state = None
+    state = aux = None
     for t in range(work + pp - 1):
         u = unit(t - d)
         y = None
@@ -360,7 +405,10 @@ def pipeline_interleaved_forward(cfg, topo, n_micro, v, params, ids):
             c, m = u
             x = llama._embed(cfg, params, ids_mb[m], tp) \
                 if d == 0 and c == 0 else state
-            y = llama.run_layer_stack(cfg, chunks[c], x, sin, cos, tp=tp)
+            y, a = llama.run_layer_stack(cfg, chunks[c], x, sin, cos, tp=tp,
+                                         ep=ep)
+            if cfg.moe_num_experts:
+                aux = _add(aux, a)
             if d == pp - 1 and c == v - 1:
                 outputs[m] = y
         # the hop d -> d + 1 (mod pp) carries y unless it left the last
@@ -378,12 +426,14 @@ def pipeline_interleaved_forward(cfg, topo, n_micro, v, params, ids):
             else:
                 sinks.append(got)
     h = torch.cat([outputs[m] for m in range(n_micro)]) if outputs else None
-    return h, sinks
+    return h, aux, sinks
 
 
 def pipeline_interleaved_loss_fn(cfg, topo, n_micro, v, params, batch):
     """The interleaved schedule's loss (``build_train_step`` schedule
-    ``"interleaved"``): (total, ce), the same value on every rank."""
-    h, sinks = pipeline_interleaved_forward(cfg, topo, n_micro, v, params,
-                                            batch["input_ids"])
-    return _pipeline_loss(cfg, topo, params, batch, h, sinks, None)
+    ``"interleaved"``): (total, ce), the same value on every rank.  The
+    aux is not divided by the microbatch count (the reference's
+    ``pipeline.py:415-430``)."""
+    h, aux, sinks = pipeline_interleaved_forward(cfg, topo, n_micro, v,
+                                                 params, batch["input_ids"])
+    return _pipeline_loss(cfg, topo, params, batch, h, aux, sinks, None)

@@ -70,8 +70,8 @@ def _wrap_step_tracing(plan: "Plan", step_fn: Callable) -> Callable:
                          schedule=plan.schedule, overlap=plan.overlap):
             return step_fn(params, opt_state, batch)
 
-    for attr in ("topology", "overlap", "schedule", "n_microbatches",
-                 "virtual_pp", "plan", "plan_topology"):
+    for attr in ("topology", "shard_batch", "overlap", "schedule",
+                 "n_microbatches", "virtual_pp", "plan", "plan_topology"):
         if hasattr(step_fn, attr):
             setattr(traced, attr, getattr(step_fn, attr))
     return traced
@@ -236,7 +236,7 @@ class Plan:
         """The plan-driven training loop, without elastic resize.
 
         Every rank iterates the same global batches and trains on its
-        rows (``topology.shard_batch``).  Before each step the loop polls
+        rows (``step_fn.shard_batch``).  Before each step the loop polls
         ``scale_store`` for ``fleet.elastic.request_scale``'s key of
         ``job_id``: a world size other than the plan's raises (resizing
         checkpoints and reshards: ROADMAP A3).  Returns ``{"losses",
@@ -276,7 +276,7 @@ class Plan:
                     f"ported yet (ROADMAP A3: CheckpointManager and "
                     f"reshard)")
             params, opt_state, m = step_fn(params, opt_state,
-                                           topo.shard_batch(batch))
+                                           step_fn.shard_batch(batch))
             history["losses"].append(float(m["loss"]))
             history["world_sizes"].append(self.world_size)
             if on_step is not None:

@@ -14,8 +14,11 @@ A step reduce-scatters each sharded leaf's gradient over the zero axis
 this rank's block of the parameter (in place: a view, so no copy of the
 weights is kept), and all-gathers the parameter back; an unsharded leaf's
 gradient is all-reduced over the batch axes and the optimizer updates
-the parameter itself.  The optimizer is any ``torch.optim`` optimizer a
-factory builds over the tensors it is handed.
+the parameter itself.  A leaf split over a batch axis (an MoE expert
+leaf, split over ``dp``) already holds the gradient of every token of
+its slice of that axis: its sums leave the axis out.  The optimizer is
+any ``torch.optim`` optimizer a factory builds over the tensors it is
+handed.
 """
 from __future__ import annotations
 
@@ -66,14 +69,19 @@ class ZeroOptimizer:
         self.group = topo.group(self.axis)
         batch = topo.batch_axes
         batch = (batch,) if isinstance(batch, str) else tuple(batch)
-        self.batch_group = topo.group(batch + ("sp",))
-        # the batch axes besides the zero axis (dp, when it is sharding),
-        # and sp
-        self.rest_group = topo.group(tuple(
-            a for a in ("dp", "sharding") if a != self.axis) + ("sp",))
+        # the axes an unsharded leaf's gradient is summed over (the batch
+        # axes and sp), and a sharded one's after the reduce-scatter (the
+        # batch axes besides the zero axis, and sp); a leaf split over
+        # one of them (dp: MoE experts) is not summed over it
+        self.sum_groups = {}
         self.leaves = []   # (path, param, shard dim or None, state tensor)
         for path, p in params.items():
             spec = specs[path]
+            self.sum_groups[path] = (
+                topo.group(tuple(a for a in batch + ("sp",)
+                                 if a not in spec)),
+                topo.group(tuple(a for a in ("dp", "sharding", "sp")
+                                 if a != self.axis and a not in spec)))
             shape = [s * (topo.dims[a] if a else 1)
                      for s, a in zip(p.shape, spec)]
             d = zero_shard_dim(spec, shape, self.axis, n) if n > 1 else None
@@ -89,10 +97,11 @@ class ZeroOptimizer:
         """Reduce the gradients over the batch axes and sp (unless
         ``reduced``: they already hold the sum), step, put the parameters
         back together, and drop the gradients."""
-        for _, p, d, t in self.leaves:
+        for path, p, d, t in self.leaves:
+            batch_group, rest_group = self.sum_groups[path]
             if d is None:
                 if not reduced:
-                    C.all_reduce(p.grad, group=self.batch_group)
+                    C.all_reduce(p.grad, group=batch_group)
                 continue
             size = p.shape[d] // self.degree
             if reduced:
@@ -100,7 +109,7 @@ class ZeroOptimizer:
             else:
                 g = C.reduce_scatter(p.grad, group=self.group,
                                      dim=d).contiguous()
-                C.all_reduce(g, group=self.rest_group)
+                C.all_reduce(g, group=rest_group)
             t.grad = g
         self.opt.step()
         with torch.no_grad():

@@ -78,3 +78,22 @@ define_flag("FLAGS_tpu_trace", False,
             "and router events with JSONL sidecars for "
             "tools/trace_report.py. Off: every recording call is a dict "
             "lookup + bool check.")
+define_flag("FLAGS_tpu_fused_blocks", "auto",
+            "Fused decoder-block kernels (ops.fused_blocks."
+            "fused_attention_block / fused_mlp_block): 'auto' uses them "
+            "on CUDA tensors for qualifying shapes and never on the CPU, "
+            "'on' forces the fused path wherever the blocks can run (the "
+            "CPU runs their plain versions, what parity tests use), "
+            "'off' keeps the unfused composition everywhere. "
+            "LlamaConfig.fused_blocks overrides per-model; this flag is "
+            "the default for configs that leave it None.")
+define_flag("FLAGS_tpu_quantized", "auto",
+            "int8 weight path for serving (ops.int8_matmul behind "
+            "models.llama quantize_params): 'auto' quantizes the weights "
+            "on CUDA only (the CPU keeps dense weights), 'on' forces the "
+            "quantized weight path everywhere incl. the CPU (the plain "
+            "int8 version: same math), 'off' keeps dense weights. "
+            "LlamaConfig.quantized overrides per-model; this flag is the "
+            "default for configs that leave it None. The quantized KV "
+            "cache is a separate knob (LLMEngine kv_dtype / bench_serve "
+            "--kv-dtype).")

@@ -27,7 +27,13 @@ int8 weight is a ``{"q": int8 [L, K, N], "scale": f32 [L, 1, N]}`` leaf
   sharding x sp x mp with ZeRO-1 and the overlapped data-parallel
   gradient reduction, or the pipeline over ``pp``
   (``distributed.pipeline``: GPipe, with context parallelism inside it,
-  1F1B lockstep or overlapped, interleaved).  MoE raises (ROADMAP A2).
+  1F1B lockstep or overlapped, interleaved).
+- ``moe_num_experts`` > 0 replaces each layer's MLP by the reference's
+  GShard top-k MoE (``_moe_mlp``) with its load-balancing aux loss,
+  which ``run_layer_stack`` sums over the layers and ``loss_fn`` adds at
+  0.01.  Its experts split over ``dp`` (``param_specs``) and its tokens
+  reach them through ``distributed.expert_parallel``, which makes the
+  capacity, the slots and the aux those of the global batch.
 """
 from __future__ import annotations
 
@@ -41,7 +47,9 @@ from torch.utils.checkpoint import (checkpoint,
 
 from ..device import resolve_device
 from . import convert
+from .. import flags as _flags
 from ..distributed import collective as dcoll
+from ..distributed import expert_parallel as dexp
 from ..distributed import mesh as dmesh
 from ..distributed import overlap as doverlap
 from ..distributed import pipeline as dpipe
@@ -58,11 +66,6 @@ __all__ = ["LlamaConfig", "PRESETS", "preset", "init_params",
            "run_layer_stack", "forward_pure", "loss_fn", "param_specs",
            "shard_params", "gather_params", "adamw", "build_train_step"]
 
-# what the unported branch raises with: the ROADMAP A2 item still left
-_MOE = ("MoE layers are not ported yet (ROADMAP A2, item 3: MoE, "
-        "_moe_mlp with experts over dp and its aux loss)")
-
-
 @dataclasses.dataclass
 class LlamaConfig:
     vocab_size: int = 32000
@@ -75,19 +78,22 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     dtype: Any = torch.bfloat16
-    # MoE is not ported yet (ROADMAP A2): any value > 0 raises
+    # MoE (the DeepSeekMoE / Qwen-MoE shape): 0 = the dense MLP
     moe_num_experts: int = 0
-    # int8 weight path: "auto" (or None) = on CUDA only, "on" =
-    # everywhere (the CPU runs the plain int8 version, what parity tests
-    # use), "off" = dense weights
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    # int8 weight path: None follows FLAGS_tpu_quantized; "auto" = on
+    # CUDA only, "on" = everywhere (the CPU runs the plain int8 version,
+    # what parity tests use), "off" = dense weights
     quantized: Optional[str] = None
     # training: remat per layer; "full" recomputes the whole layer in the
     # backward, "dots" saves the matmul outputs and recomputes the rest
     use_remat: bool = True
     remat_policy: str = "dots"
-    # fused decoder blocks: "auto" (or None) = on CUDA tensors only, "on"
-    # = on any device (the CPU runs the plain versions, what parity tests
-    # use), "off" = the unfused composition; see _fused_block_modes
+    # fused decoder blocks: None follows FLAGS_tpu_fused_blocks; "auto"
+    # = on CUDA tensors only, "on" = on any device (the CPU runs the
+    # plain versions, what parity tests use), "off" = the unfused
+    # composition; see _fused_block_modes
     fused_blocks: Optional[str] = None
 
     def __post_init__(self):
@@ -135,9 +141,9 @@ def init_params(cfg: LlamaConfig, seed: int = 0, *,
     tensor), drawn N(0, 0.02) from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (the card unless the caller names another).
     Layer leaves are drawn one layer at a time, so the float32 draw never
-    holds more than one layer's weight."""
-    if cfg.moe_num_experts > 0:
-        raise NotImplementedError(_MOE)
+    holds more than one layer's weight.  Under MoE the layers hold a
+    float32 ``router`` [L, H, E] and ``w_gate``/``w_up`` [L, E, H, I],
+    ``w_down`` [L, E, I, H] (reference llama.py:151-157)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -148,7 +154,7 @@ def init_params(cfg: LlamaConfig, seed: int = 0, *,
 
     def init(shape):
         out = torch.empty(shape, dtype=cfg.dtype, device=dev)
-        for part in (out if len(shape) == 3 else [out]):
+        for part in (out if len(shape) >= 3 else [out]):
             part.copy_(torch.randn(part.shape, generator=gen, device=dev,
                                    dtype=torch.float32) * std)
         return out
@@ -156,22 +162,26 @@ def init_params(cfg: LlamaConfig, seed: int = 0, *,
     def ones(shape):
         return torch.ones(shape, dtype=cfg.dtype, device=dev)
 
-    return {
-        "embed": init((V, H)),
-        "layers": {
-            "ln1": ones((L, H)),
-            "wq": init((L, H, H)),
-            "wk": init((L, H, KV)),
-            "wv": init((L, H, KV)),
-            "wo": init((L, H, H)),
-            "ln2": ones((L, H)),
-            "w_gate": init((L, H, I)),
-            "w_up": init((L, H, I)),
-            "w_down": init((L, I, H)),
-        },
-        "norm_f": ones((H,)),
-        "lm_head": init((H, V)),
+    embed = init((V, H))
+    layers = {
+        "ln1": ones((L, H)),
+        "wq": init((L, H, H)),
+        "wk": init((L, H, KV)),
+        "wv": init((L, H, KV)),
+        "wo": init((L, H, H)),
+        "ln2": ones((L, H)),
     }
+    E = cfg.moe_num_experts
+    if E > 0:
+        # the reference rounds the draw to the model dtype, then to f32
+        layers["router"] = init((L, H, E)).float()
+        layers.update(w_gate=init((L, E, H, I)), w_up=init((L, E, H, I)),
+                      w_down=init((L, E, I, H)))
+    else:
+        layers.update(w_gate=init((L, H, I)), w_up=init((L, H, I)),
+                      w_down=init((L, I, H)))
+    return {"embed": embed, "layers": layers, "norm_f": ones((H,)),
+            "lm_head": init((H, V))}
 
 
 # ---------------------------------------------------------------------------
@@ -211,10 +221,130 @@ def _dense_mlp(lp, x):
     return _qmm(gate * up, lp["w_down"])
 
 
+def _moe_route(cfg: LlamaConfig, router, xt, B: int, ep=None):
+    """The routing of ``_moe_mlp`` for the tokens ``xt`` [T, H] of ``B``
+    rows: ``(probs [T, E] f32, gate_vals [T, K] f32, gate_idx [T, K],
+    keep [T, K], slot [T * K], C)``; ``slot`` is ``expert * C + pos``,
+    or ``E * C`` (the trash row) for a dropped assignment."""
+    E, K = cfg.moe_num_experts, cfg.moe_top_k
+    T = xt.shape[0]
+    T_all = T * (1 if ep is None else ep.n_tokens)
+    C = max(1, int(cfg.moe_capacity_factor * T_all * K / E))
+    probs = torch.softmax(xt.float() @ router, dim=-1)          # [T, E]
+    gate_vals, gate_idx = torch.topk(probs, K, dim=-1)          # [T, K]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+    # each (t, k)'s slot: the assignments to its expert before it, in
+    # the global (t, k) order (a local row's are counted from the
+    # assignments of every row block before it)
+    onehot = F.one_hot(gate_idx, E).view(B, T // B * K, E)
+    before = onehot.cumsum(1) - onehot + dexp.slot_offsets(
+        onehot.sum(1), ep)[:, None, :]
+    pos = (before * onehot).sum(-1).view(T, K)
+    keep = pos < C
+    slot = torch.where(keep, gate_idx * C + pos, E * C).view(-1)
+    return probs, gate_vals, gate_idx, keep, slot, C
+
+
+def _moe_mlp(cfg: LlamaConfig, lp, x, tp=None, ep=None):
+    """GShard top-k MoE with capacity (reference llama.py:362-402):
+    (out [B, S, H], aux).
+
+    The router's logits are f32; softmax, top-k, the gates renormalised
+    over k.  Each ``(token, k)`` takes the next slot of its expert's
+    buffer in ``(t, k)`` order and is kept while the slot is below
+    ``C = max(1, int(cf * T * K / E))`` (``_moe_route``).  Dispatch and
+    combine go by index (scatter into ``[E, C, H]`` by (expert, slot),
+    gather back), not through the reference's one-hot ``[T, K, E, C]``
+    tensor: each slot holds at most one token, so it is the same sum.  A
+    dropped assignment goes to a trash row past the buffer, so nothing
+    here depends on the data's shape (no host sync).  The combine
+    weights are cast to ``x``'s dtype before the combine, as the
+    reference's ``combine`` tensor is.  ``aux = E * sum(me * ce)``, with
+    ``me`` the mean router probability and ``ce`` the share of tokens
+    whose first choice is each expert.
+
+    ``ep`` (``distributed.expert_parallel``): the tokens of the global
+    batch share the buffers, this rank's experts are its ``E/dp`` block,
+    and ``T`` counts the global tokens.  ``tp``: every row is routed (the
+    rows are gathered under sequence parallelism), the experts' products
+    are column then row parallel over ``mp`` between ``enter`` and
+    ``leave``, and the aux's gradient is split over the ``mp`` ranks,
+    each of which computes it whole."""
+    if tp is not None:
+        x = tpar.enter(x, tp)
+    B, S, H = x.shape
+    E, K = cfg.moe_num_experts, cfg.moe_top_k
+    T = B * S
+    if lp["w_gate"].shape[0] * (1 if ep is None else ep.ep_size) != E:
+        raise ValueError(f"w_gate {tuple(lp['w_gate'].shape)} is not a "
+                         f"block of {E} experts over dp (shard_params)")
+    xt = x.reshape(T, H)
+    probs, gate_vals, gate_idx, keep, slot, C = _moe_route(
+        cfg, lp["router"], xt, B, ep)
+    _note_routing(keep)
+    buf = xt.new_zeros((E * C + 1, H)).index_add(
+        0, slot, xt.repeat_interleave(K, dim=0))
+    expert_in = buf[:E * C].view(E, C, H)
+    if ep is not None:
+        expert_in = dexp.dispatch(expert_in, ep)                # [E/dp,C,H]
+    gate = F.silu(torch.bmm(expert_in, lp["w_gate"]))
+    up = torch.bmm(expert_in, lp["w_up"])
+    expert_out = torch.bmm(gate * up, lp["w_down"])
+    if ep is not None:
+        expert_out = dexp.combine(expert_out, ep)               # [E, C, H]
+    rows = torch.cat([expert_out.reshape(E * C, H),
+                      expert_out.new_zeros((1, H))])[slot]
+    w = gate_vals.to(x.dtype).float().view(T * K, 1)
+    out = (rows.float() * w).view(T, K, H).sum(1).to(x.dtype)
+    # the aux loss from the global means: one sum over the token ranks
+    T_all = T * (1 if ep is None else ep.n_tokens)
+    sums = torch.cat([probs.sum(0),
+                      F.one_hot(gate_idx[:, 0], E).float().sum(0)])
+    mp = 1 if tp is None else tp.size
+    sums = dexp.token_sum(sums, ep, 1.0 / (
+        mp * (1 if ep is None else ep.n_seq))) / T_all
+    aux = E * torch.sum(sums[:E] * sums[E:])
+    out = out.view(B, S, H)
+    if tp is not None:
+        out = tpar.leave(out, tp)
+    return out, aux
+
+
+# the routing counters of ``moe_routing``: None when nobody counts
+_ROUTING: list = [None]
+
+
+def _note_routing(keep):
+    if _ROUTING[0] is not None:
+        _ROUTING[0].append((keep.numel(), (~keep).sum()))
+
+
+class moe_routing:
+    """``with llama.moe_routing() as r:`` counts every MoE layer call's
+    ``(token, k)`` assignments and the dropped ones; ``r.dropped_share()``
+    is their ratio (one host sync, at the end).  A layer recomputed under
+    remat counts twice, with the same routing, so the ratio holds."""
+
+    def __enter__(self):
+        self.calls = []
+        _ROUTING[0] = self.calls
+        return self
+
+    def __exit__(self, *exc):
+        _ROUTING[0] = None
+        return False
+
+    def dropped_share(self) -> float:
+        n = sum(c for c, _ in self.calls)
+        d = sum(int(x) for _, x in self.calls)
+        return d / n if n else 0.0
+
+
 def _quantized_mode(cfg: LlamaConfig, device) -> bool:
-    """Resolved int8-weight policy: "auto" (the default) quantizes on
-    CUDA only; "on" everywhere; "off" never."""
-    mode = cfg.quantized or "auto"
+    """Resolved int8-weight policy: ``cfg.quantized``, else
+    ``FLAGS_tpu_quantized`` (default "auto", reference llama.py:284-302).
+    "auto" quantizes on CUDA only; "on" everywhere; "off" never."""
+    mode = cfg.quantized or _flags.flag("FLAGS_tpu_quantized")
     if mode == "off":
         return False
     if mode == "auto":
@@ -223,7 +353,7 @@ def _quantized_mode(cfg: LlamaConfig, device) -> bool:
 
 
 # weight leaves quantize_params converts (per-layer stacked [L, K, N]);
-# norms and embed stay dense
+# norms, embed and the MoE layers' weights stay dense
 _QUANT_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
@@ -241,13 +371,13 @@ def _quantize_stacked(w):
 def quantize_params(cfg: LlamaConfig, params):
     """PTQ the serving weight path to int8: each matmul weight in
     ``_QUANT_WEIGHTS`` plus ``lm_head`` becomes a ``{"q", "scale"}``
-    leaf (per-output-channel absmax, ``quantize_int8``).  Idempotent:
-    already-quantized leaves pass through."""
-    if cfg.moe_num_experts > 0:
-        raise NotImplementedError(_MOE)
+    leaf (per-output-channel absmax, ``quantize_int8``).  Under MoE
+    only ``lm_head`` is quantized: the reference leaves every layer
+    weight dense there (llama.py:345).  Idempotent: already-quantized
+    leaves pass through."""
     out = dict(params)
     layers = dict(params["layers"])
-    for nm in _QUANT_WEIGHTS:
+    for nm in _QUANT_WEIGHTS if cfg.moe_num_experts == 0 else ():
         w = layers.get(nm)
         if w is not None and not isinstance(w, dict):
             layers[nm] = _quantize_stacked(w)
@@ -306,11 +436,15 @@ def forward_paged(cfg: LlamaConfig, params, tokens, k_pages, v_pages,
 
     The reference returns new pools (JAX arrays are immutable); here the
     step writes into the pools in place, which halves the pool memory a
-    step needs."""
+    step needs.
+
+    Under MoE every layer's MLP is ``_moe_mlp`` over all ``R * Tc``
+    token slots, padding slots and empty rows included, as in the
+    reference (llama.py:754-755): they take capacity in row order, so
+    they are routed with the same hidden states (a padding slot's
+    attention output is an exact zero in both packages)."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales come together")
-    if cfg.moe_num_experts > 0:
-        raise NotImplementedError(_MOE)
     R, Tc = tokens.shape
     nh, nkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
@@ -385,7 +519,10 @@ def forward_paged(cfg: LlamaConfig, params, tokens, k_pages, v_pages,
             R, Tc, H)
         h = h + _qmm(out.to(h.dtype), lp["wo"])
         hn = _rms_norm(h, lp["ln2"], cfg.rms_norm_eps)
-        h = h + _dense_mlp(lp, hn)
+        if cfg.moe_num_experts > 0:
+            h = h + _moe_mlp(cfg, lp, hn)[0]
+        else:
+            h = h + _dense_mlp(lp, hn)
     x = _rms_norm(h, params["norm_f"], cfg.rms_norm_eps)
     logits = _qmm(x, params["lm_head"]).float()
     if quant_kv:
@@ -484,10 +621,11 @@ def _attention(cfg: LlamaConfig, lp, x, sin, cos, mp: int = 1, cp=None):
 
 def _fused_block_modes(cfg: LlamaConfig, x, tp=None, cp=None):
     """(use_fused_attention, use_fused_mlp) for the activation ``x``
-    (reference llama.py:405-430).  ``fused_blocks`` None means "auto",
-    the reference flag's default: "auto" engages on CUDA tensors only,
-    "on" on any device, "off" never.  The fused attention block also
-    needs as many kv heads as heads, a head dim the flash kernels take
+    (reference llama.py:405-430).  ``fused_blocks`` None follows
+    ``FLAGS_tpu_fused_blocks`` (default "auto"): "auto" engages on CUDA
+    tensors only, "on" on any device, "off" never.  The fused attention
+    block also needs as many kv heads as heads, a head dim the flash
+    kernels take
     and no context parallelism (``cp``: attention is the ring); the
     fused MLP needs no MoE and runs on the rank's rows of the sequence
     under ``cp``; both need the kernels' shapes
@@ -495,7 +633,7 @@ def _fused_block_modes(cfg: LlamaConfig, x, tp=None, cp=None):
     parallelism (``tp``) each rank holds a block of the products and the
     kernels' residual add would run on every rank, so the layer takes
     the composition."""
-    mode = cfg.fused_blocks or "auto"
+    mode = cfg.fused_blocks or _flags.flag("FLAGS_tpu_fused_blocks")
     if (tp is not None or mode == "off"
             or (mode == "auto" and x.device.type != "cuda")):
         return False, False
@@ -508,20 +646,20 @@ def _fused_block_modes(cfg: LlamaConfig, x, tp=None, cp=None):
     return attn_ok, mlp_ok
 
 
-def decoder_layer(cfg: LlamaConfig, lp, x, sin, cos, tp=None, cp=None):
+def decoder_layer(cfg: LlamaConfig, lp, x, sin, cos, tp=None, cp=None,
+                  ep=None):
     """One decoder block on a per-layer param slice (no leading L axis):
-    the fused blocks where ``_fused_block_modes`` engages them, else the
-    unfused dense composition (reference llama.py:433-465).  Under
-    tensor parallelism (``tp``, a ``tensor_parallel.TensorParallel``)
-    the slice holds this rank's blocks, the norms and residuals run on
-    the rows ``x`` holds (S/mp of them under sequence parallelism), and
-    each block's products sit between ``enter`` and ``leave``.  Under
-    context parallelism (``cp``, the ``sp`` group) ``x`` is this rank's
-    block of the sequence and ``sin``/``cos`` its positions' rows.  It
-    returns the hidden state alone; the reference's MoE aux loss comes
-    with MoE (ROADMAP A2)."""
-    if cfg.moe_num_experts > 0:
-        raise NotImplementedError(_MOE)
+    ``(h, aux)``, the fused blocks where ``_fused_block_modes`` engages
+    them, else the unfused dense composition, and under MoE the MoE
+    layer in place of the MLP (reference llama.py:433-465; ``aux`` is a
+    zero without MoE).  Under tensor parallelism (``tp``, a
+    ``tensor_parallel.TensorParallel``) the slice holds this rank's
+    blocks, the norms and residuals run on the rows ``x`` holds (S/mp of
+    them under sequence parallelism), and each block's products sit
+    between ``enter`` and ``leave``.  Under context parallelism (``cp``,
+    the ``sp`` group) ``x`` is this rank's block of the sequence and
+    ``sin``/``cos`` its positions' rows.  ``ep``: the MoE layer's expert
+    parallelism (``_moe_mlp``)."""
     fused_attn, fused_mlp = _fused_block_modes(cfg, x, tp, cp)
     if isinstance(lp.get("wq"), dict) or isinstance(lp.get("w_gate"), dict):
         # int8 quantize_params leaves: the fused kernels take dense
@@ -544,10 +682,16 @@ def decoder_layer(cfg: LlamaConfig, lp, x, sin, cos, tp=None, cp=None):
     else:
         h = x + out(_attention(cfg, lp, into(_rms_norm(x, lp["ln1"], eps)),
                                sin, cos, mp, cp))
+    if cfg.moe_num_experts > 0:
+        mlp_out, aux = _moe_mlp(cfg, lp, _rms_norm(h, lp["ln2"], eps), tp,
+                                ep)
+        return h + mlp_out, aux
+    no_aux = x.new_zeros((), dtype=torch.float32)
     if fused_mlp:
         return fb.fused_mlp_block(h, lp["ln2"], lp["w_gate"], lp["w_up"],
-                                  lp["w_down"], eps=eps)
-    return h + out(_dense_mlp(lp, into(_rms_norm(h, lp["ln2"], eps))))
+                                  lp["w_down"], eps=eps), no_aux
+    return h + out(_dense_mlp(lp, into(_rms_norm(h, lp["ln2"], eps)))), \
+        no_aux
 
 
 # matmul ops whose outputs the "dots" policy keeps (jax's dots_saveable)
@@ -560,9 +704,10 @@ def _dots_context():
 
 
 def run_layer_stack(cfg: LlamaConfig, stacked, x, sin, cos, tp=None,
-                    grad_sync=None, cp=None):
+                    grad_sync=None, cp=None, ep=None):
     """The layers in a Python loop (the reference's ``lax.scan``); returns
-    the hidden state.
+    the hidden state and the layers' aux losses summed (f32; zero
+    without MoE).
 
     Remat per layer, as the reference's ``jax.checkpoint`` around the
     scan body: ``use_remat=False`` saves every activation; ``"full"``
@@ -590,8 +735,13 @@ def run_layer_stack(cfg: LlamaConfig, stacked, x, sin, cos, tp=None,
     backward first waits for the reductions started so far (the
     reference's ``grad_sync_axis``).  ``cp``: context parallelism (see
     ``decoder_layer``); the recompute runs the ring's shifts again, the
-    same on every rank of the ring.  A pipeline stage or virtual chunk
-    runs its contiguous block of layers through it unchanged."""
+    same on every rank of the ring.  ``ep``: the MoE layers' expert
+    parallelism; the recompute reroutes from the saved router logits
+    (the same routing) and runs the layer's expert-parallel collectives
+    again, in the same order on every rank, as the tensor-parallel ones.
+    The aux comes out of the checkpointed layer with its hidden state.
+    A pipeline stage or virtual chunk runs its contiguous block of
+    layers through it unchanged."""
     names = list(stacked)
     L = stacked[names[0]].shape[0]
     parts = {n: stacked[n].unbind(0) for n in names}
@@ -602,30 +752,38 @@ def run_layer_stack(cfg: LlamaConfig, stacked, x, sin, cos, tp=None,
     per_layer = [{n: parts[n][l] for n in names} for l in range(L)]
 
     def layer(lp, h):
-        return decoder_layer(cfg, lp, h, sin, cos, tp, cp)
+        return decoder_layer(cfg, lp, h, sin, cos, tp, cp, ep)
 
+    moe = cfg.moe_num_experts > 0
+    aux = None
     for l in range(L):
         lp = per_layer[l]
         if grad_sync is not None:
             lp = doverlap.reduce_tree_in_backward(lp, grad_sync)
         if not cfg.use_remat:
-            x = layer(lp, x)
+            x, a = layer(lp, x)
         elif cfg.remat_policy == "full":
-            x = checkpoint(layer, lp, x, use_reentrant=False)
+            x, a = checkpoint(layer, lp, x, use_reentrant=False)
         else:
-            x = checkpoint(layer, lp, x, use_reentrant=False,
-                           context_fn=_dots_context)
-    return x
+            x, a = checkpoint(layer, lp, x, use_reentrant=False,
+                              context_fn=_dots_context)
+        if moe:
+            aux = a if aux is None else aux + a
+    return x, (aux if moe else x.new_zeros((), dtype=torch.float32))
 
 
-def _check_tensor_parallel(cfg: LlamaConfig, mp: int):
-    """The shapes tensor parallelism over ``mp`` ranks splits evenly."""
+def _check_tensor_parallel(cfg: LlamaConfig, mp: int, dp: int = 1):
+    """The shapes tensor parallelism over ``mp`` ranks splits evenly, and
+    the experts over ``dp``."""
     for what, n in (("num_attention_heads", cfg.num_attention_heads),
                     ("num_key_value_heads", cfg.num_key_value_heads),
                     ("vocab_size", cfg.vocab_size),
                     ("intermediate_size", cfg.intermediate_size)):
         if n % mp:
             raise ValueError(f"{what}={n} does not split over mp={mp}")
+    if cfg.moe_num_experts % dp:
+        raise ValueError(f"moe_num_experts={cfg.moe_num_experts} does not "
+                         f"split over dp={dp}")
 
 
 def _tensor_parallel(topo, sp_axis):
@@ -642,6 +800,21 @@ def _tensor_parallel(topo, sp_axis):
         return None
     return tpar.TensorParallel(topo.group("mp"), topo.mp_degree,
                                topo.coords["mp"], sp_axis == "mp")
+
+
+def _expert_parallel(cfg: LlamaConfig, topo, seq: bool):
+    """The MoE layers' expert-parallel context (``topo``, else the one
+    ``init_mesh`` built): None without MoE or when no other rank's tokens
+    share the experts.  ``seq``: context parallelism outside the
+    pipeline, whose sequence blocks share the buffers."""
+    if cfg.moe_num_experts == 0:
+        return None
+    if topo is None:
+        topo = dmesh.get_topology(create=False)
+    ep = dexp.expert_parallel(topo, seq)
+    if ep is not None:
+        _check_tensor_parallel(cfg, 1, ep.ep_size)
+    return ep
 
 
 def _context_parallel(topo):
@@ -710,15 +883,17 @@ def _forward(cfg: LlamaConfig, params, input_ids, tp, grad_sync, cp=None,
     ids = input_ids.to(embed.device).long()
     sin, cos, blk = _rope_rows(cfg, ids.shape[1], embed.device, topo, cp)
     x = _embed(cfg, params, ids[:, blk.start:blk.stop], tp)
-    x = run_layer_stack(cfg, params["layers"], x, sin, cos, tp=tp,
-                        grad_sync=grad_sync, cp=cp)
-    return _logits(cfg, params, x, tp)
+    x, aux = run_layer_stack(cfg, params["layers"], x, sin, cos, tp=tp,
+                             grad_sync=grad_sync, cp=cp,
+                             ep=_expert_parallel(cfg, topo, cp is not None))
+    return _logits(cfg, params, x, tp), aux
 
 
 def forward_pure(cfg: LlamaConfig, params, input_ids, sp_axis=None,
                  cp_mesh=None, *, topo=None, grad_sync=None):
-    """Full forward: ids [B, S] -> logits [B, S, V] f32, on the device
-    the params are on.
+    """Full forward: ids [B, S] -> (logits [B, S, V] f32, aux), on the
+    device the params are on; ``aux`` is the MoE layers' aux loss summed
+    (a zero without MoE).
 
     Under a topology with mp > 1 (``topo``, else the one ``init_mesh``
     built; ``cp_mesh``, the reference's argument, names one too) the
@@ -732,8 +907,11 @@ def forward_pure(cfg: LlamaConfig, params, input_ids, sp_axis=None,
     an ``sp`` slice, each rank runs its block of it
     (``HybridTopology.sequence_block``) with ring attention, and the
     result is that block's logits [B, S/sp, V(/mp)]; ``sp_axis`` is
-    ignored there, as in the reference.  ``grad_sync``: see
-    ``run_layer_stack``."""
+    ignored there, as in the reference.  Under MoE the experts split
+    over ``dp`` and the layers route the global batch's tokens
+    (``_moe_mlp``; under context parallelism every rank's sequence block
+    too), so ``aux`` is the global batch's on every rank.
+    ``grad_sync``: see ``run_layer_stack``."""
     if cp_mesh is not None:
         topo = cp_mesh
     cp = _context_parallel(topo)
@@ -764,26 +942,29 @@ def seq_mean(x, cp):
 def loss_fn(cfg: LlamaConfig, params, batch, sp_axis=None, cp_mesh=None,
             *, topo=None, grad_sync=None):
     """Mean next-token cross-entropy over every token (no ignore index),
-    in the reference's logsumexp form: (total, ce).  With no MoE aux
-    loss ported, total is ce.  Under tensor parallelism the
+    in the reference's logsumexp form: (total, ce), total = ce + 0.01 x
+    the MoE aux loss (reference llama.py:527-539).  Under tensor
+    parallelism the
     cross-entropy is vocab-parallel (``tensor_parallel.cross_entropy``):
     no rank builds the full logits.  Under context parallelism (sp > 1;
     see ``forward_pure``) each rank's mean over its block is averaged
     over the ``sp`` ranks, so the value is the mean over the whole
     sequence; each rank's gradient is its share, and the sum of the
-    ranks' gradients the gradient of the mean."""
+    ranks' gradients the gradient of the mean.  The aux is the global
+    batch's on every rank, its gradient shared out the same way
+    (``distributed.expert_parallel``)."""
     if cp_mesh is not None:
         topo = cp_mesh
     cp = _context_parallel(topo)
     tp = _tensor_parallel(topo, None if cp is not None else sp_axis)
-    logits = _forward(cfg, params, batch["input_ids"], tp, grad_sync, cp,
-                      topo)
+    logits, aux = _forward(cfg, params, batch["input_ids"], tp, grad_sync,
+                           cp, topo)
     labels = batch["labels"]
     if cp is not None:
         blk = (topo or dmesh.get_topology()).sequence_block(labels.shape[1])
         labels = labels[:, blk.start:blk.stop]
     ce = seq_mean(_ce(logits, labels, tp), cp)
-    return ce, ce
+    return (ce + 0.01 * aux if cfg.moe_num_experts else ce), ce
 
 
 # ---------------------------------------------------------------------------
@@ -796,18 +977,21 @@ def param_specs(cfg: LlamaConfig) -> Dict[str, Any]:
     tuples: column-parallel ``wq``/``wk``/``wv``/``w_gate``/``w_up``
     and ``lm_head`` (output dim over mp), row-parallel ``wo``/``w_down``
     (input dim over mp), vocab-parallel ``embed``, the leading layer
-    axis over pp."""
-    if cfg.moe_num_experts > 0:
-        raise NotImplementedError(_MOE)
+    axis over pp.  Under MoE the experts split over dp (expert
+    parallelism), each expert column / row parallel over mp, and the
+    router is whole on every rank."""
     col, row, norm = ("pp", None, "mp"), ("pp", "mp", None), ("pp", None)
-    return {
-        "embed": ("mp", None),
-        "layers": {"ln1": norm, "wq": col, "wk": col, "wv": col,
-                   "wo": row, "ln2": norm, "w_gate": col, "w_up": col,
-                   "w_down": row},
-        "norm_f": (None,),
-        "lm_head": (None, "mp"),
-    }
+    layers = {"ln1": norm, "wq": col, "wk": col, "wv": col, "wo": row,
+              "ln2": norm}
+    if cfg.moe_num_experts > 0:
+        layers.update(router=("pp", None, None),
+                      w_gate=("pp", "dp", None, "mp"),
+                      w_up=("pp", "dp", None, "mp"),
+                      w_down=("pp", "dp", "mp", None))
+    else:
+        layers.update(w_gate=col, w_up=col, w_down=row)
+    return {"embed": ("mp", None), "layers": layers, "norm_f": (None,),
+            "lm_head": (None, "mp")}
 
 
 def _paths(tree, prefix=""):
@@ -933,10 +1117,14 @@ def build_train_step(cfg: LlamaConfig, topo=None, optimizer=None,
       the interleaved schedule).  ``opt_state`` is a ``ZeroOptimizer``.
     - ``step_fn(params, opt_state, batch)`` -> ``(params, opt_state,
       {"loss", "ce"})``: ``batch`` is this rank's rows of the global
-      batch (``topo.shard_batch``: the ``pp`` and ``sp`` ranks of a row
-      set take the same rows); the params and the state are updated in
+      batch (``step_fn.shard_batch``: ``topo.shard_batch`` by
+      microbatch under the pipeline, so that a rank's microbatch ``m``
+      is its share of the global microbatch ``m``, as the reference
+      splits the global batch; the ``pp`` and ``sp`` ranks of a row set
+      take the same rows); the params and the state are updated in
       place and returned.  The loss is the mean over every token of the
-      global batch, as the reference's ``jnp.mean``.
+      global batch, as the reference's ``jnp.mean``, plus 0.01 x the
+      MoE aux loss.
 
     Without a pipeline the forward is the reference's ``loss_fn(...,
     sp_axis="mp")``: tensor parallel with sequence-parallel activations
@@ -950,7 +1138,11 @@ def build_train_step(cfg: LlamaConfig, topo=None, optimizer=None,
     as the reference, llama.py:876-880) reduces each layer's gradients
     inside the backward (``reduce_in_backward``) and the tail in 4 MiB
     buckets (``bucketed_psum``); with ``schedule="1f1b"`` it runs the
-    overlapped 1F1B schedule; other topologies ignore it.
+    overlapped 1F1B schedule; other topologies, and MoE models (as in
+    the reference), ignore it.  Under MoE the experts split over dp
+    (``param_specs``): an expert leaf's gradient is summed over the
+    batch axes but dp (``distributed.zero``), and the router's, which
+    every mp rank computes a part of, over mp.
 
     ``use_pp`` (default: pp > 1) runs the pipeline over ``pp``
     (``distributed.pipeline``) with ``n_microbatches`` (default pp)
@@ -968,8 +1160,6 @@ def build_train_step(cfg: LlamaConfig, topo=None, optimizer=None,
     if virtual_pp is not None and schedule != "interleaved":
         raise ValueError(
             "virtual_pp only applies to schedule='interleaved'")
-    if cfg.moe_num_experts > 0:
-        raise NotImplementedError(_MOE)
     if topo is None:
         topo = dmesh.get_topology()
     dev = resolve_device(device)
@@ -985,7 +1175,7 @@ def build_train_step(cfg: LlamaConfig, topo=None, optimizer=None,
             "parallelism on the GPipe schedule only (ring attention "
             "inside the pp x sp shard_map); use schedule='gpipe' or "
             "drop one axis")
-    _check_tensor_parallel(cfg, mp)
+    _check_tensor_parallel(cfg, mp, topo.dp_degree)
     n_micro = n_microbatches or pp
     v = None
     if use_pp and schedule == "interleaved":
@@ -995,12 +1185,16 @@ def build_train_step(cfg: LlamaConfig, topo=None, optimizer=None,
     make_optimizer = optimizer or adamw
     n_batch = topo.axis_size(topo.batch_axes)
     overlap_dp = (overlap and not use_pp and not cp and topo.dp_degree > 1
-                  and mp == 1 and topo.sharding_degree == 1)
+                  and mp == 1 and topo.sharding_degree == 1
+                  and cfg.moe_num_experts == 0)
     # leaves every mp rank holds whole: under sequence parallelism each
-    # rank's gradient of them comes from its own S/mp rows
+    # rank's gradient of them comes from its own S/mp rows; the MoE
+    # router's from the mp ranks' partial expert outputs (``_moe_mlp``)
     seq_par = mp > 1 and not use_pp and not cp
     mp_partial = [p for p, s in specs.items() if "mp" not in s] \
         if seq_par else []
+    if mp > 1 and cfg.moe_num_experts > 0 and not seq_par:
+        mp_partial.append("layers/router")
     tail = [k for k in param_specs(cfg) if k != "layers"]
 
     def init_fn(seed: int = 0, *, params=None):
@@ -1064,7 +1258,12 @@ def build_train_step(cfg: LlamaConfig, topo=None, optimizer=None,
                 topo.batch_axes))
         return params, opt_state, {"loss": loss[0], "ce": loss[1]}
 
+    def shard_batch(batch):
+        return topo.shard_batch(batch, microbatches=n_micro if use_pp
+                                else 1)
+
     step_fn.topology = topo
+    step_fn.shard_batch = shard_batch
     step_fn.overlap = overlap_dp
     step_fn.schedule = schedule if use_pp else None
     step_fn.n_microbatches = n_micro if use_pp else None

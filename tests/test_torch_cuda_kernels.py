@@ -803,3 +803,33 @@ def test_train_step_launches_the_fused_kernels(cuda, policy):
         fwd, fwd, fwd, 2, 0, 2]
     assert torch.isfinite(ce)
     assert all(torch.isfinite(t.grad).all() for t in leaves)
+
+
+@pytest.mark.parametrize("policy", ["none", "dots"])
+def test_moe_train_step_launches_rows_1_to_8(cuda, policy):
+    """The same step with 4 experts (top 2): the fused attention block
+    engages as in the dense step (rows 7-8, and the flash backward, rows
+    3-6, once per layer), and the MoE layer takes the MLP's place, so
+    the fused MLP kernels (rows 9-10) never launch."""
+    cfg = tllama.LlamaConfig(vocab_size=128, hidden_size=256,
+                             intermediate_size=512, num_hidden_layers=2,
+                             num_attention_heads=2, num_key_value_heads=2,
+                             max_position_embeddings=64, moe_num_experts=4,
+                             use_remat=policy != "none", remat_policy="dots")
+    params = tllama.init_params(cfg, 0, device=cuda)
+    leaves = list(tllama._paths(params).values())
+    for t in leaves:
+        t.requires_grad_(True)
+    ids = torch.randint(0, 128, (2, 64), device=cuda)
+    wrappers = (fb.fused_qkv, fb.fused_attn_epilogue, fb.fused_mlp_fwd,
+                fb.fused_mlp_bwd_dx, fa.flash_fwd, fa.flash_bwd)
+    before = [w.launches for w in wrappers]
+    total, ce = tllama.loss_fn(cfg, params, {"input_ids": ids,
+                                             "labels": ids})
+    total.backward()
+    torch.cuda.synchronize()
+    fwd = 2 if policy == "none" else 4
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [
+        fwd, fwd, 0, 0, 0, 2]
+    assert torch.isfinite(total) and total.item() != ce.item()
+    assert all(torch.isfinite(t.grad).all() for t in leaves)

@@ -361,12 +361,6 @@ def test_unported_plan_paths_raise():
         Plan().verify_callable(lambda x: x)
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         Plan().train_step(cfg, verify=True, device="cpu")
-    # the pipeline is ported (its schedules apply under pp > 1); MoE is
-    # ROADMAP A2's next item
-    moe = tllama.LlamaConfig(dtype=torch.float32,
-                             **{**FIELDS, "moe_num_experts": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP A2, item 3"):
-        tllama.build_train_step(moe, device="cpu")
     with pytest.raises(ValueError, match="virtual_pp"):
         tllama.build_train_step(cfg, schedule="1f1b", virtual_pp=2,
                                 device="cpu")

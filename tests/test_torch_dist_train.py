@@ -8,7 +8,12 @@ virtual mesh, from the same ``llama-debug``-sized float32 params (JAX's
 same three global batches from ``default_rng``.  Six topologies: dp=2,
 mp=2, dp=2 x mp=2, dp=2 x sharding=2 (ZeRO over sharding), dp=4 with
 ``zero=False``, dp=4 with ``overlap=True``; plus dp=4 with neither, the
-yardstick of the overlapped reduction.
+yardstick of the overlapped reduction.  The MoE model (4 experts, top 2,
+capacity factor 1.0, so that experts overflow) runs at dp=2, dp=2 x
+mp=2 and dp=2 x sharding=2 with its experts split over dp, each also
+one step under SGD at lr 1, whose update is the global batch's
+gradient: held to ``jax.grad`` of the reference's loss on one device
+(GSPMD's semantics) at atol 1e-6 + rtol 1e-4, the router's included.
 
 Tolerances, float32: the loss of every step atol 2e-5 (the summation
 order of the products, the collectives and the vocab-parallel
@@ -41,8 +46,9 @@ from paddle_tpu_torch.models import llama as tllama
 FIELDS = dict(jllama.PRESETS["llama-debug"])
 B, S, STEPS, LR = 8, 32, 3, 3e-4
 TIMEOUT = 300.0
+MOE = dict(moe_num_experts=4, moe_top_k=2, moe_capacity_factor=1.0)
 
-# name: (ranks, topology, build_train_step kwargs)
+# name: (ranks, topology, build_train_step kwargs[, config overrides])
 TOPOLOGIES = {
     "dp2": (2, dict(dp=2), {}),
     "mp2": (2, dict(mp=2), {}),
@@ -50,8 +56,12 @@ TOPOLOGIES = {
     "dp2xsharding2": (4, dict(dp=2, sharding=2), {}),
     "dp4_nozero": (4, dict(dp=4), dict(zero=False)),
     "dp4_overlap": (4, dict(dp=4), dict(overlap=True)),
+    "moe_dp2": (2, dict(dp=2), dict(overlap=True), MOE),
+    "moe_dp2xmp2": (4, dict(dp=2, mp=2), {}, MOE),
+    "moe_dp2xsharding2": (4, dict(dp=2, sharding=2), {}, MOE),
 }
 YARDSTICK = (4, dict(dp=4), {})   # dp4_overlap without the overlap
+MOE_GRADS = [n for n, t in TOPOLOGIES.items() if len(t) > 3]
 
 
 def _np(tree):
@@ -67,14 +77,15 @@ def _batches():
             for _ in range(STEPS)]
 
 
-def _jcfg():
+def _jcfg(**kw):
     return jllama.LlamaConfig(dtype=jnp.float32, fused_blocks="off",
-                              **FIELDS)
+                              **FIELDS, **kw)
 
 
-def _jax_run(n, topo_kw, step_kw, batches):
+def _jax_run(n, topo_kw, step_kw, batches, cfg_kw=None):
     topo = JTopology(devices=jax.devices()[:n], **topo_kw)
-    step, init = jllama.build_train_step(_jcfg(), topo, **step_kw)
+    step, init = jllama.build_train_step(_jcfg(**(cfg_kw or {})), topo,
+                                         **step_kw)
     params, state = init(jax.random.PRNGKey(0))
     losses = []
     for b in batches:
@@ -86,30 +97,48 @@ def _jax_run(n, topo_kw, step_kw, batches):
                              for k, v in mu.items()}}
 
 
+def _jax_grads(np_params, batch):
+    """``jax.grad`` of the reference's MoE loss on one device over the
+    global batch."""
+    grads = jax.grad(lambda p: jllama.loss_fn(_jcfg(**MOE), p, batch)[0])(
+        np_params)
+    return tllama._paths(_np(grads))
+
+
 @pytest.fixture(scope="module")
 def runs():
     """Both packages on every topology: the port's two worlds (2 and 4
     ranks) start first and run while JAX computes its side."""
     batches = _batches()
     np_params = _np(jllama.init_params(_jcfg(), jax.random.PRNGKey(0)))
+    moe_params = _np(jllama.init_params(_jcfg(**MOE),
+                                        jax.random.PRNGKey(0)))
     worlds = {}
-    for name, (n, topo_kw, step_kw) in TOPOLOGIES.items():
-        worlds.setdefault(n, []).append((name, (topo_kw, step_kw)))
+    for name, (n, topo_kw, step_kw, *cfg_kw) in TOPOLOGIES.items():
+        own = (cfg_kw[0], moe_params) if cfg_kw else ()
+        worlds.setdefault(n, []).append((name, (topo_kw, step_kw, *own)))
     worlds[4].append(("dp4_plain", YARDSTICK[1:]))
+    for name in MOE_GRADS:
+        n, topo_kw, step_kw, cfg_kw = TOPOLOGIES[name]
+        worlds[n].append((f"{name}_sgd", (topo_kw, dict(
+            step_kw, optimizer="sgd1"), cfg_kw, moe_params)))
     with cf.ThreadPoolExecutor(len(worlds)) as pool:
         futs = {n: pool.submit(spawn, workers.train_cases, n,
                                (FIELDS, np_params, batches,
                                 [c for _, c in cases]),
                                device="cpu", timeout=TIMEOUT)
                 for n, cases in worlds.items()}
-        ref = {name: _jax_run(n, topo_kw, step_kw, batches)
-               for name, (n, topo_kw, step_kw) in TOPOLOGIES.items()}
+        ref = {name: _jax_run(n, topo_kw, step_kw, batches, *cfg_kw)
+               for name, (n, topo_kw, step_kw, *cfg_kw)
+               in TOPOLOGIES.items()}
+        ref_grads = _jax_grads(moe_params, batches[0])
         port = {}
         for n, cases in worlds.items():
             ranks = futs[n].result(timeout=TIMEOUT + 30)
             for i, (name, _) in enumerate(cases):
                 port[name] = [r[i] for r in ranks]
     return {"ref": ref, "port": port, "np_params": np_params,
+            "moe_params": moe_params, "ref_grads": ref_grads,
             "batches": batches}
 
 
@@ -142,13 +171,45 @@ def test_zero_state_shapes_match_jax(runs, name):
 
 @pytest.mark.parametrize("name", list(TOPOLOGIES))
 def test_dp_replicas_are_bit_identical(runs, name):
-    by_mp = {}
-    for r in runs["port"][name]:
-        by_mp.setdefault(r["coords"]["mp"], []).append(r["local"])
-    for group in by_mp.values():
-        for other in group[1:]:
-            for k, v in group[0].items():
-                assert np.array_equal(other[k], v), k
+    """The ranks that hold the same block of a leaf (the same coordinates
+    on the axes it splits over: mp, and dp for an expert leaf) hold the
+    same bits."""
+    specs = tllama._paths(tllama.param_specs(tllama.LlamaConfig(
+        **FIELDS, **(TOPOLOGIES[name][3:] or [{}])[0])))
+    for k, spec in specs.items():
+        by_block = {}
+        for r in runs["port"][name]:
+            key = tuple(r["coords"][a] for a in ("dp", "mp") if a in spec)
+            by_block.setdefault(key, []).append(r["local"][k])
+        for group in by_block.values():
+            for other in group[1:]:
+                assert np.array_equal(other, group[0]), k
+
+
+def test_moe_collectives_match_the_chip_reckoning(runs):
+    """At dp=2 a MoE step's collective calls and input bytes by op are
+    ``chip_smoke.moe_collective_reckoning``'s, which the card's run is
+    held to: three forward passes' worth of the layer's collectives
+    under "dots" (forward, recompute, backward), ZeRO's and the loss's."""
+    for r in runs["port"]["moe_dp2"]:
+        assert r["reckoned"] is not None
+        assert r["calls"] == r["reckoned"]["calls"]
+        assert r["bytes"] == r["reckoned"]["bytes"]
+
+
+@pytest.mark.parametrize("name", MOE_GRADS)
+def test_moe_step_gradients_match_jax_grad(runs, name):
+    """One SGD step at lr 1 from the same params: the update is the
+    global batch's gradient of ce + 0.01 aux, every leaf (an expert
+    leaf's from the tokens of every rank; never summed over dp, which
+    would add other experts' gradients to it)."""
+    want = runs["ref_grads"]
+    p0 = tllama._paths(runs["moe_params"])
+    for r in runs["port"][f"{name}_sgd"]:
+        got = tllama._paths(r["params"])
+        for k, g in want.items():
+            np.testing.assert_allclose(p0[k] - got[k], g, rtol=1e-4,
+                                       atol=1e-6, err_msg=k)
 
 
 def test_overlap_differs_from_plain_dp_by_summation_order(runs):

@@ -126,7 +126,7 @@ def test_train_entry_points_never_pick_the_cpu_themselves(no_card, capsys):
         tllama.init_params(cfg)
     params = tllama.init_params(cfg, device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.long)
-    logits = tllama.forward_pure(cfg, params, ids)
+    logits, _ = tllama.forward_pure(cfg, params, ids)
     assert logits.device.type == "cpu"
     total, _ = tllama.loss_fn(cfg, params, {"input_ids": ids,
                                             "labels": ids})

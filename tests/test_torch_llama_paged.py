@@ -178,13 +178,6 @@ def test_rms_norm_casts_before_the_weight_multiply():
     np.testing.assert_array_equal(got.float().numpy(), ref)
 
 
-def test_forward_paged_refuses_what_is_not_ported():
-    z = torch.zeros(1)
-    moe = tllama.LlamaConfig(moe_num_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tllama.forward_paged(moe, {}, z, z, z, z, z, z)
-
-
 # ---------------------------------------------------------------------------
 # int8 KV pools: quantize on write, dequantize on read
 # ---------------------------------------------------------------------------

@@ -78,7 +78,7 @@ def _port_params(np_params):
 
 def _port_step(tcfg, params, batch):
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    logits = tllama.forward_pure(tcfg, params, tb["input_ids"])
+    logits, _ = tllama.forward_pure(tcfg, params, tb["input_ids"])
     total, ce = tllama.loss_fn(tcfg, params, tb)
     total.backward()
     return logits.detach(), total.item(), ce.item()
@@ -240,13 +240,6 @@ def test_unported_branches_raise():
     torch.testing.assert_close(
         tllama.forward_pure(tcfg, params, ids, cp_mesh=HybridTopology()),
         tllama.forward_pure(tcfg, params, ids), atol=0, rtol=0)
-    moe = tllama.LlamaConfig(dtype=torch.float32,
-                             **{**fields, "moe_num_experts": 2})
-    x = torch.zeros((1, 4, fields["hidden_size"]))
-    lp = {k: v[0] for k, v in params["layers"].items()}
-    sin, cos = tllama._rope_tables(tcfg, 4, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        tllama.decoder_layer(moe, lp, x, sin, cos)
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +321,7 @@ def test_fused_decoder_layer_matches_jax(interpret):
           for k, v in jlp.items()}
     xx = torch.from_numpy(x).requires_grad_(True)
     sin, cos = tllama._rope_tables(tcfg, S, "cpu")
-    y = tllama.decoder_layer(tcfg, lp, xx, sin, cos)
+    y, _ = tllama.decoder_layer(tcfg, lp, xx, sin, cos)
     y.backward(torch.from_numpy(dy))
     np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_r),
                                atol=2e-5, rtol=0)
@@ -427,7 +420,7 @@ def test_fused_policy_routes_each_layer(monkeypatch):
         lp = {k: tllama._layer(v, 0) for k, v in params["layers"].items()}
         sin, cos = tllama._rope_tables(cfg, S, "cpu")
         calls.clear()
-        y = tllama.decoder_layer(cfg, lp, torch.zeros(
+        y, _ = tllama.decoder_layer(cfg, lp, torch.zeros(
             (1, S, fields["hidden_size"])), sin, cos)
         assert calls == want, (nkv, mode, quant)
         assert torch.isfinite(y).all()

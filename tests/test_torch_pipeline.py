@@ -17,10 +17,18 @@ loop runs, gathered from every rank, are ``schedule_events``' events.
 pp=2 (interleaved, v=2) against the reference's ``build_train_step`` on
 one device (the same global batch, the same mean loss) over three AdamW
 steps: losses rtol 1e-5, the gathered params as
-``tests/test_torch_dist_train.py`` holds them.  (The reference's own
-8-device pipelined step aborted the test worker under the load of a
-full parallel test run, twice; its pipelines stay held here on 2 and 4
-devices.)  The reference runs first, then the ranks: no rank loads the
+``tests/test_torch_dist_train.py`` holds them.  The MoE model (4
+experts, top 2, capacity factor 1.0) under GPipe, 1F1B and interleaved
+at pp=2 against the reference's pipelines on 2 devices (their own aux
+scalings; a microbatch's tokens routed together), at the same
+tolerances, and its train step at dp=2 x pp=2 (1F1B) against the
+reference's ``build_train_step`` on the same 4-device topology, whose
+microbatches are slices of the global batch routed over dp; and
+``Plan(dp=2, sharding=2, mp=2).train_step`` (the reference's zero+ep
+plan) on the MoE model against the reference's step on one device.
+(The reference's own 8-device pipelined step aborted the test worker
+under the load of a full parallel test run, twice; its pipelines stay
+held here on 2 and 4 devices.)  The reference runs first, then the ranks: no rank loads the
 host while the reference's collectives run.
 """
 import concurrent.futures as cf
@@ -58,7 +66,15 @@ STEP_CASES = {"dp2xpp2xmp2_1f1b": (8, dict(dp=2, pp=2, mp=2),
                                    dict(n_microbatches=4, schedule="1f1b")),
               "dp2xpp2_interleaved": (4, dict(dp=2, pp=2),
                                       dict(n_microbatches=4,
-                                           schedule="interleaved"))}
+                                           schedule="interleaved")),
+              "moe_dp2xpp2_1f1b": (4, dict(dp=2, pp=2),
+                                   dict(n_microbatches=4, schedule="1f1b")),
+              # the reference's zero+ep plan (tests/test_plan.py:246)
+              "moe_zero_ep_plan": (8, dict(dp=2, sharding=2, mp=2),
+                                   dict(plan=True))}
+MOE = dict(moe_num_experts=4, moe_top_k=2, moe_capacity_factor=1.0)
+MOE_PIPES = [("gpipe", 4, {}), ("1f1b", 4, {"overlap": False}),
+             ("interleaved", 4, {"v": 2})]
 
 
 def _jcfg(**kw):
@@ -74,6 +90,24 @@ def _batch(seed=0, rows=B):
 
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _jax_moe_pipelines(params, batch):
+    """The reference's pipelines on 2 devices for the MoE model."""
+    cfg = _jcfg(**MOE)
+    mesh = Mesh(np.asarray(jax.devices()[:2]), ("pp",))
+    out = {}
+    loss, ce, grads = jax.jit(lambda p, b: jpipe.pipeline_1f1b_value_and_grad(
+        cfg, mesh, 4, p, b))(params, batch)
+    out["1f1b"] = (float(loss), float(ce), _np(grads))
+    for name, fn in (("gpipe", lambda p: jpipe.pipeline_loss_fn(
+            cfg, mesh, 4, p, batch)),
+            ("interleaved", lambda p: jpipe.pipeline_interleaved_loss_fn(
+                cfg, mesh, 4, 2, p, batch))):
+        (loss, ce), grads = jax.jit(jax.value_and_grad(
+            fn, has_aux=True))(params)
+        out[name] = (float(loss), float(ce), _np(grads))
+    return out
 
 
 def _jax_pipelines(params, batch):
@@ -95,11 +129,12 @@ def _jax_pipelines(params, batch):
     return out
 
 
-def jax_steps(cfg, np_params, batches):
-    """The reference's ``build_train_step`` on one device from
-    ``np_params`` over ``batches``: its losses and params."""
-    topo = JTopology(devices=jax.devices()[:1])
-    step, init = jllama.build_train_step(cfg, topo)
+def jax_steps(cfg, np_params, batches, n=1, topo_kw=None, step_kw=None):
+    """The reference's ``build_train_step`` from ``np_params`` over
+    ``batches``, on one device or on ``n`` with ``topo_kw`` and
+    ``step_kw``: its losses and params."""
+    topo = JTopology(devices=jax.devices()[:n], **(topo_kw or {}))
+    step, init = jllama.build_train_step(cfg, topo, **(step_kw or {}))
     params, state = init(jax.random.PRNGKey(0))
     # the same weights as the port's, in the step's placement
     params = jax.tree_util.tree_map(
@@ -118,31 +153,55 @@ def jax_steps(cfg, np_params, batches):
 @pytest.fixture(scope="module")
 def runs():
     np_params = _np(jllama.init_params(_jcfg(), jax.random.PRNGKey(0)))
+    moe_params = _np(jllama.init_params(_jcfg(**MOE),
+                                        jax.random.PRNGKey(0)))
     batch = _batch()
     batches = [_batch(seed=1 + i, rows=16) for i in range(STEPS)]
     ref = _jax_pipelines(np_params, batch)
-    ref_steps = jax_steps(jllama.LlamaConfig(
-        dtype=jnp.float32, fused_blocks="off", **FIELDS), np_params, batches)
+    ref_moe = _jax_moe_pipelines(moe_params, batch)
+    dense_cfg = jllama.LlamaConfig(dtype=jnp.float32, fused_blocks="off",
+                                   **FIELDS)
+    dense_steps = jax_steps(dense_cfg, np_params, batches)
+    ref_steps = {name: dense_steps for name in STEP_CASES
+                 if not name.startswith("moe")}
+    moe_cfg = jllama.LlamaConfig(dtype=jnp.float32, fused_blocks="off",
+                                 **FIELDS, **MOE)
+    n, topo_kw, step_kw = STEP_CASES["moe_dp2xpp2_1f1b"]
+    ref_steps["moe_dp2xpp2_1f1b"] = jax_steps(
+        moe_cfg, moe_params, batches, n, topo_kw, step_kw)
+    ref_steps["moe_zero_ep_plan"] = jax_steps(moe_cfg, moe_params, batches)
+    cases = dict(CASES)
+    cases[2] = CASES[2] + [(s, nm, dict(kw, cfg=MOE, params=moe_params))
+                           for s, nm, kw in MOE_PIPES]
+    step_worlds = {}
+    for name, (n, topo_kw, step_kw) in STEP_CASES.items():
+        own = (MOE, moe_params) if name.startswith("moe") else ()
+        step_worlds.setdefault(n, []).append(
+            (name, (topo_kw, step_kw, *own)))
     with cf.ThreadPoolExecutor(4) as pool:
         futs = {n: pool.submit(spawn, workers.pipeline_cases, n,
-                               (FIELDS, np_params, batch, cases),
+                               (FIELDS, np_params, batch, c),
                                device="cpu", timeout=TIMEOUT)
-                for n, cases in CASES.items()}
-        step_futs = {name: pool.submit(
+                for n, c in cases.items()}
+        step_futs = {n: pool.submit(
             spawn, workers.train_cases, n,
-            (FIELDS, np_params, batches, [(topo_kw, step_kw)]),
+            (FIELDS, np_params, batches, [c for _, c in world]),
             device="cpu", timeout=TIMEOUT)
-            for name, (n, topo_kw, step_kw) in STEP_CASES.items()}
+            for n, world in step_worlds.items()}
         port = {}
-        for n, cases in CASES.items():
+        for n, c in cases.items():
             ranks = futs[n].result(timeout=TIMEOUT + 30)
-            for i, (schedule, nm, kw) in enumerate(cases):
-                port[(schedule, n, nm, kw.get("overlap"))] = [
+            for i, (schedule, nm, kw) in enumerate(c):
+                moe = "moe_" if "cfg" in kw else ""
+                port[(moe + schedule, n, nm, kw.get("overlap"))] = [
                     r[i] for r in ranks]
-        steps = {name: [r[0] for r in f.result(timeout=TIMEOUT + 30)]
-                 for name, f in step_futs.items()}
-    return {"ref": ref, "port": port, "ref_steps": ref_steps,
-            "steps": steps}
+        steps = {}
+        for n, world in step_worlds.items():
+            ranks = step_futs[n].result(timeout=TIMEOUT + 30)
+            for i, (name, _) in enumerate(world):
+                steps[name] = [r[i] for r in ranks]
+    return {"ref": ref, "ref_moe": ref_moe, "port": port,
+            "ref_steps": ref_steps, "steps": steps}
 
 
 def _full_grads(ranks, v=1):
@@ -230,9 +289,22 @@ def test_gpipe_and_interleaved_match_jax(runs, schedule):
                              else 1), grads)
 
 
+@pytest.mark.parametrize("schedule,nm,kw", MOE_PIPES)
+def test_moe_pipelines_match_jax(runs, schedule, nm, kw):
+    """The MoE model's loss (ce + 0.01 aux, each schedule's aux scaling)
+    and gradients at pp=2 against the reference's pipeline."""
+    loss, ce, grads = runs["ref_moe"][schedule]
+    ranks = runs["port"][("moe_" + schedule, 2, nm, kw.get("overlap"))]
+    for r in ranks:
+        np.testing.assert_allclose(r["loss"], loss, rtol=1e-5)
+        np.testing.assert_allclose(r["ce"], ce, rtol=1e-5)
+    assert loss != ce
+    _check_grads(_full_grads(ranks, v=kw.get("v", 1)), grads)
+
+
 @pytest.mark.parametrize("name", list(STEP_CASES))
 def test_train_step_matches_jax(runs, name):
-    ref = runs["ref_steps"]
+    ref = runs["ref_steps"][name]
     ranks = runs["steps"][name]
     for r in ranks:
         np.testing.assert_allclose([x for x, _ in r["losses"]],

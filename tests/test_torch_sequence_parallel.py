@@ -17,6 +17,13 @@ from ``default_rng``:
   steps abort test workers under a full parallel test run's load, see
   ``tests/test_torch_pipeline.py``): every loss at rtol 2e-4, the
   gathered params as ``tests/test_torch_dist_train.py`` holds them;
+- the MoE model (4 experts, top 2, capacity factor 1.0) at dp=2 x sp=2,
+  whose layers route the global batch's tokens in the reference's
+  order (rows of both batch ranks, each row's sequence blocks in turn),
+  against the reference's step on one device, and under GPipe at pp=2 x
+  sp=2, where each sequence block is routed on its own and the aux
+  averaged over sp, against the reference's step on the same 4-device
+  topology; the same tolerances;
 - sp > 1 with the 1F1B schedule raises the reference's ``ValueError``.
 
 The reference runs first, then the ranks.
@@ -53,7 +60,12 @@ FIELDS = dict(vocab_size=128, hidden_size=64, intermediate_size=64,
 B, S, STEPS, LR = 4, 32, 3, 3e-4
 STEP_CASES = {"dp2xmp2xsp2": (8, dict(dp=2, mp=2, sp=2), {}),
               "pp2xsp2_gpipe": (4, dict(pp=2, sp=2),
-                                dict(n_microbatches=2, schedule="gpipe"))}
+                                dict(n_microbatches=2, schedule="gpipe")),
+              "moe_dp2xsp2": (4, dict(dp=2, sp=2), {}),
+              "moe_pp2xsp2_gpipe": (4, dict(pp=2, sp=2),
+                                    dict(n_microbatches=2,
+                                         schedule="gpipe"))}
+MOE = dict(moe_num_experts=4, moe_top_k=2, moe_capacity_factor=1.0)
 
 
 def _np(tree):
@@ -92,9 +104,9 @@ def _batches():
         np.int32) for k in ("input_ids", "labels")} for _ in range(STEPS)]
 
 
-def _jcfg():
+def _jcfg(**kw):
     return jllama.LlamaConfig(dtype=jnp.float32, fused_blocks="off",
-                              **FIELDS)
+                              **FIELDS, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -102,23 +114,38 @@ def runs():
     inputs = {n: [_qkv(c[3], seed=10 * n + i) for i, c in enumerate(cases)]
               for n, cases in ATTN.items()}
     np_params = _np(jllama.init_params(_jcfg(), jax.random.PRNGKey(0)))
+    moe_params = _np(jllama.init_params(_jcfg(**MOE),
+                                        jax.random.PRNGKey(0)))
     batches = _batches()
     ref = {n: _jax_attention(n, cases, inputs[n])
            for n, cases in ATTN.items()}
-    ref_steps = jax_steps(_jcfg(), np_params, batches)
+    dense = jax_steps(_jcfg(), np_params, batches)
+    ref_steps = {name: dense for name in STEP_CASES
+                 if not name.startswith("moe")}
+    ref_steps["moe_dp2xsp2"] = jax_steps(_jcfg(**MOE), moe_params, batches)
+    n, topo_kw, step_kw = STEP_CASES["moe_pp2xsp2_gpipe"]
+    ref_steps["moe_pp2xsp2_gpipe"] = jax_steps(
+        _jcfg(**MOE), moe_params, batches, n, topo_kw, step_kw)
+    worlds = {}
+    for name, (n, topo_kw, step_kw) in STEP_CASES.items():
+        own = (MOE, moe_params) if name.startswith("moe") else ()
+        worlds.setdefault(n, []).append((name, (topo_kw, step_kw, *own)))
     with cf.ThreadPoolExecutor(4) as pool:
         futs = {n: pool.submit(spawn, workers.attention_cases, n,
                                (inputs[n], [c[:3] for c in cases]),
                                device="cpu", timeout=TIMEOUT)
                 for n, cases in ATTN.items()}
-        step_futs = {name: pool.submit(
+        step_futs = {n: pool.submit(
             spawn, workers.train_cases, n,
-            (FIELDS, np_params, batches, [(topo_kw, step_kw)]),
+            (FIELDS, np_params, batches, [c for _, c in world]),
             device="cpu", timeout=TIMEOUT)
-            for name, (n, topo_kw, step_kw) in STEP_CASES.items()}
+            for n, world in worlds.items()}
         port = {n: f.result(timeout=TIMEOUT + 30) for n, f in futs.items()}
-        steps = {name: [r[0] for r in f.result(timeout=TIMEOUT + 30)]
-                 for name, f in step_futs.items()}
+        steps = {}
+        for n, world in worlds.items():
+            ranks = step_futs[n].result(timeout=TIMEOUT + 30)
+            for i, (name, _) in enumerate(world):
+                steps[name] = [r[i] for r in ranks]
     return {"ref": ref, "port": port, "ref_steps": ref_steps,
             "steps": steps}
 
@@ -145,9 +172,9 @@ def test_ring_grads_match_jax(runs, n, i):
 
 @pytest.mark.parametrize("name", list(STEP_CASES))
 def test_context_parallel_step_matches_jax(runs, name):
-    ref = runs["ref_steps"]
+    ref = runs["ref_steps"][name]
     for r in runs["steps"][name]:
-        np.testing.assert_allclose([x for _, x in r["losses"]],
+        np.testing.assert_allclose([x for x, _ in r["losses"]],
                                    ref["losses"], rtol=2e-4)
         workers.close_params(tllama._paths(r["params"]), ref["params"],
                              STEPS, LR)

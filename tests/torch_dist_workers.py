@@ -24,45 +24,83 @@ def _local(params):
             for k, v in tllama._paths(params).items()}
 
 
-def _calls():
-    """The collective calls by op since ``metrics.reset()``."""
+def _calls(what="calls"):
+    """The collective calls (or input bytes) by op since
+    ``metrics.reset()``."""
     return {k.split('op="')[1].split('"')[0]: v
             for k, v in metrics.snapshot().items()
-            if k.startswith("collective_calls_total")}
+            if k.startswith(f"collective_{what}_total")}
+
+
+def sgd1(tensors):
+    """SGD at lr 1: a step's update is the gradient itself."""
+    return torch.optim.SGD(tensors, lr=1.0)
 
 
 def train_cases(fields, np_params, batches, cases):
-    """Each case ``(topology kwargs, build_train_step kwargs)``: the
-    train step from ``np_params`` over ``batches`` (global batches),
-    with this rank's losses, the gathered params, its local shards, its
-    optimizer-state shapes, its coordinates and the collectives of its
-    first step."""
+    """Each case ``(topology kwargs, build_train_step kwargs)``, or with
+    config overrides and params of its own ``(..., cfg kwargs,
+    np_params)``: the train step from ``np_params`` over ``batches``
+    (global batches, each cut by ``step.shard_batch``), with this rank's
+    losses, the gathered params, its local shards, its optimizer-state
+    shapes, its coordinates and the collectives of its first step.
+    ``build_train_step`` kwargs name the optimizer ``"sgd1"`` for
+    ``sgd1``; such a case takes the first batch only.  With ``plan``
+    among them the step is ``Plan(**topology kwargs).train_step``."""
     torch.set_num_threads(1)
     from paddle_tpu_torch import flags
     flags.set_flags({"FLAGS_tpu_metrics": True})
-    cfg = _cfg(fields)
     out = []
-    for topo_kw, step_kw in cases:
-        topo = init_mesh(**topo_kw)
-        step, init = tllama.build_train_step(cfg, topo, device="cpu",
-                                             **step_kw)
+    for case in cases:
+        topo_kw, step_kw, cfg_kw, case_params = (*case, {}, None)[:4]
+        cfg = _cfg(fields, **cfg_kw)
+        if case_params is None:
+            case_params = np_params
+        case_batches = batches
+        step_kw = dict(step_kw)
+        if step_kw.get("optimizer") == "sgd1":
+            step_kw = dict(step_kw, optimizer=sgd1)
+            case_batches = batches[:1]
+        if step_kw.pop("plan", False):
+            step, init = Plan(**topo_kw).train_step(cfg, device="cpu",
+                                                    **step_kw)
+            topo = step.plan_topology
+        else:
+            topo = init_mesh(**topo_kw)
+            step, init = tllama.build_train_step(cfg, topo, device="cpu",
+                                                 **step_kw)
         v = step.virtual_pp
         params, opt = init(params=tllama.shard_params(
-            cfg, np_params, topo, device="cpu", virtual_pp=v))
+            cfg, case_params, topo, device="cpu", virtual_pp=v))
         losses = []
-        for i, b in enumerate(batches):
+        for i, b in enumerate(case_batches):
             metrics.reset()
-            params, opt, m = step(params, opt, topo.shard_batch(
+            params, opt, m = step(params, opt, step.shard_batch(
                 {k: torch.from_numpy(v) for k, v in b.items()}))
             losses.append((m["loss"].item(), m["ce"].item()))
-            calls = _calls() if i == 0 else calls
+            if i == 0:
+                calls, nbytes = _calls(), _calls("bytes")
         out.append({"losses": losses, "coords": topo.coords, "calls": calls,
+                    "bytes": nbytes,
+                    "reckoned": _moe_reckoning(cfg, topo, b, opt),
                     "params": tllama.gather_params(cfg, params, topo,
                                                    virtual_pp=v),
                     "local": _local(params),
                     "state_shapes": opt.state_shapes(),
                     "overlap": step.overlap})
     return out
+
+
+def _moe_reckoning(cfg, topo, batch, opt):
+    """``chip_smoke.moe_collective_reckoning`` of a data-parallel MoE
+    step (None for any other): what the card's check holds its counts
+    to, here held to the CPU's."""
+    if not cfg.moe_num_experts or topo.world_size() != topo.dp_degree:
+        return None
+    import chip_smoke
+    rows, seq = batch["input_ids"].shape
+    return chip_smoke.moe_collective_reckoning(
+        cfg, rows // topo.dp_degree, seq, topo.dp_degree, opt)
 
 
 def collectives_vs_numpy(seed):
@@ -214,17 +252,18 @@ def pipeline_cases(fields, np_params, batch, cases):
     (``1f1b``: ``pipeline_1f1b_value_and_grad``, with the units and sends
     its loop ran; ``gpipe``/``interleaved``: the loss function's
     ``backward()``), from ``np_params`` (float32, no remat, as the
-    reference's pipeline tests)."""
+    reference's pipeline tests), or from ``kwargs["params"]`` with the
+    config overrides ``kwargs["cfg"]``."""
     torch.set_num_threads(1)
     from paddle_tpu_torch.distributed import pipeline as P
-    cfg = _cfg(fields, use_remat=False)
     topo = init_mesh(pp=torch.distributed.get_world_size())
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     out = []
     for schedule, n_micro, kw in cases:
         v = kw.get("v")
-        params = tllama.shard_params(cfg, np_params, topo, device="cpu",
-                                     virtual_pp=v)
+        cfg = _cfg(fields, use_remat=False, **kw.get("cfg", {}))
+        params = tllama.shard_params(cfg, kw.get("params", np_params), topo,
+                                     device="cpu", virtual_pp=v)
         res = {"stage": topo.coords["pp"]}
         if schedule == "1f1b":
             log = []
