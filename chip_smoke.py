@@ -96,6 +96,27 @@ both apply (M = 8, 16).
   over bf16 and int8 KV pages (``moe_serve_phase``: the launches of rows
   11-13 against the forwards).
 
+- checkpoints, health and the gang runtime (first, after the build): a
+  small bf16 model's train state on the card, its newest step's state
+  file truncated (``restore()`` falls back to the previous step,
+  ``ckpt_restore_fallback_total`` 1) and a save crashed at
+  ``ckpt.commit.pre`` in a child process (no visible step, the previous
+  one loads) (``small_ckpt_check``); bench.py's shape at world size 1
+  through ``Plan().train_step``, saved synchronously at step 2,
+  restored into a fresh init (every param and moment equal, steps 3-4
+  bit-identical), saved asynchronously at step 4 while steps 5-6 run
+  (restored equal), and steps 7-8 with the gang's step-boundary
+  snapshot (``ckpt_phase``: bytes on disk against the reckoning, save
+  stalls, restore s, peak memory); two ranks of bench.py's width at 4
+  layers on the card over gloo through ``python -m
+  paddle_tpu_torch.distributed.launch``, once clean and once with rank
+  1 killed at step 3's boundary (``gang_phase``: the pod relaunches and
+  every step's loss equals the clean pod's bit for bit; detection,
+  final save, recovery, steps lost); ``python -m paddle_tpu_torch.bench
+  --multichip --gang 2`` (``gang_bench_line``).  The checkpoints go to
+  ``_ckpt_smoke/`` (removed after each phase), the pods' logs to
+  ``chiprun_out/gang/``.
+
 Any failure exits non-zero.  The last two lines of standard output are
 the card's name and power limit (from nvidia-smi) and, last,
 ``{"ok": true, "device": {...}}``; the line before them is the
@@ -3367,6 +3388,551 @@ def small_moe_check(torch, tllama, serving):
           f"equal (f32, int8 head)")
 
 
+# ---------------------------------------------------------------------------
+# checkpoints, health, the launcher and the gang runtime
+# ---------------------------------------------------------------------------
+
+# where the checkpoint phases write (gitignored; removed at the end of
+# each phase), apart from chiprun_out/, which holds only small logs
+CKPT_ROOT = "_ckpt_smoke"
+# bench.py's shape at full depth, world size 1: 8 steps, a sync save at
+# step 2, an async save at step 4 (steps 5-6 run during it), steps 7-8
+# with the gang's step-boundary snapshot
+CKPT_B, CKPT_STEPS = 4, 8
+# the gang phase: bench.py's width at 4 layers (the depth cut keeps the
+# script inside its time), Plan(dp=2) as 2 gloo ranks on the card, 2
+# rows a rank, 6 steps; the chaos run kills rank 1 at step 3's boundary
+GANG_LAYERS, GANG_B, GANG_STEPS = 4, 4, 6
+GANG_KILL = "kill@collective.all_reduce:step=3,rank=1,restart=0"
+GANG_ENV = {"PTQ_GANG_HEARTBEAT_INTERVAL": "1.0",
+            "PTQ_GANG_HEARTBEAT_TIMEOUT": "30.0"}
+# the train path's kernels: what the new paths must launch (flash_fwd
+# runs only unfused; the fused default takes rows 7-10 and flash_bwd)
+TRAIN_PATH_KERNELS = ("flash_bwd", "fused_qkv", "fused_attn_epilogue",
+                      "fused_mlp_fwd", "fused_mlp_bwd_dx")
+
+
+def ckpt_reckoning(torch, cfg):
+    """(parameters, payload bytes of one train-state checkpoint: the
+    weights and AdamW's two moments in the param dtype, plus one f32
+    step counter for each of the 12 leaves: embed, the 9 layer leaves,
+    norm_f, lm_head)."""
+    H, I, L, V = (cfg.hidden_size, cfg.intermediate_size,
+                  cfg.num_hidden_layers, cfg.vocab_size)
+    n = 2 * V * H + H + L * (4 * H * H + 3 * H * I + 2 * H)
+    item = torch.finfo(cfg.dtype).bits // 8
+    return n, 3 * n * item + 4 * 12
+
+
+def _loss_bits(x):
+    import struct
+    return struct.pack(">f", float(x)).hex()
+
+
+def _state_equal(torch, got, ref, what):
+    """Every leaf of two train-state trees torch.equal (the step
+    counters by value)."""
+    from paddle_tpu_torch.distributed.reshard import _flat
+    g, r = dict(_flat(got)), dict(_flat(ref))
+    check(sorted(g) == sorted(r), f"{what}: leaves differ: "
+          f"{sorted(set(g) ^ set(r))[:4]}")
+    bad = [p for p in r if not (torch.equal(g[p].cpu(), r[p].cpu())
+                                if torch.is_tensor(r[p]) else g[p] == r[p])]
+    check(not bad, f"{what}: {len(bad)} leaves differ, e.g. {bad[:3]}")
+    return len(r)
+
+
+def _disk_bytes(path):
+    return sum(os.path.getsize(os.path.join(b, f))
+               for b, _, fs in os.walk(path) for f in fs)
+
+
+def ckpt_phase(torch, tbench, tllama, dist, card, device="cuda",
+               model=None, seq=None, root=CKPT_ROOT):
+    """bench.py's shape (S = 2048, B = 4, bf16, "dots", fused "auto") at
+    world size 1 through ``Plan().train_step``, saved, restored and
+    resumed.  Steps 1-2, ``CheckpointManager.save(2)`` synchronous,
+    steps 3-4 (the uninterrupted run); a fresh ``init_fn`` from another
+    seed, ``restore()``: every param and moment torch.equal to the
+    step-2 state, steps 3-4 bit-identical losses; an async save at step
+    4 while steps 5-6 run, ``wait()``, a restore equal to the step-4
+    state; steps 7-8 each followed by the gang's step-boundary snapshot
+    (what the boundary costs).  Bytes on disk against the reckoning,
+    sync stall and GB/s, async stall, step ms during the async save
+    against before it, restore s, peak device bytes during the async
+    save against the step's; every kernel of the train path launched.
+    The free disk space is checked first; the directory is removed at
+    the end."""
+    import shutil
+    from paddle_tpu_torch.distributed import checkpoint as dckpt
+    from paddle_tpu_torch.distributed import fault_tolerance as ft
+    from paddle_tpu_torch.distributed import reshard
+    dev = _device(torch, device)
+    cfg = tllama.LlamaConfig(remat_policy="dots",
+                             **(model or tbench.MODEL))
+    S = seq or tbench.SEQ
+    n_params, payload = ckpt_reckoning(torch, cfg)
+    os.makedirs(root, exist_ok=True)
+    root = os.path.abspath(os.path.join(root, "ws1"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    # two committed steps (keep=3) and one in flight, plus margin
+    check(free > 3 * payload + (1 << 30),
+          f"ckpt: {free} bytes free under {root}, the phase writes up to "
+          f"{3 * payload} (3 checkpoints of {payload})")
+    batches = dist_batches(torch, cfg.vocab_size, CKPT_B, S, CKPT_STEPS,
+                           dev)
+    step_fn, init_fn = dist.Plan().train_step(cfg, device=dev)
+    specs = tllama.param_specs(cfg)
+    for w in tbench.KERNELS.values():
+        w.launches = 0
+    res = {"parameters": n_params, "reckoned_bytes": payload,
+           "free_bytes": free}
+
+    def run(params, opt, first, last):
+        out = []
+        for s in range(first, last + 1):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            _, _, m = step_fn(params, opt, batches[s - 1])
+            loss = m["loss"].item()
+            out.append((s, loss, 1e3 * (time.perf_counter() - t0)))
+        return out
+
+    # the uninterrupted run, with the synchronous save at step 2
+    t_all = time.perf_counter()
+    params, opt = init_fn(0)
+    check(sum(t.numel() for t in tbench.leaves(params)) == n_params,
+          "ckpt: the model's parameters are not the reckoned count")
+    ref = run(params, opt, 1, 2)
+    mgr = ft.CheckpointManager(root, specs=specs, keep=3)
+    t0 = time.perf_counter()
+    state2 = reshard.gather_train_state(params, opt)
+    t_host = time.perf_counter() - t0
+    mgr.save(2, state2, sync=True)
+    res["sync_save_s"] = time.perf_counter() - t0
+    res["sync_save_host_copy_s"] = t_host
+    d2 = os.path.join(root, ft.step_dir_name(2))
+    man = ft.verify_dir(d2)
+    res["disk_bytes"] = _disk_bytes(d2)
+    res["manifest_bytes_total"] = man["bytes_total"]
+    res["tensor_bytes"] = ft.tree_bytes(state2)
+    check(res["tensor_bytes"] == payload,
+          f"ckpt: state tensors {res['tensor_bytes']} B, reckoned {payload}")
+    check(0 <= res["disk_bytes"] - payload < (1 << 20),
+          f"ckpt: {res['disk_bytes']} bytes on disk for {payload} of "
+          f"tensors")
+    res["sync_save_gb_s"] = res["disk_bytes"] / res["sync_save_s"] / 1e9
+    ref += run(params, opt, 3, 4)
+    del params, opt
+    if dev.type == "cuda":
+        gc_cuda(torch)
+
+    print(f"ckpt [{card}]: uninterrupted run and sync save: "
+          f"{json.dumps(res)}", flush=True)
+
+    # resume from a fresh init of another seed: the restore places the
+    # params on its tensors' device (the moments go to theirs in
+    # load_state_tree)
+    params, opt = init_fn(1)
+    t0 = time.perf_counter()
+    st, got = mgr.restore(target={"params": params, "opt_state": {}})
+    res["restore_s"] = time.perf_counter() - t0
+    check(got == 2, f"ckpt: restore() gave step {got}, not 2")
+    t0 = time.perf_counter()
+    params, opt = init_fn(params=st["params"])
+    opt.load_state_tree(st["opt_state"])
+    _sync(torch, dev)
+    res["restore_install_s"] = time.perf_counter() - t0
+    check(all(t.device == dev for t in tbench.leaves(params)),
+          "ckpt: restored params are not on the card")
+    del st
+    res["leaves_equal_step2"] = _state_equal(
+        torch, reshard.gather_train_state(params, opt), state2,
+        "ckpt restore of step 2")
+    del state2
+    _reset_peak(torch, dev)
+    resumed = run(params, opt, 3, 4)
+    step_peak = _peak(torch, dev)
+    check([_loss_bits(l) for _, l, _ in resumed]
+          == [_loss_bits(l) for s, l, _ in ref if s >= 3],
+          f"ckpt: resumed losses {resumed} != uninterrupted {ref}")
+
+    # the async save at step 4, steps 5-6 while it writes
+    state4 = reshard.gather_train_state(params, opt)
+    _reset_peak(torch, dev)
+    t0 = time.perf_counter()
+    mgr.save(4, {"params": params, "opt_state": opt.state_tree()},
+             sync=False)
+    res["async_save_stall_s"] = time.perf_counter() - t0
+    during = run(params, opt, 5, 6)
+    t1 = time.perf_counter()
+    mgr.wait()
+    res["async_wait_s"] = time.perf_counter() - t1
+    res["async_save_total_s"] = time.perf_counter() - t0
+    res["save_peak_bytes"] = _peak(torch, dev)
+    res["step_peak_bytes"] = step_peak
+    d4 = os.path.join(root, ft.step_dir_name(4))
+    ft.verify_dir(d4)
+    t0 = time.perf_counter()
+    st4, got = mgr.restore(step=4)
+    res["restore4_s"] = time.perf_counter() - t0
+    res["leaves_equal_step4"] = _state_equal(torch, st4, state4,
+                                             "ckpt async save of step 4")
+    del st4, state4
+
+    # the gang's step boundary: a snapshot after each step
+    _reset_peak(torch, dev)
+    boundary = []
+    for s in (7, 8):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        _, _, m = step_fn(params, opt, batches[s - 1])
+        snap = dckpt.snapshot({"params": params,
+                               "opt_state": opt.state_tree()})
+        loss = m["loss"].item()
+        boundary.append((s, loss, 1e3 * (time.perf_counter() - t0)))
+    res["boundary_peak_bytes"] = _peak(torch, dev)
+    del snap
+    res["launches"] = {n: w.launches for n, w in tbench.KERNELS.items()}
+    if dev.type == "cuda":
+        bad = [n for n in TRAIN_PATH_KERNELS if not res["launches"][n]]
+        check(not bad, f"ckpt: kernels {bad} never launched")
+    res["losses_uninterrupted"] = [l for _, l, _ in ref]
+    res["losses_resumed"] = [l for _, l, _ in resumed]
+    res["loss_bits"] = [_loss_bits(l) for _, l, _ in ref]
+    res["step_ms_before"] = [ms for _, _, ms in resumed]
+    res["step_ms_during_async"] = [ms for _, _, ms in during]
+    res["step_ms_boundary"] = [ms for _, _, ms in boundary]
+    res["all_steps_finite"] = all(math.isfinite(l) for _, l, _ in
+                                  ref + resumed + during + boundary)
+    check(res["all_steps_finite"], "ckpt: a loss is not finite")
+    res["ckpt_stats"] = ft.stats()
+    res["seconds"] = time.perf_counter() - t_all
+    del params, opt
+    shutil.rmtree(root, ignore_errors=True)
+    if dev.type == "cuda":
+        gc_cuda(torch)
+    print(f"ckpt [{card}]: {json.dumps(res)}")
+    return res
+
+
+def small_ckpt_check(torch, tllama, dist, device="cuda", root=CKPT_ROOT):
+    """A small bf16 model's train state on the card: truncating the
+    newest step's state file makes ``restore()`` fall back to the
+    previous step (``ckpt_restore_fallback_total`` 1, the restored state
+    equal to that step's); ``crash@ckpt.commit.pre`` in a child process
+    leaves no visible step and the previous one loads."""
+    import shutil
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.distributed import fault_tolerance as ft
+    from paddle_tpu_torch.distributed import reshard
+    from paddle_tpu_torch.profiler import metrics
+    from paddle_tpu_torch.testing import chaos
+    dev = _device(torch, device)
+    cfg = tllama.LlamaConfig(dtype=torch.bfloat16, remat_policy="dots",
+                             **DIST_SMALL)
+    root = os.path.abspath(os.path.join(root, "small"))
+    shutil.rmtree(root, ignore_errors=True)
+    step_fn, init_fn = dist.Plan().train_step(cfg, device=dev)
+    params, opt = init_fn(0)
+    batches = dist_batches(torch, cfg.vocab_size, 2, 64, 2, dev)
+    flags.set_flags({"FLAGS_tpu_metrics": True})
+    metrics.reset()
+    ft.reset_stats()
+    try:
+        mgr = ft.CheckpointManager(root, backend="pickle",
+                                   specs=tllama.param_specs(cfg))
+        states = {}
+        for s in (1, 2):
+            step_fn(params, opt, batches[s - 1])
+            states[s] = reshard.gather_train_state(params, opt)
+            mgr.save(s, states[s])
+        chaos.truncate_file(os.path.join(root, ft.step_dir_name(2),
+                                         mgr.state_file))
+        st, got = mgr.restore()
+        fallbacks = metrics.snapshot().get("ckpt_restore_fallback_total")
+        check(got == 1 and fallbacks == 1,
+              f"small ckpt: restore after truncation gave step {got}, "
+              f"ckpt_restore_fallback_total {fallbacks}")
+        _state_equal(torch, st, states[1], "small ckpt fallback")
+        # a save that crashes before its commit rename, in a child
+        crash_root = os.path.join(root, "crash")
+        mgr2 = ft.CheckpointManager(crash_root, backend="pickle")
+        mgr2.save(1, states[1])
+        code = ("import torch; from paddle_tpu_torch.distributed import "
+                "fault_tolerance as ft; ft.CheckpointManager("
+                f"{crash_root!r}, backend='pickle').save(2, "
+                "{'w': torch.ones(4)})")
+        env = dict(os.environ, PTQ_CHAOS="crash@ckpt.commit.pre:step=2")
+        proc = subprocess.run([sys.executable, "-c", code], env=env,
+                              capture_output=True, text=True, timeout=120)
+        check(proc.returncode == 42,
+              f"small ckpt: the crashing save exited {proc.returncode}: "
+              f"{proc.stderr[-500:]}")
+        check(ft.committed_steps(crash_root) == [1],
+              f"small ckpt: committed after the crash: "
+              f"{ft.committed_steps(crash_root)}")
+        st, got = mgr2.restore()
+        check(got == 1, f"small ckpt: restore after the crash: step {got}")
+        _state_equal(torch, st, states[1], "small ckpt after crash")
+    finally:
+        flags.set_flags({"FLAGS_tpu_metrics": False})
+        shutil.rmtree(root, ignore_errors=True)
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+        else "cpu"
+    print(f"small ckpt [{where}]: truncated newest step -> fallback to "
+          "step 1 "
+          "(ckpt_restore_fallback_total 1, state equal); "
+          "crash@ckpt.commit.pre in a child -> exit 42, no visible step "
+          "2, step 1 restored equal")
+
+
+def gang_worker(argv):
+    """One rank of ``gang_phase``'s pod (``chip_smoke.py --gang-worker
+    --steps N --ckpt-root DIR``, started by the launcher):
+    ``init_gang``, ``Plan(dp=world).train_step`` (states whole on every
+    rank: a survivor's final save needs no peer), restore through
+    ``reshard.restore_resharded`` at start, a step boundary after every
+    step; one ``GANG_STEP`` line a step (loss and its bits, wall time)
+    and ``GANG_DONE`` with the kernel launches.  ``--device cpu
+    --hidden H`` rehearses it on the CPU at a tiny float32 width."""
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--gang-worker", action="store_true")
+    ap.add_argument("--steps", type=int, default=GANG_STEPS)
+    ap.add_argument("--ckpt-root", required=True)
+    ap.add_argument("--device", default=None)
+    ap.add_argument("--hidden", type=int, default=None)
+    args = ap.parse_args(argv)
+    import torch
+    from paddle_tpu_torch import bench as tbench
+    from paddle_tpu_torch.distributed import Plan, gang, reshard
+    from paddle_tpu_torch.models import llama as tllama
+    ctx = gang.init_gang(gang.GangConfig.from_env(ckpt_root=args.ckpt_root),
+                         device=args.device)
+    dev = ctx.device
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    model = dict(tbench.MODEL, num_hidden_layers=GANG_LAYERS)
+    S = tbench.SEQ
+    if args.hidden:     # a CPU rehearsal's width
+        model.update(hidden_size=args.hidden, intermediate_size=2 *
+                     args.hidden, vocab_size=256, num_attention_heads=2,
+                     num_key_value_heads=2, dtype=torch.float32)
+        S = 32
+    cfg = tllama.LlamaConfig(remat_policy="dots", **model)
+    step_fn, init_fn = Plan(dp=ctx.world_size).train_step(
+        cfg, zero=False, device=dev)
+    t0 = time.time()
+    state, start = reshard.restore_resharded(
+        args.ckpt_root, topo=step_fn.plan_topology, device=dev)
+    if state is None:
+        params, opt = init_fn(0)
+    else:
+        params, opt = init_fn(params=state["params"])
+        opt.load_state_tree(state["opt_state"])
+        del state
+    restore_s = time.time() - t0
+    batches = dist_batches(torch, cfg.vocab_size, GANG_B, S, args.steps,
+                           "cpu")
+    for w in tbench.KERNELS.values():
+        w.launches = 0
+    with ctx.running():
+        for s in range(start + 1, args.steps + 1):
+            t0 = time.time()
+            _, _, m = step_fn(params, opt,
+                              step_fn.shard_batch(batches[s - 1]))
+            loss = m["loss"].item()
+            print("GANG_STEP " + json.dumps({
+                "rank": ctx.rank, "restart": ctx.restart, "step": s,
+                "loss": loss, "bits": _loss_bits(loss), "t": time.time(),
+                "ms": 1e3 * (time.time() - t0)}), flush=True)
+            ctx.step_boundary(s, params, opt)
+    print("GANG_DONE " + json.dumps({
+        "rank": ctx.rank, "restart": ctx.restart, "start": start,
+        "restore_s": restore_s,
+        "launches": {n: w.launches for n, w in tbench.KERNELS.items()},
+        "peak": (torch.cuda.max_memory_allocated(dev)
+                 if dev.type == "cuda" else 0)}), flush=True)
+    ctx.shutdown(0)
+    return 0
+
+
+def _marked(path, marker):
+    out = []
+    try:
+        with open(path) as f:
+            for ln in f:
+                if ln.startswith(marker + " "):
+                    out.append(json.loads(ln[len(marker) + 1:]))
+    except OSError:
+        pass
+    return out
+
+
+def _incidents(path):
+    try:
+        with open(path) as f:
+            lines = [json.loads(ln) for ln in f if ln.strip()]
+    except OSError:
+        return None, []
+    return (lines[0] if lines else None), lines[1:]
+
+
+def gang_pod(torch, run, chaos_spec, steps, extra_args=(), device=None,
+             timeout=900):
+    """One pod of ``gang_phase``: 2 ranks through ``python -m
+    paddle_tpu_torch.distributed.launch --nproc_per_node 2
+    --max_restarts 1``; returns its exit code, the ranks' step and done
+    records, and the log directory."""
+    import shutil
+    base = os.path.abspath(os.path.join("chiprun_out", "gang", run))
+    ckpt = os.path.abspath(os.path.join(CKPT_ROOT, f"gang_{run}"))
+    shutil.rmtree(base, ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log = os.path.join(base, "log")
+    env = dict(os.environ, **GANG_ENV)
+    env.pop("PTQ_CHAOS", None)
+    if chaos_spec:
+        env["PTQ_CHAOS"] = chaos_spec
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", "2", "--max_restarts", "1",
+           "--teardown_grace", "120", "--log_dir", log,
+           os.path.abspath(__file__), "--gang-worker", "--steps",
+           str(steps), "--ckpt-root", ckpt, *extra_args]
+    if device:
+        cmd += ["--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    steps_, done = [], []
+    for r in (0, 1):
+        steps_ += _marked(os.path.join(log, f"workerlog.{r}"), "GANG_STEP")
+        done += _marked(os.path.join(log, f"workerlog.{r}"), "GANG_DONE")
+    man = None
+    for d in sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []:
+        from paddle_tpu_torch.distributed import fault_tolerance as ft
+        man = ft.read_manifest(os.path.join(ckpt, d)) or man
+    return dict(rc=proc.returncode, steps=steps_, done=done, log=log,
+                wall_s=wall, stderr=proc.stderr[-3000:], manifest=man,
+                ckpt=ckpt)
+
+
+def gang_phase(torch, card, device=None, extra_args=()):
+    """Two ranks of bench.py's width at ``GANG_LAYERS`` layers on the one
+    card over gloo (``Plan(dp=2)``, 2 rows a rank, S = 2048), through
+    the launcher: an uninterrupted pod, then a pod whose rank 1 is
+    killed (``os._exit``, process-kill mode) at step 3's boundary.  The
+    chaos pod must exit 0; the survivor's incident sidecar must hold
+    ``health_exit`` (or ``rank_dead``); generation 1 must resume after
+    step 3; every step's loss must be bit-identical to the uninterrupted
+    pod's.  Detection s (the kill to the survivor's conversion),
+    final-save s and bytes, recovery s (the kill to generation 1's first
+    finished step), steps lost."""
+    import shutil
+    t_all = time.perf_counter()
+    clean = gang_pod(torch, "clean", None, GANG_STEPS, extra_args, device)
+    check(clean["rc"] == 0, f"gang clean pod exited {clean['rc']}: "
+          f"{clean['stderr']}")
+    ref = {}
+    for r in clean["steps"]:
+        ref.setdefault(r["step"], set()).add(r["bits"])
+    check(sorted(ref) == list(range(1, GANG_STEPS + 1))
+          and all(len(b) == 1 for b in ref.values()),
+          f"gang clean pod: steps/bits {ref}")
+    kill = gang_pod(torch, "kill", GANG_KILL, GANG_STEPS, extra_args,
+                    device)
+    check(kill["rc"] == 0, f"gang chaos pod exited {kill['rc']}: "
+          f"{kill['stderr']}")
+    gen0 = [r for r in kill["steps"] if r["restart"] == 0]
+    gen1 = [r for r in kill["steps"] if r["restart"] == 1]
+    check({r["step"] for r in gen0} == {1, 2, 3},
+          f"gang chaos pod: generation 0 ran steps "
+          f"{sorted({r['step'] for r in gen0})}")
+    check({r["step"] for r in gen1} == set(range(4, GANG_STEPS + 1)),
+          f"gang chaos pod: generation 1 ran steps "
+          f"{sorted({r['step'] for r in gen1})}, not 4..{GANG_STEPS}")
+    bad = [r for r in kill["steps"] if {r["bits"]} != ref[r["step"]]]
+    check(not bad, f"gang chaos pod: losses differ from the clean pod: "
+          f"{bad[:3]}")
+    header, incs = _incidents(os.path.join(kill["log"],
+                                           "incidents_rank0.jsonl"))
+    kinds = {i["kind"] for i in incs}
+    check(kinds & {"health_exit", "rank_dead"},
+          f"gang chaos pod: survivor's incidents {sorted(kinds)}")
+    t_kill = next(r["t"] for r in gen0 if r["rank"] == 1 and r["step"] == 3)
+    t_conv = min(i["time"] for i in incs if i["kind"] == "health_exit")
+    man = kill["manifest"]
+    check(man is not None and man.get("step") == 3,
+          f"gang chaos pod: final save manifest {man and man.get('step')}")
+    res = {
+        "clean_losses": [next(r["loss"] for r in clean["steps"]
+                              if r["step"] == s)
+                         for s in range(1, GANG_STEPS + 1)],
+        "clean_step_ms": {r["rank"]: [x["ms"] for x in clean["steps"]
+                                      if x["rank"] == r["rank"]]
+                          for r in clean["done"]},
+        "clean_wall_s": clean["wall_s"], "kill_wall_s": kill["wall_s"],
+        "survivor_incidents": sorted(kinds),
+        "detection_s": t_conv - t_kill,
+        "final_save_s": header["wall_time"] - t_conv,
+        "final_save_bytes": man["bytes_total"],
+        "recovery_s": min(r["t"] for r in gen1) - t_kill,
+        "steps_lost": max(r["step"] for r in gen0) - 3,
+        "resumed_from": sorted({d["start"] for d in kill["done"]}),
+        "gen1_restore_s": [d["restore_s"] for d in kill["done"]],
+        "launches_rank0_clean": next(d["launches"] for d in clean["done"]
+                                     if d["rank"] == 0),
+        "peak_rank0_clean": next(d["peak"] for d in clean["done"]
+                                 if d["rank"] == 0),
+        "seconds": time.perf_counter() - t_all,
+    }
+    check(res["resumed_from"] == [3],
+          f"gang chaos pod: generation 1 restored {res['resumed_from']}")
+    if device != "cpu":
+        bad = [n for n in TRAIN_PATH_KERNELS
+               if not res["launches_rank0_clean"][n]]
+        check(not bad, f"gang: kernels {bad} never launched")
+    for p in (clean["ckpt"], kill["ckpt"]):
+        shutil.rmtree(p, ignore_errors=True)
+    print(f"gang [{card}]: {json.dumps(res)}")
+    return res
+
+
+def gang_bench_line(card, device=None):
+    """``python -m paddle_tpu_torch.bench --multichip --gang 2``: the
+    gang preset (pp=2 1F1B) as 2 processes through the launcher, trace
+    on; both ranks' losses equal, the recorded schedules the static
+    one."""
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.bench", "--multichip",
+           "--gang", "2", "--trace-out", "chiprun_out/gang_bench_trace"]
+    if device:
+        cmd += ["--device", device]
+    env = dict(os.environ)
+    env.pop("PTQ_CHAOS", None)
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=600)
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() \
+        else "{}"
+    res = json.loads(line)
+    check(proc.returncode == 0 and "error" not in res,
+          f"bench --gang 2: rc {proc.returncode}: {line[-1500:]} "
+          f"{proc.stderr[-1500:]}")
+    det = res["detail"]
+    # the bench itself fails a rank whose losses differ from rank 0's
+    check(det["matches_static"] == [True, True],
+          f"bench --gang 2: matches_static {det['matches_static']}")
+    check(all(math.isfinite(x) for x in det["losses"]),
+          f"bench --gang 2: losses {det['losses']}")
+    print(f"gang bench [{card}] ({time.perf_counter() - t0:.1f} s): "
+          + json.dumps(res))
+    return res
+
+
 def load_parent(root):
     """``root``/paddle_tpu_torch imported as ``parent_paddle_tpu_torch``:
     the package imports itself only relatively, so its kernels build from
@@ -3512,6 +4078,15 @@ def main(argv=()):
                             m.group(1))
             elif "registers" in line or "spill" in line:
                 print(f"  {n}: {fn}: {line.split(':', 1)[-1].strip()}")
+
+    # checkpoints, health, the launcher and the gang runtime: a small
+    # model's corruption fallback and crashed commit, bench.py's shape
+    # saved, restored and resumed at world size 1, a 2-rank pod killed
+    # and relaunched, the gang preset through the bench
+    small_ckpt_check(torch, tllama, dist)
+    ckpt = ckpt_phase(torch, tbench, tllama, dist, card)
+    gang = gang_phase(torch, card)
+    gang_bench_line(card)
 
     int8_rows, int8_err = int8_phase(torch, i8)
     int8_regimes = int8_plans(torch, i8)
@@ -3701,6 +4276,8 @@ def main(argv=()):
             launches_dist=dist_launches[name],
             launches_pp=pp_launches[name], launches_sp=sp_launches[name],
             launches_moe=moe_launches[name],
+            launches_ckpt=ckpt["launches"][name],
+            launches_gang_rank0=gang["launches_rank0_clean"][name],
             max_abs_err=flash_err[key],
             row_rel_err=flash_row_err[key], row_rel_max=ROW_REL_MAX,
             control_row_rel_err=min(
@@ -3738,6 +4315,8 @@ def main(argv=()):
             launches_dist=dist_launches[name],
             launches_pp=pp_launches[name], launches_sp=sp_launches[name],
             launches_moe=moe_launches[name],
+            launches_ckpt=ckpt["launches"][name],
+            launches_gang_rank0=gang["launches_rank0_clean"][name],
             row_rel_err=r["row_rel_err"], row_rel_max=ROW_REL_MAX,
             norm_rel_err=r["norm_rel_err"],
             control_row_rel_err=r["control_row_rel_err"], ms=r["ms"],
@@ -3758,4 +4337,6 @@ def main(argv=()):
 
 
 if __name__ == "__main__":
+    if "--gang-worker" in sys.argv[1:]:
+        sys.exit(gang_worker(sys.argv[1:]))
     sys.exit(main(sys.argv[1:]))

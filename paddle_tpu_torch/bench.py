@@ -4,6 +4,7 @@
     python -m paddle_tpu_torch.bench                 # on the card
     python -m paddle_tpu_torch.bench --device cpu    # CPU smoke shape
     python -m paddle_tpu_torch.bench --multichip [--trace-out DIR]
+    python -m paddle_tpu_torch.bench --multichip --gang N [--trace-out DIR]
 
 On the card it trains the ~0.95B Llama of ``bench.py`` (vocab 32000,
 hidden 2048, intermediate 5632, 16 layers, 16 heads of 128, bf16) at
@@ -31,6 +32,15 @@ collective metrics.  The model is ``bench.py``'s tiny float32 one on
 the CPU; on the card the flash kernels need bfloat16 and head dim 64,
 so it is that model at hidden 256 (4 heads of 64), intermediate 512,
 in bfloat16.
+
+``--multichip --gang N`` is the port of ``bench.py``'s
+``multichip_gang_main`` (``bench.py:496-590``): the gang runtime's
+preset (``python -m paddle_tpu_torch.distributed.gang``: ``pp=N`` 1F1B
+over 4 microbatches, the same model) run as N real worker processes
+through ``python -m paddle_tpu_torch.distributed.launch`` (on one card
+over gloo); the ranks' ``GANG_RESULT`` lines fold into one result with
+``real_processes``, and a rank whose losses differ from rank 0's, or
+whose recorded schedule differs from the static one, fails the run.
 
 It prints one JSON line on every exit path and exits non-zero when the
 run failed.  MFU is ``bench.py``'s formula (6 N tokens + causal
@@ -383,6 +393,93 @@ def multichip(device=None, trace_out=None, timeout=600.0):
     return result
 
 
+def multichip_gang(nproc, trace_out=None, steps=2, device=None,
+                   log_dir=None, timeout=None):
+    """The ``--multichip --gang N`` result dict (see the module
+    docstring).  Worker logs go to ``log_dir`` (default: a new temporary
+    directory)."""
+    import tempfile
+    dev = resolve_device(device)
+    log_dir = log_dir or tempfile.mkdtemp(prefix="bench_gang_")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(nproc), "--max_restarts", "0",
+           "--log_dir", log_dir,
+           "--module", "paddle_tpu_torch.distributed.gang",
+           "--steps", str(steps), "--device", dev.type]
+    if trace_out:
+        cmd += ["--trace-out", trace_out]
+    env = dict(os.environ)
+    env.pop("PTQ_CHAOS", None)  # never inherit chaos into a bench pod
+    timeout = timeout or float(os.environ.get(
+        "PADDLE_TPU_BENCH_TIMEOUT", "1000"))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, env=env, cwd=repo, timeout=timeout,
+                          capture_output=True, text=True)
+    wall_s = time.monotonic() - t0
+    results = {}
+    for rank in range(nproc):
+        path = os.path.join(log_dir, f"workerlog.{rank}")
+        try:
+            with open(path) as f:
+                for ln in f:
+                    if ln.startswith("GANG_RESULT "):
+                        r = json.loads(ln[len("GANG_RESULT "):])
+                        results[r["rank"]] = r
+        except OSError:
+            pass
+    if proc.returncode != 0 or len(results) != nproc:
+        tail = (proc.stderr or proc.stdout or "")[-800:]
+        raise RuntimeError(
+            f"gang pod failed: rc={proc.returncode}, "
+            f"{len(results)}/{nproc} GANG_RESULT lines "
+            f"(logs: {log_dir})\n{tail}")
+    r0 = results[0]
+    losses0 = r0["losses"]
+    for rank, r in sorted(results.items()):
+        if r["losses"] != losses0:
+            raise RuntimeError(
+                f"rank {rank} loss trajectory diverged from rank 0: "
+                f"{r['losses']} != {losses0}")
+    # None = tracing off for that rank; False = recorded schedule
+    # diverged from the static model — a hard failure
+    matches = [r["matches_static"] for _, r in sorted(results.items())]
+    if any(m is False for m in matches):
+        raise RuntimeError(
+            f"recorded 1F1B schedule diverged from static model: "
+            f"per-rank matches_static={matches}")
+    step_ms = max(r["step_ms"] for r in results.values())
+    return {
+        "metric": "llama_train_multichip_step",
+        "value": round(step_ms, 2),
+        "unit": "ms_per_step",
+        "vs_baseline": None,  # no lockstep twin run in gang mode
+        "detail": {
+            "real_processes": nproc,
+            "plan": {"dims": r0["plan"], "schedule": r0["schedule"],
+                     "n_microbatches": r0["n_microbatches"],
+                     "overlap": r0["overlap"]},
+            "world_size": r0["world_size"],
+            "steps": r0["steps"],
+            "loss": losses0[-1] if losses0 else None,
+            "losses": losses0,
+            "step_ms_per_rank": {str(rank): r["step_ms"]
+                                 for rank, r in sorted(results.items())},
+            "matches_static": matches,
+            "pod_wall_s": round(wall_s, 2),
+            "log_dir": log_dir,
+            "device": r0.get("device"),
+            "gpu": gpu_line() if dev.type == "cuda" else None,
+            "transport": ("nccl" if dev.type == "cuda"
+                          and nproc <= torch.cuda.device_count()
+                          else "gloo"),
+        },
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
@@ -394,11 +491,22 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-out", default=None, metavar="DIR",
                     help="with --multichip: the flight recorder on, one "
                          "sidecar a rank in DIR")
+    ap.add_argument("--gang", type=int, default=None, metavar="N",
+                    help="with --multichip: the gang preset (pp=N 1F1B) "
+                         "as N real processes through the launcher")
+    ap.add_argument("--steps", type=int, default=2,
+                    help="with --gang: train steps")
     args = ap.parse_args(argv)
+    if args.gang is not None and not args.multichip:
+        ap.error("--gang needs --multichip")
     metric = ("llama_train_multichip_step" if args.multichip
               else "llama_train_mfu_1card")
     try:
-        if args.multichip:
+        if args.multichip and args.gang:
+            result = multichip_gang(args.gang, args.trace_out, args.steps,
+                                    args.device)
+            ok = all(math.isfinite(x) for x in result["detail"]["losses"])
+        elif args.multichip:
             result = multichip(args.device, args.trace_out)
             ok = all(math.isfinite(result["detail"][k])
                      for k in ("loss", "loss_lockstep"))

@@ -5,8 +5,11 @@ collectives over its axis groups (``collective``, ``ppermute`` among
 them), tensor parallelism (``tensor_parallel``), ZeRO-1 (``zero``), the
 overlapped data-parallel gradient reduction and the 1F1B schedule
 arithmetic (``overlap``), the pipeline schedules (``pipeline``), ring
-and Ulysses attention (``sequence_parallel``), plans (``plan``) and a
-one-host launcher (``launch``).  ``models.llama.build_train_step`` is
+and Ulysses attention (``sequence_parallel``), plans (``plan``), the
+one-host launchers (``launch``: ``spawn`` and the pod supervisor),
+crash-consistent checkpoints (``fault_tolerance``, ``checkpoint``),
+topology-elastic restore (``reshard``), elastic supervision
+(``fleet.elastic``) and the multi-process gang runtime (``gang``).  ``models.llama.build_train_step`` is
 the train step they serve.  NCCL on the card, gloo for CPU tensors.
 """
 from .collective import (ReduceOp, all_gather, all_reduce, all_to_all,

@@ -23,11 +23,16 @@ Every call over more than one rank records the reference's metrics at
 the same point (``collective_calls_total``, ``collective_bytes_total``
 of the input bytes and the ``collective_latency_seconds`` histogram of
 host wall time, each by ``op``) when ``FLAGS_tpu_metrics`` is on, and a
-``collective/<op>`` span when ``FLAGS_tpu_trace`` is on.  The eager
-``Tensor`` facade and the chaos points stay out (ROADMAP A4, A3).
+``collective/<op>`` span when ``FLAGS_tpu_trace`` is on.  Every call,
+over one rank too, runs inside ``runtime.health.collective_beacon(op)``
+and passes the ``collective.<op>`` chaos point (stamped with the health
+monitor's step), as the reference's ``_apply_collective`` does: with no
+monitor and no schedule installed that is two ``None`` checks.  The
+eager ``Tensor`` facade stays out (ROADMAP A4).
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional, Tuple
 
@@ -36,6 +41,8 @@ import torch.distributed as dist
 
 from ..profiler import metrics as _metrics
 from ..profiler import trace as _trace
+from ..runtime import health as _health
+from ..testing.chaos import chaos_point
 
 __all__ = ["ReduceOp", "all_reduce", "all_gather", "reduce_scatter",
            "broadcast", "all_to_all", "ppermute", "ppermute_grad",
@@ -123,6 +130,22 @@ class _Recorded:
         return False
 
 
+def _instrumented(op_name: str):
+    """Run the op inside the health beacon, past the ``collective.<op>``
+    chaos point: the beacon is outermost, so an injected hang counts as
+    inside the collective and the rank's own monitor sees it overdue."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with _health.collective_beacon(op_name):
+                chaos_point(f"collective.{op_name}",
+                            step=_health.current_step())
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+@_instrumented("all_reduce")
 def all_reduce(tensor: torch.Tensor, op: str = ReduceOp.SUM, group=None,
                async_op: bool = False):
     """Reduce ``tensor`` in place over the group.  Returns the tensor, or
@@ -145,6 +168,7 @@ def all_reduce(tensor: torch.Tensor, op: str = ReduceOp.SUM, group=None,
     return tensor
 
 
+@_instrumented("all_gather")
 def all_gather(tensor: torch.Tensor, group=None, dim: int = 0
                ) -> torch.Tensor:
     """The group's tensors concatenated along ``dim``, in group-rank
@@ -161,6 +185,7 @@ def all_gather(tensor: torch.Tensor, group=None, dim: int = 0
     return out.movedim(0, dim)
 
 
+@_instrumented("reduce_scatter")
 def reduce_scatter(tensor: torch.Tensor, op: str = ReduceOp.SUM,
                    group=None, dim: int = 0) -> torch.Tensor:
     """Reduce over the group, then keep this rank's block of ``dim``
@@ -185,6 +210,7 @@ def reduce_scatter(tensor: torch.Tensor, op: str = ReduceOp.SUM,
     return out.movedim(0, dim)
 
 
+@_instrumented("broadcast")
 def broadcast(tensor: torch.Tensor, src: int = 0, group=None
               ) -> torch.Tensor:
     """Overwrite ``tensor`` in place with group rank ``src``'s."""
@@ -196,6 +222,7 @@ def broadcast(tensor: torch.Tensor, src: int = 0, group=None
     return tensor
 
 
+@_instrumented("alltoall")
 def all_to_all(tensor: torch.Tensor, group=None) -> torch.Tensor:
     """Split dim 0 into one block per rank, send block ``i`` to group
     rank ``i`` and stack what arrives in rank order (the reference's
@@ -232,6 +259,7 @@ class _P2P:
         return self.out
 
 
+@_instrumented("ppermute")
 def ppermute(tensor: torch.Tensor, group, shift: int = 1, *,
              send: bool = True, recv: bool = True, async_op: bool = False):
     """Send ``tensor`` to the group rank ``shift`` places on and receive

@@ -13,8 +13,11 @@ plan's topology over the ranks of the process group.
 Not ported: ``compile``'s pjit/shard_map selection and the SPMD checker
 (``verify_callable``, ``verify=True``) have no counterpart over
 ``torch.distributed`` and raise (ROADMAP A5); ``run_train_loop``'s
-elastic resize needs the checkpoint manager and resharding (ROADMAP A3)
-and raises when a resize is asked for.
+in-process elastic resize needs a process group that shrinks within a
+world and raises when a resize is asked for (ROADMAP A item 4).  A
+resize across processes runs today: the gang runtime's final save, the
+elastic launcher's relaunch at the new size, and
+``reshard.restore_resharded`` (``distributed/gang.py``).
 """
 from __future__ import annotations
 
@@ -39,11 +42,6 @@ _NO_SPMD = ("the SPMD compile selection and checker (pjit / shard_map, "
 
 class PlanError(Exception):
     """An invalid plan, or one the process group cannot run."""
-
-
-def _scale_key(job_id: str) -> str:
-    """The store key ``fleet.elastic.request_scale`` sets."""
-    return f"elastic/{job_id}/world_size"
 
 
 def _wrap_step_tracing(plan: "Plan", step_fn: Callable) -> Callable:
@@ -238,13 +236,14 @@ class Plan:
         Every rank iterates the same global batches and trains on its
         rows (``step_fn.shard_batch``).  Before each step the loop polls
         ``scale_store`` for ``fleet.elastic.request_scale``'s key of
-        ``job_id``: a world size other than the plan's raises (resizing
-        checkpoints and reshards: ROADMAP A3).  Returns ``{"losses",
+        ``job_id``: a world size other than the plan's raises (the
+        in-process resize: ROADMAP A item 4).  Returns ``{"losses",
         "world_sizes", "resizes"}``, one entry a step (``resizes`` stays
         empty).  ``on_step(step_count, params, opt_state)`` fires after
         every step.  The params are drawn from ``seed``, or start from
         ``params`` (full params, numpy arrays or tensors)."""
         from ..models.llama import shard_params
+        from .fleet.elastic import _scale_key
         step_fn, init_fn = self.train_step(cfg, optimizer=optimizer,
                                            verify=verify, device=device)
         topo = step_fn.plan_topology
@@ -272,9 +271,10 @@ class Plan:
             if want is not None and want != self.world_size:
                 raise NotImplementedError(
                     f"resize {self.world_size} -> {want} requested: the "
-                    f"elastic resize (checkpoint, refit, reshard) is not "
-                    f"ported yet (ROADMAP A3: CheckpointManager and "
-                    f"reshard)")
+                    f"in-process elastic resize (a process group that "
+                    f"shrinks within a world) is not ported yet (ROADMAP "
+                    f"A item 4); relaunch the gang at the new size through "
+                    f"the elastic launcher and reshard.restore_resharded")
             params, opt_state, m = step_fn(params, opt_state,
                                            step_fn.shard_batch(batch))
             history["losses"].append(float(m["loss"]))

@@ -6,16 +6,20 @@
 server, ``csrc/tcp_store.cc``, has no counterpart here).  It keeps the
 reference's behaviour: values are bytes (other objects are pickled),
 ``get`` returns None for a missing key, client calls retry transient
-socket failures with bounded exponential backoff and jitter, ``wait``
-raises ``TimeoutError``, and ``barrier`` names the ranks that never
-arrived when it times out.
+socket failures with bounded exponential backoff and jitter
+(``fault_tolerance.retry_with_backoff``, as in the reference), ``wait``
+raises ``TimeoutError``, ``barrier`` names the ranks that never arrived
+when it times out, and ``set``/``get``/``wait``/``add`` pass the
+``store.<op>`` chaos points (inside the retry, so an injected
+``disconnect`` is retried like a real one).  ``init_parallel_env``'s
+``prefix`` keeps one generation's rendezvous keys apart from another's
+on a store that outlives them (the launcher's).
 """
 from __future__ import annotations
 
 import datetime
 import os
 import pickle
-import random
 import sys
 import time
 from typing import Any, Callable, Optional
@@ -24,6 +28,8 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..testing.chaos import chaos_point
+from .fault_tolerance import retry_with_backoff
 
 __all__ = ["TCPStore", "init_parallel_env", "shutdown", "BACKENDS"]
 
@@ -38,18 +44,6 @@ BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 def _delta(seconds: float) -> datetime.timedelta:
     return datetime.timedelta(seconds=float(seconds))
-
-
-def backoff_delays(attempts: int, base: float = 0.05, factor: float = 2.0,
-                   max_delay: float = 2.0, jitter: float = 0.25, rng=None):
-    """The ``attempts - 1`` sleeps between attempts; jitter scales each
-    by [1, 1 + jitter) drawn from ``rng``."""
-    rng = rng or random.Random()
-    d = base
-    for _ in range(max(0, attempts - 1)):
-        j = 1.0 + jitter * rng.random() if jitter else 1.0
-        yield min(d, max_delay) * j
-        d *= factor
 
 
 class TCPStore:
@@ -83,39 +77,36 @@ class TCPStore:
         return self._impl
 
     def _with_retries(self, what: str, fn: Callable[[], Any]):
-        delays = backoff_delays(self.retries, base=self.retry_base_delay,
-                                max_delay=self.retry_max_delay,
-                                rng=self._retry_rng)
-        attempt = 0
-        while True:
-            attempt += 1
-            try:
-                return fn()
-            except _GIVE_UP:
-                raise
-            except _TRANSIENT as exc:
-                delay = next(delays, None)
-                if delay is None:
-                    raise
-                sys.stderr.write(
-                    f"TCPStore.{what}: transient failure ({exc}); retry "
-                    f"{attempt}/{self.retries - 1} in {delay:.2f}s\n")
-                from ..profiler import metrics
-                if metrics.enabled():
-                    metrics.counter("store_retry_total",
-                                    "TCPStore transient-error retries",
-                                    op=what).inc()
-                self._sleep(delay)
+        def _on_retry(attempt, exc, delay):
+            sys.stderr.write(
+                f"TCPStore.{what}: transient failure ({exc}); retry "
+                f"{attempt}/{self.retries - 1} in {delay:.2f}s\n")
+            from ..profiler import metrics
+            if metrics.enabled():
+                metrics.counter("store_retry_total",
+                                "TCPStore transient-error retries",
+                                op=what).inc()
+
+        return retry_with_backoff(
+            fn, retryable=_TRANSIENT, give_up=_GIVE_UP,
+            attempts=self.retries, base_delay=self.retry_base_delay,
+            max_delay=self.retry_max_delay, sleep=self._sleep,
+            rng=self._retry_rng, on_retry=_on_retry)
 
     def set(self, key: str, value) -> None:
         if not isinstance(value, (bytes, bytearray)):
             value = pickle.dumps(value)
         data = bytes(value)
-        self._with_retries("set", lambda: self._impl.set(key, data))
+
+        def _op():
+            chaos_point("store.set", path=None, key=key)
+            self._impl.set(key, data)
+        self._with_retries("set", _op)
 
     def get(self, key: str) -> Optional[bytes]:
         """The value of ``key``, or None when it is not set."""
         def _op():
+            chaos_point("store.get", path=None, key=key)
             if not self._impl.check([key]):
                 return None
             return self._impl.get(key)
@@ -125,6 +116,7 @@ class TCPStore:
         """Block until ``key`` exists, up to ``timeout`` (default: the
         store's), then return its value; ``TimeoutError`` past it."""
         budget = self.timeout if timeout is None else float(timeout)
+        chaos_point("store.wait", path=None, key=key)
         try:
             self._impl.wait([key], _delta(budget))
         except dist.DistStoreError:
@@ -137,7 +129,10 @@ class TCPStore:
         return pickle.loads(self.wait(key, timeout))
 
     def add(self, key: str, delta: int = 1) -> int:
-        return self._with_retries("add", lambda: self._impl.add(key, delta))
+        def _op():
+            chaos_point("store.add", path=None, key=key)
+            return self._impl.add(key, delta)
+        return self._with_retries("add", _op)
 
     def delete_key(self, key: str) -> bool:
         return self._impl.delete_key(key)
@@ -190,7 +185,7 @@ def init_parallel_env(device=None, *, backend: Optional[str] = None,
                       store: Optional[TCPStore] = None,
                       rank: Optional[int] = None,
                       world_size: Optional[int] = None,
-                      timeout: float = 300.0) -> TCPStore:
+                      timeout: float = 300.0, prefix: str = "") -> TCPStore:
     """Join the process group and return the rendezvous store.
 
     Rank and world size come from the arguments, else from the
@@ -201,7 +196,9 @@ def init_parallel_env(device=None, *, backend: Optional[str] = None,
     gloo for the CPU; ``backend`` names another explicitly (gloo over
     CUDA tensors runs several ranks on one card, which NCCL refuses).
     Every rank stamps a store barrier before the process group forms,
-    so a rank that never starts is named in the error."""
+    so a rank that never starts is named in the error.  ``prefix``
+    namespaces the barrier and the process group's keys (a relaunched
+    generation on the same store passes its own)."""
     dev = resolve_device(device)
     env = os.environ
     if rank is None:
@@ -227,9 +224,9 @@ def init_parallel_env(device=None, *, backend: Optional[str] = None,
         torch.cuda.set_device(local % torch.cuda.device_count())
         if backend == "nccl":
             device_id = torch.device("cuda", torch.cuda.current_device())
-    store.barrier("init_parallel_env", rank=rank, timeout=timeout)
+    store.barrier(f"{prefix}init_parallel_env", rank=rank, timeout=timeout)
     dist.init_process_group(backend,
-                            store=dist.PrefixStore("pg", store.raw),
+                            store=dist.PrefixStore(f"{prefix}pg", store.raw),
                             rank=rank, world_size=world_size,
                             timeout=_delta(timeout), device_id=device_id)
     return store

@@ -19,6 +19,12 @@ leaf, split over ``dp``) already holds the gradient of every token of
 its slice of that axis: its sums leave the axis out.  The optimizer is
 any ``torch.optim`` optimizer a factory builds over the tensors it is
 handed.
+
+Checkpoints key the optimizer's state by parameter path, not by tensor:
+``state_tree()`` is this rank's state (moments and step counters) by
+path, ``full_state_tree()`` the same with every ZeRO block gathered
+(collective over the zero axis), and ``load_state_tree`` takes either
+form back, cutting this rank's block where the state is sharded.
 """
 from __future__ import annotations
 
@@ -63,6 +69,8 @@ class ZeroOptimizer:
                  specs: Dict[str, Tuple], topo,
                  make_optimizer: Callable[[List[torch.Tensor]], object],
                  zero: bool = True):
+        self.specs = dict(specs)
+        self.topo = topo
         self.axis = zero_axis(topo)
         n = topo.axis_size(self.axis) if zero else 1
         k = topo.axis_index(self.axis)
@@ -119,6 +127,74 @@ class ZeroOptimizer:
                     p.copy_(C.all_gather(t, self.group, dim=d))
                     t.grad = None
                 p.grad = None
+
+    # -- checkpoint forms -----------------------------------------------
+    def zero_specs(self) -> Dict[str, Tuple]:
+        """Each path's state placement: the parameter's, plus the zero
+        axis on the dimension ZeRO splits (a block a peer does not
+        hold)."""
+        out = {}
+        for path, p, d, _ in self.leaves:
+            spec = list(self.specs[path]) + [None] * (p.dim()
+                                                     - len(self.specs[path]))
+            if d is not None:
+                spec[d] = self.axis
+            out[path] = tuple(spec)
+        return out
+
+    def state_tree(self) -> Dict[str, Dict[str, object]]:
+        """This rank's optimizer state by parameter path (ZeRO blocks as
+        held; no collective)."""
+        return {path: dict(self.opt.state[t]) for path, _, _, t
+                in self.leaves if t in self.opt.state}
+
+    def full_state_tree(self) -> Dict[str, Dict[str, object]]:
+        """The state by path with every ZeRO block gathered into the
+        parameter's shape on this rank (collective over the zero axis:
+        every rank calls it)."""
+        out = {}
+        for path, p, d, t in self.leaves:
+            if t not in self.opt.state:
+                continue
+            st = {}
+            for k, v in self.opt.state[t].items():
+                if d is not None and torch.is_tensor(v) \
+                        and v.dim() == p.dim():
+                    v = C.all_gather(v.contiguous(), self.group, dim=d)
+                st[k] = v
+            out[path] = st
+        return out
+
+    def load_state_tree(self, tree: Dict[str, Dict[str, object]]) -> None:
+        """Install optimizer state by parameter path: each tensor in the
+        parameter's (local) shape, or already this rank's ZeRO block; a
+        tensor state moves to the device of the tensor it belongs to,
+        the per-step scalars stay where they are.  An empty tree (saved
+        before the first step) installs nothing."""
+        missing = sorted(path for path, *_ in self.leaves
+                         if path not in tree)
+        if missing and len(missing) < len(self.leaves):
+            raise KeyError(f"optimizer state lacks paths {missing}")
+        for path, p, d, t in self.leaves:
+            if path not in tree:
+                continue
+            st = {}
+            for k, v in tree[path].items():
+                if torch.is_tensor(v) and v.dim() > 0:
+                    if d is not None and v.shape == p.shape:
+                        size = p.shape[d] // self.degree
+                        v = v.narrow(d, self.index * size, size)
+                    if v.shape != t.shape:
+                        raise ValueError(
+                            f"optimizer state {path}/{k}: {tuple(v.shape)} "
+                            f"does not fit the parameter block "
+                            f"{tuple(t.shape)}")
+                    v = v.to(t.device, copy=True,
+                             memory_format=torch.contiguous_format)
+                elif torch.is_tensor(v):
+                    v = v.clone()
+                st[k] = v
+            self.opt.state[t] = st
 
     def state_shapes(self) -> Dict[str, Tuple[Tuple[int, ...], ...]]:
         """Each path's optimizer-state tensor shapes (the per-step

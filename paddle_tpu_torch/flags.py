@@ -72,6 +72,13 @@ define_flag("FLAGS_tpu_watchdog_serve_step", 120.0,
             "watchdog phase). A step past the deadline is treated as a "
             "hang and recovered by the engine's pool-rebuild replay. "
             "<=0 disables.")
+define_flag("FLAGS_tpu_watchdog_collective", 120.0,
+            "Deadline (s) a rank may spend inside one collective before "
+            "the health monitor declares a CollectiveTimeout and "
+            "converts it to an exit-101 relaunch. <=0 disables.")
+define_flag("FLAGS_tpu_watchdog_ckpt_commit", 300.0,
+            "Deadline (s) for the ckpt.commit watchdog phase (the "
+            "atomic checkpoint rename + fsync protocol). <=0 disables.")
 define_flag("FLAGS_tpu_trace", False,
             "Structured event/span tracing (profiler.trace flight "
             "recorder): ring-buffered request-lifecycle, engine-step "

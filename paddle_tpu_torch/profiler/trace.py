@@ -47,6 +47,7 @@ __all__ = [
     "request_timeline", "TERMINAL_PHASES", "write_sidecar", "read_sidecar",
     "merge_ranks", "merge_sidecars", "chrome_events", "sidecar_path",
     "record_pipeline_schedule", "pipeline_schedule_events", "SCHEMA",
+    "TERMINAL_BARRIER",
 ]
 
 # Same discipline as profiler.metrics: the disabled path must cost one
@@ -55,6 +56,9 @@ _FLAG_DICT = _flags._REGISTRY
 _FLAG_NAME = "FLAGS_tpu_trace"
 
 SCHEMA = "paddle_tpu.trace.v1"
+# the barrier a gang rank records last (``distributed.gang``'s finalize);
+# ``tools/trace_report.py --gang`` fails a rank whose sidecar lacks it
+TERMINAL_BARRIER = "gang/exit"
 TERMINAL_PHASES = ("finish", "cancelled", "failed")
 
 _DEFAULT_CAPACITY = int(os.environ.get("PADDLE_TPU_TRACE_RING_CAP",

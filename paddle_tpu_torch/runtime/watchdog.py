@@ -17,12 +17,18 @@
     replica's step with it).
 
 Incident records accumulate in a bounded in-memory buffer
-(``incidents()``).  Not ported yet (they come with the train runtime,
-ROADMAP A3): ``init_with_retries`` and the incident sidecar file.
+(``incidents()``); the first record arms an atexit hook that writes the
+buffer to a JSONL sidecar (``persist_incidents``,
+``incident_sidecar_path``), and the exit-101 paths, which leave through
+``os._exit``, persist it themselves.  ``phase`` is the framework's
+flag-gated phase hook (``collective``, ``ckpt.commit``, ``serve.step``).
+Not ported yet: ``init_with_retries`` (ROADMAP A item 4).
 """
 from __future__ import annotations
 
+import atexit
 import faulthandler
+import json
 import os
 import sys
 import threading
@@ -34,13 +40,15 @@ from .. import flags as _flags
 
 __all__ = ["PhaseTimeout", "Watchdog", "run_with_deadline",
            "record_incident", "incidents", "clear_incidents",
-           "last_incident", "PHASES", "global_watchdog",
+           "last_incident", "persist_incidents", "incident_sidecar_path",
+           "INCIDENT_SCHEMA", "PHASES", "phase", "global_watchdog",
            "watchdog_enabled"]
 
 # canonical phases and the flag holding each deadline (seconds; <= 0
-# disables that phase's deadline; the train runtime's phases come with
-# it, ROADMAP A3)
+# disables that phase's deadline)
 PHASES = {
+    "collective": "FLAGS_tpu_watchdog_collective",
+    "ckpt.commit": "FLAGS_tpu_watchdog_ckpt_commit",
     "serve.step": "FLAGS_tpu_watchdog_serve_step",
 }
 
@@ -73,11 +81,19 @@ class PhaseTimeout(TimeoutError):
 _INCIDENTS: List[Dict[str, Any]] = []
 _INCIDENTS_MAX = 64
 _INCIDENTS_LOCK = threading.Lock()
+_PERSIST_REGISTERED = False
+
+# the sidecar's schema: the reference's, so tools/trace_report.py
+# --incidents reads either package's files
+INCIDENT_SCHEMA = "paddle_tpu.incidents.v1"
 
 
 def record_incident(kind: str, **fields) -> Dict[str, Any]:
     """Append a structured incident ``{kind, time, rank, pid,
-    **fields}`` to the bounded in-memory buffer and return it."""
+    **fields}`` to the bounded in-memory buffer and return it.  The
+    first record arms an atexit hook that persists the buffer to its
+    JSONL sidecar (:func:`persist_incidents`)."""
+    global _PERSIST_REGISTERED
     rec = {"kind": kind, "time": time.time(),
            "rank": int(os.environ.get("PADDLE_TRAINER_ID", "0")),
            "pid": os.getpid()}
@@ -85,6 +101,9 @@ def record_incident(kind: str, **fields) -> Dict[str, Any]:
     with _INCIDENTS_LOCK:
         _INCIDENTS.append(rec)
         del _INCIDENTS[:-_INCIDENTS_MAX]
+        if not _PERSIST_REGISTERED:
+            _PERSIST_REGISTERED = True
+            atexit.register(_persist_at_exit)
     from ..profiler import metrics
     if metrics.enabled():
         metrics.counter("health_incidents_total",
@@ -106,6 +125,54 @@ def last_incident() -> Optional[Dict[str, Any]]:
 def clear_incidents():
     with _INCIDENTS_LOCK:
         del _INCIDENTS[:]
+
+
+def incident_sidecar_path() -> str:
+    """Where :func:`persist_incidents` writes by default:
+    ``$PADDLE_TPU_INCIDENTS_OUT`` when set, else
+    ``incidents_rank<N>.jsonl`` under ``$PADDLE_TPU_INCIDENT_DIR``
+    (default: the current directory)."""
+    explicit = os.environ.get("PADDLE_TPU_INCIDENTS_OUT")
+    if explicit:
+        return explicit
+    base = os.environ.get("PADDLE_TPU_INCIDENT_DIR", ".")
+    try:
+        rank = int(os.environ.get("PADDLE_TRAINER_ID", "0") or 0)
+    except ValueError:
+        rank = 0
+    return os.path.join(base, f"incidents_rank{rank}.jsonl")
+
+
+def persist_incidents(path: Optional[str] = None) -> Optional[str]:
+    """Flush the incident buffer to a JSONL sidecar (a header line with
+    the schema, rank and pid, then one incident a line; tmp file +
+    rename).  A no-op when the buffer is empty.  Runs at normal exit
+    once an incident exists; the exit-101 paths call it themselves,
+    because ``os._exit`` skips atexit."""
+    recs = incidents()
+    if not recs:
+        return None
+    path = path or incident_sidecar_path()
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    header = {"schema": INCIDENT_SCHEMA, "pid": os.getpid(),
+              "rank": recs[-1].get("rank", 0), "wall_time": time.time(),
+              "count": len(recs)}
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        f.write(json.dumps(header, sort_keys=True) + "\n")
+        for rec in recs:
+            f.write(json.dumps(rec, sort_keys=True, default=str) + "\n")
+    os.replace(tmp, path)
+    return path
+
+
+def _persist_at_exit():
+    try:
+        persist_incidents()
+    except OSError as exc:  # a read-only directory: the sidecar is lost
+        sys.stderr.write(f"watchdog: incident persist failed: {exc}\n")
 
 
 def _dump_all_threads(reason: str):
@@ -272,6 +339,17 @@ def global_watchdog() -> Watchdog:
             _GLOBAL = Watchdog()
             _GLOBAL.start_ticker(interval_s=1.0)
         return _GLOBAL
+
+
+@contextmanager
+def phase(name: str, deadline_s: Optional[float] = None):
+    """Framework phase hook: a no-op (one flag lookup) unless
+    ``FLAGS_tpu_watchdog`` is on."""
+    if not watchdog_enabled():
+        yield
+        return
+    with global_watchdog().phase(name, deadline_s):
+        yield
 
 
 def run_with_deadline(fn: Callable[[], Any], window_s: float, *,
