@@ -3933,6 +3933,629 @@ def gang_bench_line(card, device=None):
     return res
 
 
+# the training loop around the step (train_loop_phase): a token dataset
+# of 64 samples of S + 1 tokens, 4 rows a step through
+# DistributedBatchSampler -> DataLoader (2 workers) -> DeviceDataLoader
+# (2 batches ahead), a sync save at step 2, step 4's loss replaced by NaN
+# (RewindGuard restores step 2 and skips batches 3-4), 8 steps; the
+# Profiler records steps 5-6 of its count; localize with layer 3's wq
+# poisoned
+LOOP_SAMPLES, LOOP_B, LOOP_STEPS = 64, 4, 8
+LOOP_SAVE, LOOP_NAN, LOOP_WORKERS = 2, 4, 2
+LOOP_PROFILE = (5, 7)
+LOOP_POISON_LAYER = 3
+# the CUDA kernels of rows 1-10 as the profiler names them (rows 1-2 the
+# flash forward, 3-6 the flash backward, 7-9 the TMA GEMM's
+# instantiations, 10 the gate/up gradient kernel)
+LOOP_TRACE_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel",
+                      "gemm_tma_kernel", "gate_up_grad_kernel")
+# the in-process resize (resize_phase): bench.py's width at GANG_LAYERS
+# layers, Plan(dp=2) as 2 gloo ranks through the launcher over 6 global
+# batches of 4 rows from a DataLoader, request_scale(..., 1) before step 3
+RESIZE_STEPS, RESIZE_AT = 6, 3
+
+
+class TokenData:
+    """A seeded token dataset in host memory: ``n`` samples of S + 1
+    tokens; sample i is its next-token pair and its id."""
+
+    def __init__(self, n, S, vocab, seed):
+        rng = np.random.default_rng(seed)
+        self.tokens = rng.integers(0, vocab, (n, S + 1), dtype=np.int64)
+
+    def __len__(self):
+        return len(self.tokens)
+
+    def __getitem__(self, i):
+        row = self.tokens[i]
+        return {"input_ids": row[:-1], "labels": row[1:], "ids": np.int64(i)}
+
+    def batch(self, torch, ids, device):
+        rows = self.tokens[ids]
+        return {"input_ids": torch.from_numpy(rows[:, :-1]).to(device),
+                "labels": torch.from_numpy(rows[:, 1:]).to(device)}
+
+
+def _pair(b):
+    return {"input_ids": b["input_ids"], "labels": b["labels"]}
+
+
+def device_init_line(watchdog, card_probe=None):
+    """``runtime.watchdog.init_with_retries`` over a real init of the card
+    (``probe_device``: init, one launch, synchronize): its attempts and
+    seconds on a line of their own; fails the run when the window runs
+    out."""
+    t0 = time.perf_counter()
+    ok, attempts, err = watchdog.init_with_retries(
+        card_probe or watchdog.probe_device, window_s=120.0, base_delay=5.0,
+        log=lambda m: print(f"device init: {m}", flush=True))
+    secs = time.perf_counter() - t0
+    print(f"device init: init_with_retries ok={ok} after {attempts} "
+          f"attempt(s) in {secs:.3f} s", flush=True)
+    check(ok, f"device init failed: {err}")
+    return {"attempts": attempts, "seconds": secs}
+
+
+def train_loop_phase(torch, tbench, tllama, dist, card, build_report=None,
+                     device="cuda", model=None, seq=None, root=CKPT_ROOT,
+                     workers=LOOP_WORKERS):
+    """bench.py's shape (S = 2048, B = 4, bf16, "dots", fused "auto") at
+    world size 1 through ``Plan().train_step``, fed by the port's data
+    pipeline and guarded by ``RewindGuard``, under the ``Profiler`` with
+    FLAGS_tpu_xmem, FLAGS_tpu_check_nan_inf and FLAGS_tpu_metrics on.
+
+    ``TokenData`` (64 samples) -> ``DistributedBatchSampler(4, 1 replica,
+    shuffle)`` -> ``DataLoader(num_workers=2, places=card)``, which hands
+    off to ``DeviceDataLoader(buffer_size=2)`` inside it (the cursor then
+    counts the batches the step took).  A ``CheckpointManager`` with the
+    loader attached saves step 2 synchronously; step 4's loss is replaced
+    by NaN; the guard restores step 2 and skips batches 3-4; the loop runs
+    on to step 8.  From the rewind on, each step of the loop (A) runs in
+    turn with the same step of a second state restored from step 2 (B)
+    on the same batches already on the card: B is the uninterrupted run
+    from step 2, and its losses must equal A's bit for bit.  Checks: the
+    consumed ids ``order[:8] + order[16:40]``; one ``anomaly_rewind``
+    incident; ``rewind_total`` 1 and ``rewind_skipped_batches_total`` 2;
+    the exported trace holds ``dataloader_next`` spans and the kernels of
+    rows 1-10; the summary's Compilation, Memory and Numerics sections
+    hold numbers; ``numerics.localize`` of one step with layer 3's ``wq``
+    set to 1e38 names layer 3's ``fused_qkv``.  Reports the step ms of A
+    (next batch + step) and B (step), the ``dataloader_next`` waits, the
+    save, restore and rewind seconds, the step's peak beside xmem's.
+    The fed steps' statistic (``fed_steady``) leaves out each
+    iterator's first batch, whose wait holds the workers' start
+    (``fed_first_ms``)."""
+    import shutil
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.distributed import fault_tolerance as ft
+    from paddle_tpu_torch.distributed import reshard
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.profiler import (Profiler, compile_tracker,
+                                           metrics, numerics, xmem)
+    from paddle_tpu_torch.runtime import RewindGuard, watchdog
+    t_all = time.perf_counter()
+    dev = _device(torch, device)
+    cfg = tllama.LlamaConfig(remat_policy="dots", **(model or tbench.MODEL))
+    S = seq or tbench.SEQ
+    root = os.path.abspath(os.path.join(root, "loop"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    trace_dir = os.path.abspath(os.path.join("chiprun_out",
+                                             "train_loop_trace"))
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    flags.set_flags({"FLAGS_tpu_xmem": True,
+                     "FLAGS_tpu_check_nan_inf": True,
+                     "FLAGS_tpu_metrics": True})
+    metrics.reset()
+    numerics.reset()
+    xmem.reset()
+    watchdog.clear_incidents()
+    for n, r in (build_report or {}).items():
+        for kernel, use in _build.ptxas_usage(r["log"]).items():
+            xmem.record_kernel_estimate(kernel, use["smem_bytes"], where=n,
+                                        registers=use["registers"])
+    data = TokenData(LOOP_SAMPLES, S, cfg.vocab_size, seed=0)
+    smp = tio.DistributedBatchSampler(data, LOOP_B, num_replicas=1, rank=0,
+                                      shuffle=True, seed=0)
+    order = smp._global_order(0)
+    loader = tio.DataLoader(data, batch_sampler=smp, num_workers=workers,
+                            places=dev, prefetch_factor=2)
+    step_fn, init_fn = dist.Plan().train_step(cfg, device=dev)
+    specs = tllama.param_specs(cfg)
+    mgr = ft.CheckpointManager(root, specs=specs, keep=3).attach_data(loader)
+    params, opt = init_fn(0)
+    guard = RewindGuard(mgr, data=loader, max_rewinds=1,
+                        restore_target={"params": params, "opt_state": {}})
+    res = {"ms_loader": [], "ms_on_card": [], "ms_before": [],
+           "next_wait_ms": [], "first_of_iter": []}
+    consumed, losses_a, losses_b = [], {}, {}
+    state_b = batches_b = None
+    for w in tbench.KERNELS.values():
+        w.launches = 0
+    step, it, fresh = 0, iter(loader), True
+    prof = Profiler(scheduler=LOOP_PROFILE)
+    prof.start()
+    try:
+        while step < LOOP_STEPS:
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            batch = next(it)
+            res["next_wait_ms"].append(1e3 * (time.perf_counter() - t0))
+            first, fresh = fresh, False
+            step += 1
+            if step == 2:
+                _reset_peak(torch, dev)
+            _, _, m = step_fn(params, opt, _pair(batch))
+            loss = m["loss"].item()
+            ms = 1e3 * (time.perf_counter() - t0)
+            if step == 2:
+                res["step_peak_bytes"] = _peak(torch, dev)
+            ids = batch["ids"].tolist()
+            if step == LOOP_NAN and guard.rewinds == 0:
+                loss = float("nan")       # the poisoned batch
+            numerics.note("train_loss", loss)
+            numerics.check_array(np.float32(loss), "train.step.loss",
+                                 action="collect")
+            t0 = time.perf_counter()
+            rw = guard.check(step, loss)
+            if rw is not None:
+                res["rewind_s"] = time.perf_counter() - t0
+                it.close()
+                del params, opt, batch, m
+                t0 = time.perf_counter()
+                params, opt = init_fn(params=rw.state["params"])
+                opt.load_state_tree(rw.state["opt_state"])
+                del rw.state
+                _sync(torch, dev)
+                res["rewind_install_s"] = time.perf_counter() - t0
+                res["rewind"] = {"restored_step": rw.step,
+                                 "anomaly_step": rw.anomaly_step,
+                                 "skipped_batches": rw.skipped_batches,
+                                 "reason": rw.reason}
+                step = rw.step
+                # the steps past the restored one are undone
+                consumed = consumed[:step * LOOP_B]
+                # B: the uninterrupted run from the step-2 state, on the
+                # batches A takes next, already on the card
+                t0 = time.perf_counter()
+                st, got = mgr.restore(
+                    target={"params": params, "opt_state": {}},
+                    step=LOOP_SAVE, apply_data=False, apply_rng=False)
+                state_b = init_fn(params=st["params"])
+                state_b[1].load_state_tree(st["opt_state"])
+                del st
+                _sync(torch, dev)
+                res["restore_s"] = time.perf_counter() - t0
+                # step s after the rewind takes the (s - step)-th batch
+                # past the skipped window
+                first = (rw.step + rw.skipped_batches) * LOOP_B
+                batches_b = {
+                    s: data.batch(torch, order[
+                        first + (s - rw.step - 1) * LOOP_B:
+                        first + (s - rw.step) * LOOP_B], dev)
+                    for s in range(rw.step + 1, LOOP_STEPS + 1)}
+                guard.restore_target = {"params": params, "opt_state": {}}
+                it, fresh = iter(loader), True
+                prof.step()
+                continue
+            consumed += ids
+            losses_a[step] = loss
+            (res["ms_loader"] if state_b is not None
+             else res["ms_before"]).append(ms)
+            if state_b is not None:
+                res["first_of_iter"].append(first)
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                _, _, mb = step_fn(*state_b, batches_b[step])
+                losses_b[step] = mb["loss"].item()
+                res["ms_on_card"].append(1e3 * (time.perf_counter() - t0))
+            if step == LOOP_SAVE:
+                t0 = time.perf_counter()
+                mgr.save(step, reshard.gather_train_state(params, opt),
+                         sync=True)
+                res["save_s"] = time.perf_counter() - t0
+                res["save_bytes"] = _disk_bytes(
+                    os.path.join(root, ft.step_dir_name(step)))
+            prof.step()
+    finally:
+        prof.stop()
+        it.close()
+    res["launches"] = {n: w.launches for n, w in tbench.KERNELS.items()}
+    res["loop_s"] = time.perf_counter() - t_all
+    # A fed by the loader against B on the card, over the steps after
+    # the rewind whose batch was not the new iterator's first
+    steady = [(a, b) for a, b, f in zip(res["ms_loader"], res["ms_on_card"],
+                                        res["first_of_iter"]) if not f]
+    fed, on_card = [a for a, _ in steady], [b for _, b in steady]
+    res["fed_first_ms"] = [a for a, f in zip(res["ms_loader"],
+                                             res["first_of_iter"]) if f]
+    res["fed_steady"] = {
+        "steps": len(steady), "fed_median_ms": float(np.median(fed)),
+        "fed_min_ms": min(fed), "fed_max_ms": max(fed),
+        "on_card_median_ms": float(np.median(on_card)),
+        "on_card_min_ms": min(on_card), "on_card_max_ms": max(on_card),
+        "fed_over_on_card_pct": 100.0 * (float(np.median(fed))
+                                         / float(np.median(on_card)) - 1)}
+    check(consumed == order[:LOOP_SAVE * LOOP_B]
+          + order[(LOOP_NAN * LOOP_B):(LOOP_NAN + LOOP_STEPS - LOOP_SAVE)
+                  * LOOP_B],
+          f"train loop: consumed ids {consumed} are not order[:8] + "
+          f"order[16:40]")
+    bits_a = {s: _loss_bits(l) for s, l in losses_a.items()
+              if s > LOOP_SAVE}
+    bits_b = {s: _loss_bits(l) for s, l in losses_b.items()}
+    check(bits_a == bits_b and sorted(bits_b) == list(
+        range(LOOP_SAVE + 1, LOOP_STEPS + 1)),
+          f"train loop: losses after the rewind {losses_a} differ from the "
+          f"uninterrupted run from step {LOOP_SAVE} {losses_b}")
+    rewinds = [i for i in watchdog.incidents()
+               if i["kind"] == "anomaly_rewind"]
+    check(len(rewinds) == 1 and rewinds[0]["restored_step"] == LOOP_SAVE
+          and rewinds[0]["skipped_batches"] == LOOP_NAN - LOOP_SAVE,
+          f"train loop: anomaly_rewind incidents {rewinds}")
+    snap = metrics.snapshot()
+    res["metrics"] = {k: snap.get(k) for k in (
+        "rewind_total", "rewind_skipped_batches_total",
+        "dataloader_batches_total")}
+    check(snap.get("rewind_total") == 1
+          and snap.get("rewind_skipped_batches_total") == 2,
+          f"train loop: rewind metrics {res['metrics']}")
+    # the trace: host spans and the card's kernels of the recorded steps
+    path = prof.export(os.path.join(trace_dir, "loop.pt.trace.json"))
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    names = {e["name"] for e in evs if e.get("ph") == "X"}
+    res["trace_events"] = len(evs)
+    res["trace_dataloader_next"] = sum(
+        1 for e in evs if e.get("name") == "dataloader_next")
+    check(res["trace_dataloader_next"] >= 2,
+          "train loop: no dataloader_next spans in the exported trace")
+    if dev.type == "cuda":
+        missing = [k for k in LOOP_TRACE_KERNELS
+                   if not any(k in n for n in names)]
+        check(not missing, f"train loop: the trace lacks {missing}")
+        res["trace_kernels"] = sorted(
+            {n for n in names if any(k in n for k in LOOP_TRACE_KERNELS
+                                     + ("rms_norm",))})[:12]
+        bad = [n for n in TRAIN_PATH_KERNELS if not res["launches"][n]]
+        check(not bad, f"train loop: kernels {bad} never launched")
+    table = prof.summary_table()
+    print(f"train loop [{card}]: Profiler.summary_table():\n{table}",
+          flush=True)
+    sect = {}
+    for head in ("Compilation", "Memory", "Numerics"):
+        lines = table.split(head, 1)[1].split("-----", 1)[0].splitlines()
+        sect[head] = [ln for ln in lines[1:] if ln.strip()]
+    built = (compile_tracker.stats()["compile_count"]
+             + compile_tracker.stats()["persistent_cache_hits"])
+    check((built > 0 or dev.type != "cuda")
+          and xmem.stats()["executables"] >= 1
+          and numerics.sites().get("train.step.loss", {}).get(
+              "nonfinite") == 1,
+          f"train loop: summary sections {sect}")
+    cap = next(p for p in xmem.profiles() if p["name"] == "train_step")
+    res["xmem"] = {k: cap[k] for k in (
+        "peak_bytes", "device_peak_bytes", "temp_bytes", "argument_bytes",
+        "output_bytes", "flops")}
+    res["span_stats"] = {n: {"calls": c, "total_ms": 1e3 * t,
+                             "max_ms": 1e3 * mx}
+                         for n, (c, t, mx) in prof._span_stats.items()}
+    res["compile"] = {k: v for k, v in compile_tracker.stats().items()
+                      if k != "sources"}
+    del state_b, batches_b
+    # localize: one step with layer 3's wq poisoned, in a copy
+    bad = dict(params)
+    bad["layers"] = dict(params["layers"])
+    wq = params["layers"]["wq"].detach().clone()
+    wq[LOOP_POISON_LAYER] = 1e38
+    bad["layers"]["wq"] = wq
+    del params, opt
+    if dev.type == "cuda":
+        gc_cuda(torch)
+    flags.set_flags({"FLAGS_tpu_xmem": False})
+    p_bad, o_bad = init_fn(params=bad)
+    del bad, wq
+    ids0 = order[:LOOP_B]
+    b0 = data.batch(torch, ids0, dev)
+    t0 = time.perf_counter()
+    rep = numerics.localize(lambda: step_fn(p_bad, o_bad, b0))
+    res["localize_s"] = time.perf_counter() - t0
+    res["localize"] = {k: rep.get(k) for k in (
+        "primitive", "kind", "call_index", "op_index", "where", "nan",
+        "inf", "size")} if rep else None
+    if dev.type == "cuda":
+        check(rep is not None and rep["primitive"] == "fused_qkv"
+              and rep["call_index"] == LOOP_POISON_LAYER,
+              f"train loop: localize named {res['localize']}, not layer "
+              f"{LOOP_POISON_LAYER}'s fused_qkv")
+    else:
+        check(rep is not None, "train loop: localize found nothing")
+    del p_bad, o_bad
+    flags.set_flags({"FLAGS_tpu_check_nan_inf": False,
+                     "FLAGS_tpu_metrics": False})
+    metrics.reset()
+    shutil.rmtree(root, ignore_errors=True)
+    if dev.type == "cuda":
+        gc_cuda(torch)
+    res["seconds"] = time.perf_counter() - t_all
+    res["losses"] = [losses_a[s] for s in sorted(losses_a)]
+    print(f"train loop [{card}]: {json.dumps(res)}", flush=True)
+    return res
+
+
+def resize_worker(argv):
+    """One rank of ``resize_phase``'s pod (``chip_smoke.py
+    --resize-worker --ckpt-root DIR``, started by the launcher): joins the
+    process group over gloo on the card, runs ``Plan(dp=world)
+    .run_train_loop`` over ``RESIZE_STEPS`` global batches of a
+    ``DataLoader`` with rank 0's feed writing ``request_scale(..., 1)``
+    before step ``RESIZE_AT``; one ``RESIZE_DONE`` line with its history,
+    the ids of the batches it trained on and its kernel launches.  Rank 0
+    also holds the resize's state against the state it saved: the state
+    gathered whole after step ``RESIZE_AT`` (``pre``) against the
+    checkpoint on disk, leaf by leaf; and its own losses after the resize
+    against steps from ``pre`` at world size 1 on the same batches, bit
+    for bit (``restore``).  Two controls run the same steps from the
+    init params and from ``pre`` with AdamW's moments zeroed, and must
+    differ.  ``--device cpu --hidden H`` rehearses it on the CPU."""
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--resize-worker", action="store_true")
+    ap.add_argument("--ckpt-root", required=True)
+    ap.add_argument("--device", default=None)
+    ap.add_argument("--hidden", type=int, default=None)
+    args = ap.parse_args(argv)
+    import torch
+    from paddle_tpu_torch import bench as tbench
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.device import resolve_device
+    from paddle_tpu_torch.distributed import Plan, reshard
+    from paddle_tpu_torch.distributed.fault_tolerance import step_dir_name
+    from paddle_tpu_torch.distributed.fleet.elastic import request_scale
+    from paddle_tpu_torch.framework.io import load as fload
+    from paddle_tpu_torch.distributed.store import (TCPStore,
+                                                    init_parallel_env,
+                                                    shutdown)
+    from paddle_tpu_torch.models import llama as tllama
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    world = int(os.environ["PADDLE_TRAINERS_NUM"])
+    host, port = os.environ["PADDLE_MASTER"].rsplit(":", 1)
+    dev = resolve_device(args.device)
+    store = TCPStore(host, int(port), False, world, 300.0)
+    init_parallel_env(dev, backend="gloo", store=store, rank=rank,
+                      world_size=world, timeout=300.0)
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    cfg, S = resize_cfg(torch, tbench, tllama, args.hidden)
+    loader = resize_loader(tio, cfg, S)
+    took, last, tail, pre = [], {}, [], {}
+
+    def feed():
+        for i, b in enumerate(loader):
+            if i == RESIZE_STEPS:
+                break
+            if i == RESIZE_AT and rank == 0:
+                request_scale("", "resize", 1, store=store)
+            last["ids"] = b["ids"].tolist()
+            if i >= RESIZE_AT and rank == 0:
+                tail.append(_pair(b))
+            yield _pair(b)
+
+    def on_step(n, params, opt):
+        took.append(last["ids"])
+        if n == RESIZE_AT:      # collective: both ranks gather
+            st = reshard.gather_train_state(params, opt)
+            if rank == 0:
+                pre["state"] = st
+            del st
+        print("RESIZE_STEP " + json.dumps({
+            "rank": rank, "step": n, "t": time.time()}), flush=True)
+
+    for w in tbench.KERNELS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    hist = Plan(dp=world).run_train_loop(
+        cfg, feed(), seed=0, job_id="resize", scale_store=store,
+        ckpt_root=args.ckpt_root, on_step=on_step, device=dev)
+    seconds = time.perf_counter() - t0
+    # the loop's launches and peak, before the check's steps add theirs
+    launches = {n: w.launches for n, w in tbench.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    restore = (resize_restore_check(torch, Plan, cfg, dev, pre.pop(
+        "state"), fload(os.path.join(args.ckpt_root, step_dir_name(
+            RESIZE_AT), "state.pdz")), tail, hist["losses"][RESIZE_AT:])
+        if rank == 0 else None)
+    print("RESIZE_DONE " + json.dumps({
+        "rank": rank, "losses": hist["losses"], "restore": restore,
+        "world_sizes": hist["world_sizes"], "resizes": hist["resizes"],
+        "resize_stats": hist["resize_stats"], "ids": took,
+        "seconds": seconds, "launches": launches, "peak": peak}),
+        flush=True)
+    shutdown()
+    return 0
+
+
+def resize_restore_check(torch, Plan, cfg, dev, pre, saved, tail, losses):
+    """What a resize at world size 1 continued from, told apart from
+    what it should have: ``pre`` (the state gathered before the save)
+    against ``saved`` (the checkpoint), leaf by leaf; then steps over
+    ``tail`` at world size 1 from ``pre``, from the init params and from
+    ``pre`` with zeroed moments, each loss against ``losses`` (rank 0's
+    after the resize) as float32 bits and as the largest difference."""
+    from paddle_tpu_torch.distributed.reshard import _flat
+    a, b = dict(_flat(pre)), dict(_flat(saved))
+    differ = sorted(p for p in a if p not in b or not (
+        torch.equal(a[p].cpu(), b[p].cpu()) if torch.is_tensor(a[p])
+        else a[p] == b[p]))
+    out = {"leaves": len(a), "saved_differ": differ[:4] + (
+        ["missing"] if sorted(a) != sorted(b) else []),
+        "saved_differ_count": len(differ)}
+    del saved, a, b
+
+    def zeroed(tree):
+        return {p: {k: (torch.zeros_like(v) if torch.is_tensor(v)
+                        and v.dim() > 0 else v) for k, v in st.items()}
+                for p, st in tree.items()}
+
+    step_fn, init_fn = Plan().train_step(cfg, device=dev, ranks=1)
+    for name, moments in (("restore", pre["opt_state"]),
+                          ("from_init", None),
+                          ("zeroed_moments", zeroed(pre["opt_state"]))):
+        if moments is None:
+            params, opt = init_fn(0)
+        else:
+            params, opt = init_fn(params=_tree(
+                pre["params"], lambda t: t.to(dev, copy=True)))
+            opt.load_state_tree(moments)
+        got = []
+        for b in tail:
+            params, opt, m = step_fn(params, opt, step_fn.shard_batch(b))
+            got.append(m["loss"].item())
+        out[name] = {
+            "losses": got,
+            "bit_equal": [_loss_bits(x) for x in got]
+            == [_loss_bits(x) for x in losses],
+            "max_abs_diff": max(abs(x - y) for x, y in zip(got, losses))}
+        del params, opt
+    return out
+
+
+def resize_cfg(torch, tbench, tllama, hidden=None):
+    model = dict(tbench.MODEL, num_hidden_layers=GANG_LAYERS)
+    S = tbench.SEQ
+    if hidden:     # a CPU rehearsal's width
+        model.update(hidden_size=hidden, intermediate_size=2 * hidden,
+                     vocab_size=256, num_attention_heads=2,
+                     num_key_value_heads=2, dtype=torch.float32)
+        S = 32
+    return tllama.LlamaConfig(remat_policy="dots", **model), S
+
+
+def resize_loader(tio, cfg, S):
+    """The global batches: ``GANG_B`` rows a step from one replica's
+    ``DistributedBatchSampler`` (the global order), in a ``DataLoader``."""
+    data = TokenData(LOOP_SAMPLES, S, cfg.vocab_size, seed=1)
+    smp = tio.DistributedBatchSampler(data, GANG_B, num_replicas=1, rank=0,
+                                      shuffle=True, seed=1)
+    return tio.DataLoader(data, batch_sampler=smp)
+
+
+def resize_phase(torch, tbench, tllama, dist, card, device=None,
+                 extra_args=()):
+    """Two gloo ranks on the one card through the launcher (as
+    ``gang_phase``'s pods): ``Plan(dp=2).run_train_loop`` at bench.py's
+    width and ``GANG_LAYERS`` layers over 6 global batches of 4 rows from
+    a ``DataLoader``, ``request_scale(..., 1)`` before step 3.  Checks:
+    rank 0's ``world_sizes`` [2, 2, 2, 1, 1, 1] and ``resizes`` [(3, 2,
+    1)]; the pod (both processes) exits 0, rank 1 with steps 1-3; rank
+    0's losses within ``DIST_LOSS_ATOL`` of world size 1 over the same
+    batches (``Plan().run_train_loop`` in this process); rank 0's state
+    as saved equal leaf by leaf to the state gathered before the save,
+    and its losses after the resize bit-equal to steps from that state
+    (``resize_restore_check``), which the init params and zeroed
+    moments are not; no sample replayed or skipped (rank 0 trained on
+    the loader's first 6 batches in order).  Reports the resize's save,
+    group and restore seconds, the bytes saved and the controls'
+    differences."""
+    import shutil
+    from paddle_tpu_torch import io as tio
+    t_all = time.perf_counter()
+    base = os.path.abspath(os.path.join("chiprun_out", "resize"))
+    ckpt = os.path.abspath(os.path.join(CKPT_ROOT, "resize"))
+    shutil.rmtree(base, ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log = os.path.join(base, "log")
+    env = dict(os.environ)
+    env.pop("PTQ_CHAOS", None)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", "2", "--max_restarts", "0", "--log_dir", log,
+           os.path.abspath(__file__), "--resize-worker", "--ckpt-root", ckpt,
+           *extra_args]
+    if device:
+        cmd += ["--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    done = {}
+    for r in (0, 1):
+        for d in _marked(os.path.join(log, f"workerlog.{r}"), "RESIZE_DONE"):
+            done[d["rank"]] = d
+    check(proc.returncode == 0 and sorted(done) == [0, 1],
+          f"resize pod exited {proc.returncode}, done {sorted(done)}: "
+          f"{proc.stderr[-3000:]}")
+    r0, r1 = done[0], done[1]
+    check(r0["world_sizes"] == [2] * RESIZE_AT + [1] * (RESIZE_STEPS
+                                                        - RESIZE_AT)
+          and [tuple(x) for x in r0["resizes"]] == [(RESIZE_AT, 2, 1)],
+          f"resize: rank 0 world sizes {r0['world_sizes']}, resizes "
+          f"{r0['resizes']}")
+    check(r1["world_sizes"] == [2] * RESIZE_AT
+          and [tuple(x) for x in r1["resizes"]] == [(RESIZE_AT, 2, 1)],
+          f"resize: rank 1 world sizes {r1['world_sizes']}, resizes "
+          f"{r1['resizes']}")
+    # world size 1 over the same global batches, in this process
+    hidden = None
+    if "--hidden" in extra_args:
+        hidden = int(extra_args[list(extra_args).index("--hidden") + 1])
+    cfg, S = resize_cfg(torch, tbench, tllama, hidden)
+    loader = resize_loader(tio, cfg, S)
+    want_ids = []
+
+    def feed():
+        for i, b in enumerate(loader):
+            if i == RESIZE_STEPS:
+                break
+            want_ids.append(b["ids"].tolist())
+            yield _pair(b)
+
+    ws1 = dist.Plan().run_train_loop(cfg, feed(), seed=0,
+                                     device=device or "cuda")
+    err = max(abs(a - b) for a, b in zip(r0["losses"], ws1["losses"]))
+    check(len(r0["losses"]) == RESIZE_STEPS and err <= DIST_LOSS_ATOL,
+          f"resize: rank 0 losses {r0['losses']} vs world size 1 "
+          f"{ws1['losses']}")
+    check(r0["ids"] == want_ids and r1["ids"] == want_ids[:RESIZE_AT],
+          f"resize: trained ids rank 0 {r0['ids']}, rank 1 {r1['ids']}, "
+          f"the loader's {want_ids}")
+    flat = [i for b in r0["ids"] for i in b]
+    check(len(set(flat)) == len(flat), "resize: a sample was replayed")
+    rc = r0["restore"]
+    check(rc["saved_differ_count"] == 0 and rc["leaves"] > 0,
+          f"resize: the checkpoint differs from the state gathered before "
+          f"the save in {rc['saved_differ_count']} leaves, e.g. "
+          f"{rc['saved_differ']}")
+    check(rc["restore"]["bit_equal"],
+          f"resize: rank 0's losses after the resize {r0['losses']} are not "
+          f"bit-equal to steps from the saved state {rc['restore']}")
+    check(not rc["from_init"]["bit_equal"]
+          and not rc["zeroed_moments"]["bit_equal"],
+          f"resize: a control matched rank 0's losses bit for bit: {rc}")
+    (st,) = r0["resize_stats"]
+    res = {"losses": r0["losses"], "losses_ws1": ws1["losses"],
+           "loss_err": err, "world_sizes": r0["world_sizes"],
+           "resizes": r0["resizes"], "rank1_steps": len(r1["losses"]),
+           "save_s": st["save_s"], "group_s": st["group_s"],
+           "restore_s": st["restore_s"], "saved_bytes": st["saved_bytes"],
+           "restore_check": {k: (rc[k] if not isinstance(rc[k], dict)
+                                 else {"bit_equal": rc[k]["bit_equal"],
+                                       "max_abs_diff": rc[k]["max_abs_diff"]})
+                             for k in ("leaves", "saved_differ_count",
+                                       "restore", "from_init",
+                                       "zeroed_moments")},
+           "rank_seconds": [done[r]["seconds"] for r in (0, 1)],
+           "launches_rank0": r0["launches"],
+           "peak_rank0": r0["peak"], "pod_wall_s": wall,
+           "seconds": time.perf_counter() - t_all}
+    if device != "cpu":
+        bad = [n for n in TRAIN_PATH_KERNELS if not r0["launches"][n]]
+        check(not bad, f"resize: kernels {bad} never launched")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"resize [{card}]: {json.dumps(res)}", flush=True)
+    return res
+
+
 def load_parent(root):
     """``root``/paddle_tpu_torch imported as ``parent_paddle_tpu_torch``:
     the package imports itself only relatively, so its kernels build from
@@ -4054,6 +4677,8 @@ def main(argv=()):
     from paddle_tpu_torch.runtime import watchdog
     from paddle_tpu_torch.testing import chaos
 
+    # the first CUDA call of the run: a refused init is retried here
+    device_init_line(watchdog)
     card = torch.cuda.get_device_name(0)
     smi = gpu_line()
     print(f"gpu: {smi}")
@@ -4070,14 +4695,9 @@ def main(argv=()):
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{n} {r['seconds']:.1f} s" for n, r in report.items()))
     for n, r in report.items():
-        fn = None
-        for line in r["log"].splitlines():
-            m = re.search(r"entry function '(\w+)'", line)
-            if m:   # the kernel's mangled name, its anonymous namespace cut
-                fn = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d\d", "",
-                            m.group(1))
-            elif "registers" in line or "spill" in line:
-                print(f"  {n}: {fn}: {line.split(':', 1)[-1].strip()}")
+        for fn, use in _build.ptxas_usage(r["log"]).items():
+            print(f"  {n}: {fn}: {use['registers']} registers, "
+                  f"{use['smem_bytes']} bytes smem; {use['spill']}")
 
     # checkpoints, health, the launcher and the gang runtime: a small
     # model's corruption fallback and crashed commit, bench.py's shape
@@ -4087,6 +4707,11 @@ def main(argv=()):
     ckpt = ckpt_phase(torch, tbench, tllama, dist, card)
     gang = gang_phase(torch, card)
     gang_bench_line(card)
+    # the training loop around the step: the data pipeline, the rewind,
+    # the Profiler with xmem and numerics, localize; then the in-process
+    # resize of a 2-rank plan to 1
+    loop = train_loop_phase(torch, tbench, tllama, dist, card, report)
+    resize = resize_phase(torch, tbench, tllama, dist, card)
 
     int8_rows, int8_err = int8_phase(torch, i8)
     int8_regimes = int8_plans(torch, i8)
@@ -4278,6 +4903,8 @@ def main(argv=()):
             launches_moe=moe_launches[name],
             launches_ckpt=ckpt["launches"][name],
             launches_gang_rank0=gang["launches_rank0_clean"][name],
+            launches_train_loop=loop["launches"][name],
+            launches_resize_rank0=resize["launches_rank0"][name],
             max_abs_err=flash_err[key],
             row_rel_err=flash_row_err[key], row_rel_max=ROW_REL_MAX,
             control_row_rel_err=min(
@@ -4317,6 +4944,8 @@ def main(argv=()):
             launches_moe=moe_launches[name],
             launches_ckpt=ckpt["launches"][name],
             launches_gang_rank0=gang["launches_rank0_clean"][name],
+            launches_train_loop=loop["launches"][name],
+            launches_resize_rank0=resize["launches_rank0"][name],
             row_rel_err=r["row_rel_err"], row_rel_max=ROW_REL_MAX,
             norm_rel_err=r["norm_rel_err"],
             control_row_rel_err=r["control_row_rel_err"], ms=r["ms"],
@@ -4339,4 +4968,6 @@ def main(argv=()):
 if __name__ == "__main__":
     if "--gang-worker" in sys.argv[1:]:
         sys.exit(gang_worker(sys.argv[1:]))
+    if "--resize-worker" in sys.argv[1:]:
+        sys.exit(resize_worker(sys.argv[1:]))
     sys.exit(main(sys.argv[1:]))

@@ -42,6 +42,17 @@ over gloo); the ranks' ``GANG_RESULT`` lines fold into one result with
 ``real_processes``, and a rank whose losses differ from rank 0's, or
 whose recorded schedule differs from the static one, fails the run.
 
+Before a run on the card it probes the card with
+``runtime.watchdog.init_with_retries`` (``bench.py``'s
+``_init_device_with_retries``): a real init, one launch and a
+synchronize, retried with backoff inside ``PADDLE_TPU_BENCH_DEVICE_TIMEOUT``
+seconds (default 240; first retry after
+``PADDLE_TPU_BENCH_DEVICE_RETRY_DELAY``, default 5).  When the window
+runs out it prints the error result, with the incident, and exits
+non-zero (at once, past the hung thread, when an attempt hung); it
+never goes on on the CPU.  A machine with no card is no transient
+failure: the run raises at once.
+
 It prints one JSON line on every exit path and exits non-zero when the
 run failed.  MFU is ``bench.py``'s formula (6 N tokens + causal
 attention 6 B S^2 hidden L) over the card's dense bf16 peak, looked up
@@ -480,6 +491,32 @@ def multichip_gang(nproc, trace_out=None, steps=2, device=None,
     }
 
 
+def _init_device_with_retries(probe_fn, window_s=240.0, base_delay=5.0,
+                              factor=2.0, max_delay=60.0, log=None,
+                              sleep=time.sleep, clock=time.monotonic):
+    """``runtime.watchdog.init_with_retries`` under the bench's name (the
+    reference's ``bench.py:620``): ``(ok, attempts, last_error)``."""
+    from .runtime.watchdog import init_with_retries
+    return init_with_retries(probe_fn, window_s=window_s,
+                             base_delay=base_delay, factor=factor,
+                             max_delay=max_delay, log=log, sleep=sleep,
+                             clock=clock, phase="device_init")
+
+
+def _error_result(metric: str, unit: str, msg: str, incident=None) -> dict:
+    """The result line of a run that could not measure: value null, the
+    error, and the newest incident record (what failed, against which
+    deadline)."""
+    out = {"metric": metric, "value": None, "unit": unit,
+           "error": msg[-2000:] or "unknown"}
+    if incident is None:
+        from .runtime.watchdog import last_incident
+        incident = last_incident()
+    if incident is not None:
+        out["incident"] = incident
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
@@ -501,6 +538,27 @@ def main(argv=None) -> int:
         ap.error("--gang needs --multichip")
     metric = ("llama_train_multichip_step" if args.multichip
               else "llama_train_mfu_1card")
+    unit = "ms_per_step" if args.multichip else "percent_mfu"
+    on_card = args.device is None or torch.device(args.device).type == "cuda"
+    if on_card and torch.cuda.is_available():
+        # a card that is there but refuses its init may come back; a
+        # machine with no card does not (the run below raises)
+        from .runtime import watchdog
+        window = float(os.environ.get("PADDLE_TPU_BENCH_DEVICE_TIMEOUT",
+                                      "240"))
+        ok, attempts, err = _init_device_with_retries(
+            lambda: watchdog.probe_device(args.device), window_s=window,
+            base_delay=float(os.environ.get(
+                "PADDLE_TPU_BENCH_DEVICE_RETRY_DELAY", "5")),
+            log=lambda m: print(m, file=sys.stderr, flush=True))
+        if not ok:
+            print(json.dumps(_error_result(
+                metric, unit, f"device init failed within {window:.0f}s "
+                f"({attempts} attempt(s)): {err}")), flush=True)
+            watchdog.persist_incidents()
+            if "hung" in str(err):
+                os._exit(1)   # the hung init thread would hold the exit
+            return 1
     try:
         if args.multichip and args.gang:
             result = multichip_gang(args.gang, args.trace_out, args.steps,
@@ -517,9 +575,7 @@ def main(argv=None) -> int:
         if not ok:
             result["error"] = "non-finite loss"
     except BaseException as exc:  # noqa: BLE001 - the line must print
-        result = {"metric": metric, "value": None,
-                  "unit": ("ms_per_step" if args.multichip
-                           else "percent_mfu"),
+        result = {"metric": metric, "value": None, "unit": unit,
                   "error": f"{type(exc).__name__}: {exc}"[-2000:]}
         ok = False
         if not isinstance(exc, Exception):

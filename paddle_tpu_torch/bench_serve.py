@@ -59,8 +59,8 @@ environment) the engine starts the live exporter and the line carries
 the bound ``metrics_port``.
 
 Not carried over from ``bench_serve.py``: the ledger block
-(``--ledger-out``), which waits for the profiler tooling of ROADMAP A3;
-no code of the port writes the perf ledger.
+(``--ledger-out``), which waits for the port of ``profiler/ledger.py``
+(ROADMAP A item 5); no code of the port writes the perf ledger.
 """
 from __future__ import annotations
 

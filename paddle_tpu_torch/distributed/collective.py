@@ -22,8 +22,9 @@ transpose of ``ppermute``.
 Every call over more than one rank records the reference's metrics at
 the same point (``collective_calls_total``, ``collective_bytes_total``
 of the input bytes and the ``collective_latency_seconds`` histogram of
-host wall time, each by ``op``) when ``FLAGS_tpu_metrics`` is on, and a
-``collective/<op>`` span when ``FLAGS_tpu_trace`` is on.  Every call,
+host wall time, each by ``op``) when ``FLAGS_tpu_metrics`` is on, a
+``collective/<op>`` host span while a ``Profiler`` is live, and a
+``collective/<op>`` trace span when ``FLAGS_tpu_trace`` is on.  Every call,
 over one rank too, runs inside ``runtime.health.collective_beacon(op)``
 and passes the ``collective.<op>`` chaos point (stamped with the health
 monitor's step), as the reference's ``_apply_collective`` does: with no
@@ -39,6 +40,7 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..profiler import _record_span
 from ..profiler import metrics as _metrics
 from ..profiler import trace as _trace
 from ..runtime import health as _health
@@ -98,23 +100,27 @@ def group_rank(group) -> Tuple[int, int]:
 
 
 class _Recorded:
-    """Metrics and the trace span of one collective call."""
+    """Metrics, the Profiler's host span and the trace span of one
+    collective call."""
 
-    __slots__ = ("op", "nbytes", "t0", "span")
+    __slots__ = ("op", "nbytes", "t0", "span", "host")
 
     def __init__(self, op: str, tensor: torch.Tensor, nbytes=None):
         self.op = op
         self.nbytes = (tensor.numel() * tensor.element_size()
                        if nbytes is None else nbytes)
         self.t0 = time.perf_counter() if _metrics.enabled() else None
+        self.host = _record_span(f"collective/{op}")
         self.span = _trace.span(f"collective/{op}", op=op)
 
     def __enter__(self):
+        self.host.__enter__()
         self.span.__enter__()
         return self
 
     def __exit__(self, *exc):
         self.span.__exit__(*exc)
+        self.host.__exit__(*exc)
         if self.t0 is not None and exc[0] is None:
             op = self.op
             _metrics.counter("collective_calls_total",

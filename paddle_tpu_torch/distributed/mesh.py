@@ -15,6 +15,15 @@ Under context parallelism (``sp`` > 1) the ranks of one ``sp`` slice
 hold the same rows of the batch and each its block of the sequence
 (``sequence_block``); under pipeline parallelism (``pp`` > 1) the ranks
 of one ``pp`` slice hold the same rows and each its block of the layers.
+
+A topology may span only the first ``ranks`` ranks of the world (what
+an in-process elastic resize shrinks to, ``Plan.run_train_loop``).
+Its groups are made by their members alone
+(``new_group(..., use_local_synchronization=True)``), so the ranks past
+``ranks``, which may have left, take no part: such a rank may build the
+topology (``member`` False, no coordinates, no groups) or not.  A group
+of the same ranks is made once per process group and then shared, since
+its name comes from its ranks; a second shrink reuses it.
 """
 from __future__ import annotations
 
@@ -35,6 +44,10 @@ _GROUP_AXES = (("dp",), ("pp",), ("sharding",), ("sp",), ("mp",),
                ("dp", "sharding", "sp"))
 
 _GLOBAL_TOPO: list = [None]
+
+# (default group, ranks) -> the group of those ranks made by its members
+# alone (what a topology over part of the world holds)
+_LOCAL_GROUPS: Dict[tuple, dist.ProcessGroup] = {}
 
 AxisName = Union[str, Tuple[str, ...]]
 
@@ -58,52 +71,84 @@ def _world() -> Tuple[int, int]:
 
 class HybridTopology:
     """Axis names and degrees over the ranks of the default process
-    group, with this rank's coordinates and one process group per axis
-    slice.
+    group (or its first ``ranks``), with this rank's coordinates and one
+    process group per axis slice.
 
     ``HybridTopology()`` with every degree 1 is pure data parallelism
-    over the whole world, as the reference's default.  The degrees must
-    multiply to the world size: a rank outside the topology would have
-    nothing to run."""
+    over the whole world (or the first ``ranks``), as the reference's
+    default.  The degrees must multiply to the ranks it spans: a rank
+    inside it with no coordinates would have nothing to run."""
 
     AXES = ("dp", "pp", "sharding", "sp", "mp")
 
-    def __init__(self, dp=1, pp=1, sharding=1, mp=1, sp=1):
+    def __init__(self, dp=1, pp=1, sharding=1, mp=1, sp=1, ranks=None):
         rank, world = _world()
+        span = world if ranks is None else int(ranks)
+        if not 1 <= span <= world:
+            raise ValueError(f"a topology over {span} ranks in a world of "
+                             f"{world}")
         want = dp * pp * sharding * sp * mp
         if want == 1:
-            dp = want = world   # default: pure dp over every rank
-        if want != world:
+            dp = want = span   # default: pure dp over every rank
+        if want != span:
             raise ValueError(
                 f"topology {dp}x{pp}x{sharding}x{sp}x{mp}={want} needs "
-                f"{want} ranks; the process group has {world}")
+                f"{want} ranks; the process group has {span}")
         self.dims: Dict[str, int] = {"dp": dp, "pp": pp,
                                      "sharding": sharding, "sp": sp,
                                      "mp": mp}
         self.rank = rank
-        self.mesh = np.arange(world).reshape(
+        self.member = rank < span
+        self.mesh = np.arange(span).reshape(
             tuple(self.dims[a] for a in self.AXES))
-        self.coords: Dict[str, int] = dict(zip(
-            self.AXES, (int(c) for c in np.unravel_index(rank,
-                                                         self.mesh.shape))))
-        # the groups of axes with more than one rank; every rank creates
-        # every group, in the same order (new_group is collective over
-        # the whole world)
+        self.coords: Dict[str, int] = (
+            {a: int(c) for a, c in zip(self.AXES, np.unravel_index(
+                rank, self.mesh.shape))} if self.member else {})
+        # the groups of axes with more than one rank.  Over the whole
+        # world every rank creates every group, in the same order
+        # (new_group is collective over the world); over part of it each
+        # member creates its own groups only, with its fellow members
+        self._local = span < world
         self._groups: Dict[Tuple[str, ...], dist.ProcessGroup] = {}
+        self._all = None
+        if self._local and not self.member:
+            return
         for axes in _GROUP_AXES:
             if all(self.dims[a] > 1 for a in axes):
                 self._groups[axes] = self._new_group(axes)
+        # the group of every rank of the topology, when that is not the
+        # whole world
+        if 1 < span < world:
+            self._all = self._local_group(range(span))
 
     def _new_group(self, axes: Tuple[str, ...]) -> dist.ProcessGroup:
         idx = [self.AXES.index(a) for a in axes]
         n = self.axis_size(axes)
         rows = np.moveaxis(self.mesh, idx, range(-len(idx), 0)).reshape(-1, n)
+        if self._local:
+            return self._local_group(next(r for r in rows
+                                          if self.rank in r))
         mine = None
         for row in rows:
             g = dist.new_group([int(r) for r in row])
             if self.rank in row:
                 mine = g
         return mine
+
+    @staticmethod
+    def _local_group(ranks) -> dist.ProcessGroup:
+        key = (dist.group.WORLD, tuple(int(r) for r in ranks))
+        if key not in _LOCAL_GROUPS:
+            _LOCAL_GROUPS[key] = dist.new_group(
+                list(key[1]), use_local_synchronization=True)
+        return _LOCAL_GROUPS[key]
+
+    def all_ranks(self):
+        """The group of every rank of the topology: ``ONE_RANK`` for a
+        topology of one, the default group when it spans the world."""
+        if self.world_size() == 1:
+            return ONE_RANK
+        return self._all if self._all is not None else dist.group.WORLD
 
     # -- axes -----------------------------------------------------------
     @staticmethod
@@ -207,10 +252,11 @@ class HybridTopology:
         return f"HybridTopology({dims}, rank={self.rank})"
 
 
-def init_mesh(dp=1, pp=1, sharding=1, mp=1, sp=1) -> HybridTopology:
-    """Build the topology over the current process group and make it the
-    process's own (``get_topology``)."""
-    topo = HybridTopology(dp, pp, sharding, mp, sp=sp)
+def init_mesh(dp=1, pp=1, sharding=1, mp=1, sp=1, ranks=None
+              ) -> HybridTopology:
+    """Build the topology over the current process group (or its first
+    ``ranks``) and make it the process's own (``get_topology``)."""
+    topo = HybridTopology(dp, pp, sharding, mp, sp=sp, ranks=ranks)
     _GLOBAL_TOPO[0] = topo
     return topo
 

@@ -31,7 +31,11 @@ from ..device import resolve_device
 from ..testing.chaos import chaos_point
 from .fault_tolerance import retry_with_backoff
 
-__all__ = ["TCPStore", "init_parallel_env", "shutdown", "BACKENDS"]
+__all__ = ["TCPStore", "init_parallel_env", "shutdown", "current_store",
+           "BACKENDS"]
+
+# the store init_parallel_env joined through (current_store)
+_CURRENT: list = [None]
 
 # a failed connection or a dropped socket is worth another try; a wait
 # that ran out of time is not
@@ -229,7 +233,16 @@ def init_parallel_env(device=None, *, backend: Optional[str] = None,
                             store=dist.PrefixStore(f"{prefix}pg", store.raw),
                             rank=rank, world_size=world_size,
                             timeout=_delta(timeout), device_id=device_id)
+    _CURRENT[0] = store
     return store
+
+
+def current_store() -> Optional[TCPStore]:
+    """The rendezvous store of the process group this process joined
+    through ``init_parallel_env`` (None outside one): where
+    ``fleet.elastic.request_scale`` writes and ``Plan.run_train_loop``
+    polls."""
+    return _CURRENT[0]
 
 
 def shutdown():
@@ -237,5 +250,6 @@ def shutdown():
     a no-op when there is none."""
     from .mesh import set_topology
     set_topology(None)
+    _CURRENT[0] = None
     if dist.is_initialized():
         dist.destroy_process_group()

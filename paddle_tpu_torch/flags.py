@@ -104,3 +104,15 @@ define_flag("FLAGS_tpu_quantized", "auto",
             "default for configs that leave it None. The quantized KV "
             "cache is a separate knob (LLMEngine kv_dtype / bench_serve "
             "--kv-dtype).")
+define_flag("FLAGS_tpu_check_nan_inf", False,
+            "The numerics watchdog: check sites (the serving engine's "
+            "logits and probes, the quantization-error notes) scan for "
+            "NaN/Inf, with first-bad-op localization on request "
+            "(profiler.numerics). Off: every site is a dict lookup + bool "
+            "check.")
+define_flag("FLAGS_tpu_xmem", False,
+            "Capture the memory and FLOPs of calls (the train step's "
+            "first call of each batch shape), the kernels' shared memory "
+            "and the KV pools' reservation (profiler.xmem). "
+            "FLAGS_tpu_metrics implies the estimates and the reservation, "
+            "not the capture.")

@@ -1,0 +1,121 @@
+"""Datasets (the port of ``paddle_tpu/io/dataset.py``); the leaves are
+torch tensors (or whatever the user's dataset returns)."""
+from __future__ import annotations
+
+import bisect
+
+import numpy as np
+
+__all__ = ["Dataset", "IterableDataset", "TensorDataset", "ComposeDataset",
+           "ChainDataset", "ConcatDataset", "Subset", "random_split"]
+
+
+class Dataset:
+    def __getitem__(self, idx):
+        raise NotImplementedError
+
+    def __len__(self):
+        raise NotImplementedError
+
+
+class IterableDataset(Dataset):
+    def __iter__(self):
+        raise NotImplementedError
+
+    def __getitem__(self, idx):
+        raise RuntimeError("IterableDataset does not support indexing")
+
+    def __len__(self):
+        raise RuntimeError("IterableDataset has no len()")
+
+
+class TensorDataset(Dataset):
+    """Rows of tensors that share their first dim."""
+
+    def __init__(self, tensors):
+        lens = {len(t) for t in tensors}
+        assert len(lens) == 1, "all tensors must share dim 0"
+        self.tensors = tensors
+
+    def __getitem__(self, idx):
+        return tuple(t[idx] for t in self.tensors)
+
+    def __len__(self):
+        return len(self.tensors[0])
+
+
+class ComposeDataset(Dataset):
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        lens = {len(d) for d in self.datasets}
+        assert len(lens) == 1
+
+    def __getitem__(self, idx):
+        out = []
+        for d in self.datasets:
+            sample = d[idx]
+            if isinstance(sample, (list, tuple)):
+                out.extend(sample)
+            else:
+                out.append(sample)
+        return tuple(out)
+
+    def __len__(self):
+        return len(self.datasets[0])
+
+
+class ChainDataset(IterableDataset):
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+
+    def __iter__(self):
+        for d in self.datasets:
+            yield from d
+
+
+class ConcatDataset(Dataset):
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self.cumulative_sizes = np.cumsum([len(d) for d in
+                                           self.datasets]).tolist()
+
+    def __len__(self):
+        return self.cumulative_sizes[-1]
+
+    def __getitem__(self, idx):
+        if idx < 0:
+            idx += len(self)
+        ds_idx = bisect.bisect_right(self.cumulative_sizes, idx)
+        prev = 0 if ds_idx == 0 else self.cumulative_sizes[ds_idx - 1]
+        return self.datasets[ds_idx][idx - prev]
+
+
+class Subset(Dataset):
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = list(indices)
+
+    def __getitem__(self, idx):
+        return self.dataset[self.indices[idx]]
+
+    def __len__(self):
+        return len(self.indices)
+
+
+def random_split(dataset, lengths, generator=None):
+    """Disjoint random subsets of the given lengths (or fractions that
+    sum to 1), from numpy's global generator as the reference's."""
+    total = len(dataset)
+    lengths = list(lengths)
+    if all(isinstance(n, float) for n in lengths) and \
+            abs(sum(lengths) - 1.0) < 1e-6:
+        counts = [int(total * n) for n in lengths]
+        counts[-1] = total - sum(counts[:-1])
+        lengths = counts
+    assert sum(lengths) == total
+    perm = np.random.permutation(total).tolist()
+    out, offset = [], 0
+    for n in lengths:
+        out.append(Subset(dataset, perm[offset:offset + n]))
+        offset += n
+    return out

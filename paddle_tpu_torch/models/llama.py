@@ -40,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
@@ -368,24 +369,49 @@ def _quantize_stacked(w):
     return {"q": q, "scale": scale}
 
 
+def _note_quant_err(name, w, q, scale):
+    """The numerics watchdog's quantization-error notes (the reference's
+    ``_note_quant_err``): rms and absmax of dequant - weight, and for a
+    stacked [L, K, N] weight the worst layer, so a bad scale is
+    localized like a NaN.  Behind FLAGS_tpu_check_nan_inf."""
+    from ..profiler import numerics
+    if not numerics.enabled():
+        return
+    # on the host in numpy f32, the reference's arithmetic
+    wf = w.detach().float().cpu().numpy()
+    err = (q.cpu().numpy().astype(np.float32)
+           * scale.float().cpu().numpy()) - wf
+    if err.size == 0:
+        return
+    numerics.note(f"quant_err_rms_{name}",
+                  float(np.sqrt(np.mean(err * err))))
+    numerics.note(f"quant_err_absmax_{name}", float(np.max(np.abs(err))))
+    if err.ndim == 3:
+        numerics.note(f"quant_err_worst_layer_{name}",
+                      float(np.argmax(np.max(np.abs(err), axis=(1, 2)))))
+
+
 def quantize_params(cfg: LlamaConfig, params):
     """PTQ the serving weight path to int8: each matmul weight in
     ``_QUANT_WEIGHTS`` plus ``lm_head`` becomes a ``{"q", "scale"}``
-    leaf (per-output-channel absmax, ``quantize_int8``).  Under MoE
-    only ``lm_head`` is quantized: the reference leaves every layer
-    weight dense there (llama.py:345).  Idempotent: already-quantized
-    leaves pass through."""
+    leaf (per-output-channel absmax, ``quantize_int8``), its error noted
+    for the numerics watchdog (``_note_quant_err``).  Under MoE only
+    ``lm_head`` is quantized: the reference leaves every layer weight
+    dense there (llama.py:345).  Idempotent: already-quantized leaves
+    pass through."""
     out = dict(params)
     layers = dict(params["layers"])
     for nm in _QUANT_WEIGHTS if cfg.moe_num_experts == 0 else ():
         w = layers.get(nm)
         if w is not None and not isinstance(w, dict):
             layers[nm] = _quantize_stacked(w)
+            _note_quant_err(nm, w, layers[nm]["q"], layers[nm]["scale"])
     out["layers"] = layers
     head = out.get("lm_head")
     if head is not None and not isinstance(head, dict):
         q, scale = quantize_int8(head)
         out["lm_head"] = {"q": q, "scale": scale}
+        _note_quant_err("lm_head", head, q, scale)
     return out
 
 

@@ -15,6 +15,11 @@ bit parity with its plain version rests on IEEE division and ``rintf``.
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``check`` raises when it is not 0, because a refused launch never runs
 and a later synchronise would not report it.
+
+Every build reports to ``profiler.compile_tracker`` (its seconds; a
+library found built is a cache hit), and ``build_all(ptxas_verbose=True)``
+records each kernel's registers and static shared memory from the ptxas
+log with ``profiler.xmem.record_kernel_estimate`` (``ptxas_usage``).
 """
 from __future__ import annotations
 
@@ -32,7 +37,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["SOURCES", "build_all", "load", "check", "stream_ptr", "sm_count"]
+from ..profiler import compile_tracker, xmem
+
+__all__ = ["SOURCES", "build_all", "load", "check", "stream_ptr", "sm_count",
+           "ptxas_usage"]
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
@@ -79,12 +87,14 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-_Job = Tuple[subprocess.Popen, Path, Path]   # (nvcc, temp file, library)
+# (nvcc, temp file, library, start time)
+_Job = Tuple[subprocess.Popen, Path, Path, float]
 
 
 def _start(name: str, ptxas_verbose: bool) -> Optional[_Job]:
     out = _lib_path(name)
     if out.exists():
+        compile_tracker.record_cache_hit(name)
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # build to a private name, then rename: concurrent builds (test
@@ -95,17 +105,48 @@ def _start(name: str, ptxas_verbose: bool) -> Optional[_Job]:
         cmd[1:1] = ["-Xptxas", "-v"]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, time.perf_counter()
 
 
 def _finish(name: str, job: _Job) -> str:
-    proc, tmp, out = job
+    proc, tmp, out, t0 = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+    compile_tracker.record_build(name, time.perf_counter() - t0)
     return log
+
+
+_ENTRY = re.compile(r"entry function '(\w+)'")
+_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+
+
+def ptxas_usage(log: str) -> Dict[str, dict]:
+    """``{kernel: {"registers", "smem_bytes", "spill"}}`` from a ``-Xptxas
+    -v`` log (the mangled name with its anonymous namespace cut; static
+    shared memory only: what a launch asks for dynamically is not in
+    it)."""
+    out: Dict[str, dict] = {}
+    fn = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            fn = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d\d", "",
+                        m.group(1))
+            continue
+        if fn is None:
+            continue
+        e = out.setdefault(fn, {"registers": None, "smem_bytes": 0,
+                                "spill": ""})
+        m = _USED.search(line)
+        if m:
+            e["registers"] = int(m.group(1))
+            e["smem_bytes"] = int(m.group(2) or 0)
+        elif "spill" in line:
+            e["spill"] = line.split(":", 1)[-1].strip()
+    return out
 
 
 def build_all(ptxas_verbose: bool = False) -> Dict[str, dict]:
@@ -120,6 +161,9 @@ def build_all(ptxas_verbose: bool = False) -> Dict[str, dict]:
         report[n] = {"seconds": (0.0 if job is None
                                  else time.perf_counter() - t0),
                      "log": log}
+        for kernel, use in ptxas_usage(log).items():
+            xmem.record_kernel_estimate(kernel, use["smem_bytes"], where=n,
+                                        registers=use["registers"])
     return report
 
 

@@ -33,6 +33,7 @@ import math
 
 import torch
 
+from ..profiler import numerics as _numerics
 from . import _build
 
 __all__ = ["causal_attention", "flash_fwd", "flash_bwd"]
@@ -210,20 +211,22 @@ def _route(q, what):
 def flash_fwd(q, k, v):
     """Causal attention forward: (o [B, S, H, D], lse [B, H, S] f32)."""
     if _route(q, "flash_fwd") == "cuda":
-        o, lse = _launch_fwd(q, k, v)
+        o, lse = _numerics.opaque("flash_fwd", _launch_fwd, q, k, v)
         flash_fwd.launches += 1
         return o, lse
-    return _flash_fwd_plain(q, k, v)
+    return _numerics.opaque("flash_fwd", _flash_fwd_plain, q, k, v)
 
 
 def flash_bwd(q, k, v, o, lse, do):
     """Causal attention backward: (dq, dk, dv) from the forward's o and
     lse and the output gradient do."""
     if _route(q, "flash_bwd") == "cuda":
-        grads = _flash_bwd_cuda(q, k, v, o, lse, do)
+        grads = _numerics.opaque("flash_bwd", _flash_bwd_cuda, q, k, v, o,
+                                 lse, do)
         flash_bwd.launches += 1
         return grads
-    return _flash_bwd_plain(q, k, v, o, lse, do)
+    return _numerics.opaque("flash_bwd", _flash_bwd_plain, q, k, v, o, lse,
+                            do)
 
 
 flash_fwd.launches = 0      # calls that launched the kernels since reset

@@ -49,6 +49,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..profiler import numerics as _numerics
 from . import _build
 from . import flash_attention as fa
 
@@ -302,32 +303,34 @@ def _on_card(x, what):
 def fused_qkv(x, ln, wq, wk, wv, sin, cos, *, head_dim, eps=1e-6):
     """x [B, S, H] -> (q, k, v) [B, S, H]: RMSNorm, projections, rope on
     q and k."""
-    if _on_card(x, "fused_qkv"):
-        return _fused_qkv_cuda(x, ln, wq, wk, wv, sin, cos, head_dim, eps)
-    return _fused_qkv_plain(x, ln, wq, wk, wv, sin, cos, head_dim, eps)
+    fn = _fused_qkv_cuda if _on_card(x, "fused_qkv") else _fused_qkv_plain
+    return _numerics.opaque("fused_qkv", fn, x, ln, wq, wk, wv, sin, cos,
+                            head_dim, eps)
 
 
 def fused_attn_epilogue(q, k, v, x, wo, *, head_dim):
     """Causal attention over the flat heads and ``y = x + attn wo``:
     (y, attn [B, S, H], lse [B, nh, S] f32)."""
-    if _on_card(x, "fused_attn_epilogue"):
-        return _fused_attn_epilogue_cuda(q, k, v, x, wo, head_dim)
-    return _fused_attn_epilogue_plain(q, k, v, x, wo, head_dim)
+    fn = (_fused_attn_epilogue_cuda if _on_card(x, "fused_attn_epilogue")
+          else _fused_attn_epilogue_plain)
+    return _numerics.opaque("fused_attn_epilogue", fn, q, k, v, x, wo,
+                            head_dim)
 
 
 def fused_mlp_fwd(x, ln, wg, wu, wd, *, eps=1e-6):
     """y = x + (silu(rms(x) wg) * (rms(x) wu)) wd."""
-    if _on_card(x, "fused_mlp_fwd"):
-        return _fused_mlp_fwd_cuda(x, ln, wg, wu, wd, eps)
-    return _fused_mlp_fwd_plain(x, ln, wg, wu, wd, eps)
+    fn = (_fused_mlp_fwd_cuda if _on_card(x, "fused_mlp_fwd")
+          else _fused_mlp_fwd_plain)
+    return _numerics.opaque("fused_mlp_fwd", fn, x, ln, wg, wu, wd, eps)
 
 
 def fused_mlp_bwd_dx(x, ln, wg, wu, wd, dy, *, eps=1e-6):
     """dx of the MLP block (residual included) for the output gradient
     dy."""
-    if _on_card(x, "fused_mlp_bwd_dx"):
-        return _fused_mlp_bwd_dx_cuda(x, ln, wg, wu, wd, dy, eps)
-    return _fused_mlp_bwd_dx_plain(x, ln, wg, wu, wd, dy, eps)
+    fn = (_fused_mlp_bwd_dx_cuda if _on_card(x, "fused_mlp_bwd_dx")
+          else _fused_mlp_bwd_dx_plain)
+    return _numerics.opaque("fused_mlp_bwd_dx", fn, x, ln, wg, wu, wd, dy,
+                            eps)
 
 
 fused_qkv.launches = 0            # kernel launches since last reset

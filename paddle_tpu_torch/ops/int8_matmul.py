@@ -20,6 +20,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..profiler import numerics as _numerics
 from . import _build
 
 __all__ = ["quantize_int8", "int8_matmul"]
@@ -226,12 +227,12 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
     x2 = x.reshape(-1, K)
     ws = w_scale.reshape(1, N)
     if x.device.type == "cuda":
-        y = _int8_matmul_cuda(x2, w_q, ws)
+        fn = _int8_matmul_cuda
     elif x.device.type == "cpu":
-        y = _int8_matmul_plain(x2, w_q, ws)
+        fn = _int8_matmul_plain
     else:
         raise RuntimeError(f"int8_matmul: no kernel for device {x.device}")
-    return y.reshape(*lead, N)
+    return _numerics.opaque("int8_matmul", fn, x2, w_q, ws).reshape(*lead, N)
 
 
 int8_matmul.launches = 0  # kernel launches since the caller last reset it

@@ -47,6 +47,7 @@ import math
 
 import torch
 
+from ..profiler import numerics as _numerics
 from . import _build
 
 __all__ = ["ragged_paged_attention"]
@@ -295,15 +296,16 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
     version; any other device raises."""
     _check_scales(k_pages, v_pages, k_scales, v_scales)
     if q.device.type == "cuda":
-        return _ragged_attention_cuda(q, k_pages, v_pages, block_tables,
-                                      seq_lens, q_lens, rep, k_scales,
-                                      v_scales)
-    if q.device.type == "cpu":
-        return _ragged_attention_plain(q, k_pages, v_pages, block_tables,
-                                       seq_lens, q_lens, rep, k_scales,
-                                       v_scales)
-    raise RuntimeError(
-        f"ragged_paged_attention: no kernel for device {q.device}")
+        fn = _ragged_attention_cuda
+    elif q.device.type == "cpu":
+        fn = _ragged_attention_plain
+    else:
+        raise RuntimeError(
+            f"ragged_paged_attention: no kernel for device {q.device}")
+    name = ("ragged_paged_attention_quant" if k_scales is not None
+            else "ragged_paged_attention")
+    return _numerics.opaque(name, fn, q, k_pages, v_pages, block_tables,
+                            seq_lens, q_lens, rep, k_scales, v_scales)
 
 
 ragged_paged_attention.launches = 0        # dense-pool kernel launches

@@ -189,6 +189,17 @@ class HealthMonitor:
     def set_step(self, step: int):
         self._step = int(step)
 
+    def shrink(self, world_size: int):
+        """Watch only the first ``world_size`` ranks from now on (an
+        in-process resize: the ranks past it left cleanly, and their
+        silence is no failure)."""
+        self.world_size = int(world_size)
+        for peer in [p for p in self.dead | self.stragglers
+                     if p >= self.world_size]:
+            self.dead.discard(peer)
+            self.stragglers.discard(peer)
+            self._tracker.forget(peer)
+
     def set_phase(self, phase: Optional[str]):
         self._phase = phase
 

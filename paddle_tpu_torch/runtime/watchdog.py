@@ -22,7 +22,12 @@ buffer to a JSONL sidecar (``persist_incidents``,
 ``incident_sidecar_path``), and the exit-101 paths, which leave through
 ``os._exit``, persist it themselves.  ``phase`` is the framework's
 flag-gated phase hook (``collective``, ``ckpt.commit``, ``serve.step``).
-Not ported yet: ``init_with_retries`` (ROADMAP A item 4).
+
+``init_with_retries``
+    Device init with retries: each attempt on a daemon thread, a failed
+    one retried with exponential backoff inside a window, a hung one
+    not retried (``bench.main`` and ``chip_smoke.py`` probe the card
+    with it).
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ __all__ = ["PhaseTimeout", "Watchdog", "run_with_deadline",
            "record_incident", "incidents", "clear_incidents",
            "last_incident", "persist_incidents", "incident_sidecar_path",
            "INCIDENT_SCHEMA", "PHASES", "phase", "global_watchdog",
-           "watchdog_enabled"]
+           "watchdog_enabled", "init_with_retries", "probe_device"]
 
 # canonical phases and the flag holding each deadline (seconds; <= 0
 # disables that phase's deadline)
@@ -391,3 +396,81 @@ def run_with_deadline(fn: Callable[[], Any], window_s: float, *,
     if "exc" in box:
         raise box["exc"]
     return box["value"]
+
+
+def init_with_retries(probe_fn, window_s: float = 240.0,
+                      base_delay: float = 5.0, factor: float = 2.0,
+                      max_delay: float = 60.0, log=None,
+                      sleep=time.sleep, clock=time.monotonic,
+                      phase: str = "device_init"):
+    """Retry a failing device init with exponential backoff until the
+    ``window_s`` budget is spent.
+
+    An init fails two ways: ``probe_fn`` raises (often transient, while
+    another job releases the card: retried), or it never returns.  Each
+    attempt runs on its own daemon thread, so a hang costs at most the
+    rest of the window; a hung attempt is not retried, because the
+    CUDA runtime's init lock would hold every later attempt behind it (a
+    ``watchdog_expired`` incident).  Returns ``(ok, attempts,
+    last_error)``; a window spent on failures records ``init_failed``.
+    ``sleep`` and ``clock`` are injectable."""
+    deadline = clock() + window_s
+    delay = base_delay
+    attempts = 0
+    last_err = "no attempt made"
+    while clock() < deadline:
+        attempts += 1
+        box: Dict[str, Any] = {}
+        done = threading.Event()
+
+        def _attempt():
+            try:
+                probe_fn()
+                box["ok"] = True
+            except Exception as e:  # noqa: BLE001 — classified below
+                box["err"] = str(e) or repr(e)
+            finally:
+                done.set()
+
+        th = threading.Thread(target=_attempt, name=f"ptq-{phase}",
+                              daemon=True)
+        th.start()
+        finished = done.wait(max(0.0, deadline - clock()))
+        if box.get("ok"):
+            return True, attempts, None
+        if not finished:
+            _expired_metric(phase)
+            record_incident("watchdog_expired", phase=phase,
+                            elapsed_s=window_s, deadline_s=window_s,
+                            detail=f"init attempt {attempts} hung")
+            return False, attempts, (
+                f"attempt {attempts} hung past the {window_s:.0f}s window")
+        last_err = box.get("err", "unknown init failure")
+        pause = min(delay, max(0.0, deadline - clock()))
+        if pause <= 0:
+            break
+        if log:
+            log(f"device init attempt {attempts} failed ({last_err}); "
+                f"retrying in {pause:.1f}s")
+        sleep(pause)
+        delay = min(delay * factor, max_delay)
+    record_incident("init_failed", phase=phase, attempts=attempts,
+                    window_s=window_s, error=str(last_err)[-500:])
+    return False, attempts, last_err
+
+
+def probe_device(device=None) -> None:
+    """A real init of the card: ``torch.cuda.init()``, one small launch
+    and a synchronize (raises when there is no card, or it refuses)."""
+    import torch
+    from ..testing.chaos import chaos_point
+    chaos_point("device.init")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available")
+    torch.cuda.init()
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    x = torch.ones(1024, device=dev)
+    if float((x * 2).sum()) != 2048.0:
+        raise RuntimeError(f"probe launch on {dev} computed a wrong sum")
+    torch.cuda.synchronize(dev)

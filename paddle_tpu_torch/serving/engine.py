@@ -39,9 +39,12 @@ exporter started from the constructor when ``FLAGS_tpu_metrics_port``
 is set.  Each disabled path is one dict lookup.  ``service_model()``
 turns the measured step times into the fleet's ``ServiceModel``, and
 ``prefix_lookup()`` is the router's locality signal
-(``serving/router.py``).  The reference's xmem reservation is reported
-as its ``xmem_reserved_bytes`` gauge only; the xmem module itself
-comes with ROADMAP A3.
+(``serving/router.py``).  The KV pools are recorded as the
+``serving.kv_pages`` reservation of ``profiler.xmem`` (its
+``xmem_reserved_bytes`` gauge); with FLAGS_tpu_check_nan_inf on, each
+step's sampled logits are checked at the numerics sites
+``serve.step.logits`` (the target's forward) and ``serve.step.probe``
+(a bisection probe), beside the engine's own non-finite check.
 """
 from __future__ import annotations
 
@@ -59,13 +62,15 @@ from ..models import llama as _llama
 from ..models.convert import params_to
 from ..profiler import exporter as _exporter
 from ..profiler import metrics as _metrics
+from ..profiler import numerics as _numerics
 from ..profiler import trace as _trace
+from ..profiler import xmem as _xmem
 from ..runtime.watchdog import (PhaseTimeout, Watchdog, global_watchdog,
                                 record_incident, watchdog_enabled)
 from ..testing.chaos import ChaosError, ReplicaKilled, chaos_point
 from . import stats as _stats
 from .errors import AdmissionRejected, DeadlineExceeded, RequestQuarantined
-from .kv_cache import PagedKVCache, _cdiv
+from .kv_cache import PagedKVCache, _cdiv, kv_bytes_per_token
 from .scheduler import (AdmissionGate, Request, RequestState, Scheduler,
                         StepPlan)
 from .spec_decode import DraftModel, SpecDecodeConfig, greedy_accept
@@ -122,15 +127,6 @@ def summary_lines() -> List[str]:
     from . import router as _router  # function-local: router imports us
     lines.extend(_router.replica_summary_lines())
     return lines
-
-
-def _pool_gauge(nbytes: int) -> None:
-    """The reference's xmem reservation gauge for the KV pools."""
-    if _metrics.enabled():
-        _metrics.gauge(
-            "xmem_reserved_bytes",
-            "Long-lived HBM reservation (paged-KV pools etc.)",
-            pool="serving.kv_pages").set(max(int(nbytes), 0))
 
 
 @dataclasses.dataclass
@@ -344,7 +340,13 @@ class LLMEngine:
             self.scheduler.spec_k = self._spec_k
         _STATS["engines"] += 1
         _STATS["pool_bytes"] += self._pool_bytes
-        _pool_gauge(self._pool_bytes)
+        _xmem.record_reservation(
+            "serving.kv_pages", self._pool_bytes, pages=self.num_pages,
+            page_size=self.page_size,
+            kv_dtype=str(self._kv_dtype).replace("torch.", ""),
+            scale_pool_bytes=self._scale_bytes,
+            bytes_per_token=kv_bytes_per_token(
+                cfg, torch.tensor([], dtype=self._kv_dtype).element_size()))
 
         _exporter.maybe_serve("engine", self)
 
@@ -503,6 +505,10 @@ class LLMEngine:
             nxt, chk = _sample(logits, args[3])
         nxt = nxt.cpu().numpy()
         chk = chk.cpu().numpy()[slots]
+        if _numerics.enabled():
+            _numerics.check_array(
+                chk, "serve.step.probe" if kind == "probe"
+                else "serve.step.logits", action="raise")
         if not np.all(np.isfinite(chk)):
             raise FloatingPointError(
                 f"non-finite logits at step {self._steps} in slots "
@@ -992,7 +998,7 @@ class LLMEngine:
     def shutdown(self) -> None:
         """Drop the pools (the draft's too)."""
         _STATS["pool_bytes"] -= self._pool_bytes
-        _pool_gauge(0)
+        _xmem.record_reservation("serving.kv_pages", 0)
         self._kp = self._vp = self._ks = self._vs = None
         if self._draft is not None:
             self._draft.shutdown()

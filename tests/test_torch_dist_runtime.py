@@ -385,4 +385,4 @@ def test_run_train_loop_matches_jax_and_refuses_a_resize():
                                    atol=2e-5, rtol=0)
         assert hist["world_sizes"] == ref["world_sizes"] == [2, 2, 2]
         assert hist["resizes"] == ref["resizes"] == []
-        assert r["raised"] and "ROADMAP A item 4" in r["raised"]
+        assert r["raised"] and "ckpt_root" in r["raised"]

@@ -8,7 +8,7 @@ import torch
 
 from paddle_tpu_torch.distributed import collective as C
 from paddle_tpu_torch.distributed import init_mesh
-from paddle_tpu_torch.distributed.plan import Plan
+from paddle_tpu_torch.distributed.plan import Plan, PlanError
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.ops import fused_blocks as fb
 from paddle_tpu_torch.profiler import metrics
@@ -172,7 +172,8 @@ def collective_counts(fields, np_params, batch, policies):
 
 def train_loop(fields, np_params, batches, plan_kw, scale_at):
     """``Plan.run_train_loop`` from ``np_params``; then the same loop
-    with a resize requested at step ``scale_at``, which must raise."""
+    with a resize requested at step ``scale_at`` and no ``ckpt_root`` to
+    reshard through, which must raise ``PlanError``."""
     torch.set_num_threads(1)
     cfg = _cfg(fields)
     plan = Plan(**plan_kw)
@@ -200,7 +201,7 @@ def train_loop(fields, np_params, batches, plan_kw, scale_at):
         plan.run_train_loop(cfg, feed(), params=np_params, device="cpu",
                             job_id="job", scale_store=store)
         raised = None
-    except NotImplementedError as exc:
+    except PlanError as exc:
         raised = str(exc)
     return {"history": hist, "raised": raised}
 
@@ -309,3 +310,49 @@ def attention_cases(inputs, cases):
             res["grads"] = [t.grad.numpy().copy() for t in (q, k, v)]
         out.append(res)
     return out
+
+
+class _CountingStore:
+    """The rendezvous store as rank 0's ``run_train_loop`` reads it: each
+    read of the scale key, after it returned, bumps ``polls`` in the
+    store, so a peer can write a request just after rank 0's read."""
+
+    def __init__(self, store):
+        self.store = store
+
+    def get(self, key):
+        raw = self.store.get(key)
+        self.store.add("polls", 1)
+        return raw
+
+
+def resize_loop(fields, np_params, batches, dp, scale_at, want, ckpt_root,
+                between=False, then=()):
+    """``Plan(dp=dp).run_train_loop`` from ``np_params`` over the global
+    ``batches`` with a resize to ``want`` requested before step
+    ``scale_at``: by every rank's feed, or (``between``) by rank 1's
+    feed only after rank 0 has read the key for that step.  ``then``:
+    further ``(step, want)`` requests, written by every rank still in
+    the loop."""
+    import time
+    from paddle_tpu_torch.distributed.fleet.elastic import request_scale
+    from paddle_tpu_torch.distributed.store import current_store
+    torch.set_num_threads(1)
+    rank = torch.distributed.get_rank()
+    store = current_store()
+
+    def feed():
+        for i, b in enumerate(batches):
+            if i == scale_at and (not between or rank == 1):
+                if between:
+                    while int(store.get("polls") or 0) < scale_at + 1:
+                        time.sleep(0.01)
+                request_scale("", "job", want, store=store)
+            if i in dict(then):
+                request_scale("", "job", dict(then)[i], store=store)
+            yield {k: torch.from_numpy(v) for k, v in b.items()}
+
+    hist = Plan(dp=dp).run_train_loop(
+        _cfg(fields), feed(), params=np_params, device="cpu", job_id="job",
+        scale_store=_CountingStore(store), ckpt_root=ckpt_root)
+    return {"rank": rank, **hist}
