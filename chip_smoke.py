@@ -82,7 +82,9 @@ both apply (M = 8, 16).
   the rank's rows, the ring's ``ppermute`` calls and bytes against the
   code's count); ``python -m paddle_tpu_torch.bench --multichip``'s
   line (8 ranks, the recorded schedule equal to the static one).
-  Several ranks on the one card run over gloo, whose point-to-point
+  The 2-rank worlds at bench.py's width (dist mp=2 / dp=2, pp=2, sp=2)
+  run ``BIG_LAYERS`` of its 16 layers, against world size 1 at the same
+  depth (``ws1_losses``).  Several ranks on the one card run over gloo, whose point-to-point
   calls cross through host memory: their times are no throughput;
 - the MoE layer (experts over dp): a small model's routing in f32, its
   bf16 train loss and its served streams on the card against the CPU
@@ -117,6 +119,23 @@ both apply (M = 8, 16).
   ``real_device``, the repository's ``PERF_LEDGER.jsonl`` unchanged
   (``ledger_phase``).  GPT-2's flash call (B 8, S 1024, H 12, D 64) is
   one of ``flash_phase``'s cases, timed beside SDPA.
+
+- the eager core (``eager_phase``): every case of the op sweep
+  (``testing/op_cases.py``: 475 parity cases, bf16 ones for the ops the
+  models use, and the random ops' 24 laws) on the card against the
+  CPU (``eager_ops <passed>/<total>``); ``LlamaForCausalLM`` at
+  bench.py's shape trained the Paddle way, ``set_device("gpu")``,
+  ``seed(0)``, ``AdamW(LinearWarmup, ClipGradByGlobalNorm(1.0))``, 6
+  steps of ``loss.backward(); opt.step(); opt.clear_grad()`` on one
+  batch: step 1's loss and every ``.grad`` bit-equal to
+  ``torch.autograd.grad`` of ``forward_pure`` + the reference's
+  cross-entropy on the raw tensors, step 1's update bit-equal to the
+  reference's AdamW arithmetic written out here, the losses finite and
+  falling, the launches a step of rows 7-10 and ``flash_bwd`` equal to
+  the functional step's; the eager step, ``optimizer.step()`` and the
+  peak beside the functional step's; then GPT-2 small eagerly, 3 steps
+  (flash at D 64, 12 / 12 a step) and ``generate`` returning a
+  ``Tensor`` equal to the functional ``generate``'s tokens.
 
 - checkpoints, health and the gang runtime (first, after the build): a
   small bf16 model's train state on the card, its newest step's state
@@ -1468,14 +1487,14 @@ def instrumentation_us(flags, metrics, trace, calls=20000):
     return out
 
 
-OBS_TURNS = (False, True, True, False, False, True, True, False)
+OBS_TURNS = (False, True, True, False)
 
 
 def obs_cost_phase(torch, bench_serve, params, card):
     """What metrics and the flight recorder cost a user of the card: the
     bench's bf16-KV serve run at llama7b with ``FLAGS_tpu_metrics`` and
-    ``FLAGS_tpu_trace`` off and on, in turns off, on, on, off twice in
-    one call after one discarded warm-up run (medians a side), and the
+    ``FLAGS_tpu_trace`` off and on, in turns off, on, on, off in one
+    call after one discarded warm-up run (medians a side), and the
     host cost of each instrumentation primitive.  The on-runs must
     record (series and events), the off-runs nothing."""
     from paddle_tpu_torch import flags
@@ -2547,7 +2566,7 @@ def dist_big_rank(topo_kw, steps):
     from paddle_tpu_torch.distributed import init_mesh
     from paddle_tpu_torch.models import llama as tllama
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = tllama.LlamaConfig(remat_policy="dots", **tbench.MODEL)
+    cfg = tllama.LlamaConfig(remat_policy="dots", **big_model(tbench))
     topo = init_mesh(**topo_kw)
     step, init = tllama.build_train_step(cfg, topo, device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -2577,6 +2596,14 @@ def dist_big_rank(topo_kw, steps):
 
 # each side runs first in half the pairs (P C C P)
 DIST_TURNS = ("bench", "dist", "dist", "bench")
+# the 2-rank gloo worlds at bench.py's width (dist mp=2 / dp=2, pp=2,
+# sp=2) run this many of its 16 layers, and so does their world-size-1
+# reference (``ws1_losses``): depth, not width, is what is cut
+BIG_LAYERS = 4
+
+
+def big_model(tbench):
+    return dict(tbench.MODEL, num_hidden_layers=BIG_LAYERS)
 DIST_BIG = (("mp2", dict(mp=2)), ("dp2_zero", dict(dp=2)))
 
 
@@ -2590,10 +2617,12 @@ def dist_train_phase(torch, tbench, tllama, dist, card):
     kernel launches a step, which must equal the bench step's, and the
     losses, which must be the same bits (the same code runs).  Then
     mp=2 and dp=2 with ZeRO-1, each as 2 ranks on the card over gloo
-    (host-staged collectives: their times are no throughput), 2 steps:
-    per-rank peak memory, weight and optimizer-state bytes against the
-    reckoning (weights / mp; AdamW states / 2), losses against world
-    size 1 within ``DIST_LOSS_ATOL``, every train kernel launched."""
+    (host-staged collectives: their times are no throughput) at
+    ``BIG_LAYERS`` layers, 2 steps: per-rank peak memory, weight and
+    optimizer-state bytes against the reckoning (weights / mp; AdamW
+    states / 2), losses against world size 1 at that depth
+    (``ws1_losses``) within ``DIST_LOSS_ATOL``, every train kernel
+    launched."""
     t0 = time.perf_counter()
     for w in tbench.KERNELS.values():
         w.launches = 0
@@ -2618,9 +2647,13 @@ def dist_train_phase(torch, tbench, tllama, dist, card):
         check(t["weight_bytes"] == bench_t[0]["weight_bytes"]
               and t["state_bytes"] == bench_t[0]["state_bytes"],
               "world size 1 holds other bytes than the bench step")
-    ref = bench_t[0]
-    W, S1 = ref["weight_bytes"], ref["state_bytes"]
-    cfg = tllama.LlamaConfig(**tbench.MODEL)
+    # the 2-rank worlds' depth: world size 1's reference and reckoning
+    ws1, ws1_peak = ws1_losses(torch, tbench, tllama, 4, 2)
+    ref = dict(losses=ws1, peak_over_base=ws1_peak)
+    rk = pp_reckoning(tllama, tbench, 1)
+    W = rk["layers"] + rk["tail"]
+    S1 = 2 * W                            # AdamW's two moments, bf16
+    cfg = tllama.LlamaConfig(**big_model(tbench))
     H, L = cfg.hidden_size, cfg.num_hidden_layers
     norms = (2 * L + 1) * H * 2            # ln1, ln2, norm_f in bf16
     reckon = {"mp2": dict(weight_bytes=(W - norms) // 2 + norms),
@@ -2670,6 +2703,8 @@ def dist_train_phase(torch, tbench, tllama, dist, card):
               "fused_mlp_bwd_dx", "flash_bwd"):
         check(ws1_launches[n] > 0, f"world size 1: {n} never launched")
     out = dict(turns=turns, ws1_launches=ws1_launches, big=big,
+               ws1_big=dict(losses=ws1, peak_over_base=ws1_peak,
+                            layers=BIG_LAYERS),
                seconds=time.perf_counter() - t0)
     print(f"dist train [{card}]: {json.dumps(out)}")
     print(f"dist train [{card}]: world size 1 step ms "
@@ -2777,7 +2812,7 @@ def big_rank(topo_kw, cases, B, steps):
     from paddle_tpu_torch.profiler import metrics
     flags.set_flags({"FLAGS_tpu_metrics": True})
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = tllama.LlamaConfig(remat_policy="dots", **tbench.MODEL)
+    cfg = tllama.LlamaConfig(remat_policy="dots", **big_model(tbench))
     topo = init_mesh(**topo_kw)
     batch = topo.shard_batch(tbench.make_batch(cfg, B, tbench.SEQ, dev))
     out = {}
@@ -2814,11 +2849,12 @@ def big_rank(topo_kw, cases, B, steps):
 
 
 def ws1_losses(torch, tbench, tllama, B, steps):
-    """``bench.train_step`` at bench.py's shape on ``B`` rows (the same
-    batch as the ranks'), ``steps`` steps: the losses and the peak over
-    what the process held."""
+    """``bench.train_step`` at bench.py's width and the 2-rank worlds'
+    depth (``BIG_LAYERS``) on ``B`` rows (the same batch as the
+    ranks'), ``steps`` steps: the losses and the peak over what the
+    process held."""
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = tllama.LlamaConfig(remat_policy="dots", **tbench.MODEL)
+    cfg = tllama.LlamaConfig(remat_policy="dots", **big_model(tbench))
     gc_cuda(torch)
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2836,9 +2872,9 @@ def ws1_losses(torch, tbench, tllama, B, steps):
 
 
 def pp_reckoning(tllama, tbench, pp):
-    """Bytes of a pp rank's weights: its L/pp layers and the embedding,
-    head and final norm whole."""
-    cfg = tllama.LlamaConfig(**tbench.MODEL)
+    """Bytes of a pp rank's weights at ``BIG_LAYERS`` layers: its L/pp
+    layers and the embedding, head and final norm whole."""
+    cfg = tllama.LlamaConfig(**big_model(tbench))
     H, I, V, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
                   cfg.num_hidden_layers)
     KV = cfg.num_key_value_heads * cfg.head_dim
@@ -2861,8 +2897,9 @@ def schedule_launches(L_local, n_micro, schedule):
 
 
 def pipeline_phase(torch, tbench, tllama, dist, card):
-    """bench.py's ~0.95B model (S = 2048, bf16, "dots", the fused blocks
-    by the default policy) through the pipeline as 2 ranks at pp=2 over
+    """bench.py's width at ``BIG_LAYERS`` layers (S = 2048, bf16, "dots",
+    the fused blocks by the default policy) through the pipeline as 2
+    ranks at pp=2 over
     gloo (host-staged: step times are no throughput), global batch 8 in
     8 microbatches: GPipe, 1F1B lockstep and overlapped, interleaved
     with v=2, 2 steps each in one world.  Per rank: weight and AdamW
@@ -2882,7 +2919,7 @@ def pipeline_phase(torch, tbench, tllama, dist, card):
                        backend="gloo", timeout=900)
     rk = pp_reckoning(tllama, tbench, 2)
     weights = rk["layers"] + rk["tail"]
-    L_local = tllama.LlamaConfig(**tbench.MODEL).num_hidden_layers // 2
+    L_local = BIG_LAYERS // 2
     for r in ranks:
         runs = r["runs"]
         for name, kw in PP_BIG_CASES:
@@ -2933,9 +2970,10 @@ CP_BIG_BATCH = 4
 
 
 def cp_phase(torch, tbench, tllama, dist, card, ws1, ws1_peak):
-    """bench.py's shape context parallel: 2 ranks at sp=2 over gloo, B =
-    4, 2 steps; ``ws1``/``ws1_peak``: world size 1's losses and peak on
-    the same batch (``dist_train_phase``'s bench turn).  Losses within
+    """bench.py's width at ``BIG_LAYERS`` layers context parallel: 2
+    ranks at sp=2 over gloo, B = 4, 2 steps; ``ws1``/``ws1_peak``: world
+    size 1's losses and peak on the same batch and depth
+    (``ws1_losses(torch, tbench, tllama, 4, 2)``).  Losses within
     ``DIST_LOSS_ATOL``; the fused MLP kernels launched on the rank's
     S/2 rows and the fused attention block not (attention is the
     ring); ``ppermute`` calls and bytes a step equal the code's count:
@@ -2945,7 +2983,7 @@ def cp_phase(torch, tbench, tllama, dist, card, ws1, ws1_peak):
     ranks = dist.spawn(big_rank, 2, (dict(sp=2), (("sp2", {}),),
                                      CP_BIG_BATCH, BIG_STEPS),
                        device="cuda", backend="gloo", timeout=600)
-    cfg = tllama.LlamaConfig(**tbench.MODEL)
+    cfg = tllama.LlamaConfig(**big_model(tbench))
     sp, L = 2, cfg.num_hidden_layers
     block = (CP_BIG_BATCH * tbench.SEQ // sp * cfg.num_key_value_heads
              * cfg.head_dim * 2)
@@ -3422,14 +3460,15 @@ def small_moe_check(torch, tllama, serving):
 # where the checkpoint phases write (gitignored; removed at the end of
 # each phase), apart from chiprun_out/, which holds only small logs
 CKPT_ROOT = "_ckpt_smoke"
-# bench.py's shape at full depth, world size 1: 8 steps, a sync save at
-# step 2, an async save at step 4 (steps 5-6 run during it), steps 7-8
-# with the gang's step-boundary snapshot
+# bench.py's width at ``BIG_LAYERS`` layers (``main`` passes
+# ``big_model``: the depth cut keeps the script inside its time), world
+# size 1: 8 steps, a sync save at step 2, an async save at step 4 (steps
+# 5-6 run during it), steps 7-8 with the gang's step-boundary snapshot
 CKPT_B, CKPT_STEPS = 4, 8
 # the gang phase: bench.py's width at 4 layers (the depth cut keeps the
 # script inside its time), Plan(dp=2) as 2 gloo ranks on the card, 2
-# rows a rank, 6 steps; the chaos run kills rank 1 at step 3's boundary
-GANG_LAYERS, GANG_B, GANG_STEPS = 4, 4, 6
+# rows a rank, 4 steps; the chaos run kills rank 1 at step 3's boundary
+GANG_LAYERS, GANG_B, GANG_STEPS = 4, 4, 4
 GANG_KILL = "kill@collective.all_reduce:step=3,rank=1,restart=0"
 GANG_ENV = {"PTQ_GANG_HEARTBEAT_INTERVAL": "1.0",
             "PTQ_GANG_HEARTBEAT_TIMEOUT": "30.0"}
@@ -4716,9 +4755,12 @@ def gpt_phase(torch, tgpt, fa, card, device="cuda"):
               f"{want}")
     del params, opt, batch
 
-    # generation through the eager class (its own weights, seed 0)
+    # generation through the eager class (its own weights, seed 0, on
+    # the current place)
+    import paddle_tpu_torch as paddle
     Bg, P, new = GPT_GEN if on_card else (2, 8, 6)
-    model = tgpt.GPTForCausalLM(cfg, device=dev)
+    paddle.set_device(dev)
+    model = tgpt.GPTForCausalLM(cfg)
     tree = model._tree()
     prompt = torch.from_numpy(_ids(cfg.vocab_size, (Bg, P), 2)).to(dev)
     with torch.no_grad():
@@ -4736,7 +4778,7 @@ def gpt_phase(torch, tgpt, fa, card, device="cuda"):
     _sync(torch, dev)
     prefill_ms = 1e3 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
-    toks = model.generate(prompt, new)
+    toks = model.generate(prompt, new)._t
     _sync(torch, dev)
     gen_s = time.perf_counter() - t0
     check(tuple(toks.shape) == (Bg, new) and bool(
@@ -4843,7 +4885,9 @@ def facade_phase(torch, tbench, tllama, fb, card, device="cuda", cfg=None):
               f"facade: the model's shape is not FUSED_SHAPE {FUSED_SHAPE}")
     else:                    # a CPU rehearsal's tiny cfg
         S = min(S, cfg.max_position_embeddings)
-    model = tllama.LlamaForCausalLM(cfg, device=dev)
+    import paddle_tpu_torch as paddle
+    paddle.set_device(dev)
+    model = tllama.LlamaForCausalLM(cfg)
     batch = tbench.make_batch(cfg, B, S, dev)
     rows = ("fused_qkv", "fused_attn_epilogue", "fused_mlp_fwd")
     with torch.no_grad():
@@ -4856,7 +4900,7 @@ def facade_phase(torch, tbench, tllama, fb, card, device="cuda", cfg=None):
         launches = {n: getattr(fb, n).launches for n in rows}
         tree = model._tree()
         ref, _ = tllama.forward_pure(cfg, tree, batch["input_ids"])
-        same = torch.equal(logits, ref)
+        same = torch.equal(logits._t, ref)
         del ref
         _, ce = tllama.loss_fn(cfg, tree, batch)
     rel = abs(loss.item() - ce.item()) / abs(ce.item())
@@ -4870,7 +4914,7 @@ def facade_phase(torch, tbench, tllama, fb, card, device="cuda", cfg=None):
     del logits
     P, new = FACADE_GEN
     t0 = time.perf_counter()
-    toks = model.generate(batch["input_ids"][:, :P], new)
+    toks = model.generate(batch["input_ids"][:, :P], new)._t
     _sync(torch, dev)
     gen_s = time.perf_counter() - t0
     check(tuple(toks.shape) == (B, new), f"facade: generate gave "
@@ -4982,6 +5026,296 @@ def models_phase(torch, tllama, i8, fa, fb, dist, params, serve, card,
     gc_cuda(torch)
     out["seconds"] = time.perf_counter() - t0
     print(f"models phase [{card}]: {out['seconds']:.1f} s")
+    return out
+
+
+# the eager phase: bench.py's Llama trained the Paddle way, 6 steps at
+# a warmed-up lr ~1e-3 on one batch; GPT-2 small 3 steps; generate's
+# new tokens
+EAGER_STEPS, EAGER_LR, EAGER_GPT_STEPS, EAGER_GEN = 6, 1e-3, 3, 16
+
+
+def eager_ops_check(torch, device="cuda"):
+    """Every case of the op sweep (``testing/op_cases.py``, the cases the
+    CPU tests hold against JAX) run with CUDA tensors and with CPU
+    tensors through the port's ``OP_LIBRARY``: outputs and gradients
+    compared at each case's tolerance (f32 1e-5, reductions / linalg /
+    gradients 1e-4, bf16 2e-2), every output on the card; then every
+    random op's law and reproducibility on the card.  Prints ``eager_ops
+    <passed>/<total>``; any mismatch fails the run."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.registry import OP_LIBRARY
+    from paddle_tpu_torch.testing import op_cases
+    dev = _device(torch, device)
+    t0 = time.perf_counter()
+    bad, total = [], 0
+    for c in op_cases.PARITY:
+        total += 1
+        try:
+            paddle.set_device("cpu")
+            want = op_cases.run(c, paddle, OP_LIBRARY)
+            paddle.set_device(dev)
+            outs = []
+            got = op_cases.run(c, paddle, OP_LIBRARY, tensors=outs)
+            where = {o._t.device.type for o in outs}
+            check(where == {dev.type}, f"{c.id}: outputs on {where}")
+            op_cases.compare(c, got, want, where=f" ({dev.type} vs cpu)")
+        except Exception as exc:     # noqa: BLE001 - each case reported
+            bad.append(f"{c.id}: {type(exc).__name__}: "
+                       f"{str(exc)[:300]}")
+    paddle.set_device(dev)
+    for law in op_cases.LAWS:
+        total += 1
+        try:
+            law.check(paddle)
+        except Exception as exc:     # noqa: BLE001
+            bad.append(f"law {law.id}: {type(exc).__name__}: "
+                       f"{str(exc)[:300]}")
+    passed = total - len(bad)
+    print(f"eager_ops {passed}/{total}")
+    for b in bad:
+        print(f"eager_ops mismatch: {b}")
+    check(not bad, f"eager ops: {len(bad)} of {total} cases failed on "
+          f"{dev.type}")
+    return dict(passed=passed, total=total, parity=len(op_cases.PARITY),
+                laws=len(op_cases.LAWS),
+                seconds=time.perf_counter() - t0)
+
+
+def plain_cross_entropy(torch, logits, labels):
+    """The reference's mean cross-entropy over [N, V] logits written out
+    (``nn/functional/loss.py``: log_softmax in the logits' dtype, ignored
+    labels masked, the mean over ``max(Σ valid, 1)``)."""
+    logp = torch.log_softmax(logits, 1)
+    lab = labels.long()
+    valid = lab != -100
+    safe = torch.where(valid, lab, torch.zeros_like(lab))
+    per = -torch.gather(logp, 1, safe.unsqueeze(1)).squeeze(1)
+    per = torch.where(valid, per, torch.zeros((), dtype=per.dtype,
+                                              device=per.device))
+    return torch.sum(per) / torch.clamp(torch.sum(valid.to(per.dtype)),
+                                        min=1.0)
+
+
+def plain_adamw_update(torch, params, grads, lr, clip, beta1=0.9,
+                       beta2=0.999, eps=1e-8, wd=0.01, t=1):
+    """The reference's ClipGradByGlobalNorm then AdamW step ``t`` from
+    zero moments (``optimizer.py:348-384``), written out: float32 grads
+    and moments, ``p - lr m̂ / (√v̂ + ε) - lr wd p``, cast back."""
+    out = []
+    with torch.no_grad():
+        sq = [torch.sum(g.float() ** 2) for g in grads]
+        norm = torch.sqrt(sum(sq))
+        scale = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
+        for p, g in zip(params, grads):
+            g = ((g.float() * scale).to(g.dtype)).to(torch.float32)
+            m = torch.zeros_like(p, dtype=torch.float32)
+            v = torch.zeros_like(p, dtype=torch.float32)
+            m = beta1 * m + (1 - beta1) * g
+            v = beta2 * v + (1 - beta2) * g * g
+            m_hat = m / (1 - beta1 ** t)
+            v_hat = v / (1 - beta2 ** t)
+            p32 = p.to(torch.float32)
+            new = p32 - lr * m_hat / (torch.sqrt(v_hat) + eps)
+            new = new - lr * wd * p.to(torch.float32)
+            out.append(new.to(p.dtype))
+    return out
+
+
+def eager_phase(torch, tbench, tllama, fa, fb, card, functional,
+                device="cuda", cfg=None, gpt_cfg=None):
+    """The eager core on the card (``paddle_tpu_torch`` as ``paddle``).
+
+    The op sweep (``eager_ops_check``).  Then ``LlamaForCausalLM`` at
+    bench.py's shape (B 4, S 2048, the functional step's "dots" remat
+    and fused blocks), built after ``set_device("gpu")`` and ``seed(0)``,
+    trained ``EAGER_STEPS`` steps on one batch with ``AdamW(LinearWarmup,
+    ClipGradByGlobalNorm(1.0))``: step 1's loss and every ``.grad``
+    bit-equal to ``torch.autograd.grad`` of ``forward_pure`` +
+    ``plain_cross_entropy`` on raw copies of the parameters; step 1's
+    update bit-equal to ``plain_adamw_update``; the losses finite and
+    the last below the first; the launches a step of rows 7-10 and the
+    flash wrappers equal to ``functional``'s (``train_phase``'s fused
+    result).  The eager step and ``optimizer.step()`` in ms (steps 2 on)
+    beside the functional step, the peak over what the phase started
+    with.  Then GPT-2 small, ``EAGER_GPT_STEPS`` steps (flash at D 64,
+    one call a layer each way a step) and ``generate``: a ``Tensor``
+    equal to the functional ``generate``'s tokens."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import gpt as tgpt
+    dev = _device(torch, device)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out = {"ops": eager_ops_check(torch, dev)}
+    kernels = dict(tbench.KERNELS)
+
+    # -- Llama at bench.py's shape
+    cfg = cfg or tllama.LlamaConfig(remat_policy="dots", **tbench.MODEL)
+    B, S = (4, tbench.SEQ) if on_card else (2, 32)
+    if on_card:
+        gc_cuda(torch)
+    base = torch.cuda.memory_allocated(dev) if on_card else 0
+    _reset_peak(torch, dev)
+    paddle.set_device(dev)
+    paddle.seed(0)
+    net = tllama.LlamaForCausalLM(cfg)
+    params = net.parameters()
+    check(all(p._t.device.type == dev.type and p.is_leaf for p in params),
+          "eager: the parameters are not leaves on the card")
+    sched = paddle.optimizer.lr.LinearWarmup(EAGER_LR, 2, EAGER_LR / 10,
+                                             EAGER_LR)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=sched, parameters=params,
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    batch = tbench.make_batch(cfg, B, S, dev)
+    ids = paddle.to_tensor(batch["input_ids"])
+    labels = paddle.to_tensor(batch["labels"])
+    V = cfg.vocab_size
+
+    # step 1's reference: the raw composition on copies of the params
+    raw = [p._t.detach().clone().requires_grad_(p._t.requires_grad)
+           for p in params]
+    tree = tllama._unflatten_params(dict(zip(net._names, raw)))
+    logits, _ = tllama.forward_pure(cfg, tree, batch["input_ids"])
+    ref_loss = plain_cross_entropy(torch, logits.reshape(-1, V),
+                                   batch["labels"].reshape(-1))
+    diff = [r for r in raw if r.requires_grad]
+    ref_grads = torch.autograd.grad(ref_loss, diff)
+    ref_loss = ref_loss.detach()
+    del logits, tree, raw, diff
+    if on_card:
+        gc_cuda(torch)
+
+    for w in kernels.values():
+        w.launches = 0
+    losses, step_ms, opt_ms = [], [], []
+    same_grads = same_update = None
+    for k in range(EAGER_STEPS):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        loss, _ = net(ids, labels=labels)
+        loss.backward()
+        if k == 0:
+            same_loss = torch.equal(loss._t.detach(), ref_loss)
+            trainable = [p for p in params if not p.stop_gradient]
+            same_grads = [torch.equal(p.grad._t, g)
+                          for p, g in zip(trainable, ref_grads)]
+            del ref_grads
+            want = plain_adamw_update(torch, [p._t for p in trainable],
+                                      [p.grad._t for p in trainable],
+                                      sched(), 1.0)
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        opt.step()
+        _sync(torch, dev)
+        t2 = time.perf_counter()
+        if k == 0:
+            same_update = [torch.equal(p._t, w)
+                           for p, w in zip(trainable, want)]
+            del want
+            # the training steps' own peak, without step 1's checks
+            peak_checks = _peak(torch, dev) - base if on_card else None
+            _reset_peak(torch, dev)
+        opt.clear_grad()
+        sched.step()
+        losses.append(loss.item())
+        if k:                        # step 1 carries the checks
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            opt_ms.append(1e3 * (t2 - t1))
+        del loss
+    launches = {n: w.launches for n, w in kernels.items()}
+    peak = _peak(torch, dev) - base if on_card else None
+    check(same_loss, "eager: step 1's loss differs from the raw "
+          "composition's")
+    check(all(same_grads), f"eager: {same_grads.count(False)} of "
+          f"{len(same_grads)} grads differ from torch.autograd.grad's")
+    check(all(same_update), f"eager: {same_update.count(False)} of "
+          f"{len(same_update)} parameters differ from the reference's AdamW "
+          f"update")
+    check(all(math.isfinite(x) for x in losses), f"eager: losses {losses}")
+    check(losses[-1] < losses[0], f"eager: the loss did not fall {losses}")
+    per_step = {n: c / EAGER_STEPS for n, c in launches.items()}
+    if on_card:
+        fn = functional["launches_per_step"]
+        check(per_step == fn, f"eager: launches a step {per_step} vs the "
+              f"functional step's {fn}")
+        for n in ("fused_qkv", "fused_attn_epilogue", "fused_mlp_fwd",
+                  "fused_mlp_bwd_dx", "flash_bwd"):
+            check(launches[n] > 0, f"eager: {n} never launched")
+    eager_ms = float(np.mean(step_ms))
+    out["llama"] = dict(
+        losses=losses, step1_loss_bit_equal=same_loss,
+        step1_grads_bit_equal=len(same_grads),
+        step1_update_bit_equal=len(same_update), launches=launches,
+        launches_per_step=per_step, step_ms=eager_ms,
+        step_ms_each=step_ms, optimizer_step_ms=float(np.mean(opt_ms)),
+        optimizer_step_ms_each=opt_ms,
+        functional_step_ms=functional["step_ms"],
+        step_over_functional=(eager_ms / functional["step_ms"]
+                              if functional.get("step_ms") else None),
+        peak_over_base=peak, peak_over_base_with_checks=peak_checks,
+        functional_peak=functional.get("max_memory_allocated"),
+        n_params=sum(p.size for p in params),
+        shape=dict(B=B, S=S, remat=cfg.remat_policy))
+    del net, opt, params, trainable, ids, labels, batch
+    if on_card:
+        gc_cuda(torch)
+
+    # -- GPT-2 small eagerly
+    gcfg = gpt_cfg or (tgpt.GPTConfig() if on_card
+                       else tgpt.GPTConfig(dtype=torch.float32, **SMALL_GPT))
+    (Bg, Sg), L = (GPT_TRAIN if on_card else (2, 64)), \
+        gcfg.num_hidden_layers
+    paddle.seed(0)
+    gnet = tgpt.GPTForCausalLM(gcfg)
+    gsched = paddle.optimizer.lr.LinearWarmup(EAGER_LR, 2, EAGER_LR / 10,
+                                              EAGER_LR)
+    gopt = paddle.optimizer.AdamW(
+        learning_rate=gsched, parameters=gnet.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    gids = paddle.to_tensor(_ids(gcfg.vocab_size, (Bg, Sg), 0))
+    glabels = paddle.to_tensor(_ids(gcfg.vocab_size, (Bg, Sg), 1))
+    fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+    glosses, gms = [], []
+    for _ in range(EAGER_GPT_STEPS):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        loss, _ = gnet(gids, labels=glabels)
+        loss.backward()
+        gopt.step()
+        gopt.clear_grad()
+        gsched.step()
+        glosses.append(loss.item())
+        gms.append(1e3 * (time.perf_counter() - t0))
+    gpt_ms = float(np.mean(gms[1:]))     # step 1 makes the moments
+    glaunch = {"flash_fwd": fa.flash_fwd.launches,
+               "flash_bwd": fa.flash_bwd.launches}
+    check(all(math.isfinite(x) for x in glosses), f"eager gpt: {glosses}")
+    if on_card:
+        want = {"flash_fwd": L * EAGER_GPT_STEPS,
+                "flash_bwd": L * EAGER_GPT_STEPS}
+        check(glaunch == want, f"eager gpt: flash launches {glaunch}, "
+              f"expected {want}")
+    prompt = paddle.to_tensor(_ids(gcfg.vocab_size, (Bg, 32), 2))
+    toks = gnet.generate(prompt, EAGER_GEN)
+    check(isinstance(toks, paddle.Tensor), "eager gpt: generate returned "
+          f"{type(toks).__name__}, not a Tensor")
+    ref = tgpt.generate(gcfg, gnet._tree(), prompt._t, EAGER_GEN)
+    check(torch.equal(toks._t, ref), "eager gpt: generate's tokens differ "
+          "from the functional generate's")
+    out["gpt"] = dict(losses=glosses, step_ms=gpt_ms, step_ms_each=gms,
+                      launches=glaunch,
+                      generate_equal=True, shape=dict(B=Bg, S=Sg,
+                                                      gen=EAGER_GEN))
+    del gnet, gopt
+    if on_card:
+        gc_cuda(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"eager [{card}]: {json.dumps(out)}")
+    print(f"eager [{card}]: Llama step {eager_ms:.2f} ms (optimizer.step() "
+          f"{out['llama']['optimizer_step_ms']:.2f} ms) vs the functional "
+          f"step {functional['step_ms']:.2f} ms; peak over base {peak}; "
+          f"losses {[round(x, 4) for x in losses]}")
     return out
 
 
@@ -5208,14 +5542,16 @@ def main(argv=()):
     # saved, restored and resumed at world size 1, a 2-rank pod killed
     # and relaunched, the gang preset through the bench
     small_ckpt_check(torch, tllama, dist)
-    ckpt = ckpt_phase(torch, tbench, tllama, dist, card)
+    ckpt = ckpt_phase(torch, tbench, tllama, dist, card,
+                      model=big_model(tbench))
     gang = gang_phase(torch, card)
     gang_bench_line(card)
     stamp("builds, checkpoints, gang")
     # the training loop around the step: the data pipeline, the rewind,
     # the Profiler with xmem and numerics, localize; then the in-process
     # resize of a 2-rank plan to 1
-    loop = train_loop_phase(torch, tbench, tllama, dist, card, report)
+    loop = train_loop_phase(torch, tbench, tllama, dist, card, report,
+                            model=big_model(tbench))
     resize = resize_phase(torch, tbench, tllama, dist, card)
     stamp("train loop, resize")
 
@@ -5273,6 +5609,10 @@ def main(argv=()):
     train_profile(torch, tbench, tllama, card)
     train_profile(torch, tbench, tllama, card, "off")
     stamp("train, ledger, train profiles")
+    # the eager core: the op sweep on the card, bench.py's Llama and
+    # GPT-2 small trained the Paddle way
+    eager = eager_phase(torch, tbench, tllama, fa, fb, card, fused_res)
+    stamp("eager")
     # the distributed train step: a small model's topologies as 4 ranks
     # on the card against world size 1, then bench.py's shape at world
     # size 1 over NCCL (in turns with bench.train_step) and as 2 ranks
@@ -5291,10 +5631,9 @@ def main(argv=()):
     # --multichip line
     small_pp_check(torch, dist)
     pp_res = pipeline_phase(torch, tbench, tllama, dist, card)
-    bench_turn = next(t for t in dist_res["turns"] if t["kind"] == "bench")
     cp_res = cp_phase(torch, tbench, tllama, dist, card,
-                      bench_turn["losses"][:BIG_STEPS],
-                      bench_turn["peak_over_base"])
+                      dist_res["ws1_big"]["losses"],
+                      dist_res["ws1_big"]["peak_over_base"])
     multichip_line(card)
     stamp("pipeline, cp, multichip")
     # the MoE layer: bench.py's shape with 8 experts at world size 1, as 2
@@ -5438,6 +5777,8 @@ def main(argv=()):
             launches_gang_rank0=gang["launches_rank0_clean"][name],
             launches_train_loop=loop["launches"][name],
             launches_resize_rank0=resize["launches_rank0"][name],
+            launches_eager=eager["llama"]["launches"][name],
+            launches_eager_gpt=eager["gpt"]["launches"][name],
             max_abs_err=flash_err[key],
             row_rel_err=flash_row_err[key], row_rel_max=ROW_REL_MAX,
             control_row_rel_err=min(
@@ -5479,6 +5820,7 @@ def main(argv=()):
             launches_gang_rank0=gang["launches_rank0_clean"][name],
             launches_train_loop=loop["launches"][name],
             launches_resize_rank0=resize["launches_rank0"][name],
+            launches_eager=eager["llama"]["launches"][name],
             row_rel_err=r["row_rel_err"], row_rel_max=ROW_REL_MAX,
             norm_rel_err=r["norm_rel_err"],
             control_row_rel_err=r["control_row_rel_err"], ms=r["ms"],
@@ -5493,6 +5835,7 @@ def main(argv=()):
     print(f"moe [{card}]: train {json.dumps(moe_train)}; dist "
           f"{json.dumps(moe_dist)}; serve {json.dumps(moe_serve)}")
     print(f"models [{card}]: {json.dumps(models)}")
+    print(f"eager_ops {eager['ops']['passed']}/{eager['ops']['total']}")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,57 @@
 """PyTorch/CUDA port of ``paddle_tpu`` for NVIDIA Hopper (sm_90a).
 
-Layout mirrors ``paddle_tpu``: ``models/`` (the Llama, GPT and ERNIE
-families, functional cores with eager classes, and KV-cache generation
-in ``models/decoding.py``), ``ops/`` (hand-written CUDA kernels, each beside its plain PyTorch
-version), ``serving/`` (the continuous-batching engine, the multi-replica
-router and fleet planning), ``distributed/`` (the hybrid-parallel train
-step, checkpoints, the launcher), ``io/`` (samplers, the data loader, the
-device loader), ``profiler/`` (the Profiler, metrics, the flight
-recorder, the live exporter, xmem, numerics, the perf ledger),
-``runtime/`` (the phase
-watchdog, heartbeats, anomaly rewind), ``testing/`` (fault injection)
-and ``flags`` (the global flag registry).  Nothing here
-imports JAX or ``paddle_tpu``; the tests hold the two packages against
-each other with inputs made by numpy.
+``import paddle_tpu_torch as paddle`` gives the eager core: ``Tensor``
+over a torch tensor with torch's autograd (``core/``), the op surface
+(``tensor/``, registered in ``ops.registry.OP_LIBRARY``), ``autograd``,
+``nn`` (``Layer``, its common / activation / norm / loss layers,
+functionals, initializers, gradient clipping), ``optimizer`` (ten
+optimizers and the LR schedules), ``set_device`` / ``seed`` /
+``save`` / ``load``.  Tensors are created on the current place: the
+card unless ``set_device`` names another; with neither, creation raises.
+
+Beside it, as before: ``models/`` (the Llama, GPT and ERNIE families,
+functional cores with eager ``Layer`` classes, and KV-cache generation
+in ``models/decoding.py``), ``ops/`` (hand-written CUDA kernels, each
+beside its plain PyTorch version), ``serving/`` (the continuous-batching
+engine, the multi-replica router and fleet planning), ``distributed/``
+(the hybrid-parallel train step, checkpoints, the launcher), ``io/``
+(samplers, the data loader, the device loader), ``profiler/`` (the
+Profiler, metrics, the flight recorder, the live exporter, xmem,
+numerics, the perf ledger), ``runtime/`` (the phase watchdog,
+heartbeats, anomaly rewind), ``testing/`` (fault injection, the op
+cases) and ``flags`` (the global flag registry).  Nothing here imports
+JAX or ``paddle_tpu``; the tests hold the two packages against each
+other with inputs made by numpy.
 """
 from .device import resolve_device
-from . import models
-from .models import (ErnieConfig, GPTConfig, GPTForCausalLM, LlamaConfig,
-                     LlamaForCausalLM)
+from .core import (Tensor, to_tensor, no_grad, enable_grad,  # noqa: F401
+                   is_grad_enabled, set_grad_enabled, CPUPlace, CUDAPlace)
+from .core.place import (set_device, get_device, device_count,  # noqa: F401
+                         is_compiled_with_cuda)
+from .core.dtype import (bool_ as bool8, uint8, int8, int16,  # noqa: F401
+                         int32, int64, float16, bfloat16, float32, float64,
+                         complex64, complex128, set_default_dtype,
+                         get_default_dtype, finfo, iinfo)
+from .core.dtype import bool_ as bool  # noqa: A001,F401 — paddle.bool
+from .flags import set_flags, get_flags  # noqa: F401
+from .framework.random import seed, get_rng_state, set_rng_state  # noqa: F401
+from .framework.param_attr import ParamAttr  # noqa: F401
 
-__all__ = ["resolve_device", "models", "LlamaConfig", "LlamaForCausalLM",
-           "GPTConfig", "GPTForCausalLM", "ErnieConfig"]
+from .tensor import *  # noqa: F401,F403 — the op surface
+from .tensor import logic as _logic
+
+grad_enabled = is_grad_enabled
+is_tensor = _logic.is_tensor
+
+from . import tensor  # noqa: E402,F401
+from . import autograd  # noqa: E402,F401
+from . import nn  # noqa: E402,F401
+from . import optimizer  # noqa: E402,F401
+from . import framework  # noqa: E402,F401
+from .framework.io import save  # noqa: E402,F401
+from .framework.io import load_tensors as load  # noqa: E402,F401
+from .autograd.functional import grad  # noqa: E402,F401
+
+from . import models  # noqa: E402,F401
+from .models import (ErnieConfig, GPTConfig, GPTForCausalLM,  # noqa: E402,F401
+                     LlamaConfig, LlamaForCausalLM)

@@ -53,6 +53,10 @@ def flag(name: str):
     return _REGISTRY[name]
 
 
+define_flag("FLAGS_check_nan_inf", False,
+            "Scan every eager op's floating outputs for NaN/Inf "
+            "(core.tensor.apply_op) and raise FloatingPointError naming "
+            "the op. Off: one dict lookup per op.")
 define_flag("FLAGS_tpu_metrics", False,
             "Enable the profiler.metrics registry (the serving engine's "
             "and router's serve_* counters, gauges and histograms). Off: "

@@ -153,15 +153,19 @@ def generate_tokens(forward_with_cache: Callable, params, input_ids,
 class GenerationMixin:
     """``generate()`` for an eager model class: set ``_generate_fn`` to
     the family's functional generate ``(cfg, params, ids, n, ...)`` and
-    give the class ``config`` and ``_tree()``.  Returns a torch tensor
-    (the reference's ``Tensor`` comes with the eager core, ROADMAP A4)."""
+    give the class ``config`` and ``_tree()``.  Returns a ``Tensor`` of
+    int64 tokens."""
 
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
                  top_k=0, seed=0, eos_token_id=None):
+        from ..core.tensor import Tensor
+        if isinstance(input_ids, Tensor):
+            input_ids = input_ids._t
         fn = type(self)._generate_fn
-        return fn(self.config, self._tree(), input_ids, max_new_tokens,
-                  temperature=temperature, top_k=top_k, rng=seed,
-                  eos_token_id=eos_token_id)
+        return Tensor._wrap(fn(self.config, self._tree(), input_ids,
+                               max_new_tokens, temperature=temperature,
+                               top_k=top_k, rng=seed,
+                               eos_token_id=eos_token_id))
 
 
 def model_generate(forward_with_cache: Callable, *, num_layers: int,

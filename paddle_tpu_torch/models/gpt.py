@@ -34,7 +34,8 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..ops.flash_attention import causal_attention
 from . import decoding
-from .llama import _StackedModule, _dots_context
+from ..core.place import current_device
+from .llama import _StackedLayer, _dots_context
 
 __all__ = ["GPTConfig", "init_params", "forward_pure", "loss_fn",
            "forward_with_cache", "generate", "GPTForCausalLM"]
@@ -221,22 +222,21 @@ def generate(cfg: GPTConfig, params, input_ids, max_new_tokens,
 
 # -- the eager class ---------------------------------------------------------
 
-class GPTForCausalLM(decoding.GenerationMixin, _StackedModule):
-    """The eager class (a ``torch.nn.Module`` until the eager core,
-    ROADMAP A4): parameters ``init_params(config, 0)`` on ``device`` (the
-    card unless the caller names another) under the reference facade's
-    names; ``forward(ids, labels=None)`` is ``forward_pure``, with labels
+class GPTForCausalLM(decoding.GenerationMixin, _StackedLayer):
+    """The eager ``Layer``: parameters ``init_params(config, 0)`` on the
+    current place under the reference facade's names; ``forward(ids,
+    labels=None)`` is ``forward_pure`` inside one op, with labels
     ``(loss, logits)``."""
 
-    def __init__(self, config: GPTConfig, device=None):
+    def __init__(self, config: GPTConfig):
         super().__init__()
         self.config = config
-        self._register_tree(init_params(config, 0, device=device))
+        self._register_tree(init_params(config, 0, device=current_device()))
 
     def forward(self, input_ids, labels=None):
-        ids = torch.as_tensor(input_ids).to(self._device())
-        return self._maybe_loss(forward_pure(self.config, self._tree(), ids),
-                                labels)
+        cfg = self.config
+        return self._forward(lambda tree, ids: forward_pure(cfg, tree, ids),
+                             input_ids, labels, "gpt_forward")
 
 
 GPTForCausalLM._generate_fn = staticmethod(generate)

@@ -32,9 +32,8 @@ int8 weight is a ``{"q": int8 [L, K, N], "scale": f32 [L, 1, N]}`` leaf
   dense cache (``models.decoding``): dense, GQA and MoE, over bf16 or
   int8 weights (every int8 leaf through the int8 matmul kernel), with
   attention in the plain ``cached_attention_core``, as the reference's.
-  ``LlamaForCausalLM`` is the eager class over the stacked tree (a
-  ``torch.nn.Module`` until the eager core, ROADMAP A4): its forward is
-  ``forward_pure``.
+  ``LlamaForCausalLM`` is the eager ``Layer`` over the stacked tree:
+  its forward is ``forward_pure`` inside one op.
 - ``moe_num_experts`` > 0 replaces each layer's MLP by the reference's
   GShard top-k MoE (``_moe_mlp``) with its load-balancing aux loss,
   which ``run_layer_stack`` sums over the layers and ``loss_fn`` adds at
@@ -68,6 +67,9 @@ from ..ops import fused_blocks as fb
 from ..ops.flash_attention import causal_attention
 from ..ops.int8_matmul import int8_matmul, quantize_int8
 from ..ops.ragged_paged_attention import ragged_paged_attention
+from ..core.place import current_device
+from ..core.tensor import Tensor, apply_op, to_tensor
+from ..nn.layer.layers import Layer, Parameter
 
 __all__ = ["LlamaConfig", "PRESETS", "preset", "init_params",
            "quantize_params", "forward_paged", "decoder_layer",
@@ -1395,56 +1397,70 @@ def _unflatten_params(flat):
     return tree
 
 
-class _StackedModule(torch.nn.Module):
-    """An eager face over a functional core: the stacked parameter tree's
-    leaves registered as parameters under the reference facade's names
-    (``name.replace(".", "_")``: ``state_dict()`` keys equal the
-    reference's), so ``_tree()`` hands the core the module's own
-    tensors and both uses of a tied weight accumulate on one."""
+class _StackedLayer(Layer):
+    """An eager ``Layer`` over a functional core: the stacked parameter
+    tree's leaves are its ``Parameter``s under the reference facade's
+    names (``name.replace(".", "_")``: ``state_dict()`` keys equal the
+    reference's), built on the current place.  ``forward`` runs the core
+    inside one op over the parameters' own tensors, so on the card it
+    launches the core's kernels, its logits are the core's bits and both
+    uses of a tied weight accumulate on one ``.grad``."""
 
     def _register_tree(self, raw):
         self._names = []
         for name, t in _flatten_params(raw):
-            self.register_parameter(name.replace(".", "_"),
-                                    torch.nn.Parameter(
-                                        t, requires_grad=t.is_floating_point()))
+            self.add_parameter(name.replace(".", "_"), Parameter(
+                t, trainable=t.is_floating_point(), name=name))
             self._names.append(name)
 
+    def _params(self):
+        return [self._parameters[n.replace(".", "_")] for n in self._names]
+
     def _tree(self):
-        return _unflatten_params({n: getattr(self, n.replace(".", "_"))
-                                  for n in self._names})
+        return _unflatten_params({n: p._t for n, p in
+                                  zip(self._names, self._params())})
 
-    def _device(self):
-        return next(self.parameters()).device
+    def _forward(self, core, input_ids, labels, op_name):
+        """``core(tree, ids) -> logits`` as one op; with ``labels``:
+        (mean cross-entropy over every token, logits), the reference's
+        ``F.cross_entropy`` over [-1, V]."""
+        from ..nn import functional as NF
+        from ..tensor.manipulation import reshape
+        params = self._params()
+        names = self._names
+        dev = params[0]._t.device
+        ids = input_ids if isinstance(input_ids, Tensor) \
+            else to_tensor(input_ids, place=dev)
 
-    @staticmethod
-    def _maybe_loss(logits, labels):
-        """With ``labels``: (mean cross-entropy over every token,
-        logits), the reference's ``F.cross_entropy`` over [-1, V]."""
+        def _f(ids_t, *arrs):
+            return core(_unflatten_params(dict(zip(names, arrs))),
+                        ids_t.to(dev))
+        logits = apply_op(_f, ids, *params, op_name=op_name)
         if labels is None:
             return logits
+        if not isinstance(labels, Tensor):
+            labels = to_tensor(labels, place=dev)
         V = logits.shape[-1]
-        labels = torch.as_tensor(labels).to(logits.device).long()
-        loss = F.cross_entropy(logits.reshape(-1, V), labels.reshape(-1))
+        loss = NF.cross_entropy(reshape(logits, [-1, V]),
+                                reshape(labels, [-1]))
         return loss, logits
 
 
-class LlamaForCausalLM(decoding.GenerationMixin, _StackedModule):
-    """The eager class: parameters are ``init_params(config, 0)`` on
-    ``device`` (the card unless the caller names another), and
-    ``forward(ids, labels=None)`` is ``forward_pure`` over them, so on
-    the card it launches the fused decoder blocks as the train step
-    does and its logits are ``forward_pure``'s bits."""
+class LlamaForCausalLM(decoding.GenerationMixin, _StackedLayer):
+    """The eager class: parameters are ``init_params(config, 0)`` on the
+    current place, and ``forward(ids, labels=None)`` is ``forward_pure``
+    over them, so on the card it launches the fused decoder blocks as
+    the train step does and its logits are ``forward_pure``'s bits."""
 
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig):
         super().__init__()
         self.config = config
-        self._register_tree(init_params(config, 0, device=device))
+        self._register_tree(init_params(config, 0, device=current_device()))
 
     def forward(self, input_ids, labels=None):
-        ids = torch.as_tensor(input_ids).to(self._device())
-        logits, _aux = forward_pure(self.config, self._tree(), ids)
-        return self._maybe_loss(logits, labels)
+        cfg = self.config
+        return self._forward(lambda tree, ids: forward_pure(cfg, tree, ids)[0],
+                             input_ids, labels, "llama_forward")
 
 
 LlamaForCausalLM._generate_fn = staticmethod(generate)

@@ -1,0 +1,18 @@
+"""paddle.nn.functional: the ported part (activations, common, norms,
+losses).  conv, pooling, vision and extended come with a later slice."""
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from ...tensor.manipulation import pad  # noqa: F401
+
+# in-place activation variants ride the shared tensor in-place machinery;
+# diag_embed lives on the tensor surface
+from ...tensor.extras import _inplace as _mk_inplace  # noqa: E402
+from .activation import elu, softmax, tanh  # noqa: E402
+
+elu_ = _mk_inplace(elu)
+softmax_ = _mk_inplace(softmax)
+tanh_ = _mk_inplace(tanh)
+
+from ...tensor.creation import diag_embed  # noqa: E402,F401

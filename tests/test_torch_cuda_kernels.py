@@ -897,3 +897,38 @@ def test_llama7b_shape_generate_launches_int8_matmul_225_a_step(cuda):
     assert i8.int8_matmul.launches - before == 4 * calls
     assert toks.shape == (2, 4) and bool((toks < cfg.vocab_size).all())
     assert 7 * 32 + 1 == 225
+
+
+def test_eager_llama_step_launches_rows_7_to_10_and_flash_bwd(cuda):
+    """The eager core's train step (``LlamaForCausalLM`` as a ``Layer``
+    on the card, ``loss.backward()``, ``AdamW.step()``) at a small bf16
+    shape under "dots": the forward kernels of rows 7-9 twice a layer
+    (remat recomputes them), row 10 and ``flash_bwd`` once, ``flash_fwd``
+    not at all, as the functional step; the parameters stay leaves on
+    the card."""
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    cfg = tllama.LlamaConfig(vocab_size=128, hidden_size=256,
+                             intermediate_size=512, num_hidden_layers=2,
+                             num_attention_heads=2, num_key_value_heads=2,
+                             max_position_embeddings=64, use_remat=True,
+                             remat_policy="dots")
+    net = tllama.LlamaForCausalLM(cfg)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=1e-3, parameters=net.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    ids = paddle.randint(0, 128, [2, 64])
+    wrappers = (fb.fused_qkv, fb.fused_attn_epilogue, fb.fused_mlp_fwd,
+                fb.fused_mlp_bwd_dx, fa.flash_fwd, fa.flash_bwd)
+    before = [w.launches for w in wrappers]
+    loss, _ = net(ids, labels=ids)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [
+        4, 4, 4, 2, 0, 2]
+    assert np.isfinite(loss.item())
+    assert all(p.is_leaf and p.place == paddle.CUDAPlace(0)
+               for p in net.parameters())

@@ -166,39 +166,45 @@ def test_prompt_overflow_raises():
 # ---------------------------------------------------------------------------
 
 def test_llama_for_causal_lm_matches_the_reference_facade():
+    import paddle_tpu_torch as tpaddle
+    from paddle_tpu_torch import Tensor
+    tpaddle.set_device("cpu")
     jcfg, tcfg = _cfgs(num_key_value_heads=2)
     jm = jllama.LlamaForCausalLM(jcfg)
-    tm = tllama.LlamaForCausalLM(tcfg, device="cpu")
+    tm = tllama.LlamaForCausalLM(tcfg)
     jsd = jm.state_dict()
     assert list(tm.state_dict()) == list(jsd)
-    tm.load_state_dict({k: torch.from_numpy(np.asarray(v._array).copy())
-                        for k, v in jsd.items()})
+    tm.set_state_dict({k: np.asarray(v._array) for k, v in jsd.items()})
     ids = _prompt(seed=9, P=7)
     labels = _prompt(seed=10, P=7)
     jloss, jlogits = jm(ids, labels=labels)
     loss, logits = tm(ids, labels=torch.from_numpy(labels))
-    np.testing.assert_allclose(logits.detach().numpy(),
-                               np.asarray(jlogits._array), atol=1e-4)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits._array),
+                               atol=1e-4)
     np.testing.assert_allclose(loss.item(), float(np.asarray(jloss._array)),
                                atol=1e-4)
-    # the forward is forward_pure over the module's own tensors
+    # the forward is forward_pure over the layer's own tensors
     ref, _ = tllama.forward_pure(tcfg, tm._tree(), torch.from_numpy(ids))
-    assert torch.equal(tm(ids), ref)
+    assert torch.equal(tm(ids)._t, ref)
     loss.backward()
     assert all(p.grad is not None for p in tm.parameters())
-    # generate equals the reference facade's
-    np.testing.assert_array_equal(
-        tm.generate(ids, 5).numpy(), np.asarray(jm.generate(ids, 5)._array))
+    # generate returns a Tensor equal to the reference facade's
+    out = tm.generate(ids, 5)
+    assert isinstance(out, Tensor)
+    np.testing.assert_array_equal(out.numpy(),
+                                  np.asarray(jm.generate(ids, 5)._array))
 
 
 def test_llama_for_causal_lm_draws_seed_zero_on_its_device():
+    import paddle_tpu_torch as tpaddle
+    tpaddle.set_device("cpu")
     _, tcfg = _cfgs()
-    tm = tllama.LlamaForCausalLM(tcfg, device="cpu")
+    tm = tllama.LlamaForCausalLM(tcfg)
     ref = tllama.init_params(tcfg, 0, device="cpu")
     for (name, p), (_, r) in zip(tm.state_dict().items(),
                                  tllama._flatten_params(ref)):
-        assert torch.equal(p, r), name
-    assert next(tm.parameters()).device.type == "cpu"
+        assert torch.equal(p._t, r), name
+    assert tm.parameters()[0].place.is_cpu_place()
 
 
 # ---------------------------------------------------------------------------

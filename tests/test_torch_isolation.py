@@ -51,7 +51,11 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
                 "serving/workloads.py", "serving/spec_decode.py",
                 "runtime/watchdog.py", "testing/chaos.py",
                 "profiler/ledger.py", "models/decoding.py", "models/gpt.py",
-                "models/ernie.py"):
+                "models/ernie.py", "core/tensor.py", "core/place.py",
+                "tensor/math.py", "tensor/manipulation.py",
+                "autograd/functional.py", "nn/layer/layers.py",
+                "nn/functional/loss.py", "optimizer/optimizer.py",
+                "optimizer/lr.py", "testing/op_cases.py"):
         assert REPO / "paddle_tpu_torch" / mod in files
     bad = []
     for path in files:
@@ -152,18 +156,31 @@ def test_model_family_entry_points_never_pick_the_cpu(no_card):
                               num_attention_heads=2, num_key_value_heads=2,
                               max_position_embeddings=16,
                               dtype=torch.float32)
-    for make in (lambda: gpt.init_params(gcfg),
-                 lambda: ernie.init_params(ecfg),
-                 lambda: gpt.GPTForCausalLM(gcfg),
-                 lambda: tllama.LlamaForCausalLM(lcfg),
-                 lambda: decoding.init_kv_cache(1, 1, 4, 2, 8),
-                 lambda: ernie.build_pretrain_step(ecfg, HybridTopology())):
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            make()
-    ids = torch.zeros((1, 3), dtype=torch.long)
-    m = gpt.GPTForCausalLM(gcfg, device="cpu")
-    assert m(ids).device.type == "cpu"
-    assert m.generate(ids, 2).device.type == "cpu"
+    import paddle_tpu_torch as tpaddle
+    from paddle_tpu_torch.core import place
+    monkey_place = place._CURRENT[0]
+    place._CURRENT[0] = None          # no set_device call
+    try:
+        for make in (lambda: gpt.init_params(gcfg),
+                     lambda: ernie.init_params(ecfg),
+                     lambda: gpt.GPTForCausalLM(gcfg),
+                     lambda: tllama.LlamaForCausalLM(lcfg),
+                     lambda: tpaddle.to_tensor([1.0]),
+                     lambda: tpaddle.zeros([2]),
+                     lambda: tpaddle.nn.Linear(2, 2),
+                     lambda: decoding.init_kv_cache(1, 1, 4, 2, 8),
+                     lambda: ernie.build_pretrain_step(ecfg,
+                                                       HybridTopology())):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+        # the eager classes build on the current place: the CPU once named
+        tpaddle.set_device("cpu")
+        ids = torch.zeros((1, 3), dtype=torch.long)
+        m = gpt.GPTForCausalLM(gcfg)
+        assert m(ids).place.is_cpu_place()
+        assert m.generate(ids, 2).place.is_cpu_place()
+    finally:
+        place._CURRENT[0] = monkey_place
     step, init = ernie.build_pretrain_step(ecfg, HybridTopology(),
                                            device="cpu")
     params, _ = init(0)

@@ -1,0 +1,60 @@
+"""Op sweep, part 0 of 9 (see ``tests/torch_op_sweep.py``): the port's
+ops against the JAX package's on the same seeded inputs, forward and
+gradients; the random ops held to their laws."""
+import pytest
+
+from torch_op_sweep import cases, check_law, check_parity, ids, laws, \
+    on_cpu  # noqa: F401 - the autouse fixture
+
+CASES = cases(0)
+LAWS = laws(0)
+
+
+@pytest.mark.parametrize("case", CASES, ids=ids(CASES))
+def test_op_matches_the_reference(case):
+    check_parity(case)
+
+
+@pytest.mark.parametrize("law", LAWS, ids=ids(LAWS))
+def test_random_op_law(law):
+    check_law(law)
+
+
+# reference ops the slice does not port yet, by ROADMAP item: conv 6 and
+# pooling 17 (nn/functional/{conv,pooling}), functional/vision 3,
+# functional/extended 5, geometric 4, vision.ops 3
+NOT_YET = {
+    "conv1d", "conv1d_transpose", "conv2d", "conv2d_transpose", "conv3d",
+    "conv3d_transpose",
+    "adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
+    "adaptive_max_pool1d", "adaptive_max_pool2d", "adaptive_max_pool3d",
+    "avg_pool1d", "avg_pool2d", "avg_pool3d", "lp_pool1d", "lp_pool2d",
+    "max_pool1d", "max_pool2d", "max_pool3d", "max_unpool1d",
+    "max_unpool2d", "max_unpool3d",
+    "affine_grid", "grid_sample", "temporal_shift",
+    "class_center_sample", "edit_distance", "gather_tree",
+    "margin_cross_entropy", "sequence_mask",
+    "segment_max", "segment_mean", "segment_min", "segment_sum",
+    "box_iou", "nms", "roi_align",
+}
+PORTED_MODULES = {
+    "ops.registry", "tensor.creation", "tensor.math", "tensor.logic",
+    "tensor.manipulation", "tensor.linalg", "tensor.search",
+    "tensor.random", "tensor.attribute", "tensor.einsum",
+    "nn.functional.activation", "nn.functional.common",
+    "nn.functional.norm", "nn.functional.loss",
+}
+
+
+def test_registry_covers_the_reference_ops_of_ported_modules():
+    from torch_op_sweep import JOPS, TOPS, op_cases
+    mod = {k: v.fn.__module__.split(".", 1)[1] for k, v in JOPS.items()}
+    ported = {k for k, m in mod.items() if m in PORTED_MODULES}
+    assert len(ported) == 347 and len(JOPS) == 385
+    assert set(JOPS) - ported == NOT_YET
+    assert set(TOPS) == ported
+    # each op lives in the port's module of the same name
+    for k in ported:
+        assert TOPS[k].fn.__module__ == "paddle_tpu_torch." + mod[k], k
+    # and each has a parity case or, if random, a law case
+    assert op_cases.covered_ops() == ported
