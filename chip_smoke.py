@@ -121,7 +121,7 @@ both apply (M = 8, 16).
   one of ``flash_phase``'s cases, timed beside SDPA.
 
 - the eager core (``eager_phase``): every case of the op sweep
-  (``testing/op_cases.py``: 475 parity cases, bf16 ones for the ops the
+  (``testing/op_cases.py``: 550 parity cases, bf16 ones for the ops the
   models use, and the random ops' 24 laws) on the card against the
   CPU (``eager_ops <passed>/<total>``); ``LlamaForCausalLM`` at
   bench.py's shape trained the Paddle way, ``set_device("gpu")``,
@@ -135,7 +135,20 @@ both apply (M = 8, 16).
   the functional step's; the eager step, ``optimizer.step()`` and the
   peak beside the functional step's; then GPT-2 small eagerly, 3 steps
   (flash at D 64, 12 / 12 a step) and ``generate`` returning a
-  ``Tensor`` equal to the functional ``generate``'s tokens.
+  ``Tensor`` equal to the functional ``generate``'s tokens.  The sweep
+  holds the vision stack's 38 ops too (``VISION_OPS``: conv, pooling,
+  functional vision and extended, geometric, vision.ops).
+
+- the vision stack (``vision_phase``, float32 with TF32 off): the port's
+  LeNet example through its ``main`` (30 steps on the card; a run cut
+  after step 23 resumes from its committed step 20 and gives the
+  uninterrupted losses bit for bit under ``cudnn.deterministic``), then
+  ResNet-50 at its published width (1000 classes, 3 x 224 x 224) trained
+  by ``Model.fit`` with Momentum(0.1, 0.9) at B = 64 for 8 iterations:
+  step ms (steps 3-8), images/s, peak memory and the share of the f32
+  peak; the loss finite and the batch norms' statistics moved; one more
+  step of each net profiled, its device rows summed into classes
+  (cuDNN convolutions, batch norm, elementwise, copies).
 
 - checkpoints, health and the gang runtime (first, after the build): a
   small bf16 model's train state on the card, its newest step's state
@@ -2266,18 +2279,20 @@ def busy_union_us(prof):
     return busy
 
 
-def profile_classes(prof, head, class_flops, kernel_flops):
-    """Every device row summed into ``PROFILE_CLASSES`` ("other" printed
-    with its largest names), each with its share of the busy time and,
-    where ``class_flops`` gives its products, TFLOP/s; the port's GEMM
-    kernels one by one with ``kernel_flops`` (FLOPs a launch).  Fails
-    unless the classes sum to the trace's busy time within 0.5 %."""
+def profile_classes(prof, head, class_flops, kernel_flops,
+                    classes=PROFILE_CLASSES):
+    """Every device row summed into ``classes`` (``PROFILE_CLASSES``
+    unless given; "other" printed with its largest names), each with its
+    share of the busy time and, where ``class_flops`` gives its products,
+    TFLOP/s; the port's GEMM kernels one by one with ``kernel_flops``
+    (FLOPs a launch).  Fails unless the classes sum to the trace's busy
+    time within 0.5 %."""
     rows = device_rows(prof)
     busy = busy_union_us(prof)
-    names = [n for n, _ in PROFILE_CLASSES] + ["other"]
+    names = [n for n, _ in classes] + ["other"]
     sums = {n: [0.0, 0, []] for n in names}
     for e in rows:
-        cls = next((n for n, pat in PROFILE_CLASSES if re.search(pat, e.key)),
+        cls = next((n for n, pat in classes if re.search(pat, e.key)),
                    "other")
         sums[cls][0] += e.self_device_time_total
         sums[cls][1] += e.count
@@ -5319,6 +5334,274 @@ def eager_phase(torch, tbench, tllama, fa, fb, card, functional,
     return out
 
 
+# the vision stack: which of the sweep's ops it brought (their cases run
+# in eager_ops_check with the rest), LeNet's example and ResNet-50 fit
+VISION_OPS = {
+    "conv1d", "conv1d_transpose", "conv2d", "conv2d_transpose", "conv3d",
+    "conv3d_transpose",
+    "adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
+    "adaptive_max_pool1d", "adaptive_max_pool2d", "adaptive_max_pool3d",
+    "avg_pool1d", "avg_pool2d", "avg_pool3d", "lp_pool1d", "lp_pool2d",
+    "max_pool1d", "max_pool2d", "max_pool3d", "max_unpool1d",
+    "max_unpool2d", "max_unpool3d",
+    "affine_grid", "grid_sample", "temporal_shift",
+    "class_center_sample", "edit_distance", "gather_tree",
+    "margin_cross_entropy", "sequence_mask",
+    "segment_max", "segment_mean", "segment_min", "segment_sum",
+    "box_iou", "nms", "roi_align",
+}
+PEAK_F32_OPS_S = 67e12      # the card's float32 rate outside the tensor cores
+# a vision step's device rows by class (first match; cuDNN's convolution
+# kernels before the GEMM pattern, which their names also match)
+VISION_CLASSES = (
+    ("convolution (cuDNN)", r"(?i)conv|cudnn|xmma|fprop|dgrad|wgrad"
+                            r"|winograd|fft|implicit|scudnn|cutlass"),
+    ("batch norm", r"(?i)batch_norm|batchnorm|bn_fw|bn_bw|welford"),
+    ("cuBLAS GEMMs", r"nvjet|gemm|cublas|splitKreduce"),
+    ("pooling", r"(?i)pool"),
+    ("memcpy / memset", r"(?i)memcpy|memset"),
+    ("elementwise / reduction", r"at::native|elementwise|reduce|CatArray"
+                                r"|index|softmax|SoftMax"),
+)
+
+
+def _conv_linear_macs(paddle, net, x):
+    """Multiply-adds of one forward of ``net`` on ``x``, from the output
+    shapes of its Conv2D and Linear layers (hooks on a no-grad run):
+    (convolutions', linear layers')."""
+    nn = paddle.nn
+    total = [0, 0]
+
+    def hook(layer, inputs, out):
+        if isinstance(layer, nn.Conv2D):
+            k = int(np.prod(layer._kernel_size))
+            total[0] += out.size * (layer._in_channels // layer._groups) * k
+        else:
+            total[1] += out.size * layer._in_features
+    handles = [m.register_forward_post_hook(hook)
+               for m in net.sublayers() if isinstance(m, (nn.Conv2D,
+                                                          nn.Linear))]
+    with paddle.no_grad():
+        net.eval()
+        net(x)
+    for h in handles:
+        h.remove()
+    return tuple(total)
+
+
+def _profile_step(torch, step, head, classes, class_flops):
+    """One ``step()`` (after a warm one) under torch.profiler: its wall,
+    the device's busy share, the kernels launched and the device time by
+    class."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    print_profile(prof, wall_us, head, 8)
+    launches = sum(e.count for e in device_rows(prof))
+    busy = busy_union_us(prof)
+    print(f"{head}: {launches} kernels and copies, {wall_us / launches:.1f} "
+          f"us of wall a launch")
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                busy_share=busy / wall_us, launches=launches,
+                classes=profile_classes(prof, head, class_flops, {},
+                                        classes))
+
+
+class _StepClock:
+    """A hapi callback timing each train batch on the host clock, the
+    device synchronised at both ends, and the gap before it (the
+    loader's next batch)."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev = torch, dev
+        self.step_ms, self.wait_ms = [], []
+        self._end = None
+
+    def set_model(self, model):
+        pass
+
+    def set_params(self, params):
+        pass
+
+    def _sync(self):
+        if self.dev.type == "cuda":
+            self.torch.cuda.synchronize(self.dev)
+        return time.perf_counter()
+
+    def on_train_batch_begin(self, step, logs=None):
+        self._t0 = self._sync()
+        if self._end is not None:
+            self.wait_ms.append((self._t0 - self._end) * 1e3)
+
+    def on_train_batch_end(self, step, logs=None):
+        self._end = self._sync()
+        self.step_ms.append((self._end - self._t0) * 1e3)
+
+
+def vision_phase(torch, card, device="cuda", image=224, batch=64, iters=8):
+    """The vision stack on the card.
+
+    - The port's LeNet example (``paddle_tpu_torch.examples.train_lenet``)
+      run through ``main``: 30 steps uninterrupted, then a run cut after
+      step 23 (its newest commit is step 20) and resumed: the resumed
+      run must report step 20 and give the uninterrupted run's losses
+      from step 21 on bit for bit.  cuDNN runs deterministic algorithms
+      for it (``cudnn.deterministic``; its backward ones may otherwise
+      add with atomics), and the loss must fall.
+    - ResNet-50 at its published width (1000 classes, 3 x 224 x 224,
+      float32, TF32 off as in the whole run) trained by ``Model.fit``
+      with Momentum(0.1, 0.9), CrossEntropyLoss and Accuracy on
+      ``SyntheticImages(10 * 64, ...)`` at batch 64 for 8 iterations;
+      steps 3-8 are timed on the host clock around synchronised steps.
+      The loss must be finite and the batch norms' running statistics
+      must have moved.  Reported: step ms, images/s, the peak memory
+      and the share of the float32 peak (2 x the multiply-adds of the
+      convolutions and the classifier, x 3 for forward and backward).
+
+    ``device="cpu"`` (with a small ``image``, ``batch`` and ``iters``)
+    is the CPU rehearsal."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.examples import train_lenet
+    from paddle_tpu_torch.testing import op_cases
+    from paddle_tpu_torch.vision.datasets import SyntheticImages
+    dev = _device(torch, device)
+    place = "gpu" if dev.type == "cuda" else "cpu"
+    out = {"sweep_cases": sum(c.name in VISION_OPS
+                              for c in op_cases.PARITY)}
+
+    # LeNet: uninterrupted, cut after step 23, resumed from step 20
+    root = tempfile.mkdtemp(prefix="lenet_smoke_")
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        t0 = time.perf_counter()
+        full = train_lenet.main(root=os.path.join(root, "full"),
+                                device=place, verbose=False)
+        t_full = time.perf_counter() - t0
+        cut = os.path.join(root, "cut")
+        first = train_lenet.main(root=cut, device=place, stop_after=23,
+                                 verbose=False)
+        resumed = train_lenet.main(root=cut, device=place, verbose=False)
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = det
+        shutil.rmtree(root, ignore_errors=True)
+    ls = full["losses"]
+    check(sorted(ls) == list(range(1, 31)), "lenet: not 30 steps")
+    check(np.mean([ls[s] for s in range(26, 31)])
+          < np.mean([ls[s] for s in range(1, 6)]), "lenet: the loss did "
+          "not fall")
+    check(resumed["resumed_from"] == 20,
+          f"lenet: resumed from {resumed['resumed_from']}, not 20")
+    check(all(first["losses"][s] == ls[s] for s in range(1, 24)),
+          "lenet: the cut run's losses differ from the full run's")
+    diff = [s for s in range(21, 31) if resumed["losses"][s] != ls[s]]
+    check(not diff, f"lenet: resumed losses differ at steps {diff}")
+    sms = full["step_ms"]
+    out["lenet"] = dict(
+        steps=30, loss_first=ls[1], loss_last=ls[30], seconds=t_full,
+        step_ms_p50=float(np.median(sms[1:])), step_ms_first=sms[0],
+        data_wait_p50_ms=full["data_wait_p50_ms"],
+        resumed_from=resumed["resumed_from"], resume_bit_identical=True,
+        cudnn_deterministic=True)
+    print(f"vision lenet [{card}]: 30 steps in {t_full:.2f} s, step p50 "
+          f"{out['lenet']['step_ms_p50']:.3f} ms (first "
+          f"{sms[0]:.1f} ms), dataloader_next p50 "
+          f"{full['data_wait_p50_ms']:.3f} ms, loss {ls[1]:.4f} -> "
+          f"{ls[30]:.4f}; resumed from committed step 20, steps 21-30 "
+          f"bit-identical")
+
+    # ResNet-50 through Model.fit
+    paddle.set_device(place)
+    paddle.seed(0)
+    net = paddle.vision.models.resnet50()
+    conv_macs, fc_macs = _conv_linear_macs(paddle, net, paddle.to_tensor(
+        np.zeros((1, 3, image, image), np.float32)))
+    macs = conv_macs + fc_macs
+    t0 = time.perf_counter()
+    data = SyntheticImages(10 * batch, (3, image, image), 1000)
+    t_data = time.perf_counter() - t0
+    bn0 = net.bn1._mean.numpy().copy()
+    model = paddle.Model(net).prepare(
+        paddle.optimizer.Momentum(0.1, 0.9, parameters=net.parameters()),
+        paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    clock = _StepClock(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    hist = model.fit(data, batch_size=batch, epochs=1, num_iters=iters,
+                     shuffle=False, verbose=0, callbacks=[clock])
+    t_fit = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else 0
+    check(len(clock.step_ms) == iters, f"resnet50: {len(clock.step_ms)} "
+          f"steps, not {iters}")
+    check(np.isfinite(hist["loss"][0]), f"resnet50: loss {hist['loss']}")
+    moved = float(np.abs(net.bn1._mean.numpy() - bn0).max())
+    check(moved > 0, "resnet50: the batch norm statistics did not move")
+    timed = clock.step_ms[2:]
+    step_ms = float(np.mean(timed))
+    flop = 2.0 * 3 * macs * batch
+    out["resnet50"] = dict(
+        batch=batch, image=image, iters=iters, loss=hist["loss"][0],
+        step_ms=step_ms, step_ms_steps3_8=timed,
+        step_ms_first=clock.step_ms[0],
+        data_wait_ms=float(np.mean(clock.wait_ms[1:])) if len(
+            clock.wait_ms) > 1 else None,
+        images_per_s=batch / step_ms * 1e3, peak_bytes=int(peak),
+        macs_per_image_fwd=int(macs), flop_per_step=flop,
+        f32_peak_share=flop / (step_ms * 1e-3) / PEAK_F32_OPS_S,
+        bn_mean_moved=moved, fit_s=t_fit, data_s=t_data,
+        precision="float32, cudnn and matmul TF32 off")
+    r = out["resnet50"]
+    print(f"vision resnet50 [{card}]: B {batch} x 3 x {image} x {image} "
+          f"f32, step {step_ms:.2f} ms (steps 3-{iters}; first "
+          f"{r['step_ms_first']:.1f} ms), {r['images_per_s']:.1f} "
+          f"images/s, peak {peak / 1e9:.2f} GB, {flop / 1e9:.1f} GFLOP a "
+          f"step = {100 * r['f32_peak_share']:.1f} % of the f32 peak, "
+          f"loss {r['loss']:.4f}, data {t_data:.1f} s")
+    if dev.type != "cuda":
+        return out
+    # where the time goes: one more ResNet-50 step on a batch already on
+    # the card, and one LeNet step (the example's net, optimizer and
+    # batch size), each under torch.profiler
+    xb = paddle.to_tensor(data.images[:batch])
+    yb = paddle.to_tensor(data.labels[:batch])
+    r["profile"] = _profile_step(
+        torch, lambda: model.train_batch([xb], [yb]),
+        f"profile resnet50 [{card}]: 1 train_batch, B {batch}",
+        VISION_CLASSES,
+        {"convolution (cuDNN)": 2.0 * 3 * conv_macs * batch})
+    paddle.seed(0)
+    lenet = paddle.vision.models.LeNet()
+    opt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                parameters=lenet.parameters())
+    img = paddle.to_tensor(data.images[:1, :1, :28, :28].repeat(64, 0))
+    lab = paddle.to_tensor(data.labels[:64].reshape(-1) % 10)
+
+    def lenet_step():
+        loss = paddle.nn.CrossEntropyLoss()(lenet(img), lab)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        float(loss.numpy())
+    out["lenet"]["profile"] = _profile_step(
+        torch, lenet_step, f"profile lenet [{card}]: 1 step, B 64",
+        VISION_CLASSES, {})
+    return out
+
+
 def _file_digest(path):
     import hashlib
     if not os.path.exists(path):
@@ -5613,6 +5896,10 @@ def main(argv=()):
     # GPT-2 small trained the Paddle way
     eager = eager_phase(torch, tbench, tllama, fa, fb, card, fused_res)
     stamp("eager")
+    # the vision stack: LeNet's example (and its resume) and ResNet-50
+    # through Model.fit at its published width
+    vision = vision_phase(torch, card)
+    stamp("vision")
     # the distributed train step: a small model's topologies as 4 ranks
     # on the card against world size 1, then bench.py's shape at world
     # size 1 over NCCL (in turns with bench.train_step) and as 2 ranks
@@ -5836,6 +6123,7 @@ def main(argv=()):
           f"{json.dumps(moe_dist)}; serve {json.dumps(moe_serve)}")
     print(f"models [{card}]: {json.dumps(models)}")
     print(f"eager_ops {eager['ops']['passed']}/{eager['ops']['total']}")
+    print(f"vision [{card}]: {json.dumps(vision)}")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,13 @@
 ``import paddle_tpu_torch as paddle`` gives the eager core: ``Tensor``
 over a torch tensor with torch's autograd (``core/``), the op surface
 (``tensor/``, registered in ``ops.registry.OP_LIBRARY``), ``autograd``,
-``nn`` (``Layer``, its common / activation / norm / loss layers,
-functionals, initializers, gradient clipping), ``optimizer`` (ten
-optimizers and the LR schedules), ``set_device`` / ``seed`` /
-``save`` / ``load``.  Tensors are created on the current place: the
+``nn`` (``Layer``, its common / conv / activation / norm / pooling /
+loss layers, functionals, initializers, gradient clipping, ``utils``),
+``optimizer`` (ten optimizers and the LR schedules), ``set_device`` /
+``seed`` / ``save`` / ``load``; and the vision stack: ``vision``
+(models, datasets, transforms, detection ops, image IO), ``metric``,
+``hapi`` (``Model`` and its callbacks), ``geometric`` and
+``amp.debugging``.  Tensors are created on the current place: the
 card unless ``set_device`` names another; with neither, creation raises.
 
 Beside it, as before: ``models/`` (the Llama, GPT and ERNIE families,
@@ -51,6 +54,13 @@ from . import framework  # noqa: E402,F401
 from .framework.io import save  # noqa: E402,F401
 from .framework.io import load_tensors as load  # noqa: E402,F401
 from .autograd.functional import grad  # noqa: E402,F401
+
+from . import amp  # noqa: E402,F401
+from . import metric  # noqa: E402,F401
+from . import vision  # noqa: E402,F401
+from . import geometric  # noqa: E402,F401
+from . import hapi  # noqa: E402,F401
+from .hapi.model import Model, summary  # noqa: E402,F401
 
 from . import models  # noqa: E402,F401
 from .models import (ErnieConfig, GPTConfig, GPTForCausalLM,  # noqa: E402,F401

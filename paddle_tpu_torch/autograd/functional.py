@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import tensor as _core
 from ..core.tensor import Tensor, _as_torch
 
 __all__ = ["grad", "vjp", "jvp", "jacobian", "hessian"]
@@ -26,7 +27,10 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
          create_graph=False, only_inputs=True, allow_unused=False,
          no_grad_vars=None, name=None):
     """The gradients of ``outputs`` w.r.t. ``inputs``, leaving every
-    ``.grad`` as it was."""
+    ``.grad`` as it was.  The paths through ``no_grad_vars`` are cut
+    for the call, as the reference cuts them (it sets their
+    ``stop_gradient``): an input reached only through them, or through a
+    tensor marked ``stop_gradient`` after the fact, has no gradient."""
     outputs = _listify(outputs)
     inputs = _listify(inputs)
     grad_outputs = _listify(grad_outputs) or [None] * len(outputs)
@@ -34,10 +38,26 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
              else _as_torch(g._t if isinstance(g, Tensor) else g,
                             o._t.dtype, o._t.device)
              for o, g in zip(outputs, grad_outputs)]
-    res = torch.autograd.grad(
-        [o._t for o in outputs], [i._t for i in inputs], seeds,
-        retain_graph=bool(retain_graph) or create_graph,
-        create_graph=create_graph, allow_unused=True)
+    removers, cut_ids = [], set()
+    for v in _listify(no_grad_vars):
+        t = v._t
+        cut_ids.add(id(t))
+        if t.requires_grad and t.grad_fn is not None:
+            removers.append(_core._cut(t))
+    try:
+        res = torch.autograd.grad(
+            [o._t for o in outputs], [i._t for i in inputs], seeds,
+            retain_graph=bool(retain_graph) or create_graph,
+            create_graph=create_graph, allow_unused=True)
+        if _core._LIVE_CUTS[0] or cut_ids:
+            reached = _core._reached([o._t for o in outputs], cut_ids)
+            res = [None if g is None or id(i._t) in cut_ids
+                   or not _core._is_reached(i._t, reached) else g
+                   for g, i in zip(res, inputs)]
+    finally:
+        for r in removers:
+            if r is not None:
+                r()
     out = []
     for g in res:
         if g is None:

@@ -125,6 +125,8 @@ class Tensor:
         t = self._t
         if value:
             if t.requires_grad:
+                if t.grad_fn is not None:
+                    _cut(t)     # an op may have consumed it already
                 self._t = t.detach()
         elif not t.requires_grad and (t.is_floating_point()
                                       or t.is_complex()):
@@ -333,6 +335,95 @@ def _check_nan_inf(op_name, tensors):
 
 
 # ---------------------------------------------------------------------------
+# cuts: stop_gradient set on a tensor after an op consumed it
+# ---------------------------------------------------------------------------
+#
+# The reference's tape skips every input whose ``stop_gradient`` is set
+# when backward runs, so marking a tensor cuts the paths through it even
+# in a graph recorded before.  Here the recorded graph is torch's: a cut
+# is a hook that zeroes the gradient arriving at the tensor (the values)
+# and a mark in its node's metadata (which outputs are cut), so that
+# backward can tell which leaves are reached without passing through a
+# cut: those alone get a ``.grad``, as in the reference, where the
+# others keep ``None``.  The mark counts itself among the live cuts
+# while its node lives; with none live, backward walks nothing.
+
+_LIVE_CUTS = [0]
+_CUT_KEY = "paddle_tpu_torch.cut"
+
+
+class _CutMark:
+    def __init__(self):
+        self.outputs = set()
+        _LIVE_CUTS[0] += 1
+
+    def __del__(self):
+        _LIVE_CUTS[0] -= 1
+
+
+def _zero_grad(g):
+    return torch.zeros_like(g)
+
+
+def _cut(t: torch.Tensor):
+    """Cut the graph at the non-leaf ``t``.  Returns the cut's remover
+    (None when ``t`` was cut already)."""
+    md = t.grad_fn.metadata
+    mark = md.get(_CUT_KEY)
+    if mark is None:
+        mark = md[_CUT_KEY] = _CutMark()
+    nr = t.output_nr
+    if nr in mark.outputs:
+        return None
+    mark.outputs.add(nr)
+    handle = t.register_hook(_zero_grad)
+
+    def remove():
+        handle.remove()
+        mark.outputs.discard(nr)
+        if not mark.outputs and md.get(_CUT_KEY) is mark:
+            del md[_CUT_KEY]
+    return remove
+
+
+def _reached(roots, cut_leaves=()):
+    """What backward from ``roots`` reaches without passing a cut: the
+    leaves ({id: tensor}; none whose id is in ``cut_leaves``) and the
+    (id(node), output) pairs of the non-leaf tensors.  ``keep`` holds
+    the nodes, so their ids stay theirs."""
+    leaves = {id(r): r for r in roots
+              if r.grad_fn is None and r.requires_grad}
+    edges, keep, seen = set(), [], set()
+    stack = [(r.grad_fn, r.output_nr) for r in roots
+             if r.grad_fn is not None]
+    while stack:
+        fn, nr = stack.pop()
+        mark = fn.metadata.get(_CUT_KEY)
+        if mark is not None and nr in mark.outputs:
+            continue
+        keep.append(fn)
+        edges.add((id(fn), nr))
+        if id(fn) in seen:
+            continue
+        seen.add(id(fn))
+        var = getattr(fn, "variable", None)
+        if var is not None:      # AccumulateGrad: a leaf
+            if id(var) not in cut_leaves:
+                leaves[id(var)] = var
+            continue
+        stack.extend((nxt, k) for nxt, k in fn.next_functions
+                     if nxt is not None)
+    return leaves, edges, keep
+
+
+def _is_reached(t: torch.Tensor, reached) -> bool:
+    leaves, edges, _ = reached
+    if t.grad_fn is None:
+        return id(t) in leaves
+    return (id(t.grad_fn), t.output_nr) in edges
+
+
+# ---------------------------------------------------------------------------
 # backward
 # ---------------------------------------------------------------------------
 
@@ -357,7 +448,14 @@ def run_backward(tensors: Sequence[Tensor],
             g = _as_torch(_unwrap(g), t._t.dtype, t._t.device)
         roots.append(t._t)
         seeds.append(g)
-    torch.autograd.backward(roots, seeds, retain_graph=retain_graph)
+    if not _LIVE_CUTS[0]:
+        torch.autograd.backward(roots, seeds, retain_graph=retain_graph)
+        return
+    # a cut is live: only the leaves reached around the cuts take a grad
+    leaves = list(_reached(roots)[0].values())
+    if leaves:
+        torch.autograd.backward(roots, seeds, retain_graph=retain_graph,
+                                inputs=leaves)
 
 
 # ---------------------------------------------------------------------------

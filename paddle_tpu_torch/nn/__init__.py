@@ -1,13 +1,17 @@
 """paddle.nn: the ported part (``Layer`` and its containers, the common,
-activation, norm and loss layers, gradient clipping, functionals and
-initializers).  conv, pooling, rnn, transformer and decode come with a
-later slice."""
+conv, activation, norm, pooling and loss layers, gradient clipping,
+functionals, initializers and ``utils``).  rnn, transformer and decode
+come with a later slice."""
 from .layer.layers import (Layer, Parameter, Sequential, LayerList,
                            ParameterList, LayerDict)
 from .layer.common import *  # noqa: F401,F403
+from .layer.conv import (Conv1D, Conv2D, Conv3D, Conv1DTranspose,
+                         Conv2DTranspose, Conv3DTranspose)
 from .layer.norm import *  # noqa: F401,F403
 from .layer.activation import *  # noqa: F401,F403
+from .layer.pooling import *  # noqa: F401,F403
 from .layer.loss import *  # noqa: F401,F403
 from .clip import (ClipGradByValue, ClipGradByNorm, ClipGradByGlobalNorm)
 from . import functional
 from . import initializer
+from . import utils  # noqa: E402,F401

@@ -1,9 +1,14 @@
-"""paddle.nn.functional: the ported part (activations, common, norms,
-losses).  conv, pooling, vision and extended come with a later slice."""
+"""paddle.nn.functional: activations, common, conv, pooling, norms,
+losses, vision and the extended ops.  ``sparse_attention`` comes with
+``incubate``."""
 from .activation import *  # noqa: F401,F403
 from .common import *  # noqa: F401,F403
+from .conv import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403
 from .norm import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
+from .vision import *  # noqa: F401,F403
+from .extended import *  # noqa: F401,F403
 from ...tensor.manipulation import pad  # noqa: F401
 
 # in-place activation variants ride the shared tensor in-place machinery;

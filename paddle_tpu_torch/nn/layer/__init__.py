@@ -1,2 +1,2 @@
 """The ported layers: the ``Layer`` base and containers, common,
-activation, norm and loss layers."""
+conv, activation, norm, pooling and loss layers."""

@@ -690,6 +690,186 @@ case("mean", n(4, 64), -1, grad=(0,), **_B)
 case("max", n(4, 64), -1, grad=(0,), **_B)
 
 
+# -- the vision stack: conv, pooling, vision, extended, geometric, ops -----
+
+
+def boxes(n, size=8.0):
+    """``n`` boxes (x1, y1, x2, y2) inside [0, size]."""
+    def make(rng):
+        xy = rng.uniform(0, size * 0.55, (n, 2))
+        wh = rng.uniform(1.0, size * 0.45, (n, 2))
+        return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    return make
+
+
+def unpool_idx(lead, outs, k):
+    """Flat indices a non-overlapping k-pool (stride k) could have
+    recorded for an output of spatial size ``outs``: one position in
+    each window, over the input's k-times-larger plane (volume)."""
+    def make(rng):
+        grids = np.meshgrid(*[np.arange(o) for o in outs], indexing="ij")
+        flat = np.zeros(tuple(lead) + tuple(outs), np.int64)
+        for g, o in zip(grids, outs):
+            pos = g * k + rng.integers(0, k, tuple(lead) + tuple(outs))
+            flat = flat * (o * k) + pos
+        return flat.astype(np.int32)
+    return make
+
+
+def _unpool_after(nd):
+    """``post``: unpool the (values, mask) of a return_mask pool."""
+    def post(paddle, outs):
+        fn = getattr(paddle.nn.functional, f"max_unpool{nd}d")
+        return [fn(outs[0], outs[1], 2)]
+    return post
+
+
+_CV = dict(tol=R, gtol=R)
+# conv: padding forms, "SAME" at stride 2 (an asymmetric split), groups,
+# dilation, channels-last; the transposed conv (the reference's
+# unflipped lhs-dilation form) at strides 1 and 2
+case("conv1d", n(2, 3, 8), n(4, 3, 3), n(4), grad=(0, 1, 2), padding=1,
+     **_CV)
+case("conv1d", n(2, 8, 3), n(4, 3, 3), grad=(0, 1), tag="nlc-same-s2",
+     stride=2, padding="SAME", data_format="NLC", **_CV)
+case("conv2d", n(2, 3, 6, 6), n(4, 3, 3, 3), n(4), grad=(0, 1, 2),
+     padding=1, **_CV)
+case("conv2d", n(2, 3, 6, 6), n(4, 3, 3, 3), grad=(0, 1), tag="same-s2",
+     stride=2, padding="SAME", **_CV)
+case("conv2d", n(2, 4, 7, 7), n(4, 2, 3, 3), n(4), grad=(0, 1, 2),
+     tag="groups-dilation", groups=2, dilation=2, padding=[1, 2], **_CV)
+case("conv2d", n(2, 6, 5, 3), n(4, 3, 2, 2), grad=(0, 1), tag="nhwc-pairs",
+     padding=[1, 0, 0, 1], data_format="NHWC", **_CV)
+case("conv2d", n(1, 2, 5, 5), n(3, 2, 3, 3), grad=(0, 1), tag="valid-s2",
+     stride=2, padding="VALID", **_CV)
+case("conv3d", n(1, 2, 4, 4, 4), n(3, 2, 2, 2, 2), n(3), grad=(0, 1, 2),
+     padding=1, **_CV)
+case("conv1d_transpose", n(2, 3, 5), n(3, 2, 3), n(2), grad=(0, 1, 2),
+     stride=2, padding=1, output_padding=1, **_CV)
+case("conv2d_transpose", n(2, 3, 4, 4), n(3, 2, 3, 3), n(2),
+     grad=(0, 1, 2), tag="s1", **_CV)
+case("conv2d_transpose", n(2, 3, 4, 4), n(3, 2, 3, 3), grad=(0, 1),
+     tag="s2-p1", stride=2, padding=1, **_CV)
+case("conv2d_transpose", n(1, 2, 3, 3), n(2, 2, 3, 3), grad=(0, 1),
+     tag="s2-outpad-dil", stride=2, padding=1, output_padding=1,
+     dilation=2, **_CV)
+case("conv2d_transpose", n(1, 4, 4, 2), n(2, 3, 3, 3), grad=(0, 1),
+     tag="nhwc-p2", padding=2, data_format="NHWC", **_CV)
+case("conv3d_transpose", n(1, 2, 3, 3, 3), n(2, 2, 2, 2, 2), n(2),
+     grad=(0, 1, 2), stride=2, **_CV)
+
+# pooling: the reference's windows and divisors (ceil_mode widens the
+# high side; once widened, or exclusive with padding, the divisor is the
+# count of real elements); tied inputs; return_mask into max_unpool
+case("avg_pool1d", n(2, 3, 7), 3, 2, 1, grad=(0,), **_CV)
+case("avg_pool1d", n(2, 3, 8), 3, 2, grad=(0,), tag="ceil", ceil_mode=True,
+     **_CV)
+case("avg_pool2d", n(2, 3, 6, 6), 3, 2, 1, grad=(0,), **_CV)
+case("avg_pool2d", n(2, 3, 6, 6), 3, 2, 1, grad=(0,), tag="inclusive",
+     exclusive=False, **_CV)
+case("avg_pool2d", n(2, 3, 7, 6), 2, 2, grad=(0,), tag="ceil",
+     ceil_mode=True, **_CV)
+case("avg_pool2d", n(2, 3, 7, 6), 3, 2, 1, grad=(0,),
+     tag="ceil-inclusive", ceil_mode=True, exclusive=False, **_CV)
+case("avg_pool2d", n(2, 3, 7, 6), 3, 2, 1, grad=(0,), tag="ceil-exclusive",
+     ceil_mode=True, exclusive=True, **_CV)
+case("avg_pool2d", n(2, 5, 5, 3), 2, 1, [0, 1, 1, 0], grad=(0,),
+     tag="nhwc-pairs", exclusive=True, data_format="NHWC", **_CV)
+case("avg_pool2d", n(1, 2, 6, 6), 3, 2, "SAME", grad=(0,), tag="same",
+     **_CV)
+case("avg_pool3d", n(1, 2, 5, 5, 5), 2, 2, 1, grad=(0,), ceil_mode=True,
+     **_CV)
+case("max_pool1d", n(2, 3, 7), 3, 2, 1, grad=(0,), **_CV)
+case("max_pool1d", n(2, 3, 8), 2, grad=(0,), tag="mask-unpool",
+     return_mask=True, post=_unpool_after(1), **_CV)
+case("max_pool2d", n(2, 3, 7, 7), 3, 2, 1, grad=(0,), **_CV)
+case("max_pool2d", n(2, 3, 7, 6), 3, 2, 1, grad=(0,), tag="ceil",
+     ceil_mode=True, **_CV)
+case("max_pool2d", ties(2, 3, 6, 6, levels=2), 2, 2, grad=(0,),
+     tag="ties", **_CV)
+case("max_pool2d", n(2, 3, 5, 4), 3, 2, 1, grad=(0,), tag="nhwc",
+     data_format="NHWC", **_CV)
+case("max_pool2d", n(2, 3, 6, 6), 2, grad=(0,), tag="mask",
+     return_mask=True, **_CV)
+case("max_pool2d", n(2, 3, 6, 6), 2, grad=(0,), tag="mask-unpool",
+     return_mask=True, post=_unpool_after(2), **_CV)
+case("max_pool2d", ties(2, 3, 6, 6, levels=2), 2, grad=(0,),
+     tag="mask-ties", return_mask=True, **_CV)
+case("max_pool3d", n(1, 2, 5, 5, 5), 3, 2, 1, grad=(0,), **_CV)
+case("max_pool3d", n(1, 2, 4, 4, 4), 2, grad=(0,), tag="mask-unpool",
+     return_mask=True, post=_unpool_after(3), **_CV)
+case("max_unpool1d", n(2, 3, 4), unpool_idx((2, 3), (4,), 2), 2,
+     grad=(0,), **_CV)
+case("max_unpool2d", n(2, 3, 3, 2), unpool_idx((2, 3), (3, 2), 2), 2,
+     grad=(0,), **_CV)
+case("max_unpool3d", n(1, 2, 2, 2, 2), unpool_idx((1, 2), (2, 2, 2), 2), 2,
+     grad=(0,), **_CV)
+case("adaptive_avg_pool1d", n(2, 3, 8), 3, grad=(0,), **_CV)
+case("adaptive_avg_pool2d", n(2, 3, 6, 7), [2, 3], grad=(0,), **_CV)
+case("adaptive_avg_pool2d", n(2, 4, 5, 3), 1, grad=(0,), tag="nhwc-global",
+     data_format="NHWC", **_CV)
+case("adaptive_avg_pool3d", n(1, 2, 4, 5, 6), 2, grad=(0,), **_CV)
+case("adaptive_max_pool1d", n(2, 3, 8), 3, grad=(0,), **_CV)
+case("adaptive_max_pool2d", n(2, 3, 6, 7), [2, 3], grad=(0,), **_CV)
+case("adaptive_max_pool2d", ties(2, 3, 4, 4, levels=2), 2, grad=(0,),
+     tag="ties", **_CV)
+case("adaptive_max_pool2d", const(np.ones((1, 1, 2, 2), np.float32)), 1,
+     grad=(0,), tag="all-equal", **_CV)
+case("adaptive_max_pool3d", ties(1, 2, 4, 4, 4, levels=3), 2, grad=(0,),
+     tag="ties", **_CV)
+case("lp_pool1d", f(2, 3, 8), 2, 3, 2, grad=(0,), **_CV)
+case("lp_pool2d", f(2, 3, 6, 6), 3, 2, grad=(0,), **_CV)
+
+# vision and extended functionals
+case("affine_grid", n(2, 2, 3), [2, 1, 3, 4], grad=(0,), **_CV)
+case("affine_grid", n(2, 2, 3), [2, 1, 4, 3], grad=(0,), tag="half-pixel",
+     align_corners=False, **_CV)
+_grid = f(2, 3, 4, 2, lo=-1.1, hi=1.1)
+case("grid_sample", n(2, 2, 4, 5), _grid, grad=(0, 1), **_CV)
+case("grid_sample", n(2, 2, 4, 5), _grid, grad=(0, 1), tag="border",
+     padding_mode="border", align_corners=False, **_CV)
+case("grid_sample", n(2, 2, 4, 5), _grid, grad=(0, 1), tag="reflection",
+     padding_mode="reflection", **_CV)
+case("grid_sample", n(2, 2, 4, 5), _grid, grad=(0, 1),
+     tag="reflection-half", padding_mode="reflection", align_corners=False,
+     **_CV)
+case("grid_sample", n(2, 2, 4, 5), _grid, grad=(0,), tag="nearest",
+     mode="nearest", **_CV)
+case("temporal_shift", n(4, 8, 2, 2), 2, grad=(0,), **_CV)
+case("temporal_shift", n(6, 2, 2, 8), 3, 0.125, grad=(0,), tag="nhwc",
+     data_format="NHWC", **_CV)
+case("sequence_mask", const(np.array([1, 3, 0, 2])), 4)
+case("sequence_mask", const(np.array([[1, 3], [2, 2]])), tag="maxlen-none",
+     dtype="float32")
+case("gather_tree", i(4, 2, 3, hi=9), i(4, 2, 3, hi=3))
+case("class_center_sample", const(np.array([4, 1, 4, 0, 6, 1])), 8, 3)
+case("margin_cross_entropy", f(4, 6, lo=-0.9, hi=0.9), i(4, hi=6),
+     grad=(0,), **_CV)
+case("margin_cross_entropy", f(4, 6, lo=-0.9, hi=0.9), i(4, 1, hi=6),
+     grad=(0,), tag="softmax-none", margin1=1.0, margin2=0.3,
+     margin3=0.1, scale=16.0, return_softmax=True, reduction="none", **_CV)
+case("edit_distance", i(3, 5, hi=4), i(3, 4, hi=4))
+case("edit_distance", i(3, 5, hi=4), i(3, 4, hi=4), tag="lengths",
+     normalized=False, ignored_tokens=[0],
+     input_length=const(np.array([5, 3, 0])),
+     label_length=const(np.array([4, 2, 1])))
+
+# geometric: the segment reductions (an empty segment included)
+_seg = const(np.array([0, 0, 2, 2, 2, 3]))
+for _s in ("segment_sum", "segment_mean", "segment_max", "segment_min"):
+    case(_s, n(6, 3), _seg, grad=(0,), **_CV)
+
+# vision.ops
+case("box_iou", boxes(4), boxes(3), **_CV)
+case("nms", boxes(8), 0.3, scores=f(8))
+case("nms", boxes(8), 0.5, tag="topk-noscores", top_k=3)
+case("roi_align", n(2, 3, 8, 8), boxes(3), const(np.array([2, 1])), 2,
+     grad=(0, 1), **_CV)
+case("roi_align", n(1, 2, 8, 8), boxes(2, 16.0), const(np.array([2])),
+     [3, 2], grad=(0,), tag="scaled", spatial_scale=0.5, aligned=False,
+     **_CV)
+
+
 # ---------------------------------------------------------------------------
 # running and comparing a case
 # ---------------------------------------------------------------------------

@@ -20,29 +20,19 @@ def test_random_op_law(law):
     check_law(law)
 
 
-# reference ops the slice does not port yet, by ROADMAP item: conv 6 and
-# pooling 17 (nn/functional/{conv,pooling}), functional/vision 3,
-# functional/extended 5, geometric 4, vision.ops 3
-NOT_YET = {
-    "conv1d", "conv1d_transpose", "conv2d", "conv2d_transpose", "conv3d",
-    "conv3d_transpose",
-    "adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
-    "adaptive_max_pool1d", "adaptive_max_pool2d", "adaptive_max_pool3d",
-    "avg_pool1d", "avg_pool2d", "avg_pool3d", "lp_pool1d", "lp_pool2d",
-    "max_pool1d", "max_pool2d", "max_pool3d", "max_unpool1d",
-    "max_unpool2d", "max_unpool3d",
-    "affine_grid", "grid_sample", "temporal_shift",
-    "class_center_sample", "edit_distance", "gather_tree",
-    "margin_cross_entropy", "sequence_mask",
-    "segment_max", "segment_mean", "segment_min", "segment_sum",
-    "box_iou", "nms", "roi_align",
-}
+# reference ops the port does not have yet: none (the vision stack
+# brought conv 6, pooling 17, functional/vision 3, functional/extended
+# 5, geometric 4 and vision.ops 3)
+NOT_YET = set()
 PORTED_MODULES = {
     "ops.registry", "tensor.creation", "tensor.math", "tensor.logic",
     "tensor.manipulation", "tensor.linalg", "tensor.search",
     "tensor.random", "tensor.attribute", "tensor.einsum",
     "nn.functional.activation", "nn.functional.common",
     "nn.functional.norm", "nn.functional.loss",
+    "nn.functional.conv", "nn.functional.pooling",
+    "nn.functional.vision", "nn.functional.extended", "geometric",
+    "vision.ops",
 }
 
 
@@ -50,7 +40,7 @@ def test_registry_covers_the_reference_ops_of_ported_modules():
     from torch_op_sweep import JOPS, TOPS, op_cases
     mod = {k: v.fn.__module__.split(".", 1)[1] for k, v in JOPS.items()}
     ported = {k for k, m in mod.items() if m in PORTED_MODULES}
-    assert len(ported) == 347 and len(JOPS) == 385
+    assert len(ported) == 385 and len(JOPS) == 385
     assert set(JOPS) - ported == NOT_YET
     assert set(TOPS) == ported
     # each op lives in the port's module of the same name

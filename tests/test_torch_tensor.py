@@ -468,3 +468,78 @@ def test_save_load_tensors_and_a_layer(tmp_path):
     bf = tpaddle.to_tensor([1.5], dtype="bfloat16")
     tpaddle.save({"x": bf}, path)
     assert tpaddle.load(path)["x"].dtype == torch.bfloat16
+
+
+# -- cutting the graph at a tensor marked after the fact (ROADMAP C1) --------
+
+def _cut_repro(paddle):
+    a = paddle.to_tensor(np.array([1.0, 2.0], np.float32),
+                         stop_gradient=False)
+    x = a * 2
+    return a, x, paddle.sum(x * 3)
+
+
+def test_grad_cuts_at_no_grad_vars(paddle):
+    """An input reached only through ``no_grad_vars`` has no gradient:
+    None with ``allow_unused``, the "appears unused" error without."""
+    a, x, y = _cut_repro(paddle)
+    assert paddle.grad([y], [a], no_grad_vars=[x],
+                       allow_unused=True) == [None]
+    a, x, y = _cut_repro(paddle)
+    with pytest.raises(RuntimeError, match="appears unused"):
+        paddle.grad([y], [a], no_grad_vars=[x])
+    # the cut is for the call only: the same graph differentiates again
+    a, x, y = _cut_repro(paddle)
+    paddle.grad([y], [a], no_grad_vars=[x], allow_unused=True,
+                retain_graph=True)
+    np.testing.assert_allclose(paddle.grad([y], [a])[0].numpy(), [6, 6])
+
+
+def test_grad_no_grad_vars_keeps_the_other_paths():
+    def fn(paddle):
+        a = paddle.to_tensor(np.array([1.0, 2.0], np.float32),
+                             stop_gradient=False)
+        b = paddle.to_tensor(np.array([3.0, -1.0], np.float32),
+                             stop_gradient=False)
+        x = a * b
+        y = paddle.sum(x * 3 + a * a + paddle.exp(b))
+        return [g.numpy() for g in paddle.grad([y], [a, b],
+                                               no_grad_vars=[x])]
+    want, got = _both(fn)
+    _close(got, want)
+    np.testing.assert_allclose(got[0], [2.0, 4.0])
+
+
+def test_stop_gradient_set_after_use_cuts_backward(paddle):
+    """``stop_gradient = True`` on a consumed non-leaf cuts there: a
+    leaf reached only through it keeps ``grad`` None, not zeros."""
+    a, x, y = _cut_repro(paddle)
+    x.stop_gradient = True
+    y.backward()
+    assert a.grad is None
+    a = paddle.to_tensor(np.array([1.0, 2.0], np.float32),
+                         stop_gradient=False)
+    b = paddle.to_tensor(np.array([0.5, 4.0], np.float32),
+                         stop_gradient=False)
+    x = a * 2
+    y = paddle.sum(x * 3 + b * a)
+    x.stop_gradient = True
+    y.backward()
+    np.testing.assert_allclose(a.grad.numpy(), [0.5, 4.0])
+    np.testing.assert_allclose(b.grad.numpy(), [1.0, 2.0])
+
+
+def test_cuts_cost_nothing_once_their_graph_is_gone():
+    from paddle_tpu_torch.core import tensor as core
+    import gc
+    a, x, y = _cut_repro(tpaddle)
+    x.stop_gradient = True
+    assert core._LIVE_CUTS[0] >= 1
+    del a, x, y
+    gc.collect()
+    assert core._LIVE_CUTS[0] == 0
+    a, x, y = _cut_repro(tpaddle)
+    tpaddle.grad([y], [a], no_grad_vars=[x], allow_unused=True)
+    del a, x, y
+    gc.collect()
+    assert core._LIVE_CUTS[0] == 0

@@ -10,7 +10,8 @@ import pytest
 
 import paddle_tpu as jpaddle
 import paddle_tpu_torch as tpaddle
-from paddle_tpu_torch.testing.op_cases import f, i, n, probs  # noqa: F401
+from paddle_tpu_torch.testing.op_cases import (  # noqa: F401
+    f, i, n, probs, unpool_idx)
 
 L = []
 
@@ -170,3 +171,36 @@ def check_layer(cls, args, kwargs, inputs, eval_, tol):
                                    rtol=1e-4, atol=1e-5, err_msg=k)
 
 
+
+# conv and pooling (tests/test_torch_vision.py)
+L.clear()
+_T = dict(tol=1e-4)
+layer("Conv1D", 3, 4, 3, inputs=[n(2, 3, 8)], padding=1, **_T)
+layer("Conv2D", 3, 4, 3, inputs=[n(2, 3, 6, 6)], stride=2, padding=1, **_T)
+layer("Conv2D", 4, 6, 3, inputs=[n(2, 4, 6, 6)], tag="groups-nobias",
+      groups=2, dilation=2, padding="SAME", bias_attr=False, **_T)
+layer("Conv3D", 2, 3, 2, inputs=[n(1, 2, 4, 4, 4)], **_T)
+layer("Conv1DTranspose", 3, 2, 3, inputs=[n(2, 3, 5)], stride=2, **_T)
+layer("Conv2DTranspose", 3, 2, 3, inputs=[n(2, 3, 4, 4)], stride=2,
+      padding=1, output_padding=1, **_T)
+layer("Conv3DTranspose", 2, 2, 2, inputs=[n(1, 2, 3, 3, 3)], **_T)
+layer("MaxPool1D", 2, inputs=[n(2, 3, 8)], **_T)
+layer("MaxPool2D", 3, 2, 1, inputs=[n(2, 3, 7, 7)], ceil_mode=True, **_T)
+layer("MaxPool3D", 2, inputs=[n(1, 2, 4, 4, 4)], **_T)
+layer("AvgPool1D", 3, 2, 1, inputs=[n(2, 3, 7)], **_T)
+layer("AvgPool2D", 3, 2, 1, inputs=[n(2, 3, 7, 6)], ceil_mode=True,
+      exclusive=False, **_T)
+layer("AvgPool3D", 2, inputs=[n(1, 2, 4, 4, 4)], **_T)
+layer("AdaptiveAvgPool1D", 3, inputs=[n(2, 3, 8)], **_T)
+layer("AdaptiveAvgPool2D", (1, 1), inputs=[n(2, 3, 5, 5)], **_T)
+layer("AdaptiveAvgPool3D", 2, inputs=[n(1, 2, 4, 4, 4)], **_T)
+layer("AdaptiveMaxPool1D", 3, inputs=[n(2, 3, 7)], **_T)
+layer("AdaptiveMaxPool2D", 2, inputs=[n(2, 3, 5, 5)], **_T)
+layer("AdaptiveMaxPool3D", 2, inputs=[n(1, 2, 4, 4, 4)], **_T)
+for _nd, _lead, _outs in [(1, (2, 3), (4,)), (2, (2, 3), (3, 2)),
+                          (3, (1, 2), (2, 2, 2))]:
+    layer(f"MaxUnPool{_nd}D", 2,
+          inputs=[n(*(_lead + _outs)), unpool_idx(_lead, _outs, 2)], **_T)
+
+VISION = list(L)
+VISION_NAMES = sorted({p.values[0] for p in VISION})
