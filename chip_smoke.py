@@ -171,6 +171,25 @@ both apply (M = 8, 16).
   ``_ckpt_smoke/`` (removed after each phase), the pods' logs to
   ``chiprun_out/gang/``.
 
+- mixed precision and the sequence layers (``amp_phase``,
+  ``seq_phase``): bench.py's Llama built in float32, ``amp.decorate``
+  O2 to bf16 with AdamW's float32 master weights, trained 6 steps under
+  ``auto_cast(level="O2")`` with a ``GradScaler`` (step 1's loss and
+  unscaled grads bit-equal to the O2 composition by hand, its masters
+  bit-equal to the reference's AdamW written out, the launches the
+  fused step's; step, ``unscale_`` and ``optimizer.step()`` ms, the peak
+  beside 22 B a parameter); Transformer-base (Vaswani et al. 2017: 512
+  wide, 8 heads, 6 + 6 layers, a shared 37,000-token vocabulary) under
+  O1 bf16 at B 32 x 128 + 128, and under fp16 with a ``GradScaler``
+  from 2**32 (the parameters unchanged by every skipped step, the
+  skipped-steps counter equal to them); 12 incubate
+  ``FusedTransformerEncoderLayer`` at ERNIE-base's width (768, 12
+  heads, 3072) at B 32 x 512 with ``LookAhead(AdamW)`` and
+  ``ModelAverage``; an LSTM seq2seq (512 wide, 2 layers) beam-searching
+  (beam 4, 32 steps, B 16) to the CPU's tokens on the same weights;
+  LBFGS with strong Wolfe on 4096 x 1024 least squares within 1e-3 of
+  ``lstsq``; and each path small in float32 on the card against the CPU.
+
 Any failure exits non-zero.  The last two lines of standard output are
 the card's name and power limit (from nvidia-smi) and, last,
 ``{"ok": true, "device": {...}}``; the line before them is the
@@ -5602,6 +5621,790 @@ def vision_phase(torch, card, device="cuda", image=224, batch=64, iters=8):
     return out
 
 
+# ---------------------------------------------------------------------------
+# mixed precision (amp) and the sequence layers
+# ---------------------------------------------------------------------------
+
+AMP_STEPS, AMP_SCALE = 6, 2.0 ** 15
+# bytes a parameter under O2 with AdamW and the clip: the bf16 param, its
+# f32 grad after unscale_, the f32 master, two f32 moments, the clip's
+# f32 copy of the grad
+AMP_BYTES_PER_PARAM = 2 + 4 + 4 + 8 + 4
+
+
+def amp_phase(torch, tbench, tllama, card, functional, eager,
+              device="cuda"):
+    """bench.py's Llama trained under AMP O2 (``paddle_tpu_torch.amp``).
+
+    ``LlamaForCausalLM`` at bench.py's width and depth ("dots", fused
+    blocks "auto") built in float32 after ``set_device("gpu")`` and
+    ``seed(0)``, ``amp.decorate(level="O2", dtype="bfloat16")`` with
+    ``AdamW(LinearWarmup, ClipGradByGlobalNorm(1.0))``: every parameter a
+    bf16 leaf on the card.  ``AMP_STEPS`` steps on one batch of B 4 x
+    2048, the forward and loss under ``auto_cast(level="O2")``, then
+    ``GradScaler(2**15)``: ``scale(loss).backward()``, ``unscale_``,
+    ``step``, ``update``.  Step 1's loss and its unscaled float32 grads
+    are bit-equal to the same composition run by hand on raw copies of
+    the bf16 params (``forward_pure``, the black list's float32 cast of
+    the logits, ``plain_cross_entropy``, times the scale, the grads in
+    float32 divided by it); step 1's float32 master of every parameter
+    is bit-equal to ``plain_adamw_update`` on the params in float32 and
+    each param is its master's cast; the scale never dropped (no
+    step skipped); the losses finite and falling; the launches a step
+    of rows 7-10 and the flash wrappers equal ``functional``'s (the
+    fused train step's).  Reported: step ms, ``unscale_`` ms and
+    ``optimizer.step()`` ms (steps 2 on) beside ``eager``'s bf16 step,
+    the peak over the phase's start beside the reckoning of
+    ``AMP_BYTES_PER_PARAM`` bytes a parameter.  ``device="cpu"`` runs
+    ``DIST_SMALL`` at B 2 x 32 (the rehearsal)."""
+    import paddle_tpu_torch as paddle
+    dev = _device(torch, device)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    kernels = dict(tbench.KERNELS)
+    cfg = tllama.LlamaConfig(
+        remat_policy="dots", **dict(tbench.MODEL if on_card else DIST_SMALL,
+                                    dtype=torch.float32))
+    B, S = (4, tbench.SEQ) if on_card else (2, 32)
+    if on_card:
+        gc_cuda(torch)
+    base = torch.cuda.memory_allocated(dev) if on_card else 0
+    _reset_peak(torch, dev)
+    paddle.set_device(dev)
+    paddle.seed(0)
+    net = tllama.LlamaForCausalLM(cfg)
+    check(all(p._t.dtype == torch.float32 for p in net.parameters()),
+          "amp: the model was not built in float32")
+    sched = paddle.optimizer.lr.LinearWarmup(EAGER_LR, 2, EAGER_LR / 10,
+                                             EAGER_LR)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=sched, parameters=net.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    net, opt = paddle.amp.decorate(models=net, optimizers=opt, level="O2",
+                                   dtype="bfloat16")
+    params = net.parameters()
+    check(all(p._t.dtype == torch.bfloat16 and p.is_leaf
+              and not p.stop_gradient and p._t.device.type == dev.type
+              for p in params),
+          "amp: after decorate a parameter is not a bf16 leaf on the card")
+    check(opt._use_master_weights, "amp: decorate did not mark AdamW")
+    scaler = paddle.amp.GradScaler(init_loss_scaling=AMP_SCALE)
+    batch = tbench.make_batch(cfg, B, S, dev)
+    ids = paddle.to_tensor(batch["input_ids"])
+    labels = paddle.to_tensor(batch["labels"])
+    V = cfg.vocab_size
+
+    # step 1's reference: the O2 composition by hand on raw copies
+    raw = [p._t.detach().clone().requires_grad_(True) for p in params]
+    tree = tllama._unflatten_params(dict(zip(net._names, raw)))
+    logits, _ = tllama.forward_pure(cfg, tree, batch["input_ids"])
+    ref_loss = plain_cross_entropy(torch, logits.reshape(-1, V).float(),
+                                   batch["labels"].reshape(-1))
+    ref_grads = torch.autograd.grad(ref_loss * AMP_SCALE, raw)
+    ref_grads = [g.float() * (1.0 / AMP_SCALE) for g in ref_grads]
+    ref_loss = ref_loss.detach()
+    del logits, tree, raw
+    if on_card:
+        gc_cuda(torch)
+
+    for w in kernels.values():
+        w.launches = 0
+    losses, step_ms, unscale_ms, opt_ms = [], [], [], []
+    for k in range(AMP_STEPS):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss, _ = net(ids, labels=labels)
+        scaler.scale(loss).backward()
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        scaler.unscale_(opt)
+        _sync(torch, dev)
+        t2 = time.perf_counter()
+        if k == 0:
+            check(loss.dtype == torch.float32, f"amp: loss in {loss.dtype}")
+            same_loss = torch.equal(loss._t.detach(), ref_loss)
+            grads = [p.grad._t for p in params]
+            check(all(g.dtype == torch.float32 for g in grads),
+                  "amp: a grad is not float32 after unscale_")
+            same_grads = [torch.equal(g, r) for g, r in
+                          zip(grads, ref_grads)]
+            del ref_grads
+            want = plain_adamw_update(torch, [p._t.float() for p in params],
+                                      grads, sched(), 1.0)
+            del grads
+        scaler.step(opt)
+        _sync(torch, dev)
+        t3 = time.perf_counter()
+        scaler.update()
+        if k == 0:
+            masters = opt._accumulators.get("master_weight", {})
+            check(len(masters) == len(params) and all(
+                masters[id(p)].dtype == torch.float32 for p in params),
+                "amp: the optimizer holds no float32 master for every "
+                "parameter")
+            same_master = [torch.equal(masters[id(p)], w)
+                           for p, w in zip(params, want)]
+            same_cast = [torch.equal(p._t, masters[id(p)].to(p._t.dtype))
+                         for p in params]
+            del want, masters
+            peak_checks = _peak(torch, dev) - base if on_card else None
+            _reset_peak(torch, dev)
+        opt.clear_grad()
+        sched.step()
+        losses.append(loss.item())
+        if k:
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            unscale_ms.append(1e3 * (t2 - t1))
+            opt_ms.append(1e3 * (t3 - t2))
+        del loss
+    launches = {n: w.launches for n, w in kernels.items()}
+    peak = _peak(torch, dev) - base if on_card else None
+    check(same_loss, "amp: step 1's loss differs from the O2 composition's")
+    check(all(same_grads), f"amp: {same_grads.count(False)} of "
+          f"{len(same_grads)} unscaled grads differ from the composition's")
+    check(all(same_master), f"amp: {same_master.count(False)} of "
+          f"{len(same_master)} masters differ from the reference's AdamW")
+    check(all(same_cast), f"amp: {same_cast.count(False)} params are not "
+          f"their masters' bf16 cast")
+    check(scaler.get_init_loss_scaling() == AMP_SCALE,
+          f"amp: the scale moved to {scaler.get_init_loss_scaling()} (a "
+          f"step was skipped)")
+    check(all(math.isfinite(x) for x in losses), f"amp: losses {losses}")
+    check(losses[-1] < losses[0], f"amp: the loss did not fall {losses}")
+    per_step = {n: c / AMP_STEPS for n, c in launches.items()}
+    if on_card:
+        fn = functional["launches_per_step"]
+        check(per_step == fn, f"amp: launches a step {per_step} vs the "
+              f"functional step's {fn}")
+    n_params = sum(p.size for p in params)
+    amp_ms = float(np.mean(step_ms))
+    eager_ms = eager["llama"]["step_ms"] if eager else None
+    out = dict(
+        losses=losses, step1_loss_bit_equal=same_loss,
+        step1_grads_bit_equal=len(same_grads),
+        step1_masters_bit_equal=len(same_master), launches=launches,
+        launches_per_step=per_step, step_ms=amp_ms, step_ms_each=step_ms,
+        unscale_ms=float(np.mean(unscale_ms)),
+        optimizer_step_ms=float(np.mean(opt_ms)),
+        optimizer_step_ms_each=opt_ms,
+        eager_bf16_step_ms=eager_ms,
+        eager_bf16_optimizer_step_ms=(eager["llama"]["optimizer_step_ms"]
+                                      if eager else None),
+        peak_over_base=peak, peak_over_base_with_checks=peak_checks,
+        eager_bf16_peak_over_base=(eager["llama"]["peak_over_base"]
+                                   if eager else None),
+        n_params=n_params,
+        reckoned_state_bytes=n_params * AMP_BYTES_PER_PARAM,
+        reckoned_per_param=AMP_BYTES_PER_PARAM,
+        scale=scaler.get_init_loss_scaling(),
+        shape=dict(B=B, S=S, remat=cfg.remat_policy))
+    del net, opt, params, ids, labels, batch, scaler
+    if on_card:
+        gc_cuda(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"amp [{card}]: {json.dumps(out)}")
+    print(f"amp [{card}]: O2 step {amp_ms:.2f} ms (unscale_ "
+          f"{out['unscale_ms']:.2f} ms, optimizer.step() "
+          f"{out['optimizer_step_ms']:.2f} ms) vs the eager bf16 step "
+          f"{eager_ms} ms; peak over base {peak} B vs the reckoned "
+          f"{n_params * AMP_BYTES_PER_PARAM} B of state "
+          f"({AMP_BYTES_PER_PARAM} B x {n_params} params); losses "
+          f"{[round(x, 4) for x in losses]}")
+    return out
+
+
+# the sequence paths at their published widths (Vaswani et al. 2017's
+# Transformer-base with a 37,000-token shared vocabulary; ERNIE-base's
+# encoder width; an LSTM seq2seq at 512) and the CPU rehearsal's
+SEQ_FULL = dict(vocab=37000, d_model=512, nhead=8, layers=6, ff=2048,
+                batch=32, src=128, tgt=128, steps=6, fp16_steps=40,
+                enc_width=(768, 12, 3072), enc_layers=12, enc_batch=32,
+                enc_seq=512, enc_steps=4, lstm=512, lstm_batch=16,
+                lstm_src=32, beam=4, max_decode=32, lsq=(4096, 1024))
+SEQ_TINY = dict(vocab=96, d_model=32, nhead=4, layers=2, ff=64, batch=4,
+                src=12, tgt=10, steps=3, fp16_steps=40,
+                enc_width=(32, 4, 64), enc_layers=2, enc_batch=2,
+                enc_seq=16, enc_steps=2, lstm=32, lstm_batch=3,
+                lstm_src=6, beam=4, max_decode=8, lsq=(64, 16))
+# the small float32 copies run on the card and on the CPU (TF32 off):
+# the same computation summed in other orders, ~1e-6 apart; outputs are
+# held within 1e-4 and gradients within 1e-3 of each array's largest
+# magnitude (``rel_err``)
+SEQ_OUT_TOL, SEQ_GRAD_TOL = 1e-4, 1e-3
+SEQ_LR = 5e-4
+
+
+def _sinusoid(n, d):
+    """Vaswani et al. 2017's positional encoding, [n, d] float32."""
+    pos = np.arange(n)[:, None]
+    div = np.exp(np.arange(0, d, 2) * (-math.log(10000.0) / d))
+    pe = np.zeros((n, d), np.float32)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return pe
+
+
+def transformer_base(paddle, vocab, d_model, nhead, layers, ff, dropout):
+    """``nn.Transformer`` with one embedding shared by the source, the
+    target and the output projection (Vaswani et al. 2017, 3.4; drawn
+    from N(0, d_model^-1/2) as in tensor2tensor), scaled by
+    sqrt(d_model), plus the sinusoidal positions (512 of them);
+    ``forward`` returns the mean cross-entropy of the target tokens."""
+    nn = paddle.nn
+
+    class TransformerBase(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(vocab, d_model, weight_attr=(
+                paddle.ParamAttr(initializer=nn.initializer.Normal(
+                    0.0, d_model ** -0.5))))
+            self.transformer = nn.Transformer(d_model, nhead, layers, layers,
+                                              ff, dropout)
+            self.register_buffer("pe", paddle.to_tensor(
+                _sinusoid(512, d_model)), persistable=False)
+
+        def embed(self, ids):
+            n = ids.shape[1]
+            return self.emb(ids) * math.sqrt(d_model) + self.pe[:n]
+
+        def forward(self, src, tgt, labels):
+            mask = self.transformer.generate_square_subsequent_mask(
+                tgt.shape[1])
+            h = self.transformer(self.embed(src), self.embed(tgt),
+                                 tgt_mask=mask)
+            logits = paddle.matmul(h, self.emb.weight, transpose_y=True)
+            return paddle.nn.functional.cross_entropy(
+                paddle.reshape(logits, [-1, vocab]),
+                paddle.reshape(labels, [-1]))
+
+    return TransformerBase()
+
+
+def fused_encoder(paddle, width, layers, dropout):
+    """``layers`` x ``incubate.nn.FusedTransformerEncoderLayer``; the
+    loss is the mean square error to a target."""
+    nn = paddle.nn
+    E, H, F = width
+
+    class FusedEncoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.layers = nn.LayerList([
+                paddle.incubate.nn.FusedTransformerEncoderLayer(
+                    E, H, F, dropout_rate=dropout)
+                for _ in range(layers)])
+
+        def forward(self, x, target):
+            for layer in self.layers:
+                x = layer(x)
+            return paddle.mean(paddle.square(x - target))
+
+    return FusedEncoder()
+
+
+def lstm_seq2seq(paddle, vocab, width):
+    """An LSTM encoder (2 layers) and an ``LSTMCell`` decoder over one
+    embedding, an output projection to the vocabulary."""
+    nn = paddle.nn
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(vocab, width)
+            self.encoder = nn.LSTM(width, width, num_layers=2)
+            self.cell = nn.LSTMCell(width, width)
+            self.out = nn.Linear(width, vocab)
+
+        def decode(self, src, beam, max_steps):
+            _, (h, c) = self.encoder(self.emb(src))
+            dec = nn.BeamSearchDecoder(self.cell, start_token=0,
+                                       end_token=1, beam_size=beam,
+                                       embedding_fn=self.emb,
+                                       output_fn=self.out)
+            return nn.dynamic_decode(dec, (h[-1], c[-1]),
+                                     max_step_num=max_steps)
+
+    return Seq2Seq()
+
+
+def tie_cell(paddle, vocab, rows):
+    """A step cell whose logits are row ``token % rows`` of a table with
+    exact ties (``tests/test_torch_rnn_transformer.py``'s ``_tie_table``
+    when ``rows == vocab``): the start token's row ties every token,
+    end_token (1) is likely from the other rows, row 2 rarely ends and
+    ties among tokens 3.. instead; the state passes through.  Finished
+    beams then extend with end_token at cost 0 beside ``-inf`` elsewhere,
+    so the top k meets ties at every step."""
+    t = np.full((rows, vocab), -2.0, np.float32)
+    t[:, 1] = 0.0
+    t[0, :] = 0.0
+    t[2, 1] = -8.0
+    t[2, 3:] = 1.0
+
+    class TieCell(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.table = self.create_parameter(
+                list(t.shape),
+                default_initializer=paddle.nn.initializer.Assign(t))
+
+        def forward(self, inputs, states):
+            return paddle.gather(self.table, inputs % rows), states
+
+    return TieCell()
+
+
+def tie_decode(paddle, dev, vocab, rows, beam, batch, max_steps, what):
+    """``dynamic_decode`` over ``tie_cell`` on the CPU and on ``dev``:
+    the ids and lengths equal, and (where the vocabulary has more tokens
+    than the beam) every beam finished before ``max_steps``.  Returns the
+    steps run and the beams that emitted end_token."""
+    res = {}
+    for where in ("cpu", dev):
+        paddle.set_device(where)
+        dec = paddle.nn.BeamSearchDecoder(tie_cell(paddle, vocab, rows), 0,
+                                          1, beam)
+        ids, lens = paddle.nn.dynamic_decode(
+            dec, paddle.zeros([batch, 2]), max_step_num=max_steps)
+        res[str(where)] = (ids.numpy(), lens.numpy())
+    (ci, cl), (di, dl) = res["cpu"], res[str(dev)]
+    check(np.array_equal(ci, di) and np.array_equal(cl, dl),
+          f"{what}: the card's ids {di.tolist()} / lengths {dl.tolist()} "
+          f"differ from the CPU's {ci.tolist()} / {cl.tolist()}")
+    finished = int((di == 1).any(axis=1).sum())
+    if vocab > beam:
+        check(di.shape[1] < max_steps and finished == batch * beam,
+              f"{what}: {finished} of {batch * beam} beams finished in "
+              f"{di.shape[1]} steps")
+    return dict(steps=int(di.shape[1]), finished_beams=finished,
+                beams=batch * beam)
+
+
+def card_vs_cpu(torch, paddle, build, run, dev, what):
+    """``build()`` at seed 0 on the CPU, again on ``dev`` with the CPU
+    copy's weights; ``run(model)`` (forward and backward, inputs made on
+    the current place) returns its outputs.  Outputs within
+    ``SEQ_OUT_TOL`` and every parameter's gradient within
+    ``SEQ_GRAD_TOL`` of the CPU's (``rel_err``); returns the worst of
+    each."""
+    res = {}
+    for where in ("cpu", dev):
+        paddle.set_device(where)
+        paddle.seed(0)
+        m = build()
+        if where != "cpu":
+            m.set_state_dict({k: v._t for k, v in ref.state_dict().items()})
+        else:
+            ref = m
+        outs = run(m)
+        res[str(where)] = (
+            [o._t.detach().float().cpu() if hasattr(o, "_t")
+             else o.detach().float().cpu() for o in outs],
+            {k: v.grad._t.float().cpu() for k, v in m.state_dict().items()
+             if v.grad is not None})
+    (co, cg), (do, dg) = res["cpu"], res[str(dev)]
+    check(sorted(cg) == sorted(dg) and len(cg) > 0,
+          f"{what}: grads on {sorted(dg)} vs the CPU's {sorted(cg)}")
+    out_err = max(rel_err(a, b) for a, b in zip(do, co))
+    grad_err = max(rel_err(dg[k], cg[k]) for k in cg)
+    check(out_err <= SEQ_OUT_TOL, f"{what}: outputs rel err {out_err}")
+    check(grad_err <= SEQ_GRAD_TOL, f"{what}: grads rel err {grad_err}")
+    return out_err, grad_err
+
+
+def seq_small_checks(torch, paddle, dev):
+    """Each path of ``seq_phase`` as a small float32 copy on ``dev`` and
+    on the CPU (``card_vs_cpu``); the beam search's tokens and lengths
+    equal, also over the CPU tests' tie tables (``tie_decode``), LBFGS's
+    solutions within the reference test's 1e-3."""
+    out = {}
+    V = 64
+
+    def run_tf(m):
+        src = paddle.to_tensor(_ids(V, (3, 7), 0))
+        tgt = paddle.to_tensor(_ids(V, (3, 5), 1))
+        loss = m(src, tgt, paddle.to_tensor(_ids(V, (3, 5), 2)))
+        loss.backward()
+        return [loss]
+    out["transformer"] = card_vs_cpu(
+        torch, paddle, lambda: transformer_base(paddle, V, 32, 4, 2, 64, 0.0),
+        run_tf, dev, "small transformer")
+
+    def run_enc(m):
+        rng = np.random.default_rng(3)
+        x = paddle.to_tensor(rng.standard_normal((2, 6, 32)).astype(
+            np.float32))
+        t = paddle.to_tensor(rng.standard_normal((2, 6, 32)).astype(
+            np.float32))
+        loss = m(x, t)
+        loss.backward()
+        return [loss]
+    out["fused_encoder"] = card_vs_cpu(
+        torch, paddle, lambda: fused_encoder(paddle, (32, 4, 64), 2, 0.0),
+        run_enc, dev, "small fused encoder")
+
+    def run_lstm(m):
+        seq, (h, c) = m.encoder(m.emb(paddle.to_tensor(_ids(V, (3, 6), 4))))
+        paddle.sum(seq * seq).backward()
+        with paddle.no_grad():
+            ids, lens = m.decode(paddle.to_tensor(_ids(V, (3, 6), 5)), 4, 8)
+        run_lstm.decoded.append((ids.numpy(), lens.numpy()))
+        return [seq, h, c]
+    run_lstm.decoded = []
+    out["lstm"] = card_vs_cpu(torch, paddle,
+                              lambda: lstm_seq2seq(paddle, V, 32),
+                              run_lstm, dev, "small lstm seq2seq")
+    (ci, cl), (di, dl) = run_lstm.decoded
+    check(np.array_equal(ci, di) and np.array_equal(cl, dl),
+          f"small beam search: the card's tokens {di.tolist()} differ from "
+          f"the CPU's {ci.tolist()}")
+    out["tie_decode"] = [tie_decode(paddle, dev, v, v, beam, 2, 8,
+                                    f"small tie beam search V {v}")
+                         for v, beam in ((6, 3), (3, 4))]
+    sols = [lbfgs_lstsq(torch, paddle, where, (64, 16))
+            for where in ("cpu", dev)]
+    lb_err = float(np.abs(sols[0]["x"] - sols[1]["x"]).max())
+    check(lb_err <= 1e-3, f"small lbfgs: card vs cpu |diff| {lb_err}")
+    out["lbfgs"] = (lb_err, sols[1]["err_vs_lstsq"])
+    paddle.set_device(dev)
+    return out
+
+
+def lbfgs_lstsq(torch, paddle, where, shape):
+    """LBFGS with the strong-Wolfe search on ||A x - b||^2 (A, b from a
+    seeded generator on the host, f32) against ``torch.linalg.lstsq``'s
+    x: within the reference test's 1e-3 (``tests/test_optimizer_
+    distribution_extras.py``)."""
+    paddle.set_device(where)
+    gen = torch.Generator().manual_seed(0)
+    A = torch.randn(*shape, generator=gen)
+    b = torch.randn(shape[0], generator=gen)
+    dev = _device(torch, where)
+    A, b = A.to(dev), b.to(dev)
+    x_ref = torch.linalg.lstsq(A, b.unsqueeze(1)).solution.squeeze(1)
+    x = paddle.to_tensor(torch.zeros(shape[1], device=dev))
+    x.stop_gradient = False
+    opt = paddle.optimizer.LBFGS(learning_rate=1.0, max_iter=30,
+                                 parameters=[x],
+                                 line_search_fn="strong_wolfe")
+    At, bt = paddle.Tensor(A), paddle.Tensor(b)
+    calls = []
+
+    def closure():
+        opt.clear_grad()
+        r = paddle.matmul(At, x) - bt
+        loss = paddle.sum(r * r)
+        loss.backward()
+        calls.append(1)
+        return loss
+
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    loss = opt.step(closure)
+    _sync(torch, dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    err = (x._t.detach() - x_ref).abs().max().item()
+    check(err <= 1e-3, f"lbfgs on {where}: |x - lstsq| {err} > 1e-3")
+    ref_loss = ((A @ x_ref - b) ** 2).sum().item()
+    return dict(err_vs_lstsq=err, loss=loss.item(), lstsq_loss=ref_loss,
+                closure_calls=len(calls), ms=ms,
+                x=x._t.detach().cpu().numpy(), shape=list(shape))
+
+
+# a profiled sequence step's device rows by class (first match wins)
+SEQ_CLASSES = (
+    ("cuBLAS GEMMs", r"nvjet|gemm|cublas|splitKreduce|cutlass|xmma"),
+    ("softmax / cross-entropy", r"(?i)softmax|nll_loss"),
+    ("casts and copies", r"(?i)copy_kernel|memcpy|memset"),
+    ("elementwise / reduction", r"at::native|elementwise|reduce|CatArray"
+                                r"|index"),
+)
+
+
+def _snapshot(torch, params):
+    return [p._t.detach().clone() for p in params]
+
+
+def seq_phase(torch, card, device="cuda"):
+    """The item-3 paths at their published widths (``SEQ_FULL``).
+
+    - Transformer-base (``transformer_base``: d 512, 8 heads, 6 + 6
+      layers, FFN 2048, dropout 0.1, a shared 37,000-token vocabulary)
+      trained with Adam(5e-4) under ``auto_cast(level="O1",
+      dtype="bfloat16")`` at B 32 x 128 source and 128 target tokens for
+      ``steps`` steps: step ms (steps 2 on) and tokens/s; the loss finite
+      and falling; one more step profiled by class (``SEQ_CLASSES``).
+    - The same model under ``auto_cast(dtype="float16")`` with
+      ``GradScaler(init_loss_scaling=2**32)``: the scaler halves on real
+      fp16 overflows until a step is finite, then steps on; every
+      parameter bit-unchanged across each skipped step, the scale
+      trajectory printed, ``amp_skipped_steps_total`` (FLAGS_tpu_metrics
+      on) equal to the skipped steps.
+    - ERNIE-base's width through ``incubate``: 12 x
+      ``FusedTransformerEncoderLayer(768, 12, 3072)`` at B 32 x 512 (a
+      regression to a random target), ``LookAhead(AdamW, k=2)`` and
+      ``ModelAverage`` under O1: step ms, one more step profiled by
+      class; ``ModelAverage.apply`` swaps the average in and restores the
+      weights bit for bit.
+    - An LSTM seq2seq (``lstm_seq2seq``: ``nn.LSTM(512, 512,
+      num_layers=2)`` over a 32-token source, ``LSTMCell(512, 512)`` in a
+      ``BeamSearchDecoder`` with beam 4, ``dynamic_decode`` for at most
+      32 steps, B 16, vocabulary 37,000): the card's tokens and lengths
+      equal the CPU's on the same seed-0 weights; the decode step ms and
+      the beams that finished.  Then the same search over ``tie_cell``
+      (8 rows of exact ties over the 37,000 tokens), whose beams all
+      finish early: ids and lengths equal the CPU's, so the top k breaks
+      ties as it does there.
+    - LBFGS with the strong-Wolfe search on a 4096 x 1024 float32 least
+      squares problem: within 1e-3 of ``torch.linalg.lstsq``'s solution.
+
+    Then every path as a small float32 copy on the card and on the CPU
+    (``seq_small_checks``).  ``device="cpu"`` runs ``SEQ_TINY`` (the
+    rehearsal; the small checks then run CPU against CPU)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import flags as tflags
+    from paddle_tpu_torch.profiler import metrics as tmetrics
+    dev = _device(torch, device)
+    on_card = dev.type == "cuda"
+    z = SEQ_FULL if on_card else SEQ_TINY
+    t_phase = time.perf_counter()
+    out = {}
+    V, Bt, Ss, St = z["vocab"], z["batch"], z["src"], z["tgt"]
+
+    def tf_batch():
+        return [paddle.to_tensor(_ids(V, shape, seed)) for shape, seed in
+                (((Bt, Ss), 10), ((Bt, St), 11), ((Bt, St), 12))]
+
+    # -- Transformer-base under O1 bf16
+    paddle.set_device(dev)
+    paddle.seed(0)
+    model = transformer_base(paddle, V, z["d_model"], z["nhead"],
+                             z["layers"], z["ff"], 0.1)
+    n_params = sum(p.size for p in model.parameters())
+    opt = paddle.optimizer.Adam(SEQ_LR, parameters=model.parameters())
+    src, tgt, lab = tf_batch()
+    losses, ms = [], []
+    for k in range(z["steps"]):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = model(src, tgt, lab)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+        if k:
+            ms.append(1e3 * (time.perf_counter() - t0))
+    check(all(math.isfinite(x) for x in losses),
+          f"transformer O1: losses {losses}")
+    check(losses[-1] < losses[0], f"transformer O1: no fall {losses}")
+    tf_ms = float(np.mean(ms))
+
+    def tf_step():
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = model(src, tgt, lab)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        loss.item()
+    prof = _profile_step(torch, tf_step, f"profile transformer O1 [{card}]"
+                         f": 1 step, B {Bt} x {Ss} + {St}", SEQ_CLASSES,
+                         {}) if on_card else None
+    out["transformer_o1"] = dict(profile=prof,
+        losses=losses, step_ms=tf_ms, step_ms_each=ms,
+        tokens_per_s=Bt * (Ss + St) / (tf_ms / 1e3),
+        target_tokens_per_s=Bt * St / (tf_ms / 1e3), n_params=n_params,
+        shape=dict(B=Bt, src=Ss, tgt=St, d_model=z["d_model"],
+                   layers=z["layers"], vocab=V))
+    del model, opt, loss
+    if on_card:
+        gc_cuda(torch)
+    print(f"[{time.perf_counter() - t_phase:.1f} s] seq: transformer O1")
+
+    # -- the same model, fp16 under a GradScaler from 2**32
+    paddle.seed(0)
+    model = transformer_base(paddle, V, z["d_model"], z["nhead"],
+                             z["layers"], z["ff"], 0.1)
+    params = model.parameters()
+    opt = paddle.optimizer.Adam(SEQ_LR, parameters=params)
+    scaler = paddle.amp.GradScaler(init_loss_scaling=2.0 ** 32)
+    tmetrics.reset()
+    tflags.set_flags({"FLAGS_tpu_metrics": True})
+    scales, skipped, unchanged, fp16_losses, taken = [], [], [], [], 0
+    try:
+        for k in range(z["fp16_steps"]):
+            before = _snapshot(torch, params)
+            with paddle.amp.auto_cast(dtype="float16"):
+                loss = model(src, tgt, lab)
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            skip = scaler._found_inf
+            scaler.update()
+            opt.clear_grad()
+            fp16_losses.append(loss.item())
+            scales.append(scaler.get_init_loss_scaling())
+            skipped.append(skip)
+            if skip:
+                unchanged.append(all(torch.equal(a, p._t) for a, p in
+                                     zip(before, params)))
+            else:
+                taken += 1
+            del before
+            if taken >= 2:
+                break
+        snap = tmetrics.snapshot()
+    finally:
+        tflags.set_flags({"FLAGS_tpu_metrics": False})
+    n_skip = sum(skipped)
+    counted = snap.get("amp_skipped_steps_total", 0)
+    check(n_skip >= 1 and taken >= 2,
+          f"fp16 scaler: {n_skip} skipped, {taken} taken in "
+          f"{len(skipped)} steps; scales {scales}")
+    check(all(unchanged), f"fp16 scaler: a skipped step changed the "
+          f"parameters ({unchanged})")
+    check(counted == n_skip, f"fp16 scaler: amp_skipped_steps_total "
+          f"{counted} vs {n_skip} skipped")
+    want, s_ = [], 2.0 ** 32
+    for skip in skipped:
+        s_ = s_ / 2 if skip else s_
+        want.append(s_)
+    check(scales == want, f"fp16 scaler: scales {scales}, not halved on "
+          f"each overflow and kept otherwise ({want})")
+    out["fp16_scaler"] = dict(scales=scales, skipped=skipped,
+                              skipped_steps=n_skip,
+                              amp_skipped_steps_total=counted,
+                              losses=fp16_losses)
+    tmetrics.reset()
+    del model, opt, params, scaler, loss
+    if on_card:
+        gc_cuda(torch)
+    print(f"[{time.perf_counter() - t_phase:.1f} s] seq: fp16 scaler, "
+          f"scales {scales}")
+
+    # -- the incubate fused encoder at ERNIE-base's width
+    paddle.seed(0)
+    enc = fused_encoder(paddle, z["enc_width"], z["enc_layers"], 0.1)
+    eparams = enc.parameters()
+    inner = paddle.optimizer.AdamW(SEQ_LR, parameters=eparams)
+    look = paddle.incubate.LookAhead(inner, alpha=0.5, k=2)
+    avg = paddle.incubate.ModelAverage(0.15, parameters=eparams,
+                                       max_average_window=10)
+    E = z["enc_width"][0]
+    rng = np.random.default_rng(13)
+    shape = (z["enc_batch"], z["enc_seq"], E)
+    x = paddle.to_tensor(rng.standard_normal(shape).astype(np.float32))
+    target = paddle.to_tensor(rng.standard_normal(shape).astype(np.float32))
+    elosses, ems = [], []
+    for k in range(z["enc_steps"]):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = enc(x, target)
+        loss.backward()
+        look.step()
+        avg.step()
+        look.clear_grad()
+        elosses.append(loss.item())
+        if k:
+            ems.append(1e3 * (time.perf_counter() - t0))
+
+    def enc_step():
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = enc(x, target)
+        loss.backward()
+        look.step()
+        avg.step()
+        look.clear_grad()
+        loss.item()
+    eprof = _profile_step(torch, enc_step, f"profile fused encoder [{card}]"
+                          f": 1 step, B {shape[0]} x {shape[1]}",
+                          SEQ_CLASSES, {}) if on_card else None
+    before = _snapshot(torch, eparams)
+    with avg.apply():
+        swapped = not all(torch.equal(a, p._t)
+                          for a, p in zip(before, eparams))
+    restored = all(torch.equal(a, p._t) for a, p in zip(before, eparams))
+    check(all(math.isfinite(v) for v in elosses),
+          f"fused encoder: losses {elosses}")
+    check(swapped and restored, f"fused encoder: ModelAverage apply "
+          f"swapped {swapped}, restored {restored}")
+    out["fused_encoder"] = dict(
+        losses=elosses, step_ms=float(np.mean(ems)), step_ms_each=ems,
+        profile=eprof,
+        n_params=sum(p.size for p in eparams),
+        shape=dict(B=z["enc_batch"], S=z["enc_seq"], width=z["enc_width"],
+                   layers=z["enc_layers"]))
+    del enc, inner, look, avg, eparams, x, target, loss, before
+    if on_card:
+        gc_cuda(torch)
+    print(f"[{time.perf_counter() - t_phase:.1f} s] seq: fused encoder")
+
+    # -- the LSTM seq2seq with beam search, the card against the CPU
+    decoded = {}
+    src_ids = _ids(V, (z["lstm_batch"], z["lstm_src"]), 14)
+    for where in ("cpu", dev):
+        paddle.set_device(where)
+        paddle.seed(0)
+        s2s = lstm_seq2seq(paddle, V, z["lstm"])
+        if where == "cpu":
+            weights = {k: v._t for k, v in s2s.state_dict().items()}
+        else:
+            s2s.set_state_dict(weights)
+        wdev = _device(torch, where)
+        with paddle.no_grad():
+            s = paddle.to_tensor(src_ids)
+            s2s.decode(s, z["beam"], 2)                    # warm-up
+            _sync(torch, wdev)
+            t0 = time.perf_counter()
+            ids, lens = s2s.decode(s, z["beam"], z["max_decode"])
+            _sync(torch, wdev)
+        decoded[str(where)] = (ids.numpy(), lens.numpy(),
+                               1e3 * (time.perf_counter() - t0))
+        del s2s
+    (ci, cl, cms), (di, dl, dms) = decoded["cpu"], decoded[str(dev)]
+    check(np.array_equal(ci, di) and np.array_equal(cl, dl),
+          "beam search: the card's tokens differ from the CPU's")
+    T = di.shape[1]
+    out["lstm_beam"] = dict(
+        steps=T, decode_ms=dms, decode_step_ms=dms / T, cpu_decode_ms=cms,
+        tokens_equal_cpu=True, lengths=dl.tolist()[:2],
+        finished_beams=int((di == 1).any(axis=1).sum()),
+        shape=dict(B=z["lstm_batch"], src=z["lstm_src"], beam=z["beam"],
+                   width=z["lstm"], vocab=V))
+    del weights
+    # the top k's order of ties at the full vocabulary: beams that finish
+    out["tie_decode"] = tie_decode(paddle, dev, V, 8, z["beam"],
+                                   z["lstm_batch"], z["max_decode"],
+                                   "tie beam search")
+    paddle.set_device(dev)
+    print(f"[{time.perf_counter() - t_phase:.1f} s] seq: lstm beam search")
+
+    # -- LBFGS on a least-squares problem
+    out["lbfgs"] = {k: v for k, v in lbfgs_lstsq(
+        torch, paddle, dev, z["lsq"]).items() if k != "x"}
+
+    # -- the small float32 copies, card against CPU
+    out["small"] = seq_small_checks(torch, paddle, dev)
+    paddle.set_device(dev)
+    if on_card:
+        gc_cuda(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"seq [{card}]: {json.dumps(out)}")
+    print(f"seq [{card}]: Transformer-base O1 {tf_ms:.2f} ms a step "
+          f"({out['transformer_o1']['tokens_per_s']:.0f} tokens/s); fp16 "
+          f"scaler {n_skip} skipped, scales {scales}; fused encoder "
+          f"{out['fused_encoder']['step_ms']:.2f} ms a step; beam search "
+          f"{out['lstm_beam']['decode_step_ms']:.3f} ms a step, "
+          f"{out['lstm_beam']['finished_beams']} beams finished; tie search "
+          f"{out['tie_decode']['finished_beams']} of "
+          f"{out['tie_decode']['beams']} beams finished in "
+          f"{out['tie_decode']['steps']} steps; LBFGS "
+          f"|x - lstsq| {out['lbfgs']['err_vs_lstsq']:.3g} in "
+          f"{out['lbfgs']['ms']:.1f} ms")
+    return out
+
+
 def _file_digest(path):
     import hashlib
     if not os.path.exists(path):
@@ -5900,6 +6703,13 @@ def main(argv=()):
     # through Model.fit at its published width
     vision = vision_phase(torch, card)
     stamp("vision")
+    # mixed precision and the sequence layers: bench.py's Llama under
+    # AMP O2 with master weights and a GradScaler; Transformer-base under
+    # O1 and fp16 with dynamic scaling, ERNIE-base's width through the
+    # incubate fused encoder, an LSTM beam search, LBFGS
+    amp = amp_phase(torch, tbench, tllama, card, fused_res, eager)
+    seq = seq_phase(torch, card)
+    stamp("amp, seq")
     # the distributed train step: a small model's topologies as 4 ranks
     # on the card against world size 1, then bench.py's shape at world
     # size 1 over NCCL (in turns with bench.train_step) and as 2 ranks
@@ -6066,6 +6876,7 @@ def main(argv=()):
             launches_resize_rank0=resize["launches_rank0"][name],
             launches_eager=eager["llama"]["launches"][name],
             launches_eager_gpt=eager["gpt"]["launches"][name],
+            launches_amp=amp["launches"][name],
             max_abs_err=flash_err[key],
             row_rel_err=flash_row_err[key], row_rel_max=ROW_REL_MAX,
             control_row_rel_err=min(
@@ -6108,6 +6919,7 @@ def main(argv=()):
             launches_train_loop=loop["launches"][name],
             launches_resize_rank0=resize["launches_rank0"][name],
             launches_eager=eager["llama"]["launches"][name],
+            launches_amp=amp["launches"][name],
             row_rel_err=r["row_rel_err"], row_rel_max=ROW_REL_MAX,
             norm_rel_err=r["norm_rel_err"],
             control_row_rel_err=r["control_row_rel_err"], ms=r["ms"],
@@ -6124,6 +6936,12 @@ def main(argv=()):
     print(f"models [{card}]: {json.dumps(models)}")
     print(f"eager_ops {eager['ops']['passed']}/{eager['ops']['total']}")
     print(f"vision [{card}]: {json.dumps(vision)}")
+    print(f"amp [{card}]: step {amp['step_ms']:.2f} ms, optimizer.step() "
+          f"{amp['optimizer_step_ms']:.2f} ms, peak {amp['peak_over_base']}"
+          f" B; seq: Transformer-base O1 "
+          f"{seq['transformer_o1']['step_ms']:.2f} ms, fused encoder "
+          f"{seq['fused_encoder']['step_ms']:.2f} ms, beam step "
+          f"{seq['lstm_beam']['decode_step_ms']:.3f} ms")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

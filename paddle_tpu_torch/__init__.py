@@ -8,9 +8,11 @@ loss layers, functionals, initializers, gradient clipping, ``utils``),
 ``optimizer`` (ten optimizers and the LR schedules), ``set_device`` /
 ``seed`` / ``save`` / ``load``; and the vision stack: ``vision``
 (models, datasets, transforms, detection ops, image IO), ``metric``,
-``hapi`` (``Model`` and its callbacks), ``geometric`` and
-``amp.debugging``.  Tensors are created on the current place: the
-card unless ``set_device`` names another; with neither, creation raises.
+``hapi`` (``Model`` and its callbacks), ``geometric``; ``amp``
+(``auto_cast``, ``decorate`` with master weights, ``GradScaler``,
+``debugging``) and ``incubate`` (fused layers, LookAhead,
+ModelAverage).  Tensors are created on the current place: the card
+unless ``set_device`` names another; with neither, creation raises.
 
 Beside it, as before: ``models/`` (the Llama, GPT and ERNIE families,
 functional cores with eager ``Layer`` classes, and KV-cache generation
@@ -56,6 +58,7 @@ from .framework.io import load_tensors as load  # noqa: E402,F401
 from .autograd.functional import grad  # noqa: E402,F401
 
 from . import amp  # noqa: E402,F401
+from . import incubate  # noqa: E402,F401
 from . import metric  # noqa: E402,F401
 from . import vision  # noqa: E402,F401
 from . import geometric  # noqa: E402,F401

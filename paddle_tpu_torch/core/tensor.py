@@ -24,6 +24,7 @@ old value stays in the graph as it does in JAX.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -61,6 +62,8 @@ class Tensor:
     persistable = False
     is_leaf_param = False
     _grad_facade = None
+    _grad_other = None      # a gradient of another dtype (``grad`` setter)
+    _grad_hook = None       # the hook that adds each backward to it
 
     def __init__(self, data, stop_gradient: bool = True, name: str = ""):
         if isinstance(data, Tensor):
@@ -135,11 +138,14 @@ class Tensor:
     @property
     def grad(self) -> Optional["Tensor"]:
         g = self._t.grad
-        if g is None:
-            return None
-        if g._is_zerotensor():    # torch's lazy zero (e.g. sign's grad)
+        if g is not None and g._is_zerotensor():   # torch's lazy zero
             g = self._t.grad = torch.zeros(g.shape, dtype=g.dtype,
                                            device=g.device)
+        if self._grad_other is not None:
+            self._fold_grad(self._t)
+            g = self._grad_other
+        if g is None:
+            return None
         f = self._grad_facade
         if f is None or f._t is not g:
             f = Tensor._wrap(g)
@@ -148,7 +154,46 @@ class Tensor:
 
     @grad.setter
     def grad(self, value):
-        self._t.grad = None if value is None else _unwrap(value)
+        """torch refuses a ``.grad`` whose dtype differs from its leaf's,
+        and the reference sets one (``GradScaler`` leaves a bf16
+        parameter an f32 gradient).  Such a gradient is held beside the
+        leaf in its own dtype, never cast down: the getter returns it,
+        ``clear_grad`` drops it.  A post-accumulate hook on the leaf adds
+        each later backward's gradient to it as soon as torch has written
+        it, as the reference's ``grad + g`` does, so two backwards never
+        sum in the leaf's lower dtype first."""
+        v = None if value is None else _unwrap(value)
+        if v is not None and v.dtype != self._t.dtype:
+            self._t.grad = None
+            self._grad_other = v
+            t = self._t
+            if self._grad_hook is None and t.is_leaf and t.requires_grad:
+                ref = weakref.ref(self)
+
+                def fold(leaf):
+                    f = ref()
+                    if f is not None:
+                        f._fold_grad(leaf)
+                self._grad_hook = t.register_post_accumulate_grad_hook(fold)
+        else:
+            self._t.grad = v
+            self._drop_held_grad()
+
+    def _fold_grad(self, leaf):
+        """Adds ``leaf.grad`` (a backward's gradient, in the leaf's dtype)
+        to the held gradient in the held dtype, as the reference's
+        ``grad + g`` promotes, and clears it from the leaf."""
+        g = leaf.grad
+        if g is None or self._grad_other is None:
+            return
+        self._grad_other = self._grad_other + g.to(self._grad_other.dtype)
+        leaf.grad = None
+
+    def _drop_held_grad(self):
+        self._grad_other = None
+        if self._grad_hook is not None:
+            self._grad_hook.remove()
+            self._grad_hook = None
 
     @property
     def T(self):
@@ -226,6 +271,7 @@ class Tensor:
 
     def clear_grad(self):
         self._t.grad = None
+        self._drop_held_grad()
 
     clear_gradient = clear_grad
 
@@ -283,6 +329,17 @@ class Tensor:
 # op application
 # ---------------------------------------------------------------------------
 
+class _AmpOff:
+    enabled = False
+
+
+# AMP: ``paddle_tpu_torch.amp`` installs its thread-local state and its
+# cast hook (``amp_cast_inputs``) here, the reference's ``_AMP_CAST_HOOK``;
+# while AMP is off ``apply_op`` reads one flag and casts nothing.
+_AMP_STATE = _AmpOff()
+_AMP_CAST_HOOK = [None]
+
+
 def apply_op(fn: Callable, *inputs, op_name: str = "", n_outs: int = 1,
              **kwargs):
     """Run ``fn(*tensors, **kwargs)`` on the inputs' torch tensors and
@@ -293,8 +350,12 @@ def apply_op(fn: Callable, *inputs, op_name: str = "", n_outs: int = 1,
     Returns a ``Tensor``, or a tuple of them when ``fn`` returns a tuple
     or list.  ``op_name`` names the op in the NaN/Inf check;
     ``n_outs`` is the reference's argument (the count of outputs comes
-    from what ``fn`` returns).
+    from what ``fn`` returns).  Under ``amp.auto_cast`` the floating
+    ``Tensor`` inputs are cast first by the op's list (a cast in the
+    graph: the gradient returns in the input's own dtype).
     """
+    if _AMP_STATE.enabled:
+        inputs = _AMP_CAST_HOOK[0](op_name, inputs)
     out = fn(*[_unwrap(x) for x in inputs], **kwargs)
     if isinstance(out, (tuple, list)):
         outs = tuple(Tensor._wrap(o) for o in out)

@@ -1,7 +1,6 @@
-"""paddle.nn: the ported part (``Layer`` and its containers, the common,
-conv, activation, norm, pooling and loss layers, gradient clipping,
-functionals, initializers and ``utils``).  rnn, transformer and decode
-come with a later slice."""
+"""paddle.nn: ``Layer`` and its containers, the common, conv,
+activation, norm, pooling, loss, RNN and transformer layers, beam-search
+decoding, gradient clipping, functionals, initializers and ``utils``."""
 from .layer.layers import (Layer, Parameter, Sequential, LayerList,
                            ParameterList, LayerDict)
 from .layer.common import *  # noqa: F401,F403
@@ -11,6 +10,11 @@ from .layer.norm import *  # noqa: F401,F403
 from .layer.activation import *  # noqa: F401,F403
 from .layer.pooling import *  # noqa: F401,F403
 from .layer.loss import *  # noqa: F401,F403
+from .layer.rnn import *  # noqa: F401,F403
+from .layer.transformer import (MultiHeadAttention, TransformerEncoderLayer,
+                                TransformerEncoder, TransformerDecoderLayer,
+                                TransformerDecoder, Transformer)
+from .decode import BeamSearchDecoder, dynamic_decode
 from .clip import (ClipGradByValue, ClipGradByNorm, ClipGradByGlobalNorm)
 from . import functional
 from . import initializer

@@ -1,6 +1,6 @@
 """paddle.nn.functional: activations, common, conv, pooling, norms,
-losses, vision and the extended ops.  ``sparse_attention`` comes with
-``incubate``."""
+losses, vision and the extended ops; ``sparse_attention`` is
+``incubate``'s."""
 from .activation import *  # noqa: F401,F403
 from .common import *  # noqa: F401,F403
 from .conv import *  # noqa: F401,F403
@@ -21,3 +21,4 @@ softmax_ = _mk_inplace(softmax)
 tanh_ = _mk_inplace(tanh)
 
 from ...tensor.creation import diag_embed  # noqa: E402,F401
+from ...incubate.nn.functional import sparse_attention  # noqa: E402,F401

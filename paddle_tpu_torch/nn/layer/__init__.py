@@ -1,2 +1,2 @@
-"""The ported layers: the ``Layer`` base and containers, common,
-conv, activation, norm, pooling and loss layers."""
+"""The layers: the ``Layer`` base and containers, common, conv,
+activation, norm, pooling, loss, RNN and transformer layers."""

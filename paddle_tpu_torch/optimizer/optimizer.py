@@ -189,11 +189,32 @@ class Optimizer:
                 garr = garr + self._weight_decay * p._t.to(F32)
             lr = self.get_lr() * p.optimize_attr.get("learning_rate", 1.0) \
                 if hasattr(p, "optimize_attr") else self.get_lr()
-            old32 = p._t.to(F32) if stats is not None else None
-            new = self._update(p, garr, lr)
-            p._set_array(new.to(p._t.dtype))
-            if stats is not None:
-                stats.note_update(old32, new.to(F32))
+            if getattr(self, "_use_master_weights", False) \
+                    and p._t.dtype in (torch.bfloat16, torch.float16):
+                # AMP O2 (``amp.decorate``): the update runs on a float32
+                # master made at the first step from the low-precision
+                # param; the param becomes the master's cast
+                master = self._accumulators.get("master_weight", {}).get(
+                    id(p))
+                if master is None:
+                    master = self._acc("master_weight", p,
+                                       init=p._t.to(F32))
+                low = p._t
+                p._t = master     # the update (AdamW's decay) reads f32
+                try:
+                    new = self._update(p, garr, lr).to(F32)
+                finally:
+                    p._t = low
+                self._set_acc("master_weight", p, new)
+                p._set_array(new.to(low.dtype))
+                if stats is not None:
+                    stats.note_update(master, new)
+            else:
+                old32 = p._t.to(F32) if stats is not None else None
+                new = self._update(p, garr, lr)
+                p._set_array(new.to(p._t.dtype))
+                if stats is not None:
+                    stats.note_update(old32, new.to(F32))
         if stats is not None:
             stats.finish()
 

@@ -204,3 +204,109 @@ for _nd, _lead, _outs in [(1, (2, 3), (4,)), (2, (2, 3), (3, 2)),
 
 VISION = list(L)
 VISION_NAMES = sorted({p.values[0] for p in VISION})
+
+
+# RNN and transformer layers (tests/test_torch_rnn_transformer.py): the
+# ones whose outputs are a flat tuple; LSTM's nested states, the caches
+# and the wrappers over given cells are checked in that file
+L.clear()
+_T = dict(tol=1e-4)
+layer("SimpleRNNCell", 4, 4, inputs=[n(2, 4), n(2, 4)], **_T)
+layer("SimpleRNNCell", 4, 4, inputs=[n(2, 4), n(2, 4)], tag="relu",
+      activation="relu", **_T)
+layer("GRUCell", 4, 4, inputs=[n(2, 4), n(2, 4)], **_T)
+layer("GRUCell", 4, 4, inputs=[n(2, 4)], tag="nostate-nobias",
+      bias_ih_attr=False, bias_hh_attr=False, **_T)
+for _d, _tm, _shape in (("forward", False, (2, 3, 4)),
+                        ("backward", True, (3, 2, 4)),
+                        ("bidirect", False, (2, 3, 4))):
+    for _cls in ("SimpleRNN", "GRU"):
+        layer(_cls, 4, 4, inputs=[n(*_shape)], tag=f"{_d}-tm{int(_tm)}",
+              num_layers=2, direction=_d, time_major=_tm, **_T)
+layer("GRU", 4, 4, inputs=[n(2, 3, 4), n(2, 2, 4)], tag="init-states",
+      num_layers=2, **_T)
+layer("MultiHeadAttention", 8, 2, inputs=[n(2, 4, 8), n(2, 5, 8),
+                                          n(2, 5, 8), n(4, 5)], **_T)
+layer("MultiHeadAttention", 8, 2, inputs=[n(2, 4, 8)], tag="kdim-vdim",
+      kdim=8, vdim=8, **_T)
+layer("TransformerEncoderLayer", 8, 2, 16, inputs=[n(2, 5, 8)],
+      dropout=0.0, **_T)
+layer("TransformerEncoderLayer", 8, 2, 16, inputs=[n(2, 5, 8), n(5, 5)],
+      tag="pre-norm-gelu", dropout=0.0, activation="gelu",
+      normalize_before=True, **_T)
+layer("TransformerDecoderLayer", 8, 2, 16, inputs=[n(2, 4, 8), n(2, 5, 8)],
+      dropout=0.0, **_T)
+layer("TransformerDecoderLayer", 8, 2, 16,
+      inputs=[n(2, 4, 8), n(2, 5, 8), n(4, 4), n(4, 5)], tag="pre-norm",
+      dropout=0.0, normalize_before=True, **_T)
+layer("Transformer", 8, 2, 2, 2, 16, inputs=[n(2, 5, 8), n(2, 4, 8)],
+      dropout=0.0, **_T)
+layer("Transformer", 8, 2, 1, 2, 16, inputs=[n(2, 5, 8), n(2, 4, 8)],
+      tag="pre-norm-eval", normalize_before=True, eval_=True, **_T)
+
+SEQ = list(L)
+
+
+# layers whose outputs nest or that take built sublayers: both packages
+# built the same way, run by ``call(P, layer, inputs)``
+def _flat(out):
+    if out is None:
+        return []
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+def pair_run(build, arrays, call, seed=3):
+    """Build in both packages, carry the JAX weights across, run ``call``
+    on the same inputs and return (outputs, input grads, param grads)
+    of each, the weighted sum of every output back-propagated."""
+    res = []
+    jl = None
+    for P in (jpaddle, tpaddle):
+        P.seed(seed)
+        lay = build(P)
+        if jl is None:
+            jl = lay
+        else:
+            assert list(lay.state_dict()) == list(jl.state_dict())
+            lay.set_state_dict({k: v.numpy()
+                                for k, v in jl.state_dict().items()})
+        xs = [P.to_tensor(a, stop_gradient=a.dtype.kind != "f")
+              for a in arrays]
+        outs = _flat(call(P, lay, xs))
+        wrng = np.random.default_rng(5)
+        loss = None
+        for o in outs:
+            w = wrng.uniform(0.5, 1.5, o.shape).astype(np.float32)
+            term = P.sum(o * P.to_tensor(w))
+            loss = term if loss is None else loss + term
+        loss.backward()
+        res.append(([o.numpy() for o in outs],
+                    [x.grad.numpy() if x.grad is not None else None
+                     for x in xs if not x.stop_gradient],
+                    {k: (v.grad.numpy() if v.grad is not None else None)
+                     for k, v in lay.state_dict().items()}))
+    return res
+
+
+def compare_runs(res, tol=1e-4):
+    """``pair_run``'s two results: outputs, input and parameter
+    gradients within ``tol`` (f32)."""
+    (jo, jg, jp), (to, tg, tp) = res
+    assert len(to) == len(jo)
+    for a, b in zip(to, jo):
+        np.testing.assert_allclose(a, np.asarray(b, np.float32), rtol=tol,
+                                   atol=tol)
+    for a, b in zip(tg, jg):
+        if b is None:
+            assert a is None or not np.any(a)
+        else:
+            np.testing.assert_allclose(a, b, rtol=tol, atol=tol)
+    assert list(tp) == list(jp)
+    for k in jp:
+        if jp[k] is None:
+            assert tp[k] is None or not np.any(tp[k]), k
+        else:
+            np.testing.assert_allclose(tp[k], jp[k], err_msg=k, rtol=tol,
+                                       atol=tol)
