@@ -208,6 +208,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -6475,6 +6476,506 @@ def ledger_phase(train_res, serve_res, card):
     return out
 
 
+# jit / static / asp / the eager MoE layer (jit_static_phase)
+JIT_STATIC_STEPS = 3
+JIT_TURNS = 3           # eager / to_static forward turns, alternating
+JIT_SMALL = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                 num_hidden_layers=2, num_attention_heads=2,
+                 num_key_value_heads=2, max_position_embeddings=64,
+                 dtype=None, fused_blocks="on")
+# the eager MoELayer at llama1b's MoE width: d_model, experts, FFN, top k,
+# tokens [B, S]; float32 (the reference's default)
+MOE_LAYER_FULL = dict(d=2048, experts=8, ffn=5504, top_k=2, B=4, S=2048)
+MOE_LAYER_TINY = dict(d=16, experts=4, ffn=32, top_k=2, B=2, S=8)
+JIT_ROWS = ("fused_qkv", "fused_attn_epilogue", "fused_mlp_fwd")
+JIT_LOAD_SCRIPT = r"""
+import hashlib, sys, time
+import numpy as np, torch
+t0 = time.perf_counter()
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch import bench
+assert "jax" not in sys.modules and "paddle_tpu" not in sys.modules
+ids_path, device, *prefixes = sys.argv[1:]
+paddle.set_device(device)
+t1 = time.perf_counter()
+import_s = t1 - t0
+for prefix in prefixes:
+    m = paddle.jit.load(prefix)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for w in bench.KERNELS.values():
+        w.launches = 0
+    out = m(np.load(ids_path))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    digest = hashlib.sha256(out._t.cpu().numpy().tobytes()).hexdigest()
+    launches = {n: w.launches for n, w in bench.KERNELS.items()}
+    print("JIT_LOAD", digest, import_s, t2 - t1, t3 - t2,
+          " ".join(f"{n}={c}" for n, c in launches.items()))
+    del m, out
+    t1 = time.perf_counter()
+"""
+
+
+def cf_probe(x, n):
+    """A function with a tensor-predicated ``if`` and ``while`` (the
+    dy2static pass lowers them to ``torch.cond`` / ``while_loop``)."""
+    if x.sum() > 0:
+        y = x * 2.0
+    else:
+        y = -x
+    i = n - n
+    while i < n:
+        y = y * 1.5 + 1.0
+        i = i + 1
+    return y
+
+
+def _digest(torch, t):
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def _archive_tensor_bytes(path):
+    """The bytes of tensor data in a ``torch.export.save`` archive: its
+    members under ``data/`` but the JSON configs (weights, constants,
+    example inputs)."""
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        return sum(i.file_size for i in z.infolist()
+                   if "/data/" in i.filename
+                   and not i.filename.endswith(".json"))
+
+
+def _counts(kernels):
+    return {n: w.launches for n, w in kernels.items()}
+
+
+def _zero(kernels):
+    for w in kernels.values():
+        w.launches = 0
+
+
+def jit_static_phase(torch, tbench, tllama, card, eager, device="cuda"):
+    """``jit``, ``static``, ``incubate.asp`` and the eager ``MoELayer`` at
+    full width on the card.
+
+    bench.py's ``LlamaForCausalLM`` (B 4 x 2048, "dots", fused blocks
+    "auto"; ``eager``: ``eager_phase``'s result, its step ms and peak):
+
+    - ``jit.to_static``: logits bit-equal to the eager forward's; the
+      captured graph's custom-op nodes equal the eager forward's launches
+      of rows 7-9, and its replay launches them as often; one capture for
+      repeated calls, one more for a new shape; the first call's capture
+      seconds and the forward ms of eager and ``to_static`` in
+      alternating turns.
+    - ``jit.save`` at ``InputSpec([4, 2048], "int64")``, on the fused
+      route and on the unfused one (fused blocks "off", the same
+      weights): ``.pdiparams`` holds the parameters' bytes + < 1 MiB,
+      ``.pdmodel`` no tensor bytes and custom-op nodes equal to the
+      eager forward's launches (rows 7-9; unfused, row 1's
+      ``flash_fwd``); ``jit.load`` of both in a fresh ``python`` that
+      imports only ``paddle_tpu_torch`` gives each route's eager logits
+      bits (a sha256 of them) and launches; save and load seconds.
+    - ``to_static(cf_probe)`` (tensor-predicated ``if`` and ``while``) on
+      a small input: the card equals the CPU, bit for bit.
+    - static mode: ``enable_static()``, ``static.data`` ids and labels,
+      ``loss = LlamaForCausalLM(cfg)(ids, labels)``, ``AdamW(LinearWarmup,
+      ClipGradByGlobalNorm(1.0)).minimize(loss)``, ``Executor.run`` for
+      ``JIT_STATIC_STEPS`` steps: step 1's loss and every grad bit-equal
+      to the eager step's from the same initial state, steps 2-3's losses
+      bit-equal; step ms and the peak beside the eager step's.
+    - asp: ``prune_model`` on that model, ``JIT_STATIC_STEPS``
+      ``asp.decorate(AdamW)`` steps; after every step each pruned
+      parameter passes the 2:4 check on the device; layer 0 of ``wq``'s
+      mask equals the numpy mask of the same bf16 values; the density
+      and the prune seconds.
+    - the eager ``MoELayer`` (``MOE_LAYER_FULL``, gshard, float32):
+      ``JIT_STATIC_STEPS`` AdamW steps, the loss and aux finite, the
+      experts and the gate moved; the dropped share and the step ms.
+
+    ``device="cpu"``: ``JIT_SMALL`` (fused blocks "on": the custom ops'
+    CPU registrations) at B 2 x 32 and ``MOE_LAYER_TINY``, the
+    rehearsal."""
+    import subprocess
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        MoELayer, moe_layer)
+    from paddle_tpu_torch.jit.api import count_custom_ops
+    from paddle_tpu_torch.profiler import compile_tracker
+    dev = _device(torch, device)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    kernels = dict(tbench.KERNELS)
+    cfg = (tllama.LlamaConfig(remat_policy="dots", **tbench.MODEL)
+           if on_card else tllama.LlamaConfig(
+               remat_policy="dots", **dict(JIT_SMALL, dtype=torch.float32)))
+    B, S = (4, tbench.SEQ) if on_card else (2, 32)
+    out = {"shape": dict(B=B, S=S)}
+    if on_card:
+        gc_cuda(torch)
+    paddle.set_device(dev)
+    paddle.seed(0)
+    net = tllama.LlamaForCausalLM(cfg)
+    params = net.parameters()
+    n_bytes = sum(p._t.numel() * p._t.element_size() for p in params)
+    batch = tbench.make_batch(cfg, B, S, dev)
+    ids = paddle.to_tensor(batch["input_ids"])
+    labels = paddle.to_tensor(batch["labels"])
+
+    # -- to_static: bits, nodes, launches, traces, times
+    _zero(kernels)
+    with paddle.no_grad():
+        want = net(ids)
+    _sync(torch, dev)
+    eager_launch = _counts(kernels)
+    compile_tracker.reset()
+    paddle.jit.to_static(net)
+    _zero(kernels)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    got = net(ids)
+    _sync(torch, dev)
+    capture_s = time.perf_counter() - t0
+    static_launch = _counts(kernels)
+    check(torch.equal(got._t, want._t), "jit: to_static's logits differ "
+          "from the eager forward's")
+    nodes = count_custom_ops(net.forward)
+    want_nodes = {n: eager_launch[n] for n in JIT_ROWS if eager_launch[n]}
+    if on_card:
+        check(nodes == want_nodes and len(want_nodes) == 3,
+              f"jit: custom-op nodes {nodes} vs the eager forward's "
+              f"launches {want_nodes}")
+        check(static_launch == eager_launch, f"jit: the replay launched "
+              f"{static_launch}, the eager forward {eager_launch}")
+    else:
+        check(nodes == {n: cfg.num_hidden_layers for n in JIT_ROWS},
+              f"jit: custom-op nodes {nodes}")
+    net(ids)
+    traces = dict(compile_tracker.stats()["functions"])
+    check(list(traces.values()) == [{"traces": 1, "retraces": 0}],
+          f"jit: repeated calls captured again: {traces}")
+    half = paddle.to_tensor(batch["input_ids"][: B // 2])
+    net(half)
+    fn = compile_tracker.stats()["functions"]["LlamaForCausalLM.forward"]
+    check(fn == {"traces": 2, "retraces": 1},
+          f"jit: a new shape did not capture once more: {fn}")
+    del half
+    static_fwd = net.forward
+    eager_fwd = type(net).forward.__get__(net)
+    turns = {"eager": [], "to_static": []}
+    with paddle.no_grad():
+        for _ in range(JIT_TURNS):
+            for name, f in (("eager", eager_fwd), ("to_static", static_fwd)):
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                f(ids)
+                _sync(torch, dev)
+                turns[name].append(1e3 * (time.perf_counter() - t0))
+    out["to_static"] = dict(
+        logits_bit_equal=True, custom_op_nodes=nodes,
+        eager_forward_launches=eager_launch, replay_launches=static_launch,
+        traces=fn, capture_s=capture_s,
+        forward_ms={k: float(np.median(v)) for k, v in turns.items()},
+        forward_ms_each=turns)
+
+    net.__dict__.pop("forward")
+    del got, static_fwd, eager_fwd
+
+    # -- jit.save of both routes, jit.load of both in one fresh process.
+    # The unfused route (fused blocks "off" on the same weights) holds
+    # rows 1-2's ``flash_fwd`` nodes, which the fused route runs inside
+    # row 8's call.
+    route = cfg.fused_blocks
+    cfg.fused_blocks = "off"
+    _zero(kernels)
+    with paddle.no_grad():
+        want_off = net(ids)
+    _sync(torch, dev)
+    off_launch = _counts(kernels)
+    cfg.fused_blocks = route
+    routes = {"fused": (want, eager_launch), "unfused": (want_off,
+                                                          off_launch)}
+    ids_np = batch["input_ids"].cpu().numpy()
+    saved, nodes_saved = {}, {}
+    # the ~1.9 GB artifacts go with the directory, whatever a gate says
+    with tempfile.TemporaryDirectory(prefix="jit_smoke_",
+                                     dir=os.getcwd()) as tmp:
+        prefixes = []
+        for name in routes:
+            prefix = os.path.join(tmp, name)
+            cfg.fused_blocks = "off" if name == "unfused" else route
+            t0 = time.perf_counter()
+            paddle.jit.save(net, prefix, input_spec=[paddle.jit.InputSpec(
+                [B, S], "int64")])
+            save_s = time.perf_counter() - t0
+            cfg.fused_blocks = route
+            sizes = {ext: os.path.getsize(prefix + ext)
+                     for ext in (".pdmodel", ".pdiparams", ".meta")}
+            check(n_bytes <= sizes[".pdiparams"] < n_bytes + (1 << 20),
+                  f"jit.save ({name}): .pdiparams {sizes['.pdiparams']} B "
+                  f"for {n_bytes} B of parameters")
+            held = _archive_tensor_bytes(prefix + ".pdmodel")
+            check(held == 0, f"jit.save ({name}): .pdmodel holds {held} B "
+                  f"of tensors")
+            with open(prefix + ".pdmodel", "rb") as f:
+                nodes_saved[name] = count_custom_ops(torch.export.load(f))
+            saved[name] = dict(save_s=save_s, bytes=sizes)
+            prefixes.append(prefix)
+        ids_path = os.path.join(tmp, "ids.npy")
+        np.save(ids_path, ids_np)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c", JIT_LOAD_SCRIPT, ids_path,
+             "gpu" if on_card else "cpu", *prefixes],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        load_wall = time.perf_counter() - t0
+    lines = [ln.split() for ln in res.stdout.splitlines()
+             if ln.startswith("JIT_LOAD")]
+    check(res.returncode == 0 and len(lines) == len(routes),
+          f"jit.load: the fresh process failed: {res.stderr[-2000:]}")
+    for (name, (w, w_launch)), line in zip(routes.items(), lines):
+        _, digest, import_s, load_s, run_s, *lc = line
+        load_launch = {kv.split("=")[0]: int(kv.split("=")[1])
+                       for kv in lc}
+        want_nodes = ({n: w_launch[n] for n in JIT_ROWS} if name == "fused"
+                      else {"flash_fwd": w_launch["flash_fwd"]})
+        if on_card:
+            check(nodes_saved[name] == want_nodes and all(
+                want_nodes.values()), f"jit.save ({name}): custom-op "
+                f"nodes {nodes_saved[name]} vs the eager forward's "
+                f"launches {want_nodes}")
+            check(load_launch == w_launch, f"jit.load ({name}): launches "
+                  f"{load_launch} vs the eager forward's {w_launch}")
+        else:
+            check(nodes_saved[name] == {n: cfg.num_hidden_layers
+                                        for n in want_nodes},
+                  f"jit.save ({name}): custom-op nodes {nodes_saved[name]}")
+        check(digest == _digest(torch, w._t), f"jit.load ({name}): the "
+              f"fresh process's logits differ from the eager forward's")
+        saved[name].update(
+            custom_op_nodes=nodes_saved[name], eager_forward_launches=w_launch,
+            launches=load_launch, logits_bit_equal=True,
+            load_process=dict(import_s=float(import_s), load_s=float(load_s),
+                              first_call_s=float(run_s)))
+    out["save_load"] = dict(param_bytes=n_bytes, load_wall_s=load_wall,
+                            **saved)
+    save_s = saved["fused"]["save_s"]
+    load_s = saved["fused"]["load_process"]["load_s"]
+    del want, want_off
+
+    # -- tensor-predicated control flow: the card against the CPU
+    xs = np.random.default_rng(3).standard_normal((4, 64)).astype(
+        np.float32)
+    cf = {}
+    for where in ("cpu", dev.type):
+        paddle.set_device(where)
+        f = paddle.jit.to_static(cf_probe)
+        r = []
+        for sign in (1.0, -1.0):
+            r.append(f(paddle.to_tensor(sign * xs),
+                       paddle.to_tensor(3))._t.cpu())
+        cf[where] = r
+        targets = [str(n.target) for n in f.program().graph.nodes]
+        check(any("cond" in t for t in targets)
+              and any("while_loop" in t for t in targets),
+              f"jit: cf_probe captured no cond / while_loop on {where}")
+    paddle.set_device(dev)
+    check(all(torch.equal(a, b) for a, b in zip(cf["cpu"], cf[dev.type])),
+          "jit: cf_probe on the card differs from the CPU")
+    out["control_flow"] = dict(card_equals_cpu=True, shape=list(xs.shape))
+
+    # -- eager steps from the initial state (the static run's yardstick)
+    def adamw(p):
+        sched = paddle.optimizer.lr.LinearWarmup(EAGER_LR, 2, EAGER_LR / 10,
+                                                 EAGER_LR)
+        return sched, paddle.optimizer.AdamW(
+            learning_rate=sched, parameters=p,
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+
+    if on_card:
+        gc_cuda(torch)
+    base = torch.cuda.memory_allocated(dev) if on_card else 0
+    _reset_peak(torch, dev)
+    sched, opt = adamw(params)
+    e_losses, e_grads, e_ms = [], None, []
+    for k in range(JIT_STATIC_STEPS):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        loss, _ = net(ids, labels=labels)
+        loss.backward()
+        if k == 0:
+            e_grads = [p.grad._t.clone() for p in params
+                       if not p.stop_gradient]
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        _sync(torch, dev)
+        e_ms.append(1e3 * (time.perf_counter() - t0))
+        e_losses.append(loss._t.detach().clone())
+        del loss
+    e_peak = _peak(torch, dev) - base if on_card else None
+    del net, params, opt, sched
+    if on_card:
+        gc_cuda(torch)
+
+    # -- static mode: the same model and optimizer through the Executor
+    base = torch.cuda.memory_allocated(dev) if on_card else 0
+    _reset_peak(torch, dev)
+    paddle.enable_static()
+    try:
+        main = static.Program()
+        with static.program_guard(main):
+            sids = static.data("ids", [B, S], "int64")
+            slab = static.data("labels", [B, S], "int64")
+            snet = tllama.LlamaForCausalLM(cfg)
+            sloss, _ = snet(sids, slab)
+            sparams = snet.parameters()
+            sched, opt = adamw(sparams)
+            opt.minimize(sloss)
+    finally:
+        paddle.disable_static()
+    n_ops = len(main._ops)
+    grads = []
+    step = opt.step
+
+    def first_grads():
+        if not grads:
+            grads.extend(p.grad._t.clone() for p in sparams
+                         if not p.stop_gradient)
+        step()
+    opt.step = first_grads
+    exe = static.Executor()
+    s_losses, s_ms = [], []
+    _zero(kernels)
+    feed = {"ids": batch["input_ids"], "labels": batch["labels"]}
+    for k in range(JIT_STATIC_STEPS):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[sloss],
+                        return_numpy=False)
+        sched.step()
+        _sync(torch, dev)
+        s_ms.append(1e3 * (time.perf_counter() - t0))
+        s_losses.append(lv._t)
+    s_launch = _counts(kernels)
+    s_peak = _peak(torch, dev) - base if on_card else None
+    opt.step = step
+    same_losses = [torch.equal(a, b) for a, b in zip(s_losses, e_losses)]
+    same_grads = [torch.equal(a, b) for a, b in zip(grads, e_grads)]
+    check(all(same_losses), f"static: losses {[float(x) for x in s_losses]}"
+          f" vs eager {[float(x) for x in e_losses]}")
+    check(len(grads) == len(e_grads) and all(same_grads),
+          f"static: {same_grads.count(False)} of {len(same_grads)} step-1 "
+          f"grads differ from the eager step's")
+    del grads, e_grads
+    out["static"] = dict(
+        ops=n_ops, losses=[float(x) for x in s_losses],
+        step1_loss_bit_equal=True, steps_loss_bit_equal=len(same_losses),
+        step1_grads_bit_equal=len(same_grads), launches=s_launch,
+        step_ms=float(np.mean(s_ms[1:])), step_ms_each=s_ms,
+        eager_step_ms=float(np.mean(e_ms[1:])), eager_step_ms_each=e_ms,
+        eager_phase_step_ms=(eager or {}).get("llama", {}).get("step_ms"),
+        peak_over_base=s_peak, eager_peak_over_base=e_peak,
+        eager_phase_peak=(eager or {}).get("llama", {}).get(
+            "peak_over_base"))
+
+    # -- asp on that model
+    t0 = time.perf_counter()
+    masks = asp.prune_model(snet)
+    _sync(torch, dev)
+    prune_s = time.perf_counter() - t0
+    wq = snet.layers_wq
+    m0 = asp.create_mask(wq._t[0].detach().float().cpu().numpy())
+    check(np.array_equal(masks["layers_wq"][0].float().cpu().numpy(), m0),
+          "asp: layer 0 of wq's mask differs from the numpy mask")
+    sched, opt = adamw(sparams)
+    aopt = asp.decorate(opt)
+    a_losses = []
+    for _ in range(JIT_STATIC_STEPS):
+        loss, _ = snet(ids, labels=labels)
+        loss.backward()
+        aopt.step()
+        aopt.clear_grad()
+        sched.step()
+        a_losses.append(float(loss))
+        bad = [n for n, p in snet.named_parameters()
+               if n in masks and not asp.check_sparsity(p)]
+        check(not bad, f"asp: 2:4 lost after a step in {bad[:4]}")
+        del loss
+    pruned = [p for n, p in snet.named_parameters() if n in masks]
+    density = sum(int(torch.count_nonzero(p._t)) for p in pruned) / sum(
+        p._t.numel() for p in pruned)
+    check(all(math.isfinite(x) for x in a_losses), f"asp: {a_losses}")
+    out["asp"] = dict(pruned=len(masks), density=density, prune_s=prune_s,
+                      losses=a_losses, mask_equals_numpy=True)
+    del snet, sparams, opt, aopt, sched, masks, main, exe, pruned, wq
+    if on_card:
+        gc_cuda(torch)
+
+    # -- the eager MoE layer
+    m = MOE_LAYER_FULL if on_card else MOE_LAYER_TINY
+    nn = paddle.nn
+    paddle.seed(0)
+    layer = MoELayer(m["d"], [nn.Sequential(nn.Linear(m["d"], m["ffn"]),
+                                            nn.GELU(),
+                                            nn.Linear(m["ffn"], m["d"]))
+                              for _ in range(m["experts"])],
+                     gate="gshard", top_k=m["top_k"])
+    before = {n: p._t.detach().clone() for n, p in layer.named_parameters()}
+    mopt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                  parameters=layer.parameters())
+    x = paddle.randn([m["B"], m["S"], m["d"]])
+    m_losses, m_aux, m_ms, drops = [], [], [], []
+    for _ in range(JIT_STATIC_STEPS):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        y = layer(x)
+        loss = paddle.mean(y * y) + layer.aux_loss
+        loss.backward()
+        mopt.step()
+        mopt.clear_grad()
+        _sync(torch, dev)
+        m_ms.append(1e3 * (time.perf_counter() - t0))
+        m_losses.append(float(loss))
+        m_aux.append(float(layer.aux_loss))
+        drops.append(moe_layer.dropped_share(layer.last_gate_idx,
+                                             m["experts"],
+                                             layer.capacity_factor))
+        del y, loss
+    moved = {n: not torch.equal(before[n], p._t)
+             for n, p in layer.named_parameters()}
+    check(all(math.isfinite(v) for v in m_losses + m_aux),
+          f"moe layer: loss {m_losses} aux {m_aux}")
+    check(all(moved.values()), "moe layer: unchanged after the steps: "
+          f"{[n for n, v in moved.items() if not v][:4]}")
+    out["moe_layer"] = dict(losses=m_losses, aux=m_aux, dropped_share=drops,
+                            step_ms=float(np.mean(m_ms[1:])),
+                            step_ms_each=m_ms, width=m)
+    del layer, mopt, x, before
+    if on_card:
+        gc_cuda(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"jit_static [{card}]: {json.dumps(out)}")
+    print(f"jit_static [{card}]: to_static fwd "
+          f"{out['to_static']['forward_ms']['to_static']:.2f} ms vs eager "
+          f"{out['to_static']['forward_ms']['eager']:.2f} ms (capture "
+          f"{capture_s:.2f} s); save {save_s:.2f} s, load "
+          f"{float(load_s):.2f} s; static step "
+          f"{out['static']['step_ms']:.2f} ms vs eager "
+          f"{out['static']['eager_step_ms']:.2f} ms; moe layer step "
+          f"{out['moe_layer']['step_ms']:.2f} ms; "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
 def load_parent(root):
     """``root``/paddle_tpu_torch imported as ``parent_paddle_tpu_torch``:
     the package imports itself only relatively, so its kernels build from
@@ -6488,9 +6989,53 @@ def load_parent(root):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
-    return {n: importlib.import_module(f"{spec.name}.{n}")
+    mods = {n: importlib.import_module(f"{spec.name}.{n}")
             for n in ("bench", "ops._build", "ops.fused_blocks",
-                      "ops.flash_attention")}
+                      "ops.flash_attention", "models.llama")}
+    mods["paddle"] = mod
+    return mods
+
+
+EAGER_TURN_STEPS = 4    # eager_turn's steps; the first is the warm-up
+
+
+def eager_turn(torch, paddle, tllama, tbench):
+    """One package's eager ``LlamaForCausalLM`` at bench.py's shape
+    (``eager_phase``'s model and optimizer) for ``EAGER_TURN_STEPS``
+    steps: (the mean step ms of steps 2 on, the launches a step)."""
+    dev = torch.device("cuda")
+    gc_cuda(torch)
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    cfg = tllama.LlamaConfig(remat_policy="dots", **tbench.MODEL)
+    net = tllama.LlamaForCausalLM(cfg)
+    sched = paddle.optimizer.lr.LinearWarmup(EAGER_LR, 2, EAGER_LR / 10,
+                                             EAGER_LR)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=sched, parameters=net.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    batch = tbench.make_batch(cfg, 4, tbench.SEQ, dev)
+    ids = paddle.to_tensor(batch["input_ids"])
+    labels = paddle.to_tensor(batch["labels"])
+    kernels = dict(tbench.KERNELS)
+    _zero(kernels)
+    ms = []
+    for _ in range(EAGER_TURN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = net(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        del loss
+    launches = {n: c / EAGER_TURN_STEPS
+                for n, c in _counts(kernels).items()}
+    del net, opt
+    gc_cuda(torch)
+    return float(np.mean(ms[1:])), launches
 
 
 TURNS = ("parent", "change", "change", "parent")
@@ -6499,16 +7044,21 @@ TURNS = ("parent", "change", "change", "parent")
 def compare_turns(torch, parent_root, smi):
     """The parent's package against this tree's in turns P C C P, every
     kernel timed by graph replay on the same inputs (each package's
-    outputs held to its plain version first) and each tree's train step
+    outputs held to its plain version first), each tree's train step
     measured by its own ``bench.measure`` (2 warm-up + 5 steps, fused
-    and unfused).  Prints one line a turn and, last, the turns as JSON."""
+    and unfused) and its eager ``LlamaForCausalLM`` step
+    (``eager_turn``); the launches a step must be the same in every
+    turn.  Prints one line a turn and, last, the turns as JSON."""
     from paddle_tpu_torch import bench
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention
     from paddle_tpu_torch.ops import fused_blocks
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models import llama
     pkgs = {"change": {"bench": bench, "ops._build": _build,
                        "ops.fused_blocks": fused_blocks,
-                       "ops.flash_attention": flash_attention},
+                       "ops.flash_attention": flash_attention,
+                       "models.llama": llama, "paddle": paddle_tpu_torch},
             "parent": load_parent(parent_root)}
     for name, mods in pkgs.items():
         t0 = time.perf_counter()
@@ -6559,9 +7109,17 @@ def compare_turns(torch, parent_root, smi):
             check(not r["oom_rungs"], f"compare {turn} {mode}: out of memory")
             res[f"{mode}_step_ms"] = r["step_ms"]
             res[f"{mode}_mfu"] = r["value"]
+            res[f"{mode}_launches"] = r["launches_per_step"]
+        res["eager_step_ms"], res["eager_launches"] = eager_turn(
+            torch, pkgs[turn]["paddle"], pkgs[turn]["models.llama"], tb_)
         turns.append(res)
         print(f"compare turn {turn} [{smi}]: " + "  ".join(
-            f"{k} {v:.4f}" for k, v in res.items() if k != "turn"))
+            f"{k} {v:.4f}" for k, v in res.items()
+            if isinstance(v, float)))
+    for mode in ("fused", "unfused", "eager"):
+        ls = [t[f"{mode}_launches"] for t in turns]
+        check(all(x == ls[0] for x in ls), f"compare: {mode} launches a "
+              f"step differ between the trees: {ls}")
     print(json.dumps({"compare": turns, "gpu": smi}))
 
 
@@ -6710,6 +7268,16 @@ def main(argv=()):
     amp = amp_phase(torch, tbench, tllama, card, fused_res, eager)
     seq = seq_phase(torch, card)
     stamp("amp, seq")
+    # jit / static / asp / the eager MoE layer: bench.py's Llama through
+    # to_static, jit.save and a fresh process's jit.load, the static
+    # Executor's train step, asp's 2:4 pruning; MoELayer at llama1b's width
+    jst = jit_static_phase(torch, tbench, tllama, card, eager)
+    jit_launches = {n: dict(
+        to_static_forward=jst["to_static"]["replay_launches"][n],
+        jit_load_forward=jst["save_load"]["fused"]["launches"][n],
+        jit_load_unfused_forward=jst["save_load"]["unfused"]["launches"][n],
+        static_steps=jst["static"]["launches"][n]) for n in tbench.KERNELS}
+    stamp("jit, static, asp, moe layer")
     # the distributed train step: a small model's topologies as 4 ranks
     # on the card against world size 1, then bench.py's shape at world
     # size 1 over NCCL (in turns with bench.train_step) and as 2 ranks
@@ -6877,6 +7445,7 @@ def main(argv=()):
             launches_eager=eager["llama"]["launches"][name],
             launches_eager_gpt=eager["gpt"]["launches"][name],
             launches_amp=amp["launches"][name],
+            launches_jit_static=jit_launches[name],
             max_abs_err=flash_err[key],
             row_rel_err=flash_row_err[key], row_rel_max=ROW_REL_MAX,
             control_row_rel_err=min(
@@ -6920,6 +7489,7 @@ def main(argv=()):
             launches_resize_rank0=resize["launches_rank0"][name],
             launches_eager=eager["llama"]["launches"][name],
             launches_amp=amp["launches"][name],
+            launches_jit_static=jit_launches[name],
             row_rel_err=r["row_rel_err"], row_rel_max=ROW_REL_MAX,
             norm_rel_err=r["norm_rel_err"],
             control_row_rel_err=r["control_row_rel_err"], ms=r["ms"],

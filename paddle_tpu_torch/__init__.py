@@ -10,9 +10,13 @@ loss layers, functionals, initializers, gradient clipping, ``utils``),
 (models, datasets, transforms, detection ops, image IO), ``metric``,
 ``hapi`` (``Model`` and its callbacks), ``geometric``; ``amp``
 (``auto_cast``, ``decorate`` with master weights, ``GradScaler``,
-``debugging``) and ``incubate`` (fused layers, LookAhead,
-ModelAverage).  Tensors are created on the current place: the card
-unless ``set_device`` names another; with neither, creation raises.
+``debugging``), ``incubate`` (fused layers, LookAhead, ModelAverage,
+``asp``, the eager MoE layer), ``jit`` (``to_static`` and ``save`` /
+``load`` over ``torch.export``, with the kernels as custom ops),
+``static`` (``Program`` / ``Executor``, ``enable_static``) and
+``_C_ops`` (the ops on raw torch tensors).  Tensors are created on
+the current place: the card unless ``set_device`` names another; with
+neither, creation raises.
 
 Beside it, as before: ``models/`` (the Llama, GPT and ERNIE families,
 functional cores with eager ``Layer`` classes, and KV-cache generation
@@ -68,3 +72,17 @@ from .hapi.model import Model, summary  # noqa: E402,F401
 from . import models  # noqa: E402,F401
 from .models import (ErnieConfig, GPTConfig, GPTForCausalLM,  # noqa: E402,F401
                      LlamaConfig, LlamaForCausalLM)
+from . import jit  # noqa: E402,F401
+from . import static  # noqa: E402,F401
+from . import _C_ops  # noqa: E402,F401
+from .static.program import (enable_static, disable_static,  # noqa: E402,F401
+                             in_static_mode)
+
+
+def in_dynamic_mode():
+    """True unless a static program records (``enable_static`` or a
+    ``static.program_guard``)."""
+    return not in_static_mode()
+
+
+in_dygraph_mode = in_dynamic_mode

@@ -338,6 +338,12 @@ class _AmpOff:
 # while AMP is off ``apply_op`` reads one flag and casts nothing.
 _AMP_STATE = _AmpOff()
 _AMP_CAST_HOOK = [None]
+# static-graph recording (``static/program.py``): while a program
+# records, ``apply_op`` hands every op to this hook, which runs it and
+# appends (pure_fn, tensor inputs, outputs, op_name) to the program (the
+# reference's ``_STATIC_RECORD_HOOK``); with no program recording the
+# cost is this one read.
+_STATIC_RECORD_HOOK = [None]
 
 
 def apply_op(fn: Callable, *inputs, op_name: str = "", n_outs: int = 1,
@@ -352,11 +358,39 @@ def apply_op(fn: Callable, *inputs, op_name: str = "", n_outs: int = 1,
     ``n_outs`` is the reference's argument (the count of outputs comes
     from what ``fn`` returns).  Under ``amp.auto_cast`` the floating
     ``Tensor`` inputs are cast first by the op's list (a cast in the
-    graph: the gradient returns in the input's own dtype).
+    graph: the gradient returns in the input's own dtype).  While a
+    static program records, the op is also appended to it.
     """
     if _AMP_STATE.enabled:
-        inputs = _AMP_CAST_HOOK[0](op_name, inputs)
-    out = fn(*[_unwrap(x) for x in inputs], **kwargs)
+        cast = _AMP_CAST_HOOK[0](op_name, inputs)
+        if _STATIC_RECORD_HOOK[0] is not None:
+            # a program records the uncast inputs and replays the casts
+            # as part of the op, on the fed and the live values
+            fn = _cast_first(fn, inputs, cast)
+        else:
+            inputs = cast
+    if _STATIC_RECORD_HOOK[0] is not None:
+        return _STATIC_RECORD_HOOK[0](fn, inputs, kwargs, op_name)
+    return wrap_outputs(fn(*[_unwrap(x) for x in inputs], **kwargs),
+                        op_name)
+
+
+def _cast_first(fn, inputs, cast):
+    """``fn`` that first casts each positional input to the dtype the
+    AMP hook gave it (``cast``: the hook's output for ``inputs``)."""
+    dtypes = [None if c is x else c._t.dtype for x, c in zip(inputs, cast)]
+    if all(d is None for d in dtypes):
+        return fn
+
+    def cast_fn(*args, **kwargs):
+        return fn(*[a if d is None else a.to(d)
+                    for a, d in zip(args, dtypes)], **kwargs)
+    return cast_fn
+
+
+def wrap_outputs(out, op_name):
+    """An op's torch result as a ``Tensor`` (or a tuple of them), after
+    the NaN/Inf check when ``FLAGS_check_nan_inf`` is on."""
     if isinstance(out, (tuple, list)):
         outs = tuple(Tensor._wrap(o) for o in out)
         if _FLAGS["FLAGS_check_nan_inf"]:
@@ -567,6 +601,11 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True) -> Tensor:
                 dt = torch.int64
             elif isinstance(data, float):
                 dt = dtype_mod.get_default_dtype()
+        if isinstance(data, (bool, int, float)):
+            # a Python scalar goes straight to torch (the value numpy's
+            # float64 path rounds to), which a capture's tracer follows
+            return Tensor(torch.tensor(data, dtype=dt, device=dev),
+                          stop_gradient=stop_gradient)
         arr = data if isinstance(data, np.ndarray) else None
         if arr is None:
             if isinstance(data, (list, tuple)) and any(

@@ -1,11 +1,14 @@
 """paddle.incubate (the port of ``paddle_tpu/incubate/``): the fused nn
 layers and functionals, the autograd extras, the optimizer wrappers,
 the softmax-mask fusions, the graph ops under their incubate names and
-``identity_loss``.  ``asp``, ``autotune`` and ``distributed`` (the
-eager MoE layer) are not ported yet.
+``identity_loss``; ``asp`` (2:4 sparsity) and ``distributed`` (the
+eager MoE layer).  ``autotune`` raises: it comes with ROADMAP A item 8.
 """
 from . import nn  # noqa: F401
 from . import autograd  # noqa: F401
+from . import asp  # noqa: F401
+from . import autotune  # noqa: F401
+from . import distributed  # noqa: F401
 from . import optimizer  # noqa: F401
 from .optimizer import LookAhead, ModelAverage  # noqa: F401
 
@@ -17,7 +20,8 @@ from ..geometric import send_u_recv as graph_send_recv  # noqa: F401
 from ..geometric import sample_neighbors as graph_sample_neighbors  # noqa
 from ..geometric import reindex_graph as graph_reindex  # noqa: F401
 
-__all__ = ["nn", "autograd", "optimizer", "LookAhead", "ModelAverage",
+__all__ = ["nn", "autograd", "asp", "autotune", "optimizer",
+           "LookAhead", "ModelAverage",
            "segment_sum", "segment_mean", "segment_max", "segment_min",
            "graph_send_recv", "graph_sample_neighbors", "graph_reindex",
            "graph_khop_sampler", "softmax_mask_fuse",

@@ -62,6 +62,25 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     # the running statistics update in place, from the batch's own
     # statistics (the unbiased variance)
     if use_batch_stats and isinstance(running_mean, Tensor):
+        from ...static.program import record_state_write, recording_program
+        if recording_program() is not None:
+            # a static build runs on placeholder zeros: the update is
+            # recorded (as ops on the replay's batch) and the Executor
+            # writes it into the live buffers after each run
+            def _upd_var(v, bv, a):
+                n = 1
+                for ax in reduce_axes:
+                    n *= a.shape[ax]
+                return momentum * v + (1 - momentum) * (
+                    bv * (n / max(n - 1, 1)))
+            new_mean = apply_op(
+                lambda m, bm: momentum * m + (1 - momentum) * bm,
+                rm_t, batch_mean, op_name="bn_update_mean")
+            new_var = apply_op(_upd_var, rv_t, batch_var, x,
+                               op_name="bn_update_var")
+            record_state_write(running_mean, new_mean)
+            record_state_write(running_var, new_var)
+            return out
         n = 1
         for ax in reduce_axes:
             n *= x.shape[ax]

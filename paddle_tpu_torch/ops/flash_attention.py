@@ -25,6 +25,9 @@ their dq parts in a fixed order, so every output is the same bits from
 call to call.  CPU tensors go to the plain versions, which materialise
 the S x S scores in f32 as the kernels' math does.
 ``causal_attention`` is the ``torch.autograd.Function`` over them.
+``flash_fwd`` runs through the custom op ``paddle_tpu_torch::flash_fwd``
+(CUDA: the kernel; CPU: the plain version; a fake for captures), so a
+graph captured by ``jit`` holds it as one node.
 """
 from __future__ import annotations
 
@@ -208,13 +211,42 @@ def _route(q, what):
     raise RuntimeError(f"{what}: no kernel for device {q.device}")
 
 
+# ``flash_fwd`` is a ``torch.library`` custom op: its CUDA registration
+# launches the kernel (and counts it), its CPU registration is the plain
+# version, and its fake one gives the outputs' shapes, so a capture
+# (``torch.export``: ``jit.to_static`` / ``jit.save``) records one node
+# for it and a replay of the captured graph launches the kernel again.
+# The pointer work, the shape checks and the workspaces sit inside the
+# CUDA registration, where the tensors are real.
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    o, lse = _flash_fwd_plain(q, k, v)
+    return o.contiguous(), lse.contiguous()
+
+
+@_flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_op_cuda(q, k, v):
+    o, lse = _launch_fwd(q, k, v)
+    flash_fwd.launches += 1
+    return o, lse
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_op_fake(q, k, v):
+    if q.device.type == "cuda":
+        B, S, H, _ = _check_kernel_args("flash_fwd", q, k, v)
+    else:
+        B, S, H = q.shape[0], q.shape[1], q.shape[2]
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((B, H, S), dtype=torch.float32))
+
+
 def flash_fwd(q, k, v):
     """Causal attention forward: (o [B, S, H, D], lse [B, H, S] f32)."""
-    if _route(q, "flash_fwd") == "cuda":
-        o, lse = _numerics.opaque("flash_fwd", _launch_fwd, q, k, v)
-        flash_fwd.launches += 1
-        return o, lse
-    return _numerics.opaque("flash_fwd", _flash_fwd_plain, q, k, v)
+    _route(q, "flash_fwd")
+    return _numerics.opaque("flash_fwd", _flash_fwd_op, q, k, v)
 
 
 def flash_bwd(q, k, v, o, lse, do):

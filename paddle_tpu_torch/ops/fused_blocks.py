@@ -165,11 +165,12 @@ def _fn(name):
     return fn
 
 
-def _check(what, x, named):
+def _check(what, x, named, aligned=True):
     """Raise on what the kernels do not take.  ``x`` is the [B, S, H]
     activation; ``named`` maps each other operand's name to (tensor,
     expected shape, expected dtype).  Pure shape/dtype checks, so the CPU
-    tests reach them too."""
+    tests reach them too; ``aligned=False`` (the fake registrations,
+    whose tensors have no storage) skips the 16-byte alignment."""
     if x.dim() != 3:
         raise ValueError(f"{what}: x must be [B, S, H], got "
                          f"{tuple(x.shape)}")
@@ -187,7 +188,7 @@ def _check(what, x, named):
                              f"{dtype} {tuple(shape)} on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
-        if t.data_ptr() % 16:
+        if aligned and t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} is not 16-byte aligned")
 
 
@@ -209,15 +210,20 @@ def _empty(shape, dtype, like):
     return torch.empty(shape, dtype=dtype, device=like.device)
 
 
-def _fused_qkv_cuda(x, ln, wq, wk, wv, sin, cos, D, eps):
+def _qkv_args(x, ln, wq, wk, wv, sin, cos, D, aligned=True):
     B, S, H = x.shape
     _head_dim("fused_qkv", H, D)
     bf, f32 = torch.bfloat16, torch.float32
     _check("fused_qkv", x, {"ln": (ln, (H,), bf), "wq": (wq, (H, H), bf),
                             "wk": (wk, (H, H), bf), "wv": (wv, (H, H), bf),
                             "sin": (sin, (S, D), f32),
-                            "cos": (cos, (S, D), f32)})
-    xn = _empty((B * S, H), bf, x)
+                            "cos": (cos, (S, D), f32)}, aligned)
+    return B, S, H
+
+
+def _fused_qkv_cuda(x, ln, wq, wk, wv, sin, cos, D, eps):
+    B, S, H = _qkv_args(x, ln, wq, wk, wv, sin, cos, D)
+    xn = _empty((B * S, H), torch.bfloat16, x)
     q, k, v = (torch.empty_like(x) for _ in range(3))
     err = _fn("fused_qkv_launch")(
         x.data_ptr(), ln.data_ptr(), wq.data_ptr(), wk.data_ptr(),
@@ -229,13 +235,18 @@ def _fused_qkv_cuda(x, ln, wq, wk, wv, sin, cos, D, eps):
     return q, k, v
 
 
-def _fused_attn_epilogue_cuda(q, k, v, x, wo, D):
+def _epi_args(q, k, v, x, wo, D, aligned=True):
     B, S, H = x.shape
     _head_dim("fused_attn_epilogue", H, D)
     bf = torch.bfloat16
     _check("fused_attn_epilogue", x, {
         "q": (q, (B, S, H), bf), "k": (k, (B, S, H), bf),
-        "v": (v, (B, S, H), bf), "wo": (wo, (H, H), bf)})
+        "v": (v, (B, S, H), bf), "wo": (wo, (H, H), bf)}, aligned)
+    return B, S, H
+
+
+def _fused_attn_epilogue_cuda(q, k, v, x, wo, D):
+    B, S, H = _epi_args(q, k, v, x, wo, D)
     attn, lse = fa._launch_fwd(_heads(q, D), _heads(k, D), _heads(v, D))
     attn = attn.view(B, S, H)
     y = torch.empty_like(x)
@@ -247,13 +258,13 @@ def _fused_attn_epilogue_cuda(q, k, v, x, wo, D):
     return y, attn, lse
 
 
-def _mlp_args(what, x, ln, wg, wu, wd, extra=None):
+def _mlp_args(what, x, ln, wg, wu, wd, extra=None, aligned=True):
     H = x.shape[-1]
     I = _inter(what, wg)
     bf = torch.bfloat16
     _check(what, x, {"ln": (ln, (H,), bf), "w_gate": (wg, (H, I), bf),
                      "w_up": (wu, (H, I), bf), "w_down": (wd, (I, H), bf),
-                     **(extra or {})})
+                     **(extra or {})}, aligned)
     return x.shape[0] * x.shape[1], H, I
 
 
@@ -300,28 +311,99 @@ def _on_card(x, what):
     raise RuntimeError(f"{what}: no kernel for device {x.device}")
 
 
+# The three forward wrappers run through ``torch.library`` custom ops:
+# the CUDA registration launches the kernel (the ``_*_cuda`` functions,
+# which count), the CPU one is the plain version, and the fake one gives
+# the outputs' shapes (after the kernels' own checks on CUDA tensors), so
+# a ``jit`` capture records one node a call and its replay launches the
+# kernel.  Every pointer use, check and workspace stays inside the CUDA
+# registration.  ``fused_mlp_bwd_dx`` runs only in a backward and stays
+# a plain call.
+
+_T = torch.Tensor
+
+
+def _fresh(*ts):
+    return tuple(t.contiguous() for t in ts)
+
+
+@torch.library.custom_op("paddle_tpu_torch::fused_qkv", mutates_args=())
+def _fused_qkv_op(x: _T, ln: _T, wq: _T, wk: _T, wv: _T, sin: _T, cos: _T,
+                  head_dim: int, eps: float) -> tuple[_T, _T, _T]:
+    return _fresh(*_fused_qkv_plain(x, ln, wq, wk, wv, sin, cos, head_dim,
+                                    eps))
+
+
+_fused_qkv_op.register_kernel("cuda")(
+    lambda *a: _fused_qkv_cuda(*a))
+
+
+@_fused_qkv_op.register_fake
+def _fused_qkv_fake(x, ln, wq, wk, wv, sin, cos, head_dim, eps):
+    if x.device.type == "cuda":
+        _qkv_args(x, ln, wq, wk, wv, sin, cos, head_dim, aligned=False)
+    shape = x.shape[:-1] + (wq.shape[-1],)
+    return tuple(x.new_empty(shape) for _ in range(3))
+
+
+@torch.library.custom_op("paddle_tpu_torch::fused_attn_epilogue",
+                         mutates_args=())
+def _fused_attn_epilogue_op(q: _T, k: _T, v: _T, x: _T, wo: _T,
+                            head_dim: int) -> tuple[_T, _T, _T]:
+    return _fresh(*_fused_attn_epilogue_plain(q, k, v, x, wo, head_dim))
+
+
+_fused_attn_epilogue_op.register_kernel("cuda")(
+    lambda *a: _fused_attn_epilogue_cuda(*a))
+
+
+@_fused_attn_epilogue_op.register_fake
+def _fused_attn_epilogue_fake(q, k, v, x, wo, head_dim):
+    B, S, H = x.shape
+    if x.device.type == "cuda":
+        _epi_args(q, k, v, x, wo, head_dim, aligned=False)
+    return (x.new_empty(x.shape), q.new_empty(q.shape),
+            x.new_empty((B, H // head_dim, S), dtype=torch.float32))
+
+
+@torch.library.custom_op("paddle_tpu_torch::fused_mlp_fwd", mutates_args=())
+def _fused_mlp_fwd_op(x: _T, ln: _T, wg: _T, wu: _T, wd: _T,
+                      eps: float) -> _T:
+    return _fresh(_fused_mlp_fwd_plain(x, ln, wg, wu, wd, eps))[0]
+
+
+_fused_mlp_fwd_op.register_kernel("cuda")(
+    lambda *a: _fused_mlp_fwd_cuda(*a))
+
+
+@_fused_mlp_fwd_op.register_fake
+def _fused_mlp_fwd_fake(x, ln, wg, wu, wd, eps):
+    if x.device.type == "cuda":
+        _mlp_args("fused_mlp_fwd", x, ln, wg, wu, wd, aligned=False)
+    return x.new_empty(x.shape)
+
+
 def fused_qkv(x, ln, wq, wk, wv, sin, cos, *, head_dim, eps=1e-6):
     """x [B, S, H] -> (q, k, v) [B, S, H]: RMSNorm, projections, rope on
     q and k."""
-    fn = _fused_qkv_cuda if _on_card(x, "fused_qkv") else _fused_qkv_plain
-    return _numerics.opaque("fused_qkv", fn, x, ln, wq, wk, wv, sin, cos,
-                            head_dim, eps)
+    _on_card(x, "fused_qkv")
+    return _numerics.opaque("fused_qkv", _fused_qkv_op, x, ln, wq, wk, wv,
+                            sin, cos, int(head_dim), float(eps))
 
 
 def fused_attn_epilogue(q, k, v, x, wo, *, head_dim):
     """Causal attention over the flat heads and ``y = x + attn wo``:
     (y, attn [B, S, H], lse [B, nh, S] f32)."""
-    fn = (_fused_attn_epilogue_cuda if _on_card(x, "fused_attn_epilogue")
-          else _fused_attn_epilogue_plain)
-    return _numerics.opaque("fused_attn_epilogue", fn, q, k, v, x, wo,
-                            head_dim)
+    _on_card(x, "fused_attn_epilogue")
+    return _numerics.opaque("fused_attn_epilogue", _fused_attn_epilogue_op,
+                            q, k, v, x, wo, int(head_dim))
 
 
 def fused_mlp_fwd(x, ln, wg, wu, wd, *, eps=1e-6):
     """y = x + (silu(rms(x) wg) * (rms(x) wu)) wd."""
-    fn = (_fused_mlp_fwd_cuda if _on_card(x, "fused_mlp_fwd")
-          else _fused_mlp_fwd_plain)
-    return _numerics.opaque("fused_mlp_fwd", fn, x, ln, wg, wu, wd, eps)
+    _on_card(x, "fused_mlp_fwd")
+    return _numerics.opaque("fused_mlp_fwd", _fused_mlp_fwd_op, x, ln, wg,
+                            wu, wd, float(eps))
 
 
 def fused_mlp_bwd_dx(x, ln, wg, wu, wd, dy, *, eps=1e-6):

@@ -113,9 +113,14 @@ class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, name=None):
         if parameters is None:
-            raise ValueError(
-                "parameters is required in eager mode; pass "
-                "model.parameters()")
+            from ..static.program import recording_program
+            if recording_program() is None:
+                raise ValueError(
+                    "parameters is required in eager mode (no global "
+                    "program); pass model.parameters(). In static mode "
+                    "(enable_static) minimize() binds the program's "
+                    "trainable variables automatically.")
+            parameters = []  # filled by the Executor from the program
         self._parameter_list = list(parameters)
         self._lr = learning_rate
         self._grad_clip = grad_clip
@@ -232,6 +237,14 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
+        from ..static.program import recording_program
+        prog = recording_program()
+        if prog is not None:
+            # static build: register the objective; Executor.run computes
+            # the gradients in its replay and steps this optimizer
+            # (reference: minimize appends backward + optimizer ops)
+            prog._opt = (self, loss)
+            return None, []
         loss.backward()
         self.step()
         return None, [(p, p.grad) for p in self._parameter_list]

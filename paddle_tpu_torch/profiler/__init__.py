@@ -333,16 +333,19 @@ class Profiler:
                 f"ips: {1.0 / max(arr.mean(), 1e-9):.2f} steps/s")
 
     def _compilation_section(self) -> list:
-        """The "Compilation" section: the kernels' nvcc builds and the
-        libraries found built.  The reference's jaxpr traces and
-        retraces have no counterpart (nothing in the port traces)."""
+        """The "Compilation" section: the kernels' nvcc builds, the
+        libraries found built and ``to_static``'s captures (the
+        reference's jaxpr traces) and retraces."""
         st = compile_tracker.stats()
         lines = ["Compilation",
                  f"  kernel builds (nvcc): {st['compile_count']}  "
                  f"(cumulative {st['compile_seconds']:.3f} s)",
                  f"  libraries already built: "
                  f"{st['persistent_cache_hits']}",
-                 "  jaxpr traces: no counterpart (the port does not trace)"]
+                 f"  jaxpr traces: no counterpart (to_static captures "
+                 f"with torch.export: "
+                 f"{sum(v['traces'] for v in st['functions'].values())}, "
+                 f"retraces {st['retraces']})"]
         for name, e in sorted(st["sources"].items()):
             lines.append(f"    {name[:40]:<40} {e['builds']:>3} builds "
                          f"{e['seconds']:>9.3f} s {e['cache_hits']:>4} "

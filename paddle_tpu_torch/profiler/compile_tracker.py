@@ -3,11 +3,13 @@
 The port has no XLA: what it compiles is its CUDA kernels, one nvcc
 build a source (``ops/_build.py``).  Each build reports here with its
 seconds; a library already built for the current source and headers is
-a cache hit.  ``stats()`` feeds the Profiler's "Compilation" section;
-with FLAGS_tpu_metrics on the same events count in
-``kernel_builds_total``, ``kernel_build_seconds_total`` and
-``kernel_build_cache_hits_total``.  The reference's jaxpr traces and
-per-function retraces have no counterpart: nothing in the port traces.
+a cache hit.  ``jit.to_static`` records each capture of a new call
+signature (``record_trace``: the first of a function is its capture,
+later ones are retraces), as the reference records its jaxpr traces.
+``stats()`` feeds the Profiler's "Compilation" section; with
+FLAGS_tpu_metrics on the same events count in ``kernel_builds_total``,
+``kernel_build_seconds_total``, ``kernel_build_cache_hits_total``,
+``jit_traces_total`` and ``jit_retraces_total``.
 """
 from __future__ import annotations
 
@@ -16,14 +18,16 @@ from typing import Dict
 
 from . import metrics as _metrics
 
-__all__ = ["record_build", "record_cache_hit", "stats", "reset",
-           "compile_count", "compile_seconds"]
+__all__ = ["record_build", "record_cache_hit", "record_trace", "stats",
+           "reset", "compile_count", "compile_seconds"]
 
 _lock = threading.Lock()
 _totals = {"compile_count": 0, "compile_seconds": 0.0,
            "persistent_cache_hits": 0, "persistent_cache_misses": 0}
 # source name -> {"builds": n, "seconds": s, "cache_hits": n}
 _sources: Dict[str, Dict[str, float]] = {}
+# to_static function name -> {"traces": n, "retraces": n}
+_functions: Dict[str, Dict[str, int]] = {}
 
 
 def _entry(name: str) -> Dict[str, float]:
@@ -61,6 +65,24 @@ def record_cache_hit(name: str) -> None:
                          "source", source=name).inc()
 
 
+def record_trace(fn_name: str) -> None:
+    """One capture of a new call signature of ``fn_name`` (a
+    ``to_static`` function); every one after the first is a retrace."""
+    with _lock:
+        entry = _functions.setdefault(fn_name, {"traces": 0, "retraces": 0})
+        entry["traces"] += 1
+        is_retrace = entry["traces"] > 1
+        if is_retrace:
+            entry["retraces"] += 1
+    if _metrics.enabled():
+        _metrics.counter("jit_traces_total",
+                         "Captures per to_static function", fn=fn_name).inc()
+        if is_retrace:
+            _metrics.counter("jit_retraces_total",
+                             "Captures after the first",
+                             fn=fn_name).inc()
+
+
 def compile_count() -> int:
     return _totals["compile_count"]
 
@@ -74,6 +96,8 @@ def stats() -> dict:
     with _lock:
         out = dict(_totals)
         out["sources"] = {k: dict(v) for k, v in _sources.items()}
+        out["functions"] = {k: dict(v) for k, v in _functions.items()}
+        out["retraces"] = sum(v["retraces"] for v in _functions.values())
     return out
 
 
@@ -82,3 +106,4 @@ def reset():
         for k in _totals:
             _totals[k] = 0 if isinstance(_totals[k], int) else 0.0
         _sources.clear()
+        _functions.clear()

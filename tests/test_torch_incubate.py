@@ -338,7 +338,7 @@ def test_graph_aliases_and_khop_sampler():
 
 def test_incubate_surface():
     names = set(tpaddle.incubate.__all__)
-    want = set(jpaddle.incubate.__all__) - {"asp", "autotune"}
+    want = set(jpaddle.incubate.__all__)
     assert names == want
     for n in names:
         assert hasattr(tpaddle.incubate, n), n

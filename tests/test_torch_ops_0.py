@@ -33,6 +33,12 @@ PORTED_MODULES = {
     "nn.functional.conv", "nn.functional.pooling",
     "nn.functional.vision", "nn.functional.extended", "geometric",
     "vision.ops",
+    # modules with no registry op, listed as ported
+    "jit.api", "jit.dy2static", "static.program", "static.control_flow",
+    "static.nn", "static.sequence", "static.compat", "ops.codegen",
+    "_C_ops", "incubate.asp.utils", "incubate.asp.asp",
+    "incubate.distributed.models.moe.gate",
+    "incubate.distributed.models.moe.moe_layer",
 }
 
 
