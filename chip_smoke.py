@@ -204,6 +204,7 @@ card (``compare_turns``): the four fused-block kernels and the flash
 backward (D 128 and 64) per call at the bench shape, and the bench's
 train step fused and unfused.
 """
+import functools
 import json
 import math
 import os
@@ -2419,7 +2420,7 @@ DIST_SMALL = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
                   num_hidden_layers=2, num_attention_heads=4,
                   num_key_value_heads=4, max_position_embeddings=256,
                   fused_blocks="off")
-DIST_SMALL_SHAPE = (4, 128, 3)          # global batch, sequence, steps
+DIST_SMALL_SHAPE = (4, 128, 2)          # global batch, sequence, steps
 DIST_SMALL_CASES = (("dp2xmp2", dict(dp=2, mp=2), {}),
                     ("dp2xsharding2", dict(dp=2, sharding=2), {}),
                     ("dp4_overlap", dict(dp=4), dict(overlap=True)))
@@ -2483,18 +2484,65 @@ def dist_param_check(got, ref, steps, what):
     return worst
 
 
-def small_dist_check(torch, dist, device="cuda"):
+def beside(*jobs):
+    """Each job started on a thread of its own; returns their futures,
+    in order (``.result()`` waits for one and raises what it raised).
+    A job starts processes and waits for them (a gloo world's ranks, a
+    launcher's pod, a bench or an example run) and runs nothing on the
+    card in this process, so the kernels' counts, the current place and
+    the flags that this process's phases set and read stay theirs while
+    the caller goes on.  A gloo world or a pod on the one card spends
+    most of its wall time starting processes and staging bytes through
+    the host, so they overlap well: every rank measures its own
+    allocator, losses, launches and collectives, which the overlap
+    leaves as they are; their host-clock times are taken under it."""
+    import concurrent.futures as cf
+    ex = cf.ThreadPoolExecutor(len(jobs))
+    futs = [ex.submit(job) for job in jobs]
+    ex.shutdown(wait=False)
+    return futs
+
+
+def gloo_world(dist, fn, nprocs, args, device="cuda", timeout=600):
+    """A job for ``beside``: ``dist.spawn(fn, nprocs, args)`` over gloo
+    (the ranks' results)."""
+    return functools.partial(dist.spawn, fn, nprocs, args, device=device,
+                             backend="gloo", timeout=timeout)
+
+
+def small_world_jobs(dist, device="cuda"):
+    """``beside``'s jobs for the small checks' gloo worlds: one 4-rank
+    world runs ``DIST_SMALL_CASES`` then ``PP_SMALL_CASES``, a 2-rank
+    world ``CP_SMALL_CASES``."""
+    return (gloo_world(dist, dist_small_rank, 4,
+                       (device, DIST_SMALL_CASES + PP_SMALL_CASES), device),
+            gloo_world(dist, dist_small_rank, 2, (device, CP_SMALL_CASES),
+                       device))
+
+
+def small_worlds(four, two, device="cuda"):
+    """What ``small_dist_check`` and ``small_pp_check`` read: the small
+    model's world-size-1 reference, run here once for both while the
+    worlds run, and the ranks of ``small_world_jobs``'s worlds
+    (``four``, ``two``: their futures)."""
+    t0 = time.perf_counter()
+    ref = dist_small_rank(device, [("ws1", {}, {})])[0]
+    four, two = four.result(), two.result()
+    n = len(DIST_SMALL_CASES)
+    return dict(ref=ref, dist=[r[:n] for r in four],
+                pp=[r[n:] for r in four], cp=two,
+                seconds=time.perf_counter() - t0)
+
+
+def small_dist_check(torch, dist, worlds):
     """The distributed step of a small bf16 model as 4 ranks on the one
     card over gloo (NCCL takes one rank a card): dp=2 x mp=2, dp=2 x
     sharding=2 (ZeRO over sharding) and dp=4 with the overlapped
-    reduction, 3 steps each, held to the same model's world-size-1 step
+    reduction, 2 steps each, held to the same model's world-size-1 step
     on the card (losses within ``DIST_LOSS_ATOL``, params by
     ``dist_param_check``); the ranks of one replica set hold the same
-    bits."""
-    t0 = time.perf_counter()
-    ref = dist_small_rank(device, [("ws1", {}, {})])[0]
-    ranks = dist.spawn(dist_small_rank, 4, (device, DIST_SMALL_CASES),
-                       device=device, backend="gloo", timeout=300)
+    bits.  ``worlds``: ``small_worlds``'s ranks."""
+    ref, ranks = worlds["ref"], worlds["dist"]
     steps = DIST_SMALL_SHAPE[2]
     rows = {}
     for i, (name, _, step_kw) in enumerate(DIST_SMALL_CASES):
@@ -2517,8 +2565,8 @@ def small_dist_check(torch, dist, device="cuda"):
               f"small dist {name}: overlap {res[0]['overlap']}")
         rows[name] = dict(losses=res[0]["losses"], loss_err=err,
                           param_excess_bf16_steps=ulps)
-    print(f"small dist check ({time.perf_counter() - t0:.1f} s, 4 ranks "
-          f"over gloo on one card, bf16): world size 1 losses "
+    print(f"small dist check (the small worlds {worlds['seconds']:.1f} s,"
+          f" 4 ranks over gloo on one card, bf16): world size 1 losses "
           f"{ref['losses']}; " + json.dumps(rows))
     return rows
 
@@ -2629,8 +2677,9 @@ def dist_big_rank(topo_kw, steps):
                 launches={n: w.launches for n, w in tbench.KERNELS.items()})
 
 
-# each side runs first in half the pairs (P C C P)
-DIST_TURNS = ("bench", "dist", "dist", "bench")
+# one turn each (the launches, bytes and loss bits are compared, not
+# the times)
+DIST_TURNS = ("bench", "dist")
 # the 2-rank gloo worlds at bench.py's width (dist mp=2 / dp=2, pp=2,
 # sp=2) run this many of its 16 layers, and so does their world-size-1
 # reference (``ws1_losses``): depth, not width, is what is cut
@@ -2642,22 +2691,16 @@ def big_model(tbench):
 DIST_BIG = (("mp2", dict(mp=2)), ("dp2_zero", dict(dp=2)))
 
 
-def dist_train_phase(torch, tbench, tllama, dist, card):
-    """The distributed train step at bench.py's ~0.95B shape (S = 2048,
-    B = 4, bf16, "dots", the fused blocks by the default policy).
-
-    World size 1 through ``Plan().train_step`` over an NCCL process
-    group, in turns with ``bench.train_step`` (``DIST_TURNS``, 2 warmup
-    + 5 timed steps a turn): step ms, MFU, peak memory and
-    kernel launches a step, which must equal the bench step's, and the
-    losses, which must be the same bits (the same code runs).  Then
-    mp=2 and dp=2 with ZeRO-1, each as 2 ranks on the card over gloo
-    (host-staged collectives: their times are no throughput) at
-    ``BIG_LAYERS`` layers, 2 steps: per-rank peak memory, weight and
-    optimizer-state bytes against the reckoning (weights / mp; AdamW
-    states / 2), losses against world size 1 at that depth
-    (``ws1_losses``) within ``DIST_LOSS_ATOL``, every train kernel
-    launched."""
+def dist_ws1_phase(torch, tbench, tllama, dist, card):
+    """``dist_train_phase``'s first half, in this process: world size 1
+    at bench.py's ~0.95B shape (S = 2048, B = 4, bf16, "dots", the fused
+    blocks by the default policy) through ``Plan().train_step`` over an
+    NCCL process group, in turns with ``bench.train_step``
+    (``DIST_TURNS``, 2 warmup + 5 timed steps a turn): step ms, MFU,
+    peak memory and kernel launches a step, which must equal the bench
+    step's, and the losses, which must be the same bits (the same code
+    runs).  Then world size 1 at the 2-rank worlds' depth
+    (``ws1_losses``), their reference."""
     t0 = time.perf_counter()
     for w in tbench.KERNELS.values():
         w.launches = 0
@@ -2682,9 +2725,36 @@ def dist_train_phase(torch, tbench, tllama, dist, card):
         check(t["weight_bytes"] == bench_t[0]["weight_bytes"]
               and t["state_bytes"] == bench_t[0]["state_bytes"],
               "world size 1 holds other bytes than the bench step")
-    # the 2-rank worlds' depth: world size 1's reference and reckoning
+    for n in ("fused_qkv", "fused_attn_epilogue", "fused_mlp_fwd",
+              "fused_mlp_bwd_dx", "flash_bwd"):
+        check(ws1_launches[n] > 0, f"world size 1: {n} never launched")
+    # the 2-rank worlds' depth: world size 1's reference
     ws1, ws1_peak = ws1_losses(torch, tbench, tllama, 4, 2)
-    ref = dict(losses=ws1, peak_over_base=ws1_peak)
+    gc_cuda(torch)
+    return dict(turns=turns, ws1_launches=ws1_launches,
+                ws1_big=dict(losses=ws1, peak_over_base=ws1_peak,
+                             layers=BIG_LAYERS),
+                seconds=time.perf_counter() - t0)
+
+
+def dist_big_jobs(dist):
+    """``beside``'s jobs for ``DIST_BIG``'s 2-rank worlds, in its
+    order."""
+    return tuple(gloo_world(dist, dist_big_rank, 2, (topo_kw, 2))
+                 for _, topo_kw in DIST_BIG)
+
+
+def dist_train_phase(torch, tbench, tllama, card, ws1, big):
+    """The distributed train step at bench.py's width: ``ws1``, world
+    size 1 (``dist_ws1_phase``); ``big``, the ranks of mp=2 and dp=2
+    with ZeRO-1 by ``DIST_BIG``'s name (``dist_big_jobs``), each 2 ranks
+    on the card over gloo (host-staged collectives: their times are no
+    throughput) at ``BIG_LAYERS`` layers, 2 steps: per-rank peak memory,
+    weight and optimizer-state bytes against the reckoning (weights /
+    mp; AdamW states / 2), losses against world size 1 at that depth
+    within ``DIST_LOSS_ATOL``, every train kernel launched."""
+    t0 = time.perf_counter()
+    ref = ws1["ws1_big"]
     rk = pp_reckoning(tllama, tbench, 1)
     W = rk["layers"] + rk["tail"]
     S1 = 2 * W                            # AdamW's two moments, bf16
@@ -2695,11 +2765,9 @@ def dist_train_phase(torch, tbench, tllama, dist, card):
               "dp2_zero": dict(weight_bytes=W)}
     reckon["mp2"]["state_bytes"] = 2 * reckon["mp2"]["weight_bytes"]
     reckon["dp2_zero"]["state_bytes"] = S1 // 2
-    gc_cuda(torch)
-    big = {}
+    out_big = {}
     for name, topo_kw in DIST_BIG:
-        ranks = dist.spawn(dist_big_rank, 2, (topo_kw, 2), device="cuda",
-                           backend="gloo", timeout=600)
+        ranks = big[name]
         print(f"dist train [{card}]: {name} ranks {json.dumps(ranks)}")
         # the layer is whole at mp = 1: the fused blocks (whose attention
         # runs flash_fwd's kernel uncounted) and flash_bwd
@@ -2727,20 +2795,17 @@ def dist_train_phase(torch, tbench, tllama, dist, card):
                   f"world size 1 {ref['losses'][:2]}")
             for n in path:
                 check(r["launches"][n] > 0, f"{name}: {n} never launched")
-        big[name] = dict(
+        out_big[name] = dict(
             ranks=[{k: r[k] for k in ("coords", "losses", "step_ms",
                                       "init_max_memory_allocated",
                                       "max_memory_allocated",
                                       "weight_bytes", "state_bytes",
                                       "launches")} for r in ranks],
             reckoned=reckon[name])
-    for n in ("fused_qkv", "fused_attn_epilogue", "fused_mlp_fwd",
-              "fused_mlp_bwd_dx", "flash_bwd"):
-        check(ws1_launches[n] > 0, f"world size 1: {n} never launched")
-    out = dict(turns=turns, ws1_launches=ws1_launches, big=big,
-               ws1_big=dict(losses=ws1, peak_over_base=ws1_peak,
-                            layers=BIG_LAYERS),
-               seconds=time.perf_counter() - t0)
+    turns = ws1["turns"]
+    out = dict(turns=turns, ws1_launches=ws1["ws1_launches"], big=out_big,
+               ws1_big=ref,
+               seconds=ws1["seconds"] + time.perf_counter() - t0)
     print(f"dist train [{card}]: {json.dumps(out)}")
     print(f"dist train [{card}]: world size 1 step ms "
           f"{[round(t['step_ms'], 2) for t in turns]} in turns {DIST_TURNS}"
@@ -2748,7 +2813,7 @@ def dist_train_phase(torch, tbench, tllama, dist, card):
           f"what the process held {[t['peak_over_base'] for t in turns]}; "
           f"per-rank peaks "
           + ", ".join(f"{n} {[r['max_memory_allocated'] for r in b['ranks']]}"
-                      for n, b in big.items()))
+                      for n, b in out_big.items()))
     return out
 
 
@@ -2768,24 +2833,21 @@ CP_SMALL_CASES = (("sp2", dict(sp=2), {}),)
 TAIL = ("embed", "norm_f", "lm_head")
 
 
-def small_pp_check(torch, dist, device="cuda"):
+def small_pp_check(torch, dist, worlds):
     """The pipeline schedules and context parallelism of the small bf16
     model as gloo ranks on the one card (``PP_SMALL_CASES``,
-    ``CP_SMALL_CASES``), 3 steps each from the same seed, held to its
+    ``CP_SMALL_CASES``), 2 steps each from the same seed, held to its
     world-size-1 step on the card: losses within ``DIST_LOSS_ATOL``,
     params by ``dist_param_check``; the ranks that hold one block of the
     params (over dp and sp) the same bits, the embedding, norm and head
     the same bits on every stage; 1F1B overlapped the same bits as
-    lockstep."""
-    t0 = time.perf_counter()
-    ref = dist_small_rank(device, [("ws1", {}, {})])[0]
+    lockstep.  ``worlds``: ``small_worlds``'s ranks."""
+    ref = worlds["ref"]
     steps = DIST_SMALL_SHAPE[2]
-    worlds = ((4, PP_SMALL_CASES), (2, CP_SMALL_CASES))
     rows = {}
     by_name = {}
-    for n, cases in worlds:
-        ranks = dist.spawn(dist_small_rank, n, (device, cases),
-                           device=device, backend="gloo", timeout=300)
+    for ranks, cases in ((worlds["pp"], PP_SMALL_CASES),
+                         (worlds["cp"], CP_SMALL_CASES)):
         for i, (name, _, _) in enumerate(cases):
             res = by_name[name] = [r[i] for r in ranks]
             err = max(abs(a - b) for r in res
@@ -2815,8 +2877,8 @@ def small_pp_check(torch, dist, device="cuda"):
               and all(np.array_equal(a["local"][k], v)
                       for k, v in b["local"].items()),
               "small pp: 1F1B overlapped differs from lockstep")
-    print(f"small pp check ({time.perf_counter() - t0:.1f} s, gloo ranks "
-          f"on one card, bf16): world size 1 losses {ref['losses']}; "
+    print(f"small pp check (gloo ranks on one card, bf16): world size 1 "
+          f"losses {ref['losses']}; "
           + json.dumps(rows))
     return rows
 
@@ -3004,7 +3066,14 @@ def pipeline_phase(torch, tbench, tllama, dist, card):
 CP_BIG_BATCH = 4
 
 
-def cp_phase(torch, tbench, tllama, dist, card, ws1, ws1_peak):
+def cp_job(dist):
+    """``beside``'s job for ``cp_phase``'s 2-rank world."""
+    return gloo_world(dist, big_rank, 2, (dict(sp=2), (("sp2", {}),),
+                                          CP_BIG_BATCH, BIG_STEPS),
+                      timeout=900)
+
+
+def cp_phase(torch, tbench, tllama, card, ws1, ws1_peak, ranks):
     """bench.py's width at ``BIG_LAYERS`` layers context parallel: 2
     ranks at sp=2 over gloo, B = 4, 2 steps; ``ws1``/``ws1_peak``: world
     size 1's losses and peak on the same batch and depth
@@ -3013,11 +3082,9 @@ def cp_phase(torch, tbench, tllama, dist, card, ws1, ws1_peak):
     S/2 rows and the fused attention block not (attention is the
     ring); ``ppermute`` calls and bytes a step equal the code's count:
     2 (k, v) x (sp - 1) x L blocks a forward, again in the remat
-    recompute and again, reversed, in the backward."""
+    recompute and again, reversed, in the backward.  ``ranks``: the
+    world's (``cp_job``)."""
     t0 = time.perf_counter()
-    ranks = dist.spawn(big_rank, 2, (dict(sp=2), (("sp2", {}),),
-                                     CP_BIG_BATCH, BIG_STEPS),
-                       device="cuda", backend="gloo", timeout=600)
     cfg = tllama.LlamaConfig(**big_model(tbench))
     sp, L = 2, cfg.num_hidden_layers
     block = (CP_BIG_BATCH * tbench.SEQ // sp * cfg.num_key_value_heads
@@ -3500,10 +3567,10 @@ CKPT_ROOT = "_ckpt_smoke"
 # size 1: 8 steps, a sync save at step 2, an async save at step 4 (steps
 # 5-6 run during it), steps 7-8 with the gang's step-boundary snapshot
 CKPT_B, CKPT_STEPS = 4, 8
-# the gang phase: bench.py's width at 4 layers (the depth cut keeps the
+# the gang phase: bench.py's width at 2 layers (the depth cut keeps the
 # script inside its time), Plan(dp=2) as 2 gloo ranks on the card, 2
 # rows a rank, 4 steps; the chaos run kills rank 1 at step 3's boundary
-GANG_LAYERS, GANG_B, GANG_STEPS = 4, 4, 4
+GANG_LAYERS, GANG_B, GANG_STEPS = 2, 4, 4
 GANG_KILL = "kill@collective.all_reduce:step=3,rank=1,restart=0"
 GANG_ENV = {"PTQ_GANG_HEARTBEAT_INTERVAL": "1.0",
             "PTQ_GANG_HEARTBEAT_TIMEOUT": "30.0"}
@@ -3922,12 +3989,19 @@ def gang_pod(torch, run, chaos_spec, steps, extra_args=(), device=None,
                 ckpt=ckpt)
 
 
-def gang_phase(torch, card, device=None, extra_args=()):
+def gang_clean_job(torch, device=None, extra_args=()):
+    """``beside``'s job for ``gang_phase``'s uninterrupted pod."""
+    return functools.partial(gang_pod, torch, "clean", None, GANG_STEPS,
+                             extra_args, device)
+
+
+def gang_phase(torch, card, clean, device=None, extra_args=()):
     """Two ranks of bench.py's width at ``GANG_LAYERS`` layers on the one
     card over gloo (``Plan(dp=2)``, 2 rows a rank, S = 2048), through
-    the launcher: an uninterrupted pod, then a pod whose rank 1 is
-    killed (``os._exit``, process-kill mode) at step 3's boundary.  The
-    chaos pod must exit 0; the survivor's incident sidecar must hold
+    the launcher: ``clean``, an uninterrupted pod (``gang_clean_job``'s
+    result), then, run here alone, a pod whose rank 1 is killed
+    (``os._exit``, process-kill mode) at step 3's boundary.  The chaos
+    pod must exit 0; the survivor's incident sidecar must hold
     ``health_exit`` (or ``rank_dead``); generation 1 must resume after
     step 3; every step's loss must be bit-identical to the uninterrupted
     pod's.  Detection s (the kill to the survivor's conversion),
@@ -3935,7 +4009,6 @@ def gang_phase(torch, card, device=None, extra_args=()):
     finished step), steps lost."""
     import shutil
     t_all = time.perf_counter()
-    clean = gang_pod(torch, "clean", None, GANG_STEPS, extra_args, device)
     check(clean["rc"] == 0, f"gang clean pod exited {clean['rc']}: "
           f"{clean['stderr']}")
     ref = {}
@@ -3989,7 +4062,7 @@ def gang_phase(torch, card, device=None, extra_args=()):
                                      if d["rank"] == 0),
         "peak_rank0_clean": next(d["peak"] for d in clean["done"]
                                  if d["rank"] == 0),
-        "seconds": time.perf_counter() - t_all,
+        "seconds": clean["wall_s"] + time.perf_counter() - t_all,
     }
     check(res["resumed_from"] == [3],
           f"gang chaos pod: generation 1 restored {res['resumed_from']}")
@@ -4542,26 +4615,11 @@ def resize_loader(tio, cfg, S):
     return tio.DataLoader(data, batch_sampler=smp)
 
 
-def resize_phase(torch, tbench, tllama, dist, card, device=None,
-                 extra_args=()):
-    """Two gloo ranks on the one card through the launcher (as
-    ``gang_phase``'s pods): ``Plan(dp=2).run_train_loop`` at bench.py's
-    width and ``GANG_LAYERS`` layers over 6 global batches of 4 rows from
-    a ``DataLoader``, ``request_scale(..., 1)`` before step 3.  Checks:
-    rank 0's ``world_sizes`` [2, 2, 2, 1, 1, 1] and ``resizes`` [(3, 2,
-    1)]; the pod (both processes) exits 0, rank 1 with steps 1-3; rank
-    0's losses within ``DIST_LOSS_ATOL`` of world size 1 over the same
-    batches (``Plan().run_train_loop`` in this process); rank 0's state
-    as saved equal leaf by leaf to the state gathered before the save,
-    and its losses after the resize bit-equal to steps from that state
-    (``resize_restore_check``), which the init params and zeroed
-    moments are not; no sample replayed or skipped (rank 0 trained on
-    the loader's first 6 batches in order).  Reports the resize's save,
-    group and restore seconds, the bytes saved and the controls'
-    differences."""
-    import shutil
-    from paddle_tpu_torch import io as tio
-    t_all = time.perf_counter()
+def resize_pod(device=None, extra_args=()):
+    """``resize_phase``'s pod, a job for ``beside``: two gloo ranks of
+    ``chip_smoke.py --resize-worker`` on the one card through the
+    launcher (as ``gang_phase``'s pods).  Returns its exit code, its
+    stderr's tail, the ranks' done records and its wall seconds."""
     base = os.path.abspath(os.path.join("chiprun_out", "resize"))
     ckpt = os.path.abspath(os.path.join(CKPT_ROOT, "resize"))
     shutil.rmtree(base, ignore_errors=True)
@@ -4583,9 +4641,35 @@ def resize_phase(torch, tbench, tllama, dist, card, device=None,
     for r in (0, 1):
         for d in _marked(os.path.join(log, f"workerlog.{r}"), "RESIZE_DONE"):
             done[d["rank"]] = d
-    check(proc.returncode == 0 and sorted(done) == [0, 1],
-          f"resize pod exited {proc.returncode}, done {sorted(done)}: "
-          f"{proc.stderr[-3000:]}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(rc=proc.returncode, stderr=proc.stderr[-3000:], done=done,
+                wall_s=wall)
+
+
+def resize_phase(torch, tbench, tllama, dist, card, pod, device=None,
+                 extra_args=()):
+    """``pod``: ``resize_pod``'s result, at the same ``device`` and
+    ``extra_args``.  Its two gloo ranks run ``Plan(dp=2).run_train_loop``
+    at bench.py's width and ``GANG_LAYERS`` layers over 6 global batches
+    of 4 rows from a ``DataLoader``, ``request_scale(..., 1)`` before
+    step 3.  Checks:
+    rank 0's ``world_sizes`` [2, 2, 2, 1, 1, 1] and ``resizes`` [(3, 2,
+    1)]; the pod (both processes) exits 0, rank 1 with steps 1-3; rank
+    0's losses within ``DIST_LOSS_ATOL`` of world size 1 over the same
+    batches (``Plan().run_train_loop`` in this process); rank 0's state
+    as saved equal leaf by leaf to the state gathered before the save,
+    and its losses after the resize bit-equal to steps from that state
+    (``resize_restore_check``), which the init params and zeroed
+    moments are not; no sample replayed or skipped (rank 0 trained on
+    the loader's first 6 batches in order).  Reports the resize's save,
+    group and restore seconds, the bytes saved and the controls'
+    differences."""
+    from paddle_tpu_torch import io as tio
+    t_all = time.perf_counter()
+    done, wall = pod["done"], pod["wall_s"]
+    check(pod["rc"] == 0 and sorted(done) == [0, 1],
+          f"resize pod exited {pod['rc']}, done {sorted(done)}: "
+          f"{pod['stderr']}")
     r0, r1 = done[0], done[1]
     check(r0["world_sizes"] == [2] * RESIZE_AT + [1] * (RESIZE_STEPS
                                                         - RESIZE_AT)
@@ -4648,11 +4732,10 @@ def resize_phase(torch, tbench, tllama, dist, card, device=None,
            "rank_seconds": [done[r]["seconds"] for r in (0, 1)],
            "launches_rank0": r0["launches"],
            "peak_rank0": r0["peak"], "pod_wall_s": wall,
-           "seconds": time.perf_counter() - t_all}
+           "seconds": wall + time.perf_counter() - t_all}
     if device != "cpu":
         bad = [n for n in TRAIN_PATH_KERNELS if not r0["launches"][n]]
         check(not bad, f"resize: kernels {bad} never launched")
-    shutil.rmtree(ckpt, ignore_errors=True)
     print(f"resize [{card}]: {json.dumps(res)}", flush=True)
     return res
 
@@ -6489,34 +6572,145 @@ MOE_LAYER_FULL = dict(d=2048, experts=8, ffn=5504, top_k=2, B=4, S=2048)
 MOE_LAYER_TINY = dict(d=16, experts=4, ffn=32, top_k=2, B=2, S=8)
 JIT_ROWS = ("fused_qkv", "fused_attn_epilogue", "fused_mlp_fwd")
 JIT_LOAD_SCRIPT = r"""
-import hashlib, sys, time
+import hashlib, json, sys, time
 import numpy as np, torch
 t0 = time.perf_counter()
 import paddle_tpu_torch as paddle
-from paddle_tpu_torch import bench
+from paddle_tpu_torch import bench, inference
 assert "jax" not in sys.modules and "paddle_tpu" not in sys.modules
-ids_path, device, *prefixes = sys.argv[1:]
+ids_path, device, turns, *prefixes = sys.argv[1:]
 paddle.set_device(device)
+ids = np.load(ids_path)
+
+
+def sync():
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def digest(a):
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def counts():
+    # the launches since the last call (the counts then set to 0)
+    out = {n: w.launches for n, w in bench.KERNELS.items()}
+    for w in bench.KERNELS.values():
+        w.launches = 0
+    return out
+
+
 t1 = time.perf_counter()
 import_s = t1 - t0
 for prefix in prefixes:
-    m = paddle.jit.load(prefix)
-    if device != "cpu":
-        torch.cuda.synchronize()
+    # the Predictor's create is jit.load's (its layer, by Config's device)
+    config = inference.Config(prefix + ".pdmodel")
+    if device == "cpu":
+        config.disable_gpu()
+    pred = inference.create_predictor(config)
+    m = pred._layer
+    sync()
     t2 = time.perf_counter()
-    for w in bench.KERNELS.values():
-        w.launches = 0
-    out = m(np.load(ids_path))
-    if device != "cpu":
-        torch.cuda.synchronize()
+    counts()
+    out = m(ids)
+    sync()
     t3 = time.perf_counter()
-    digest = hashlib.sha256(out._t.cpu().numpy().tobytes()).hexdigest()
-    launches = {n: w.launches for n, w in bench.KERNELS.items()}
-    print("JIT_LOAD", digest, import_s, t2 - t1, t3 - t2,
-          " ".join(f"{n}={c}" for n, c in launches.items()))
-    del m, out
+    launches = counts()
+    print("JIT_LOAD", digest(out._t.cpu().numpy()), import_s, t2 - t1,
+          t3 - t2, " ".join(f"{n}={c}" for n, c in launches.items()))
+    del out
+    # the Predictor: positional, the handle protocol, clone()
+    got = pred.run([ids])[0]
+    run_launches = counts()
+    d_run = digest(got)
+    del got
+    h = pred.get_input_handle(pred.get_input_names()[0])
+    h.copy_from_cpu(ids)
+    pred.run()
+    d_handles = digest(pred.get_output_handle(
+        pred.get_output_names()[0]).copy_to_cpu())
+    d_clone, clone_s = None, None
+    if prefix == prefixes[0]:       # clone() on the first artifact
+        t4 = time.perf_counter()
+        twin = pred.clone()
+        clone_s = time.perf_counter() - t4
+        d_clone = digest(twin.run([ids])[0])
+        del twin
+    run_ms, fwd_ms = [], []
+    # the first artifact's turns in full, the second's two
+    for _ in range(int(turns) if prefix == prefixes[0] else 2):
+        sync()
+        t5 = time.perf_counter()
+        pred.run([ids])
+        run_ms.append(1e3 * (time.perf_counter() - t5))
+        sync()
+        t5 = time.perf_counter()
+        out = m(ids)
+        sync()
+        fwd_ms.append(1e3 * (time.perf_counter() - t5))
+        del out
+    print("PREDICTOR", json.dumps(dict(
+        digest_run=d_run, digest_handles=d_handles, digest_clone=d_clone,
+        launches=run_launches, clone_s=clone_s, run_ms=run_ms,
+        load_forward_ms=fwd_ms)))
+    del m, pred, h
     t1 = time.perf_counter()
 """
+
+
+# Predictor.run turns over bench.py's Llama, and the C host's runs
+PREDICTOR_TURNS, CAPI_RUNS = 5, 2
+
+
+def capi_host_run(ids_np, prefix, tmp, want_digest, want_shape, on_card):
+    """The port's C library and ``capi/capi_host.c`` built with ``g++``
+    into ``tmp``, and the host run on ``prefix``'s artifact with
+    ``ids_np``: ``CAPI_RUNS`` runs, then a call with a negative
+    dimension.  Its logits' SHA-256 must be ``want_digest`` (their shape
+    ``want_shape``, float32), the negative dimension must come back as
+    an error through ``PD_GetLastError`` and the host exit 0.  Returns
+    its build, create and run times, its launches (the library's
+    ``PADDLE_TPU_CAPI_LAUNCHES`` file) and the logits' bytes."""
+    from paddle_tpu_torch.inference import capi
+    t0 = time.perf_counter()
+    lib = capi.build(out_dir=tmp)
+    host = capi.build_host(os.path.join(capi.CAPI_DIR, "capi_host.c"),
+                           os.path.join(tmp, "capi_host"), lib)
+    build_s = time.perf_counter() - t0
+    ids_bin = os.path.join(tmp, "ids.bin")
+    np.ascontiguousarray(ids_np, np.int64).tofile(ids_bin)
+    env = capi.host_env(None if on_card else "cpu")
+    env["PADDLE_TPU_CAPI_LAUNCHES"] = os.path.join(tmp, "launches.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [host, prefix, ids_bin, "3", "2", *map(str, ids_np.shape),
+         str(CAPI_RUNS), "--badshape"], capture_output=True, text=True,
+        env=env, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"C host: exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    rows = [ln.split() for ln in proc.stdout.splitlines()]
+    runs = [float(r[1]) for r in rows if r[0] == "RUN_MS"]
+    outs = [r for r in rows if r[0] == "OUTPUT"]
+    bad = [" ".join(r[1:]) for r in rows if r[0] == "BADSHAPE"]
+    check(len(runs) == CAPI_RUNS and len(outs) == 1,
+          f"C host: {proc.stdout[-2000:]}")
+    check(outs[0][-1] == want_digest, "C host: its logits' SHA-256 "
+          "differs from the eager forward's")
+    shape = [int(d) for d in outs[0][4:-2]]
+    check(shape == want_shape and outs[0][2] == "0",
+          f"C host: output {outs[0]} vs {want_shape} float32")
+    check(len(bad) == 1 and "shape" in bad[0],
+          f"C host: the negative dimension was not refused: {bad}")
+    with open(env["PADDLE_TPU_CAPI_LAUNCHES"]) as f:
+        launches = json.load(f)
+    return dict(build_s=build_s, wall_s=wall,
+                create_s=float(next(r[1] for r in rows
+                                    if r[0] == "CREATE_S")),
+                run_ms_each=runs, run_ms=float(np.median(runs)),
+                logits_bit_equal=True, bad_shape_error=bad[0],
+                launches=launches,
+                logit_bytes=int(np.prod(shape)) * 4)
 
 
 def cf_probe(x, n):
@@ -6580,6 +6774,17 @@ def jit_static_phase(torch, tbench, tllama, card, eager, device="cuda"):
       ``flash_fwd``); ``jit.load`` of both in a fresh ``python`` that
       imports only ``paddle_tpu_torch`` gives each route's eager logits
       bits (a sha256 of them) and launches; save and load seconds.
+    - in that process, ``inference.create_predictor`` over each artifact
+      (the load above is the Predictor's): ``run([ids])``, the handle
+      protocol and ``clone()`` (fused route) give the eager logits' bits,
+      one run launches what the eager forward does; ``run`` ms over
+      ``PREDICTOR_TURNS`` turns (the unfused route 2) beside the loaded
+      forward's.
+    - the port's C library and ``capi/capi_host.c`` built with ``g++``,
+      the host run on the fused artifact once that process has ended
+      (nothing else runs meanwhile): its logits' SHA-256 the eager forward's, ``CAPI_RUNS`` runs'
+      launches the eager forward's times that, a negative dimension
+      refused through ``PD_GetLastError``; create s and run ms.
     - ``to_static(cf_probe)`` (tensor-predicated ``if`` and ``while``) on
       a small input: the card equals the CPU, bit for bit.
     - static mode: ``enable_static()``, ``static.data`` ids and labels,
@@ -6733,15 +6938,24 @@ def jit_static_phase(torch, tbench, tllama, card, eager, device="cuda"):
         t0 = time.perf_counter()
         res = subprocess.run(
             [sys.executable, "-c", JIT_LOAD_SCRIPT, ids_path,
-             "gpu" if on_card else "cpu", *prefixes],
+             "gpu" if on_card else "cpu", str(PREDICTOR_TURNS),
+             *prefixes],
             capture_output=True, text=True, timeout=600,
             cwd=os.path.dirname(os.path.abspath(__file__)))
         load_wall = time.perf_counter() - t0
+        # the C host on the fused artifact, in a process of its own
+        # once the fresh process has ended
+        capi_host = capi_host_run(ids_np, prefixes[0], tmp,
+                                  _digest(torch, want._t),
+                                  list(want.shape), on_card)
     lines = [ln.split() for ln in res.stdout.splitlines()
              if ln.startswith("JIT_LOAD")]
-    check(res.returncode == 0 and len(lines) == len(routes),
+    preds = [json.loads(ln.split(" ", 1)[1])
+             for ln in res.stdout.splitlines() if ln.startswith("PREDICTOR")]
+    check(res.returncode == 0 and len(lines) == len(routes) == len(preds),
           f"jit.load: the fresh process failed: {res.stderr[-2000:]}")
-    for (name, (w, w_launch)), line in zip(routes.items(), lines):
+    for (name, (w, w_launch)), line, pr in zip(routes.items(), lines,
+                                               preds):
         _, digest, import_s, load_s, run_s, *lc = line
         load_launch = {kv.split("=")[0]: int(kv.split("=")[1])
                        for kv in lc}
@@ -6758,13 +6972,32 @@ def jit_static_phase(torch, tbench, tllama, card, eager, device="cuda"):
             check(nodes_saved[name] == {n: cfg.num_hidden_layers
                                         for n in want_nodes},
                   f"jit.save ({name}): custom-op nodes {nodes_saved[name]}")
-        check(digest == _digest(torch, w._t), f"jit.load ({name}): the "
+        want_digest = _digest(torch, w._t)
+        check(digest == want_digest, f"jit.load ({name}): the "
               f"fresh process's logits differ from the eager forward's")
+        # the Predictor over the same artifact: bits, launches, clone
+        for k in ("digest_run", "digest_handles", "digest_clone"):
+            check(pr[k] == want_digest or (k == "digest_clone" and
+                                           name != "fused"),
+                  f"predictor ({name}): {k}'s logits differ from the "
+                  f"eager forward's")
+        if on_card:
+            check(pr["launches"] == w_launch, f"predictor ({name}): "
+                  f"launches {pr['launches']} vs the eager forward's "
+                  f"{w_launch}")
         saved[name].update(
             custom_op_nodes=nodes_saved[name], eager_forward_launches=w_launch,
             launches=load_launch, logits_bit_equal=True,
             load_process=dict(import_s=float(import_s), load_s=float(load_s),
-                              first_call_s=float(run_s)))
+                              first_call_s=float(run_s)),
+            predictor=dict(
+                logits_bit_equal=True, handles_bit_equal=True,
+                clone_bit_equal=name == "fused" or None,
+                launches=pr["launches"],
+                clone_s=pr["clone_s"], run_ms_each=pr["run_ms"],
+                run_ms=float(np.median(pr["run_ms"])),
+                load_forward_ms_each=pr["load_forward_ms"],
+                load_forward_ms=float(np.median(pr["load_forward_ms"]))))
     out["save_load"] = dict(param_bytes=n_bytes, load_wall_s=load_wall,
                             **saved)
     save_s = saved["fused"]["save_s"]
@@ -6962,8 +7195,23 @@ def jit_static_phase(torch, tbench, tllama, card, eager, device="cuda"):
     del layer, mopt, x, before
     if on_card:
         gc_cuda(torch)
+
+    if on_card:
+        check(capi_host["launches"] == {
+            n: CAPI_RUNS * c for n, c in eager_launch.items()},
+            f"C host: launches {capi_host['launches']} over "
+            f"{CAPI_RUNS} runs vs the eager forward's {eager_launch}")
+    out["save_load"]["capi_host"] = capi_host
     out["seconds"] = time.perf_counter() - t_phase
     print(f"jit_static [{card}]: {json.dumps(out)}")
+    pf = saved["fused"]["predictor"]
+    print(f"jit_static [{card}]: Predictor.run (fused) {pf['run_ms']:.2f} "
+          f"ms a call (its loaded forward {pf['load_forward_ms']:.2f} ms, "
+          f"the eager forward {out['to_static']['forward_ms']['eager']:.2f}"
+          f" ms), unfused {saved['unfused']['predictor']['run_ms']:.2f} ms;"
+          f" C host create {capi_host['create_s']:.2f} s, run "
+          f"{capi_host['run_ms']:.2f} ms; logits {capi_host['logit_bytes']}"
+          f" B to the host")
     print(f"jit_static [{card}]: to_static fwd "
           f"{out['to_static']['forward_ms']['to_static']:.2f} ms vs eager "
           f"{out['to_static']['forward_ms']['eager']:.2f} ms (capture "
@@ -6973,6 +7221,277 @@ def jit_static_phase(torch, tbench, tllama, card, eager, device="cuda"):
           f"{out['static']['eager_step_ms']:.2f} ms; moe layer step "
           f"{out['moe_layer']['step_ms']:.2f} ms; "
           f"{out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# serving an exported model: PTQ int8 ResNet-50 through the Predictor
+# ---------------------------------------------------------------------------
+
+# ResNet-50 at the vision cell's batch and image, over seeded
+# calibration batches; the CPU rehearsal's sizes
+INFER_FULL = dict(image=224, batch=64, calib=4)
+INFER_SMALL = dict(image=64, batch=8, calib=2)
+INFER_TURNS = 3          # served batches timed, int8 and f32 alternating
+# the int8 logits against the f32 ones: the largest difference over the
+# largest f32 logit within quantize_serve's own bound, and the top-1
+# classes mostly the same
+INFER_REL_MAX, INFER_TOP1_MIN = 0.1, 0.9
+# the converted artifacts' logits against the f32 Predictor's: the
+# largest difference over the largest f32 logit, within the reference's
+# own bounds for the two conversions (tests/test_inference_convert.py)
+CONVERT_REL_MAX = {"bfloat16": 2e-2, "int8": 6e-2}
+CONVERT_RATIO_MAX = {"bfloat16": 0.55, "int8": 0.35}
+# QuantizedLinear's product routes: torch._int_mm (M > 16, K and N
+# multiples of 8) and the float64 product off those rules
+INT8_ROUTE_SHAPES = ((64, 2048, 1000), (17, 64, 8), (16, 64, 8),
+                     (64, 36, 40))
+
+
+def _saved_state(path):
+    from paddle_tpu_torch.framework.io import load
+    return {k: (v._t if hasattr(v, "_t") else v)
+            for k, v in load(path).items()}
+
+
+def quantize_serve_example(card, device="cuda"):
+    """``python -m paddle_tpu_torch.examples.quantize_serve`` (``--device
+    cpu`` off the card) in a process of its own: it exits 0 and prints
+    its closing line, so its own asserts held (served within 0.1 of
+    float32, the payload under 0.5x).  Returns its output's lines."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.examples.quantize_serve",
+         *(() if device == "cuda" else ("--device", device))],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0 and "int8 serving flow OK" in proc.stdout,
+          f"quantize_serve: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    print(f"quantize_serve [{card}] ({time.perf_counter() - t0:.1f} s): "
+          + " | ".join(lines), flush=True)
+    return lines
+
+
+def inference_calibrate(torch, card, device="cuda"):
+    """``inference_phase``'s first part, which needs none of the port's
+    kernels (``main`` runs it while they compile): ResNet-50 built at
+    ``INFER_FULL`` on the card (``INFER_SMALL`` on the CPU), PTQ's
+    observation of the calibration batches (each activation copied to
+    the host), then the freeze (``convert(to_int8=True)``, where the 54
+    KL threshold searches run in host numpy).  Returns the state
+    ``inference_phase`` takes."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import quantization as Q
+    dev = _device(torch, device)
+    on_card = dev.type == "cuda"
+    size = INFER_FULL if on_card else INFER_SMALL
+    t_phase = time.perf_counter()
+    if on_card:
+        gc_cuda(torch)
+    paddle.set_device("gpu" if on_card else "cpu")
+    paddle.seed(0)
+    net = paddle.vision.models.resnet50()
+    net.eval()
+    rng = np.random.default_rng(0)
+    shape = (size["batch"], 3, size["image"], size["image"])
+    batches = [rng.standard_normal(shape).astype(np.float32)
+               for _ in range(size["calib"])]
+    x = rng.standard_normal(shape).astype(np.float32)
+
+    # -- PTQ: observe, then freeze
+    t0 = time.perf_counter()
+    ptq = Q.PTQ(Q.QuantConfig(activation=Q.QuanterFactory(Q.KLObserver),
+                              weight=Q.QuanterFactory(Q.AbsmaxObserver)))
+    observed = ptq.quantize(net)
+    with paddle.no_grad():
+        for b in batches:
+            observed(paddle.to_tensor(b))
+    _sync(torch, dev)
+    observe_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qnet = ptq.convert(observed, to_int8=True)
+    _sync(torch, dev)
+    return dict(dev=dev, net=net, qnet=qnet, x=x, shape=shape, size=size,
+                observe_s=observe_s, freeze_s=time.perf_counter() - t0,
+                seconds=time.perf_counter() - t_phase)
+
+
+def inference_phase(torch, card, state):
+    """ResNet-50 (the vision cell's model: 1000 classes, 3 x 224 x 224,
+    float32, TF32 off, eval mode, weights from seed 0, ``INFER_FULL``)
+    quantized after training and served; ``state``:
+    ``inference_calibrate``'s.
+
+    - PTQ as ``quantize_serve`` configures it (``KLObserver`` for the
+      activations, ``AbsmaxObserver`` for the weights) over the
+      calibration batches, then ``convert(to_int8=True)``: 53
+      ``QuantizedConv2D`` and 1 ``QuantizedLinear`` (the fc, 2048 ->
+      1000 at M = the batch: ``torch._int_mm``'s route).
+    - ``jit.save`` of the float32 and the int8 model at ``InputSpec([
+      batch, 3, image, image])``, each served by a ``Predictor`` on the
+      card: the int8 Predictor's logits bit-equal to the quantized eager
+      model's (the float32 one's to the float model's); the int8
+      ``.pdiparams`` under 0.5x the float32 one's, with no float32
+      convolution weight in it.  Reported: the int8 logits' relative
+      error and top-1 agreement against float32, the calibration
+      (observe + freeze) and save seconds, served ms a batch and
+      images/s of both (``INFER_TURNS`` alternating turns).  The int8
+      logits within ``INFER_REL_MAX`` of float32's, top-1 agreement at
+      least ``INFER_TOP1_MIN``.
+    - ``convert_to_mixed_precision`` of the float32 artifact to
+      'bfloat16' and 'int8': payload ratios within
+      ``CONVERT_RATIO_MAX``, each Predictor's logits within
+      ``CONVERT_REL_MAX`` of the float32 Predictor's.
+    - QuantizedLinear's int32 accumulator bit-equal across its routes
+      (``INT8_ROUTE_SHAPES``: ``torch._int_mm``, the float64 product and
+      the CPU's int32 product).
+
+    On the CPU (``state`` from ``inference_calibrate(..., device="cpu")``)
+    it is the rehearsal."""
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.jit import InputSpec
+    from paddle_tpu_torch.quantization.quantized_layers import int8_product
+    dev, net, qnet, x, shape = (state[k] for k in ("dev", "net", "qnet",
+                                                    "x", "shape"))
+    batch = shape[0]
+    on_card = dev.type == "cuda"
+    t_part2 = time.perf_counter()
+    observe_s, convert_s = state["observe_s"], state["freeze_s"]
+    out = {"shape": dict(B=batch, image=shape[2],
+                         calib_batches=state["size"]["calib"])}
+    kinds = [type(s).__name__ for s in qnet.sublayers()]
+    n_conv, n_lin = (kinds.count("QuantizedConv2D"),
+                     kinds.count("QuantizedLinear"))
+    check((n_conv, n_lin) == (53, 1), f"inference: {n_conv} QuantizedConv2D"
+          f" and {n_lin} QuantizedLinear, not 53 and 1")
+    fc = qnet.fc
+    K, N = fc.qweight.shape
+    check(batch > 16 and K % 8 == 0 and N % 8 == 0 or not on_card,
+          f"inference: the fc ({batch} x {K} x {N}) is off _int_mm's route")
+    with paddle.no_grad():
+        want_q = qnet(paddle.to_tensor(x)).numpy()
+        want_f = net(paddle.to_tensor(x)).numpy()
+
+    # -- jit.save both and serve both
+    with tempfile.TemporaryDirectory(prefix="infer_smoke_",
+                                     dir=os.getcwd()) as tmp:
+        prefix = {n: os.path.join(tmp, n) for n in ("int8", "f32")}
+        save_s = {}
+        for name, model in (("int8", qnet), ("f32", net)):
+            t0 = time.perf_counter()
+            paddle.jit.save(model, prefix[name],
+                            input_spec=[InputSpec(list(shape), "float32")])
+            save_s[name] = time.perf_counter() - t0
+        size = {n: os.path.getsize(p + ".pdiparams")
+                for n, p in prefix.items()}
+        saved_int8 = _saved_state(prefix["int8"] + ".pdiparams")
+        f32_4d = [k for k, v in saved_int8.items()
+                  if v.dtype == torch.float32 and v.dim() == 4]
+        check(size["int8"] < 0.5 * size["f32"] and not f32_4d,
+              f"inference: int8 payload {size['int8']} B vs f32 "
+              f"{size['f32']} B; float32 conv weights {f32_4d[:3]}")
+
+        def config(p):
+            c = inference.Config(p + ".pdmodel")
+            if not on_card:
+                c.disable_gpu()
+            return c
+        t0 = time.perf_counter()
+        preds = {n: inference.create_predictor(config(p))
+                 for n, p in prefix.items()}
+        create_s = time.perf_counter() - t0
+        served = {n: p.run([x])[0] for n, p in preds.items()}
+        check(np.array_equal(served["int8"], want_q), "inference: the int8 "
+              "Predictor's logits differ from the quantized eager model's")
+        check(np.array_equal(served["f32"], want_f), "inference: the f32 "
+              "Predictor's logits differ from the eager model's")
+        ms = {n: [] for n in preds}
+        for _ in range(INFER_TURNS):
+            for n, p in preds.items():
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                p.run([x])
+                ms[n].append(1e3 * (time.perf_counter() - t0))
+        ref = served["f32"]
+        scale = float(np.abs(ref).max())
+        rel_q = float(np.abs(served["int8"] - ref).max() / scale)
+        top1 = float(np.mean(served["int8"].argmax(1) == ref.argmax(1)))
+        check(np.isfinite(served["int8"]).all() and rel_q <= INFER_REL_MAX
+              and top1 >= INFER_TOP1_MIN, f"inference: int8 logits off "
+              f"the f32 ones by {rel_q} (max {INFER_REL_MAX}), top-1 "
+              f"agreement {top1} (min {INFER_TOP1_MIN})")
+        del preds
+
+        # -- convert_to_mixed_precision of the f32 artifact
+        conv = {}
+        for prec in ("bfloat16", "int8"):
+            dst = os.path.join(tmp, f"f32_{prec}")
+            t0 = time.perf_counter()
+            inference.convert_to_mixed_precision(prefix["f32"], dst, prec,
+                                                 device=dev)
+            c_s = time.perf_counter() - t0
+            ratio = os.path.getsize(dst + ".pdiparams") / size["f32"]
+            got = inference.create_predictor(config(dst)).run([x])[0]
+            rel = float(np.abs(got - ref).max() / scale)
+            check(ratio <= CONVERT_RATIO_MAX[prec] and
+                  rel <= CONVERT_REL_MAX[prec], f"convert ({prec}): payload "
+                  f"ratio {ratio:.3f} (max {CONVERT_RATIO_MAX[prec]}), "
+                  f"logits rel {rel:.4f} (max {CONVERT_REL_MAX[prec]})")
+            conv[prec] = dict(payload_ratio=ratio, logits_rel=rel,
+                              top1_agreement=float(np.mean(
+                                  got.argmax(1) == ref.argmax(1))),
+                              convert_s=c_s)
+
+    # -- the int32 accumulator on every route
+    routes = []
+    if on_card:
+        g = torch.Generator().manual_seed(0)
+        for M, Kr, Nr in INT8_ROUTE_SHAPES:
+            xq = torch.randint(-127, 128, (M, Kr), generator=g,
+                               dtype=torch.int8)
+            w = torch.randint(-127, 128, (Kr, Nr), generator=g,
+                              dtype=torch.int8)
+            want = xq.int() @ w.int()
+            card_acc = int8_product(xq.to(dev), w.to(dev)).cpu()
+            f64 = (xq.to(dev).double() @ w.to(dev).double()).to(
+                torch.int32).cpu()
+            rule = M > 16 and Kr % 8 == 0 and Nr % 8 == 0
+            check(torch.equal(card_acc, want) and torch.equal(f64, want),
+                  f"QuantizedLinear ({M}, {Kr}, {Nr}): the int32 "
+                  f"accumulators differ across routes")
+            routes.append(dict(M=M, K=Kr, N=Nr,
+                               route="_int_mm" if rule else "float64"))
+
+    n_img = batch
+    out.update(
+        quantized=dict(conv2d=n_conv, linear=n_lin,
+                       fc=dict(M=batch, K=int(K), N=int(N))),
+        calibration_s=observe_s + convert_s, observe_s=observe_s,
+        freeze_s=convert_s, save_s=save_s, pdiparams_bytes=size,
+        payload_ratio=size["int8"] / size["f32"], create_s=create_s,
+        int8_logits_bit_equal=True, f32_logits_bit_equal=True,
+        int8_rel_to_f32=rel_q, int8_top1_agreement=top1,
+        served_ms={n: float(np.median(v)) for n, v in ms.items()},
+        served_ms_each=ms,
+        images_per_s={n: n_img / float(np.median(v)) * 1e3
+                      for n, v in ms.items()},
+        convert=conv, int32_routes=routes,
+        seconds=state["seconds"] + time.perf_counter() - t_part2)
+    del net, qnet
+    if on_card:
+        gc_cuda(torch)
+    print(f"inference [{card}]: {json.dumps(out)}")
+    print(f"inference [{card}]: ResNet-50 B {batch} PTQ int8 (53 + 1 "
+          f"layers): calibration {out['calibration_s']:.2f} s (observe "
+          f"{observe_s:.2f}, freeze {convert_s:.2f}), served "
+          f"{out['served_ms']['int8']:.2f} ms a batch int8 vs "
+          f"{out['served_ms']['f32']:.2f} f32, payload "
+          f"{out['payload_ratio']:.3f}x, rel {rel_q:.4f}, top-1 {top1:.3f};"
+          f" {out['seconds']:.1f} s")
     return out
 
 
@@ -7172,32 +7691,51 @@ def main(argv=()):
     def stamp(what):
         print(f"[{time.perf_counter() - t_run:.1f} s] {what} done")
 
-    t0 = time.perf_counter()
-    report = _build.build_all(ptxas_verbose=True)
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
+    # What runs side by side is started here, in main, and nowhere
+    # else: nvcc's processes through _build, every other process through
+    # beside().  While the kernels compile (one nvcc a source, started
+    # together), serving an exported model begins, which needs none of
+    # them (ResNet-50, cuDNN convolutions, torch._int_mm): the example's
+    # process, and PTQ's observation and freeze in this one.
+    started = _build.start_all(ptxas_verbose=True)
+    (example,) = beside(functools.partial(quantize_serve_example, card))
+    calibrated = inference_calibrate(torch, card)
+    report = _build.finish_all(started)
+    example.result()
+    print("kernels built (from the start of the run): "
           + ", ".join(f"{n} {r['seconds']:.1f} s" for n, r in report.items()))
     for n, r in report.items():
         for fn, use in _build.ptxas_usage(r["log"]).items():
             print(f"  {n}: {fn}: {use['registers']} registers, "
                   f"{use['smem_bytes']} bytes smem; {use['spill']}")
 
-    # checkpoints, health, the launcher and the gang runtime: a small
-    # model's corruption fallback and crashed commit, bench.py's shape
-    # saved, restored and resumed at world size 1, a 2-rank pod killed
-    # and relaunched, the gang preset through the bench
+    # the gang runtime: a 2-rank pod uninterrupted, beside it the bench's
+    # gang preset and the in-process resize's pod; then, alone, the pod
+    # killed and relaunched, and the resize's world-size-1 reference
+    clean, _, resized = (f.result() for f in beside(
+        gang_clean_job(torch), functools.partial(gang_bench_line, card),
+        resize_pod))
+    gang = gang_phase(torch, card, clean)
+    resize = resize_phase(torch, tbench, tllama, dist, card, resized)
+    stamp("builds, calibration, gang, resize")
+    # serving an exported model: the int8 ResNet-50 saved and served
+    # through the Predictor beside float32 and the converted artifacts
+    infer = inference_phase(torch, card, calibrated)
+    del calibrated
+    stamp("inference")
+    # checkpoints, health, the launcher: a small model's corruption
+    # fallback and crashed commit, bench.py's shape saved, restored and
+    # resumed at world size 1
     small_ckpt_check(torch, tllama, dist)
     ckpt = ckpt_phase(torch, tbench, tllama, dist, card,
                       model=big_model(tbench))
-    gang = gang_phase(torch, card)
-    gang_bench_line(card)
-    stamp("builds, checkpoints, gang")
+    stamp("checkpoints")
     # the training loop around the step: the data pipeline, the rewind,
     # the Profiler with xmem and numerics, localize; then the in-process
     # resize of a 2-rank plan to 1
     loop = train_loop_phase(torch, tbench, tllama, dist, card, report,
                             model=big_model(tbench))
-    resize = resize_phase(torch, tbench, tllama, dist, card)
-    stamp("train loop, resize")
+    stamp("train loop")
 
     int8_rows, int8_err = int8_phase(torch, i8)
     int8_regimes = int8_plans(torch, i8)
@@ -7272,18 +7810,27 @@ def main(argv=()):
     # to_static, jit.save and a fresh process's jit.load, the static
     # Executor's train step, asp's 2:4 pruning; MoELayer at llama1b's width
     jst = jit_static_phase(torch, tbench, tllama, card, eager)
+    sl = jst["save_load"]
     jit_launches = {n: dict(
         to_static_forward=jst["to_static"]["replay_launches"][n],
-        jit_load_forward=jst["save_load"]["fused"]["launches"][n],
-        jit_load_unfused_forward=jst["save_load"]["unfused"]["launches"][n],
+        jit_load_forward=sl["fused"]["launches"][n],
+        jit_load_unfused_forward=sl["unfused"]["launches"][n],
+        predictor_forward=sl["fused"]["predictor"]["launches"][n],
+        predictor_unfused_forward=sl["unfused"]["predictor"]["launches"][n],
+        capi_host_forward=sl["capi_host"]["launches"][n] // CAPI_RUNS,
         static_steps=jst["static"]["launches"][n]) for n in tbench.KERNELS}
-    stamp("jit, static, asp, moe layer")
-    # the distributed train step: a small model's topologies as 4 ranks
-    # on the card against world size 1, then bench.py's shape at world
-    # size 1 over NCCL (in turns with bench.train_step) and as 2 ranks
-    # (mp=2, dp=2 + ZeRO-1) over gloo
-    small_dist_check(torch, dist)
-    dist_res = dist_train_phase(torch, tbench, tllama, dist, card)
+    stamp("jit, static, asp, moe layer, predictor, C host")
+    # the distributed train step: bench.py's shape at world size 1 over
+    # NCCL (in turns with bench.train_step), then as 2 ranks (mp=2, dp=2
+    # + ZeRO-1) over gloo, beside which a small model's topologies run as
+    # 4 ranks (and its sp=2 as 2) against its world size 1, run here
+    ws1 = dist_ws1_phase(torch, tbench, tllama, dist, card)
+    *big, four, two = beside(*dist_big_jobs(dist), *small_world_jobs(dist))
+    worlds = small_worlds(four, two)
+    dist_res = dist_train_phase(
+        torch, tbench, tllama, card, ws1,
+        {name: f.result() for (name, _), f in zip(DIST_BIG, big)})
+    small_dist_check(torch, dist, worlds)
     dist_launches = {
         n: dict(ws1_per_step=dist_res["turns"][1]["launches_per_step"][n],
                 **{f"{b}_rank0": dist_res["big"][b]["ranks"][0]["launches"][n]
@@ -7294,11 +7841,14 @@ def main(argv=()):
     # sp against world size 1, then bench.py's shape at pp=2 under every
     # schedule and at sp=2 (2 ranks over gloo each), then the bench's
     # --multichip line
-    small_pp_check(torch, dist)
+    small_pp_check(torch, dist, worlds)
+    # the sp=2 world runs beside the pp=2 one
+    (cp_ranks,) = beside(cp_job(dist))
     pp_res = pipeline_phase(torch, tbench, tllama, dist, card)
-    cp_res = cp_phase(torch, tbench, tllama, dist, card,
+    cp_res = cp_phase(torch, tbench, tllama, card,
                       dist_res["ws1_big"]["losses"],
-                      dist_res["ws1_big"]["peak_over_base"])
+                      dist_res["ws1_big"]["peak_over_base"],
+                      cp_ranks.result())
     multichip_line(card)
     stamp("pipeline, cp, multichip")
     # the MoE layer: bench.py's shape with 8 experts at world size 1, as 2
@@ -7506,6 +8056,10 @@ def main(argv=()):
     print(f"models [{card}]: {json.dumps(models)}")
     print(f"eager_ops {eager['ops']['passed']}/{eager['ops']['total']}")
     print(f"vision [{card}]: {json.dumps(vision)}")
+    print(f"inference [{card}]: int8 served {infer['served_ms']['int8']:.2f}"
+          f" ms a batch, f32 {infer['served_ms']['f32']:.2f} ms; Predictor "
+          f"(Llama, fused) {sl['fused']['predictor']['run_ms']:.2f} ms, C "
+          f"host {sl['capi_host']['run_ms']:.2f} ms")
     print(f"amp [{card}]: step {amp['step_ms']:.2f} ms, optimizer.step() "
           f"{amp['optimizer_step_ms']:.2f} ms, peak {amp['peak_over_base']}"
           f" B; seq: Transformer-base O1 "

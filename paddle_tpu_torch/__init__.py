@@ -13,8 +13,11 @@ loss layers, functionals, initializers, gradient clipping, ``utils``),
 ``debugging``), ``incubate`` (fused layers, LookAhead, ModelAverage,
 ``asp``, the eager MoE layer), ``jit`` (``to_static`` and ``save`` /
 ``load`` over ``torch.export``, with the kernels as custom ops),
-``static`` (``Program`` / ``Executor``, ``enable_static``) and
-``_C_ops`` (the ops on raw torch tensors).  Tensors are created on
+``static`` (``Program`` / ``Executor``, ``enable_static``),
+``_C_ops`` (the ops on raw torch tensors), ``quantization`` (QAT, PTQ,
+int8 layers), ``inference`` (``Predictor`` over ``jit.save``'s artifact,
+``convert_to_mixed_precision``, the C ABI's build) and ``onnx`` (which
+refuses).  Tensors are created on
 the current place: the card unless ``set_device`` names another; with
 neither, creation raises.
 
@@ -75,6 +78,9 @@ from .models import (ErnieConfig, GPTConfig, GPTForCausalLM,  # noqa: E402,F401
 from . import jit  # noqa: E402,F401
 from . import static  # noqa: E402,F401
 from . import _C_ops  # noqa: E402,F401
+from . import quantization  # noqa: E402,F401
+from . import inference  # noqa: E402,F401
+from . import onnx  # noqa: E402,F401
 from .static.program import (enable_static, disable_static,  # noqa: E402,F401
                              in_static_mode)
 

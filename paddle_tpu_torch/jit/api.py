@@ -460,9 +460,10 @@ class TranslatedLayer:
                                                    self._params)}
 
 
-def load(path, **configs):
-    """Load ``jit.save``'s artifact onto the current device (the card
-    unless ``paddle.set_device`` named another place)."""
+def load(path, device=None, **configs):
+    """Load ``jit.save``'s artifact onto ``device``; without one, onto
+    the current device (the card unless ``paddle.set_device`` named
+    another place)."""
     from ..framework.io import load as fload
     from ..core.place import current_device
     # the custom ops must be registered before the graph deserializes
@@ -471,7 +472,7 @@ def load(path, **configs):
         meta = pickle.load(f)
     with open(path + ".pdmodel", "rb") as f:
         ep = torch.export.load(f)
-    dev = current_device()
+    dev = torch.device(device) if device is not None else current_device()
     state = fload(path + ".pdiparams")
     names = meta.get("state_names", list(state))
     params = [_raw_tensor(state[k]).to(dev) for k in names]

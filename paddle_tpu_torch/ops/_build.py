@@ -39,8 +39,8 @@ import torch
 
 from ..profiler import compile_tracker, xmem
 
-__all__ = ["SOURCES", "build_all", "load", "check", "stream_ptr", "sm_count",
-           "ptxas_usage"]
+__all__ = ["SOURCES", "build_all", "start_all", "finish_all", "load",
+           "check", "stream_ptr", "sm_count", "ptxas_usage"]
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
@@ -153,8 +153,21 @@ def build_all(ptxas_verbose: bool = False) -> Dict[str, dict]:
     """Compile every kernel source that has no current library, one nvcc
     per source, all started together.  Returns ``{name: {"seconds",
     "log"}}``; an up-to-date library reports 0 seconds."""
-    t0 = time.perf_counter()
-    jobs = {n: _start(n, ptxas_verbose) for n in SOURCES}
+    return finish_all(start_all(ptxas_verbose))
+
+
+def start_all(ptxas_verbose: bool = False):
+    """Start ``build_all``'s nvcc processes and return at once, so the
+    caller can work while they compile; ``finish_all`` waits for them.
+    Nothing may load a kernel library in between."""
+    return time.perf_counter(), {n: _start(n, ptxas_verbose)
+                                 for n in SOURCES}
+
+
+def finish_all(started) -> Dict[str, dict]:
+    """Wait for ``start_all``'s builds; ``build_all``'s report, each
+    build's seconds counted from the start."""
+    t0, jobs = started
     report = {}
     for n, job in jobs.items():
         log = "" if job is None else _finish(n, job)

@@ -932,3 +932,26 @@ def test_eager_llama_step_launches_rows_7_to_10_and_flash_bwd(cuda):
     assert np.isfinite(loss.item())
     assert all(p.is_leaf and p.place == paddle.CUDAPlace(0)
                for p in net.parameters())
+
+
+# QuantizedLinear's int8 product (not a kernel of the reference: its
+# static-scale product is outside any Pallas call): torch._int_mm where
+# its rules hold (M > 16, K and N multiples of 8), else the float64
+# product; each route's int32 accumulator equals the CPU's int32 product
+@pytest.mark.parametrize("M,K,N", [(64, 2048, 1000), (17, 64, 8),
+                                   (16, 64, 8), (64, 36, 40), (3, 5, 7),
+                                   (512, 4096, 4096)])
+def test_quantized_linear_routes_are_bit_equal(cuda, M, K, N):
+    from paddle_tpu_torch.quantization.quantized_layers import int8_product
+    g = torch.Generator().manual_seed(M * K + N)
+    xq = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    want = xq.int() @ w.int()
+    got = int8_product(xq.to(cuda), w.to(cuda))
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+    f64 = (xq.to(cuda).double() @ w.to(cuda).double()).to(torch.int32)
+    assert torch.equal(f64.cpu(), want)
+    if M > 16 and K % 8 == 0 and N % 8 == 0:
+        assert torch.equal(torch._int_mm(xq.to(cuda), w.to(cuda)).cpu(),
+                           want)

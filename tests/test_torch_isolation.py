@@ -65,7 +65,13 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
                 "incubate/optimizer/lookahead.py",
                 "incubate/optimizer/modelaverage.py",
                 "incubate/optimizer/distributed_fused_lamb.py",
-                "incubate/autograd/__init__.py"):
+                "incubate/autograd/__init__.py",
+                "quantization/__init__.py", "quantization/functional.py",
+                "quantization/quanters.py", "quantization/config.py",
+                "quantization/qat.py", "quantization/quantized_layers.py",
+                "inference/__init__.py", "inference/convert.py",
+                "inference/capi.py", "onnx/__init__.py",
+                "examples/quantize_serve.py"):
         assert REPO / "paddle_tpu_torch" / mod in files
     bad = []
     for path in files:
@@ -195,3 +201,43 @@ def test_model_family_entry_points_never_pick_the_cpu(no_card):
                                            device="cpu")
     params, _ = init(0)
     assert params["word_emb"].device.type == "cpu"
+
+
+def _embedded_python(path):
+    """The Python source embedded in a C++ file's raw string literals
+    (``R"PY( ... )PY"``)."""
+    import re
+    return re.findall(r'R"PY\((.*?)\)PY"', path.read_text(), re.S)
+
+
+def test_the_c_abi_s_embedded_python_imports_neither(tmp_path):
+    src = REPO / "paddle_tpu_torch" / "capi" / "predictor_capi.cc"
+    blocks = _embedded_python(src)
+    assert len(blocks) == 1 and "paddle_tpu_torch.inference" in blocks[0]
+    f = tmp_path / "bootstrap.py"
+    f.write_text(blocks[0])
+    mods = [m for _, m in _imports(f)]
+    assert "paddle_tpu_torch.inference" in mods
+    assert not [m for m in mods if m.split(".")[0] in FORBIDDEN]
+    # the scan sees a forbidden import in such a block
+    bad = tmp_path / "bad.cc"
+    bad.write_text('const char* k = R"PY(\nimport jax\n)PY";\n')
+    f.write_text(_embedded_python(bad)[0])
+    assert [m for _, m in _imports(f)] == ["jax"]
+
+
+def test_inference_config_with_nothing_set_needs_a_card(no_card, tmp_path):
+    """``inference.Config()`` names no device: its Predictor goes on the
+    card, and without one creating it raises; ``disable_gpu`` is the one
+    way onto the CPU."""
+    from paddle_tpu_torch import inference
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inference.Config()._torch_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inference.create_predictor(inference.Config(str(tmp_path / "m")))
+    c = inference.Config()
+    c.enable_use_gpu(100, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        c._torch_device()
+    c.disable_gpu()
+    assert c._torch_device() == torch.device("cpu")
