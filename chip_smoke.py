@@ -70,7 +70,18 @@ both apply (M = 8, 16).
   ``bench.train_step`` (the same launches and loss bits), then as 2
   ranks over gloo at mp=2 and at dp=2 with ZeRO-1 (per-rank peak
   memory, weight and state bytes against their reckoning;
-  ``dist_train_phase``);
+  ``dist_train_phase``); beside those worlds, the eager distributed API
+  as 2 gloo ranks (``dist_api_phase``): bench.py's Llama at
+  ``BIG_LAYERS`` layers through ``fleet`` at dp=2 (``DataParallel``,
+  gradient merge k=2 over AdamW with global-norm clipping, every second
+  micro-step under ``fleet.utils.recompute``: its grads bit-equal to a
+  plain micro-step's, the launches a micro-step the eager step's, the
+  forward's twice under recompute, the all-reduces a backward the
+  buckets', the ranks' parameters bit-equal, the first update against
+  world size 1), the Llama-width tensor-parallel layers at mp=2 (half
+  the weights a rank, loss and gathered grads against world size 1, the
+  RNG tracker's masks) and ERNIE-base at pp=2 (bytes a rank, losses
+  against world size 1);
 - the pipeline and context parallelism: the small model under every
   schedule at dp=2 x pp=2, GPipe with ring attention at pp=2 x sp=2
   and sp=2 alone against world size 1 (``small_pp_check``); bench.py's
@@ -212,6 +223,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2504,10 +2516,10 @@ def beside(*jobs):
 
 
 def gloo_world(dist, fn, nprocs, args, device="cuda", timeout=600):
-    """A job for ``beside``: ``dist.spawn(fn, nprocs, args)`` over gloo
-    (the ranks' results)."""
-    return functools.partial(dist.spawn, fn, nprocs, args, device=device,
-                             backend="gloo", timeout=timeout)
+    """A job for ``beside``: ``dist.launch.spawn(fn, nprocs, args)`` over
+    gloo (the ranks' results)."""
+    return functools.partial(dist.launch.spawn, fn, nprocs, args,
+                             device=device, backend="gloo", timeout=timeout)
 
 
 def small_world_jobs(dist, device="cuda"):
@@ -2817,6 +2829,618 @@ def dist_train_phase(torch, tbench, tllama, card, ws1, big):
     return out
 
 
+# the eager distributed API (dist_api_phase): one 2-rank gloo world on the
+# card runs bench.py's Llama through fleet at dp=2 (gradient merge k=2, one
+# micro-step of each update under recompute), the tensor-parallel layers
+# at mp=2 and ERNIE-base at pp=2, in turn; the world-size-1 references run
+# in this process beside it
+API_UPDATES = 2             # gradient merge updates (2 micro-steps each)
+API_ROWS = 2                # rows a rank a micro-step (the global batch 4)
+API_MP = dict(vocab=32000, hidden=2048, inter=5504, B=4, S=2048)
+API_MP_SMALL = dict(vocab=64, hidden=16, inter=32, B=2, S=8)
+API_MP_SEED = 5
+API_ERNIE = (8, 512, 20)    # B, S, masked positions a row; 2 steps
+API_ERNIE_STEPS = 2
+# f32 with TF32 off: the mp sums and the vocab-parallel softmax run in
+# another order than the world-size-1 layers'.  The gradients' limit, max
+# |diff| over max |world size 1| a tensor, lies between the sound runs'
+# 1.6e-5 and the controls' readings on the H100: world size 1 with TF32
+# on 2.5e-4 - 4.4e-3 (every weight and the biases before the head), in
+# bf16 1.6e-3 - 6.6e-2
+API_MP_LOSS_ATOL = 1e-4
+API_MP_GRAD_REL = 1e-4
+# update 1's merged bf16 gradient against world size 1's on the global
+# batch, relative L2 (the largest over the tensors): 2.9e-3 sound on the
+# H100, the controls 1.02 (rank 0's local gradient, unreduced) and 1.0
+# (the sum in place of the average)
+API_GRAD_REL = 5e-2
+API_ERNIE_ATOL = 1e-4       # tests/test_torch_ernie.py's dist tolerance
+API_FILES = "_dist_api_smoke"
+
+
+def _bits_digest(torch, tensors):
+    """An exact integer digest of the tensors' bits (equal bits, equal
+    digests; a position-weighted sum, so permuted values differ)."""
+    out = []
+    for t in tensors:
+        bits = t.detach().contiguous().view(-1)
+        bits = bits.view({2: torch.int16, 4: torch.int32}[
+            bits.element_size()]).long()
+        w = torch.arange(1, bits.numel() + 1, device=bits.device) % 65521
+        out.append(int((bits * w).sum().item()))
+    return out
+
+
+def _kernel_counts(tbench):
+    return {n: w.launches for n, w in tbench.KERNELS.items()}
+
+
+def _zero_counts(tbench):
+    for w in tbench.KERNELS.values():
+        w.launches = 0
+
+
+def api_llama_rank(torch, paddle, dist, tbench, tllama, metrics, dev,
+                   out_dir):
+    """(a) bench.py's Llama (``BIG_LAYERS`` layers on the card) through
+    ``fleet`` at dp=2 as a user's loop drives it: ``distributed_model``
+    (``DataParallel`` over the dp group; under gradient merge its
+    backward reduces nothing), ``distributed_optimizer`` (gradient merge
+    k=2 over AdamW with ``ClipGradByGlobalNorm(1.0)``, averaging the
+    merged gradient over dp at its second step), ``API_UPDATES`` updates
+    of two micro-steps on the same rows, each a backward then
+    ``opt.step()`` and ``opt.clear_grad()``, the second under
+    ``fleet.utils.recompute``.  The gradient the inner optimizer
+    receives is read (not changed) on its way in.  Rank 0 saves its
+    first micro-step's local gradient, update 1's merged gradient and
+    the parameters after update 1 for the world-size-1 check.  Then,
+    outside the merge, a plain and a recompute backward on the same
+    rows, whose gradients must be bit-equal."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.overlap import plan_buckets
+    on_card = dev.type == "cuda"
+    cfg = (tllama.LlamaConfig(remat_policy="dots", **big_model(tbench))
+           if on_card else tllama.LlamaConfig(dtype=torch.float32,
+                                              **DIST_SMALL))
+    S = tbench.SEQ if on_card else 32
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 2, "mp_degree": 1,
+                               "pp_degree": 1, "sharding_degree": 1}
+    strategy.gradient_merge = True
+    strategy.gradient_merge_configs = {"k_steps": 2, "avg": True}
+    fleet.init(is_collective=True, strategy=strategy)
+    rank = dist.get_rank()
+    paddle.seed(0)
+    net = tllama.LlamaForCausalLM(cfg)
+    model = fleet.distributed_model(net)
+    params = [p for p in net.parameters() if not p.stop_gradient]
+    opt = fleet.distributed_optimizer(paddle.optimizer.AdamW(
+        learning_rate=DIST_LR, parameters=net.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0)))
+    batch = tbench.make_batch(cfg, 2 * API_ROWS, S, dev)
+    rows = slice(rank * API_ROWS, (rank + 1) * API_ROWS)
+    ids = paddle.to_tensor(batch["input_ids"][rows])
+    labels = paddle.to_tensor(batch["labels"][rows])
+    grad_bytes = sum(p._t.numel() * p._t.element_size() for p in params)
+    # the buckets of the merged update's reduction (average_gradients)
+    n_buckets = len(plan_buckets([p._t for p in params], 25 << 20))
+    inner = opt.inner_opt
+    received = []
+    inner_step = inner.step
+
+    def observed_step():
+        # the gradient the inner optimizer receives (update 1's only)
+        if not received:
+            received.append([p.grad._t.clone() for p in params])
+        inner_step()
+    inner.step = observed_step
+
+    def reduced():
+        c = collectives_by_op(metrics)
+        lat = metrics.snapshot().get(
+            'collective_latency_seconds{op="all_reduce"}', {})
+        return (c["calls"].get("all_reduce", 0),
+                c["bytes"].get("all_reduce", 0), 1e3 * lat.get("sum", 0.0))
+
+    def micro(recompute, step=True, observe=None):
+        _zero_counts(tbench)
+        metrics.reset()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        if recompute:
+            loss, _ = fleet.utils.recompute(model, ids, labels=labels)
+        else:
+            loss, _ = model(ids, labels=labels)
+        fwd = _kernel_counts(tbench)
+        loss.backward()
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        out = dict(loss=loss.item(), ms=1e3 * (t1 - t0),
+                   forward_launches=fwd, launches=_kernel_counts(tbench),
+                   backward_all_reduce=reduced()[:2])
+        if observe is not None:
+            observe()
+        if step:
+            metrics.reset()
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            opt.step()
+            opt.clear_grad()
+            _sync(torch, dev)
+            out.update(step_ms=1e3 * (time.perf_counter() - t1),
+                       step_all_reduce=reduced())
+        return out
+
+    def digest():
+        return _bits_digest(torch, [p._t for p in params])
+
+    def save_local():
+        if rank == 0:
+            torch.save({p.name: p.grad._t.detach().cpu() for p in params},
+                       os.path.join(out_dir, "llama_local_grads.pt"))
+
+    _reset_peak(torch, dev)
+    updates = []
+    for u in range(API_UPDATES):
+        before, steps0 = digest(), inner._step_count
+        a = micro(False, observe=save_local if u == 0 else None)
+        unchanged = digest() == before and inner._step_count == steps0
+        b = micro(True)
+        stepped = inner._step_count == steps0 + 1
+        both = []
+        dist.all_gather_object(both, digest())
+        if u == 0:
+            merged = []
+            dist.all_gather_object(merged, _bits_digest(torch, received[0]))
+            if rank == 0:
+                torch.save({p.name: g.cpu() for p, g in
+                            zip(params, received[0])},
+                           os.path.join(out_dir, "llama_merged_grads.pt"))
+                torch.save({p.name: p._t.detach().cpu() for p in params},
+                           os.path.join(out_dir, "llama_update1.pt"))
+            received[0] = None
+        updates.append(dict(plain=a, recompute=b,
+                            unchanged_after_odd=unchanged,
+                            inner_stepped_once=stepped,
+                            params_bit_equal_across_ranks=both[0] == both[1]))
+    peak = _peak(torch, dev)
+    inner.step = inner_step
+    # recompute against a plain backward on the same rows, outside the
+    # merge (no optimizer step)
+    for p in params:
+        p.grad = None
+    plain = micro(False, step=False)
+    g_plain = [p.grad._t.clone() for p in params]
+    for p in params:
+        p.grad = None
+    again = micro(True, step=False)
+    same = all(torch.equal(p.grad._t, g) for p, g in zip(params, g_plain))
+    del g_plain
+    for p in params:
+        p.grad = None
+    return dict(updates=updates, recompute_pass=dict(
+                    plain=plain, recompute=again, grads_bit_equal=same),
+                merged_grads_bit_equal_across_ranks=merged[0] == merged[1],
+                n_buckets=n_buckets, grad_bytes=grad_bytes, peak_bytes=peak,
+                layers=cfg.num_hidden_layers, rows=API_ROWS, seq=S,
+                n_params=sum(p._t.numel() for p in params))
+
+
+def _mp_layers(paddle, fleet, shape):
+    V, H, I = shape["vocab"], shape["hidden"], shape["inter"]
+    return dict(emb=fleet.VocabParallelEmbedding(V, H),
+                col=fleet.ColumnParallelLinear(H, I, gather_output=False),
+                row=fleet.RowParallelLinear(I, H, input_is_parallel=True),
+                head=fleet.ColumnParallelLinear(H, V, gather_output=False))
+
+
+def _mp_loss(paddle, fleet, layers, ids, labels):
+    h = layers["head"](layers["row"](layers["col"](layers["emb"](ids))))
+    return paddle.mean(fleet.ParallelCrossEntropy()(h, labels))
+
+
+def _mp_data(paddle, shape, dev):
+    rng = np.random.default_rng(API_MP_SEED)
+    V, B, S = shape["vocab"], shape["B"], shape["S"]
+    return (paddle.to_tensor(rng.integers(0, V, (B, S)), place=dev),
+            paddle.to_tensor(rng.integers(0, V, (B, S)), place=dev))
+
+
+# the dim each mp layer's parameter splits over (None: whole on a rank)
+MP_SPLIT = {"emb.weight": 0, "col.weight": 1, "col.bias": 0,
+            "row.weight": 0, "row.bias": None, "head.weight": 1,
+            "head.bias": 0}
+
+
+def api_mp_rank(torch, paddle, dist, dev, out_dir):
+    """(b) Llama-width tensor-parallel layers at mp=2 (``fleet.init`` with
+    a second strategy in the same world): embedding, column, row and
+    vocabulary projection, ``ParallelCrossEntropy`` over B 4 x 2048, one
+    AdamW step; rank 0 saves the loss and the gathered gradients.
+    Dropout masks inside and outside the RNG tracker."""
+    from paddle_tpu_torch.distributed import fleet
+    on_card = dev.type == "cuda"
+    shape = API_MP if on_card else API_MP_SMALL
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 2,
+                               "pp_degree": 1, "sharding_degree": 1}
+    topo = fleet.init(is_collective=True, strategy=strategy)
+    paddle.seed(API_MP_SEED)
+    layers = _mp_layers(paddle, fleet, shape)
+    params = [p for l in layers.values() for p in l.parameters()]
+    opt = paddle.optimizer.AdamW(learning_rate=DIST_LR, parameters=params)
+    ids, labels = _mp_data(paddle, shape, dev)
+    _reset_peak(torch, dev)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    loss = _mp_loss(paddle, fleet, layers, ids, labels)
+    loss.backward()
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    opt.step()
+    _sync(torch, dev)
+    t2 = time.perf_counter()
+    peak = _peak(torch, dev)
+    grads = {}
+    for name, dim in MP_SPLIT.items():
+        lname, attr = name.split(".")
+        g = getattr(layers[lname], attr).grad
+        if dim is not None:
+            parts = []
+            dist.all_gather(parts, g, group="mp")
+            g = paddle.concat(parts, axis=dim)
+        grads[name] = g._t.detach().cpu()
+    if topo.coords["mp"] == 0:
+        torch.save({"loss": loss.item(), "grads": grads},
+                   os.path.join(out_dir, "mp_grads.pt"))
+    dist.model_parallel_random_seed(API_MP_SEED)
+    ones = paddle.ones([1 << 16])
+    with dist.get_rng_state_tracker().rng_state():
+        inside = paddle.nn.functional.dropout(ones, 0.5)
+    outside = paddle.nn.functional.dropout(ones, 0.5)
+    masks = {}
+    for what, m in (("inside", inside), ("outside", outside)):
+        both = []
+        dist.all_gather(both, m, group="mp")
+        masks[what] = bool(torch.equal(both[0]._t, both[1]._t))
+    return dict(loss=loss.item(), step_ms=1e3 * (t1 - t0),
+                optimizer_ms=1e3 * (t2 - t1), peak_bytes=peak,
+                weight_bytes=sum(p._t.numel() * p._t.element_size()
+                                 for p in params),
+                masks_equal=masks, shape=shape)
+
+
+def api_ernie_rank(torch, dist, dev):
+    """(c) ERNIE-base (f32, published width; small off the card) at pp=2:
+    ``API_ERNIE_STEPS`` steps of ``build_pretrain_step``, with this
+    rank's weight and state bytes."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import ernie as ternie
+    from paddle_tpu_torch.models import llama as tllama
+    on_card = dev.type == "cuda"
+    cfg = ternie.ErnieConfig() if on_card else ternie.ErnieConfig(
+        **SMALL_ERNIE)
+    B, S, n_masked = API_ERNIE if on_card else (4, 32, 5)
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1,
+                               "pp_degree": 2, "sharding_degree": 1}
+    topo = fleet.init(is_collective=True, strategy=strategy)
+    step, init = ternie.build_pretrain_step(cfg, topo, device=dev)
+    params, opt = init(0)
+    _reset_peak(torch, dev)
+    losses, ms = [], []
+    for i in range(API_ERNIE_STEPS):
+        batch = ernie_batch(torch, cfg, B, S, n_masked, dev, seed=4 + i)
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt, step.shard_batch(batch))
+        losses.append(m["loss"].item())
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return dict(losses=losses, step_ms=ms, peak_bytes=_peak(torch, dev),
+                coords=topo.coords,
+                weight_bytes=sum(t.numel() * t.element_size() for t in
+                                 tllama._paths(params).values()),
+                state_bytes=opt.state_bytes(), shape=dict(
+                    B=B, S=S, masked=n_masked, layers=cfg.num_hidden_layers))
+
+
+def dist_api_rank(out_dir, device="cuda"):
+    """What each rank of ``dist_api_phase``'s 2-rank world runs: (a), (b)
+    and (c) in turn, each with its own strategy."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import bench as tbench
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models import llama as tllama
+    from paddle_tpu_torch.profiler import metrics
+    dev = _device(torch, device)
+    paddle.set_device(dev)
+    flags.set_flags({"FLAGS_tpu_metrics": True})
+    t0 = time.perf_counter()
+    out = {"rank": dist.get_rank()}
+    out["llama"] = api_llama_rank(torch, paddle, dist, tbench, tllama,
+                                  metrics, dev, out_dir)
+    if dev.type == "cuda":
+        gc_cuda(torch)
+    t1 = time.perf_counter()
+    out["mp"] = api_mp_rank(torch, paddle, dist, dev, out_dir)
+    if dev.type == "cuda":
+        gc_cuda(torch)
+    t2 = time.perf_counter()
+    out["ernie"] = api_ernie_rank(torch, dist, dev)
+    out["seconds"] = dict(llama=t1 - t0, mp=t2 - t1,
+                          ernie=time.perf_counter() - t2)
+    return out
+
+
+def dist_api_job(dist, out_dir, device="cuda"):
+    """``beside``'s job for ``dist_api_phase``'s world."""
+    return gloo_world(dist, dist_api_rank, 2, (out_dir, device), device)
+
+
+def dist_api_refs(torch, tbench, tllama, out_dir, device="cuda"):
+    """The world-size-1 references of ``dist_api_phase``, run here while
+    its world runs: the eager Llama's gradient and first AdamW step on
+    the global batch (a); the mp layers at world size 1 from the same
+    seed, in float32 with TF32 off and, as the controls that the gate
+    must tell from it, with TF32 on and in bfloat16 (b); ERNIE's steps
+    at world size 1 (c)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import HybridTopology, fleet
+    from paddle_tpu_torch.models import ernie as ternie
+    dev = _device(torch, device)
+    on_card = dev.type == "cuda"
+    paddle.set_device(dev)
+    t0 = time.perf_counter()
+    cfg = (tllama.LlamaConfig(remat_policy="dots", **big_model(tbench))
+           if on_card else tllama.LlamaConfig(dtype=torch.float32,
+                                              **DIST_SMALL))
+    S = tbench.SEQ if on_card else 32
+    paddle.seed(0)
+    net = tllama.LlamaForCausalLM(cfg)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=DIST_LR, parameters=net.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    batch = tbench.make_batch(cfg, 2 * API_ROWS, S, dev)
+    loss, _ = net(paddle.to_tensor(batch["input_ids"]),
+                  labels=paddle.to_tensor(batch["labels"]))
+    loss.backward()
+    grads = {p.name: p.grad._t.clone() for p in net.parameters()
+             if not p.stop_gradient}
+    opt.step()
+    llama = dict(loss=loss.item(), grads=grads, params={
+        p.name: p._t.detach() for p in net.parameters()
+        if not p.stop_gradient})
+    del net, opt, loss, grads
+    shape = API_MP if on_card else API_MP_SMALL
+    ids, labels = _mp_data(paddle, shape, dev)
+
+    def mp_layers(dtype):
+        paddle.seed(API_MP_SEED)
+        layers = _mp_layers(paddle, fleet, shape)
+        if dtype is not None:
+            for l in layers.values():
+                l.to(dtype=dtype)
+        mloss = _mp_loss(paddle, fleet, layers, ids, labels)
+        mloss.backward()
+        return layers, mloss.item(), {
+            n: getattr(layers[n.split(".")[0]], n.split(".")[1]).grad._t
+            .float() for n in MP_SPLIT}
+
+    layers, mloss, mgrads = mp_layers(None)
+    mp = dict(loss=mloss, grads=mgrads, weight_bytes=sum(
+        p._t.numel() * p._t.element_size()
+        for l in layers.values() for p in l.parameters()),
+        row_bias_bytes=layers["row"].bias._t.numel() * 4)
+    del layers
+    controls = {}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        controls["tf32"] = mp_layers(None)[2]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    controls["bf16"] = mp_layers("bfloat16")[2]
+    mp["control_rel_err"] = {k: _max_rel(torch, g, mgrads)
+                             for k, g in controls.items()}
+    del controls
+    ecfg = ternie.ErnieConfig() if on_card else ternie.ErnieConfig(
+        **SMALL_ERNIE)
+    B, S, n_masked = API_ERNIE if on_card else (4, 32, 5)
+    step, init = ternie.build_pretrain_step(ecfg, HybridTopology(),
+                                            device=dev)
+    params, eopt = init(0)
+    losses = [step(params, eopt, ernie_batch(torch, ecfg, B, S, n_masked,
+                                             dev, seed=4 + i))[2]["loss"]
+              .item() for i in range(API_ERNIE_STEPS)]
+    flat = tllama._paths(params)
+    ernie = dict(losses=losses, layer_bytes=sum(
+        t.numel() * t.element_size() for k, t in flat.items()
+        if k.startswith("layers")), rest_bytes=sum(
+        t.numel() * t.element_size() for k, t in flat.items()
+        if not k.startswith("layers")))
+    del params, eopt
+    return dict(llama=llama, mp=mp, ernie=ernie,
+                seconds=time.perf_counter() - t0)
+
+
+def _max_rel(torch, got, ref):
+    """Each tensor's max |got - ref| over its max |ref|, by name."""
+    return {n: float((got[n].to(r.device).float() - r.float()).abs().max()
+                     / r.float().abs().max().clamp_min(1e-30))
+            for n, r in ref.items()}
+
+
+def _rel_l2(torch, got, ref, scale=1.0):
+    """The largest over the tensors of ||scale got - ref|| / ||ref||."""
+    worst = 0.0
+    for n, r in ref.items():
+        r = r.float()
+        d = got[n].to(r.device).float() * scale - r
+        worst = max(worst, float(d.norm() / r.norm().clamp_min(1e-30)))
+    return worst
+
+
+def dist_api_phase(torch, tbench, card, ranks, refs, eager, out_dir,
+                   seconds, device="cuda"):
+    """The eager distributed API on the card (``dist_api_rank``'s world
+    beside ``dist_api_refs``): the gates of (a), (b) and (c), then the
+    phase's numbers."""
+    dev = _device(torch, device)
+    on_card = dev.type == "cuda"
+    ranks = sorted(ranks, key=lambda r: r["rank"])
+    res = {"seconds": seconds, "refs_seconds": refs["seconds"],
+           "rank_seconds": [r["seconds"] for r in ranks]}
+    # (a) fleet at dp=2
+    la = [r["llama"] for r in ranks]
+    L = la[0]["layers"]
+    eager_per = eager["llama"]["launches_per_step"] if eager else None
+    L_eager = tbench.MODEL["num_hidden_layers"]
+
+    def launches_ok(what, a, b):
+        """``a`` a plain micro-step's, ``b`` a recompute one's."""
+        check(b["forward_launches"] == a["forward_launches"],
+              f"dist api: {what}: recompute forward "
+              f"{b['forward_launches']} vs {a['forward_launches']}")
+        check(all(b["launches"][n] == a["launches"][n]
+                  + a["forward_launches"][n] for n in a["launches"]),
+              f"dist api: {what}: recompute launches {b['launches']} vs "
+              f"plain {a['launches']} + forward {a['forward_launches']}")
+        if on_card:
+            want = {n: c * L / L_eager for n, c in eager_per.items()}
+            check(a["launches"] == want, f"dist api: {what}: a micro-step's "
+                  f"launches {a['launches']} vs the eager step's at {L} "
+                  f"layers {want}")
+            for n in ("fused_qkv", "fused_attn_epilogue", "fused_mlp_fwd",
+                      "fused_mlp_bwd_dx", "flash_bwd"):
+                check(a["launches"][n] > 0, f"dist api: {n} never launched")
+
+    merged_ar = (la[0]["n_buckets"], la[0]["grad_bytes"])
+    for r in la:
+        check(r["merged_grads_bit_equal_across_ranks"],
+              "dist api: the ranks' merged gradients differ")
+        for u, up in enumerate(r["updates"]):
+            check(up["unchanged_after_odd"], f"dist api: update {u}: the "
+                  f"parameters moved after an odd micro-step")
+            check(up["inner_stepped_once"], f"dist api: update {u}: the "
+                  f"inner optimizer did not step once")
+            check(up["params_bit_equal_across_ranks"], f"dist api: update "
+                  f"{u}: the ranks' parameters differ")
+            a, b = up["plain"], up["recompute"]
+            # no backward reduces; the merged update reduces each bucket
+            # once, in the second micro-step's opt.step()
+            check(a["backward_all_reduce"] == b["backward_all_reduce"]
+                  == a["step_all_reduce"][:2] == (0, 0),
+                  f"dist api: update {u}: a backward or the odd step "
+                  f"reduced: {a['backward_all_reduce']}, "
+                  f"{b['backward_all_reduce']}, {a['step_all_reduce']}")
+            check(b["step_all_reduce"][:2] == merged_ar,
+                  f"dist api: update {u}: the merged update's all_reduce "
+                  f"{b['step_all_reduce'][:2]} vs the buckets' {merged_ar}")
+            launches_ok(f"update {u}", a, b)
+        rp = r["recompute_pass"]
+        check(rp["grads_bit_equal"], "dist api: the recompute backward's "
+              "grads differ from the plain one's")
+        launches_ok("recompute pass", rp["plain"], rp["recompute"])
+    # update 1's merged gradient against world size 1's on the global
+    # batch; the controls: rank 0's local gradient (no reduction) and
+    # the sum in place of the average
+    ref_g = refs["llama"]["grads"]
+    merged = torch.load(os.path.join(out_dir, "llama_merged_grads.pt"))
+    grad_err = _rel_l2(torch, merged, ref_g)
+    grad_sum = _rel_l2(torch, merged, ref_g, scale=2.0)
+    del merged
+    local = torch.load(os.path.join(out_dir, "llama_local_grads.pt"))
+    grad_local = _rel_l2(torch, local, ref_g)
+    del local
+    check(grad_err <= API_GRAD_REL, f"dist api: update 1's merged gradient "
+          f"off world size 1's by {grad_err} (relative L2; limit "
+          f"{API_GRAD_REL}; controls: local {grad_local}, sum {grad_sum})")
+    got = {k: v.float().numpy() for k, v in torch.load(
+        os.path.join(out_dir, "llama_update1.pt")).items()}
+    ref_p = {k: v.float().cpu().numpy()
+             for k, v in refs["llama"]["params"].items()}
+    excess = dist_param_check(got, ref_p, 1,
+                              "dist api: update 1 against world size 1")
+    del got, ref_p
+    loss0 = float(np.mean([r["updates"][0]["plain"]["loss"] for r in la]))
+    loss_err = abs(loss0 - refs["llama"]["loss"])
+    check(loss_err <= DIST_LOSS_ATOL, f"dist api: micro-step 1's loss "
+          f"{loss0} vs world size 1 {refs['llama']['loss']}")
+    res["llama"] = dict(
+        micro_ms={k: [[r["updates"][u][k]["ms"] for u in range(
+            API_UPDATES)] for r in la] for k in ("plain", "recompute")},
+        odd_step_ms=[[up["plain"]["step_ms"] for up in r["updates"]]
+                     for r in la],
+        merged_step_ms=[[up["recompute"]["step_ms"] for up in r["updates"]]
+                        for r in la],
+        merged_all_reduce_ms=[[up["recompute"]["step_all_reduce"][2]
+                               for up in r["updates"]] for r in la],
+        reduction_share=[[up["recompute"]["step_all_reduce"][2] / (
+            up["plain"]["ms"] + up["plain"]["step_ms"] + up["recompute"]["ms"]
+            + up["recompute"]["step_ms"]) for up in r["updates"]]
+            for r in la],
+        all_reduce_per_merged_update=dict(calls=merged_ar[0],
+                                          bytes=merged_ar[1]),
+        peak_bytes=[r["peak_bytes"] for r in la],
+        launches_plain=la[0]["updates"][0]["plain"]["launches"],
+        launches_recompute=la[0]["updates"][0]["recompute"]["launches"],
+        losses=[[(up["plain"]["loss"], up["recompute"]["loss"])
+                 for up in r["updates"]] for r in la],
+        ws1_loss=refs["llama"]["loss"], loss_err=loss_err,
+        merged_grad_rel_l2=grad_err, grad_limit=API_GRAD_REL,
+        control_local_rel_l2=grad_local, control_sum_rel_l2=grad_sum,
+        param_excess_bf16_steps=excess, layers=L, rows=la[0]["rows"],
+        seq=la[0]["seq"], n_params=la[0]["n_params"],
+        eager_step_ms=eager["llama"]["step_ms"] if eager else None)
+    # (b) mp=2
+    mp = [r["mp"] for r in ranks]
+    ref = refs["mp"]
+    half = (ref["weight_bytes"] - ref["row_bias_bytes"]) // 2 \
+        + ref["row_bias_bytes"]
+    for r in mp:
+        check(r["weight_bytes"] == half, f"dist api: mp rank weights "
+              f"{r['weight_bytes']} vs half of world size 1's {half}")
+        check(abs(r["loss"] - ref["loss"]) <= API_MP_LOSS_ATOL,
+              f"dist api: mp loss {r['loss']} vs {ref['loss']}")
+        check(not r["masks_equal"]["inside"] and r["masks_equal"]["outside"],
+              f"dist api: dropout masks {r['masks_equal']}")
+    got = torch.load(os.path.join(out_dir, "mp_grads.pt"))
+    rel = {}
+    for n, g in got["grads"].items():
+        want = ref["grads"][n]
+        rel[n] = float((g.to(want.device) - want).abs().max()
+                       / want.abs().max().clamp_min(1e-30))
+        check(rel[n] <= API_MP_GRAD_REL, f"dist api: mp grad {n} off by "
+              f"{rel[n]} of its max (controls: "
+              f"{ref['control_rel_err']})")
+    res["mp"] = dict(loss=mp[0]["loss"], ws1_loss=ref["loss"],
+                     grad_rel_err=rel, grad_limit=API_MP_GRAD_REL,
+                     control_rel_err=ref["control_rel_err"], step_ms=[r["step_ms"] for r in mp],
+                     optimizer_ms=[r["optimizer_ms"] for r in mp],
+                     peak_bytes=[r["peak_bytes"] for r in mp],
+                     weight_bytes=mp[0]["weight_bytes"],
+                     ws1_weight_bytes=ref["weight_bytes"])
+    # (c) ERNIE at pp=2
+    er = [r["ernie"] for r in ranks]
+    eref = refs["ernie"]
+    want_w = eref["rest_bytes"] + eref["layer_bytes"] // 2
+    for r in er:
+        check(r["weight_bytes"] == want_w and r["state_bytes"] == 2 * want_w,
+              f"dist api: ernie pp rank bytes {r['weight_bytes']} / "
+              f"{r['state_bytes']} vs {want_w} / {2 * want_w}")
+        err = max(abs(a - b) for a, b in zip(r["losses"], eref["losses"]))
+        check(err <= API_ERNIE_ATOL, f"dist api: ernie pp losses "
+              f"{r['losses']} vs world size 1 {eref['losses']}")
+    res["ernie"] = dict(losses=er[0]["losses"], ws1_losses=eref["losses"],
+                        step_ms=[r["step_ms"] for r in er],
+                        peak_bytes=[r["peak_bytes"] for r in er],
+                        weight_bytes=er[0]["weight_bytes"],
+                        state_bytes=er[0]["state_bytes"],
+                        shape=er[0]["shape"])
+    print(f"dist api [{card}]: {json.dumps(res)}")
+    return res
+
+
 # the pipeline and context-parallel checks of a small bf16 model (the
 # composition: flash_fwd and flash_bwd on every path): a 4-rank world
 # runs dp=2 x pp=2 under each schedule (2 layers: interleaved takes v=1,
@@ -3011,7 +3635,7 @@ def pipeline_phase(torch, tbench, tllama, dist, card):
                                BIG_STEPS)
     cases = tuple((n, dict(kw, n_microbatches=PP_BIG_MICRO))
                   for n, kw in PP_BIG_CASES)
-    ranks = dist.spawn(big_rank, 2, (dict(pp=2), cases, PP_BIG_BATCH,
+    ranks = dist.launch.spawn(big_rank, 2, (dict(pp=2), cases, PP_BIG_BATCH,
                                      BIG_STEPS), device="cuda",
                        backend="gloo", timeout=900)
     rk = pp_reckoning(tllama, tbench, 2)
@@ -3379,7 +4003,7 @@ def moe_dist_phase(torch, tllama, dist, card, ws1, device="cuda"):
     t0 = time.perf_counter()
     cfg = moe_cfg(tllama)
     _, _, W, S = moe_reckoning(cfg, dp=2)
-    ranks = dist.spawn(moe_dist_rank, 2, (MOE_DIST_STEPS, device),
+    ranks = dist.launch.spawn(moe_dist_rank, 2, (MOE_DIST_STEPS, device),
                        device=device, backend="gloo", timeout=900)
     for r in ranks:
         check(r["weight_bytes"] == W and r["state_bytes"] == S,
@@ -7825,18 +8449,36 @@ def main(argv=()):
     # + ZeRO-1) over gloo, beside which a small model's topologies run as
     # 4 ranks (and its sp=2 as 2) against its world size 1, run here
     ws1 = dist_ws1_phase(torch, tbench, tllama, dist, card)
-    *big, four, two = beside(*dist_big_jobs(dist), *small_world_jobs(dist))
+    # beside them, the eager distributed API's world (fleet at dp=2, mp=2
+    # layers, ERNIE at pp=2); its world-size-1 references run here.  Its
+    # files' directory goes below, or at exit whatever happens
+    api_tmp = tempfile.TemporaryDirectory(prefix=API_FILES, dir=".")
+    api_dir = api_tmp.name
+    t_api = time.perf_counter()
+    *big, four, two, api = beside(*dist_big_jobs(dist),
+                                  *small_world_jobs(dist),
+                                  dist_api_job(dist, api_dir))
     worlds = small_worlds(four, two)
+    api_refs = dist_api_refs(torch, tbench, tllama, api_dir)
     dist_res = dist_train_phase(
         torch, tbench, tllama, card, ws1,
         {name: f.result() for (name, _), f in zip(DIST_BIG, big)})
     small_dist_check(torch, dist, worlds)
+    api_res = dist_api_phase(torch, tbench, card, api.result(), api_refs,
+                             eager, api_dir, time.perf_counter() - t_api)
+    api_tmp.cleanup()
+    del api_refs
+    gc_cuda(torch)
+    api_launches = {n: dict(
+        plain_micro_step=api_res["llama"]["launches_plain"][n],
+        recompute_micro_step=api_res["llama"]["launches_recompute"][n])
+        for n in tbench.KERNELS}
     dist_launches = {
         n: dict(ws1_per_step=dist_res["turns"][1]["launches_per_step"][n],
                 **{f"{b}_rank0": dist_res["big"][b]["ranks"][0]["launches"][n]
                    for b in dist_res["big"]})
         for n in tbench.KERNELS}
-    stamp("dist train")
+    stamp("dist train, dist api")
     # the pipeline and context parallelism: a small model's schedules and
     # sp against world size 1, then bench.py's shape at pp=2 under every
     # schedule and at sp=2 (2 ranks over gloo each), then the bench's
@@ -7996,6 +8638,7 @@ def main(argv=()):
             launches_eager_gpt=eager["gpt"]["launches"][name],
             launches_amp=amp["launches"][name],
             launches_jit_static=jit_launches[name],
+            launches_dist_api=api_launches[name],
             max_abs_err=flash_err[key],
             row_rel_err=flash_row_err[key], row_rel_max=ROW_REL_MAX,
             control_row_rel_err=min(
@@ -8040,6 +8683,7 @@ def main(argv=()):
             launches_eager=eager["llama"]["launches"][name],
             launches_amp=amp["launches"][name],
             launches_jit_static=jit_launches[name],
+            launches_dist_api=api_launches[name],
             row_rel_err=r["row_rel_err"], row_rel_max=ROW_REL_MAX,
             norm_rel_err=r["norm_rel_err"],
             control_row_rel_err=r["control_row_rel_err"], ms=r["ms"],

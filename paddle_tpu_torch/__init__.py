@@ -13,6 +13,8 @@ loss layers, functionals, initializers, gradient clipping, ``utils``),
 ``debugging``), ``incubate`` (fused layers, LookAhead, ModelAverage,
 ``asp``, the eager MoE layer), ``jit`` (``to_static`` and ``save`` /
 ``load`` over ``torch.export``, with the kernels as custom ops),
+``distributed`` (the collective facade, ``DataParallel`` — also at the
+top level, ``fleet``, ``recompute``),
 ``static`` (``Program`` / ``Executor``, ``enable_static``),
 ``_C_ops`` (the ops on raw torch tensors), ``quantization`` (QAT, PTQ,
 int8 layers), ``inference`` (``Predictor`` over ``jit.save``'s artifact,
@@ -73,6 +75,8 @@ from . import hapi  # noqa: E402,F401
 from .hapi.model import Model, summary  # noqa: E402,F401
 
 from . import models  # noqa: E402,F401
+from . import distributed  # noqa: E402,F401
+from .distributed.parallel import DataParallel  # noqa: E402,F401
 from .models import (ErnieConfig, GPTConfig, GPTForCausalLM,  # noqa: E402,F401
                      LlamaConfig, LlamaForCausalLM)
 from . import jit  # noqa: E402,F401

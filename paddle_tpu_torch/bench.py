@@ -21,7 +21,7 @@ any error other than running out of memory ends the run.
 
 ``--multichip`` is the port of ``bench.py``'s ``multichip_main``
 (``bench.py:308-468``): ``Plan(dp=2, pp=2, mp=2, schedule="1f1b")``
-as 8 ranks (``distributed.spawn``; on one card over gloo, whose
+as 8 ranks (``distributed.launch.spawn``; on one card over gloo, whose
 point-to-point calls cross through host memory), the 1F1B schedule
 overlapped against lockstep on the same model and batch, 1 + 5 steps
 each.  It reports both step times (host-staged gloo on one card: no
@@ -329,7 +329,7 @@ def _multichip_rank(device, trace_out):
         cfg, 0, device="cpu")))
     # the instrumented collective API once at gradient volume, so the
     # metrics carry a measured entry of that size
-    C.all_reduce(torch.zeros(n_params // 64, device=dev))
+    C._all_reduce(torch.zeros(n_params // 64, device=dev))
     coll = {k: v for k, v in metrics.snapshot().items()
             if k.startswith("collective_")}
     return dict(rank=rank, overlap_ms=overlap_ms, lockstep_ms=lockstep_ms,

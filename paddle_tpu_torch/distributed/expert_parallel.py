@@ -110,7 +110,7 @@ def slot_offsets(counts: torch.Tensor,
     if ep is None:
         return counts.cumsum(0) - counts
     # [n_batch * n_seq * B, E] in the token group's rank order
-    every = C.all_gather(counts, ep.tokens)
+    every = C._all_gather(counts, ep.tokens)
     seg = every.view(ep.n_batch, ep.n_seq, B, E).transpose(1, 2)
     seg = seg.reshape(-1, E)
     before = (seg.cumsum(0) - seg).view(ep.n_batch, B, ep.n_seq, E)
@@ -122,7 +122,7 @@ def _summed(t: torch.Tensor, group) -> torch.Tensor:
     one rank)."""
     if C.resolve_group(group) is None:
         return t
-    return C.all_reduce(t.clone(memory_format=torch.contiguous_format),
+    return C._all_reduce(t.clone(memory_format=torch.contiguous_format),
                         group=group)
 
 
@@ -130,23 +130,23 @@ class _Dispatch(torch.autograd.Function):
     @staticmethod
     def forward(ctx, buf, ep):
         ctx.ep = ep
-        return _summed(C.reduce_scatter(buf, group=ep.ep, dim=0), ep.rep)
+        return _summed(C._reduce_scatter(buf, group=ep.ep, dim=0), ep.rep)
 
     @staticmethod
     def backward(ctx, g):
         ep = ctx.ep
-        return C.all_gather(_summed(g, ep.rep), ep.ep, dim=0), None
+        return C._all_gather(_summed(g, ep.rep), ep.ep, dim=0), None
 
 
 class _Combine(torch.autograd.Function):
     @staticmethod
     def forward(ctx, out, ep):
         ctx.ep = ep
-        return C.all_gather(out.contiguous(), ep.ep, dim=0)
+        return C._all_gather(out.contiguous(), ep.ep, dim=0)
 
     @staticmethod
     def backward(ctx, g):
-        return C.reduce_scatter(g.contiguous(), group=ctx.ep.ep,
+        return C._reduce_scatter(g.contiguous(), group=ctx.ep.ep,
                                 dim=0), None
 
 

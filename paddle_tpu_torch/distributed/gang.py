@@ -183,9 +183,9 @@ class GangContext:
         _trace.barrier(f"gang/step{step}")
         if self.preemption is not None and self.preemption.requested():
             self.abort(f"preemption notice (SIGTERM) at step {step}")
-        from .collective import all_reduce
+        from .collective import _all_reduce
         from .mesh import ONE_RANK
-        all_reduce(torch.zeros((), device=self.device), group=ONE_RANK)
+        _all_reduce(torch.zeros((), device=self.device), group=ONE_RANK)
 
     def final_save(self):
         """Write the last step-boundary snapshot as a committed

@@ -14,7 +14,8 @@ not once a layer.
 
 ``bucketed_psum`` reduces the tail (``embed``, ``norm_f``,
 ``lm_head``) in buckets of at most 4 MiB, in the reference's leaf order
-(a dict's keys sorted, as JAX flattens it).
+(a dict's keys sorted, as JAX flattens it).  ``plan_buckets`` is its
+grouping, which ``parallel.DataParallel`` shares.
 
 The 1F1B schedule arithmetic (``F_TICK``, ``B_TICK``,
 ``schedule_constants``) and its static event model (``schedule_events``,
@@ -32,9 +33,9 @@ import torch
 from . import collective as C
 
 __all__ = ["Reducer", "reduce_in_backward", "reduce_tree_in_backward",
-           "bucketed_psum", "F_TICK", "B_TICK", "schedule_constants",
-           "schedule_events", "transfer_stats", "overlap_fraction",
-           "measured_overlap"]
+           "plan_buckets", "bucketed_psum", "F_TICK", "B_TICK",
+           "schedule_constants", "schedule_events", "transfer_stats",
+           "overlap_fraction", "measured_overlap"]
 
 
 class Reducer:
@@ -46,7 +47,7 @@ class Reducer:
         self.pending: List = []
 
     def start(self, g: torch.Tensor):
-        self.pending.append(C.all_reduce(g, group=self.group,
+        self.pending.append(C._all_reduce(g, group=self.group,
                                          async_op=True))
 
     def wait_all(self, *_):
@@ -92,6 +93,29 @@ def _flatten(tree, prefix=()):
         yield prefix, tree
 
 
+def plan_buckets(tensors, bucket_bytes: int,
+                 first_bytes: Optional[int] = None) -> List[List[int]]:
+    """The indices of ``tensors`` grouped into buckets, in order: a
+    bucket closes before the tensor that would take it past
+    ``bucket_bytes`` (the first bucket past ``first_bytes``, when given)
+    or that has another dtype; a tensor larger than the limit is a
+    bucket of its own."""
+    buckets: List[List[int]] = [[]]
+    acc = 0
+    for i, t in enumerate(tensors):
+        nbytes = t.numel() * t.element_size()
+        last = buckets[-1]
+        limit = (first_bytes if first_bytes is not None
+                 and len(buckets) == 1 else bucket_bytes)
+        if last and (acc + nbytes > limit
+                     or t.dtype != tensors[last[0]].dtype):
+            buckets.append([])
+            acc = 0
+        buckets[-1].append(i)
+        acc += nbytes
+    return buckets
+
+
 def bucketed_psum(tree, group, bucket_bytes: int = 4 << 20):
     """Sum a tree of tensors over ``group`` in buckets of at most
     ``bucket_bytes`` (a leaf larger than that is a bucket of its own),
@@ -101,22 +125,11 @@ def bucketed_psum(tree, group, bucket_bytes: int = 4 << 20):
     leaves = list(_flatten(tree))
     if not leaves:
         return tree
-    buckets: List[List[int]] = [[]]
-    acc = 0
-    for i, (_, leaf) in enumerate(leaves):
-        nbytes = leaf.numel() * leaf.element_size()
-        last = buckets[-1]
-        if last and (acc + nbytes > bucket_bytes
-                     or leaf.dtype != leaves[last[0]][1].dtype):
-            buckets.append([])
-            acc = 0
-        buckets[-1].append(i)
-        acc += nbytes
     out = {}
-    for idxs in buckets:
+    for idxs in plan_buckets([leaf for _, leaf in leaves], bucket_bytes):
         parts = [leaves[i][1] for i in idxs]
         flat = torch.cat([p.reshape(-1) for p in parts])
-        C.all_reduce(flat, group=group)
+        C._all_reduce(flat, group=group)
         for i, piece in zip(idxs, flat.split([p.numel() for p in parts])):
             out[leaves[i][0]] = piece.view(leaves[i][1].shape)
     return _unflatten(out) if isinstance(tree, dict) else out[()]

@@ -91,7 +91,7 @@ class _PPSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        return C.all_reduce(x.clone(), group=group)
+        return C._all_reduce(x.clone(), group=group)
 
     @staticmethod
     def backward(ctx, g):
@@ -349,8 +349,8 @@ def pipeline_1f1b_value_and_grad(cfg, topo, n_micro, params, batch,
 
     tail = {k: grad(leaves[k]) for k in ("embed", "norm_f", "lm_head")}
     for g in tail.values():
-        C.all_reduce(g, group=group)
-    C.all_reduce(sums, group=group)
+        C._all_reduce(g, group=group)
+    C._all_reduce(sums, group=group)
     ce = sums[0]
     grads = dict(tail, layers={k: grad(v) for k, v in layers.items()})
     return (ce + 0.01 * sums[1] if moe else ce), ce, grads

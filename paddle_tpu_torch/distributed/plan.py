@@ -323,7 +323,7 @@ class Plan:
             if pg is not None:
                 t = torch.tensor([want], dtype=torch.int64, device=(
                     dev if dist.get_backend(pg) == "nccl" else "cpu"))
-                C.broadcast(t, 0, pg)
+                C._broadcast(t, 0, pg)
                 want = int(t.item())
             return None if want < 0 else want
 

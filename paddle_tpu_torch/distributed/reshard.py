@@ -442,7 +442,7 @@ def _gather(t: torch.Tensor, spec, topo, virtual_pp=None) -> torch.Tensor:
     t = t.detach()
     for dim, axis in enumerate(spec or ()):
         if axis and topo.dims[axis] > 1:
-            t = C.all_gather(t.contiguous(), topo.group(axis), dim=dim)
+            t = C._all_gather(t.contiguous(), topo.group(axis), dim=dim)
             n = topo.dims[axis]
             if axis == "pp" and v > 1:
                 # position (d, c) holds global chunk c * pp + d

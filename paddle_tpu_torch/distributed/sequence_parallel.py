@@ -124,7 +124,7 @@ def _all_to_all(x, axis, split, concat):
         raise ValueError(f"dim {split} of {tuple(x.shape)} does not split "
                          f"over {n} ranks")
     parts = torch.stack(x.chunk(n, dim=split))       # [n, ...]
-    got = C.all_to_all(parts, group=axis)
+    got = C._all_to_all(parts, group=axis)
     return torch.cat(got.unbind(0), dim=concat)
 
 
@@ -161,7 +161,7 @@ class _GatherSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
         ctx.args = (axis, x.shape[1])
-        return C.all_gather(x, axis, dim=1)
+        return C._all_gather(x, axis, dim=1)
 
     @staticmethod
     def backward(ctx, g):

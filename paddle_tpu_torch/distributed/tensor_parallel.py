@@ -20,7 +20,10 @@ its row-parallel products (``wo``/``w_down``) hand their partial sums to
 vocab block are zero, then ``leave``); ``cross_entropy`` the
 vocab-parallel logsumexp cross-entropy over ``[B, S, V/mp]`` logits
 (max and sum all-reduces, the target logit from its owner), so no rank
-builds the full logits.
+builds the full logits.  ``gather`` makes a column-parallel output
+whole (all-gather forward, this rank's block of the gradient backward);
+``split`` is its inverse, for a row-parallel product whose input is
+whole.  Both take any group record of ``TensorParallel``'s shape.
 """
 from __future__ import annotations
 
@@ -32,8 +35,8 @@ import torch.nn.functional as F
 
 from . import collective as C
 
-__all__ = ["TensorParallel", "enter", "leave", "embedding",
-           "cross_entropy"]
+__all__ = ["TensorParallel", "enter", "leave", "gather", "split",
+           "embedding", "cross_entropy"]
 
 SEQ = 1   # the sequence dim of [B, S, ...] activations
 
@@ -52,15 +55,15 @@ class _Enter(torch.autograd.Function):
     def forward(ctx, x, tp):
         ctx.tp = tp
         if tp.sp:
-            return C.all_gather(x, tp.group, dim=SEQ)
+            return C._all_gather(x, tp.group, dim=SEQ)
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         tp = ctx.tp
         if tp.sp:
-            return C.reduce_scatter(g, group=tp.group, dim=SEQ), None
-        return C.all_reduce(g.clone(memory_format=torch.contiguous_format),
+            return C._reduce_scatter(g, group=tp.group, dim=SEQ), None
+        return C._all_reduce(g.clone(memory_format=torch.contiguous_format),
                             group=tp.group), None
 
 
@@ -69,17 +72,17 @@ class _Leave(torch.autograd.Function):
     def forward(ctx, x, tp):
         ctx.tp = tp
         if tp.sp:
-            return C.reduce_scatter(x, group=tp.group, dim=SEQ)
+            return C._reduce_scatter(x, group=tp.group, dim=SEQ)
         # a copy: the product's output may be what the "dots" remat
         # policy keeps
-        return C.all_reduce(x.clone(memory_format=torch.contiguous_format),
+        return C._all_reduce(x.clone(memory_format=torch.contiguous_format),
                             group=tp.group)
 
     @staticmethod
     def backward(ctx, g):
         tp = ctx.tp
         if tp.sp:
-            return C.all_gather(g, tp.group, dim=SEQ), None
+            return C._all_gather(g, tp.group, dim=SEQ), None
         return g, None
 
 
@@ -92,6 +95,53 @@ def leave(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     """Out of a row-parallel product: the sum over the group (of this
     rank's rows under ``sp``)."""
     return _Leave.apply(x, tp)
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather ``dim`` over the group forward; backward keeps this
+    rank's block of the gradient (what follows runs the same on every
+    rank of the group, so the gradient is the same too)."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim % x.dim()
+        return C._all_gather(x.contiguous(), tp.group, dim=ctx.dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // ctx.tp.size
+        return g.narrow(ctx.dim, ctx.tp.rank * n, n).contiguous(), None, \
+            None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's block of ``dim`` forward; the gradient blocks
+    all-gathered backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim % x.dim()
+        n = x.shape[ctx.dim] // tp.size
+        return x.narrow(ctx.dim, tp.rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return C._all_gather(g.contiguous(), ctx.tp.group,
+                            dim=ctx.dim), None, None
+
+
+def gather(x: torch.Tensor, tp: TensorParallel, dim: int = -1
+           ) -> torch.Tensor:
+    """The group's blocks of ``x`` made whole along ``dim`` (a
+    column-parallel output along its last dim)."""
+    return _Gather.apply(x, tp, dim)
+
+
+def split(x: torch.Tensor, tp: TensorParallel, dim: int = -1
+          ) -> torch.Tensor:
+    """This rank's block of ``dim`` of a whole input (``gather``'s
+    inverse)."""
+    return _Split.apply(x, tp, dim)
 
 
 def embedding(ids: torch.Tensor, embed: torch.Tensor,
@@ -116,7 +166,7 @@ class _CrossEntropy(torch.autograd.Function):
         v = logits.shape[-1]
         lo = tp.rank * v
         m = logits.amax(dim=-1)
-        C.all_reduce(m, op=C.ReduceOp.MAX, group=tp.group)
+        C._all_reduce(m, op=C.ReduceOp.MAX, group=tp.group)
         e = torch.exp(logits - m[..., None])
         s = e.sum(dim=-1)
         local = labels - lo
@@ -124,8 +174,8 @@ class _CrossEntropy(torch.autograd.Function):
         idx = torch.where(mine, local, 0)
         tgt = logits.gather(-1, idx[..., None])[..., 0] * mine.to(
             logits.dtype)
-        C.all_reduce(s, group=tp.group)
-        C.all_reduce(tgt, group=tp.group)
+        C._all_reduce(s, group=tp.group)
+        C._all_reduce(tgt, group=tp.group)
         # e becomes the softmax in place: what the backward needs
         e.div_(s[..., None])
         ctx.save_for_backward(e, idx, mine)

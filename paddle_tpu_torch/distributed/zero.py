@@ -109,22 +109,22 @@ class ZeroOptimizer:
             batch_group, rest_group = self.sum_groups[path]
             if d is None:
                 if not reduced:
-                    C.all_reduce(p.grad, group=batch_group)
+                    C._all_reduce(p.grad, group=batch_group)
                 continue
             size = p.shape[d] // self.degree
             if reduced:
                 g = p.grad.narrow(d, self.index * size, size).contiguous()
             else:
-                g = C.reduce_scatter(p.grad, group=self.group,
+                g = C._reduce_scatter(p.grad, group=self.group,
                                      dim=d).contiguous()
-                C.all_reduce(g, group=rest_group)
+                C._all_reduce(g, group=rest_group)
             t.grad = g
         self.opt.step()
         with torch.no_grad():
             for _, p, d, t in self.leaves:
                 if d is not None:
                     # gathered into a new tensor: the block is a view of p
-                    p.copy_(C.all_gather(t, self.group, dim=d))
+                    p.copy_(C._all_gather(t, self.group, dim=d))
                     t.grad = None
                 p.grad = None
 
@@ -160,7 +160,7 @@ class ZeroOptimizer:
             for k, v in self.opt.state[t].items():
                 if d is not None and torch.is_tensor(v) \
                         and v.dim() == p.dim():
-                    v = C.all_gather(v.contiguous(), self.group, dim=d)
+                    v = C._all_gather(v.contiguous(), self.group, dim=d)
                 st[k] = v
             out[path] = st
         return out

@@ -7,8 +7,7 @@ next-sentence head; the objective MLM + NSP.
 The same stacked-tree design as ``models/llama.py``: layer leaves carry
 a leading ``[L]`` axis, ``param_specs`` gives the Megatron contract over
 ``mp`` in the port's spec form (one axis name or None a dimension), and
-``build_pretrain_step`` trains over the port's ``HybridTopology`` at
-dp x mp:
+``build_pretrain_step`` trains over the port's ``HybridTopology``:
 
 - mp (``distributed.tensor_parallel``): q/k/v and ``w1`` are column
   parallel (their biases split with them), ``wo`` and ``w2`` row
@@ -23,6 +22,13 @@ dp x mp:
   the sum of the ranks' gradients, which the port's gradient all-reduce
   takes (``ZeroOptimizer`` with ``zero=False``: the reference keeps
   whole optimizer states), is the global batch's gradient.
+- pp: each pp rank holds its ``L/pp`` layers of every stacked leaf and
+  their optimizer state, and gathers the stack before the forward
+  (``tensor_parallel.gather`` over pp); the pp ranks run the same
+  forward on the same rows, so each keeps its slice of the stack's
+  gradient.
+- sharding and sp: in no spec, so their ranks run replicated, with the
+  rows split over dp only, as the reference's ``P("dp", None)``.
 
 Attention is plain PyTorch, as the reference's is jnp: no TPU kernel
 sits under it (the flash kernels are causal only).  GELU is the tanh
@@ -173,22 +179,6 @@ def shard_params(cfg: ErnieConfig, params, topo=None, *, device=None):
     return _map_specs(shard, params, param_specs(cfg))
 
 
-class _GatherLast(torch.autograd.Function):
-    """Column-parallel outputs made whole: all-gather the last dim over
-    mp forward; backward keeps this rank's block of the gradient (what
-    follows runs the same on every mp rank, so the gradient is too)."""
-
-    @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
-        return dcoll.all_gather(x, tp.group, dim=x.dim() - 1)
-
-    @staticmethod
-    def backward(ctx, g):
-        n = g.shape[-1] // ctx.tp.size
-        return g.narrow(-1, ctx.tp.rank * n, n).contiguous(), None
-
-
 def _ln(x, w, b, eps):
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
@@ -206,7 +196,7 @@ def _tp_fns(tp):
         ident = (lambda t: t)
         return ident, ident, ident
     return ((lambda t: tpar.enter(t, tp)), (lambda t: tpar.leave(t, tp)),
-            (lambda t: _GatherLast.apply(t, tp)))
+            (lambda t: tpar.gather(t, tp)))
 
 
 def _encoder_layer(cfg: ErnieConfig, lp, x, mask_bias, tp):
@@ -228,8 +218,19 @@ def _encoder_layer(cfg: ErnieConfig, lp, x, mask_bias, tp):
     return _ln(x + mlp, lp["ln2_w"], lp["ln2_b"], cfg.layer_norm_eps)
 
 
+def _pipeline(topo):
+    """The pp group of a topology with pp > 1 (``topo``, else
+    ``init_mesh``'s), as a ``TensorParallel`` record; else None."""
+    if topo is None:
+        topo = dmesh.get_topology(create=False)
+    if topo is None or topo.pp_degree == 1:
+        return None
+    return tpar.TensorParallel(topo.group("pp"), topo.pp_degree,
+                               topo.coords["pp"], False)
+
+
 def _forward(cfg: ErnieConfig, params, ids, token_type_ids, attention_mask,
-             tp):
+             tp, pp=None):
     dev = params["pos_emb"].device
     ids = torch.as_tensor(ids).to(dev).long()
     B, S = ids.shape
@@ -246,6 +247,11 @@ def _forward(cfg: ErnieConfig, params, ids, token_type_ids, attention_mask,
     x = _ln(x, params["emb_ln_w"], params["emb_ln_b"], cfg.layer_norm_eps)
     mask_bias = torch.where(am[:, None, None, :] > 0, 0.0, -1e9).to(x.dtype)
     layers = params["layers"]
+    if pp is not None:
+        # every pp rank runs the whole stack on the same rows, so each
+        # keeps its slice of the stack's gradient (a sum over pp would
+        # scale it by pp)
+        layers = {n: tpar.gather(t, pp, 0) for n, t in layers.items()}
     names = list(layers)
     parts = {n: layers[n].unbind(0) for n in names}
     for l in range(cfg.num_hidden_layers):
@@ -260,11 +266,11 @@ def _forward(cfg: ErnieConfig, params, ids, token_type_ids, attention_mask,
 def forward_pure(cfg: ErnieConfig, params, input_ids, token_type_ids=None,
                  attention_mask=None, *, topo=None):
     """ids [B, S] -> (sequence_output [B, S, H], pooled_output [B, H]) on
-    the params' device.  Under a topology with mp > 1 (``topo``, else
-    ``init_mesh``'s) the params are this rank's blocks
+    the params' device.  Under a topology with mp or pp > 1 (``topo``,
+    else ``init_mesh``'s) the params are this rank's blocks
     (``shard_params``) and both outputs are whole on every rank."""
     return _forward(cfg, params, input_ids, token_type_ids, attention_mask,
-                    _tensor_parallel(topo, None))
+                    _tensor_parallel(topo, None), _pipeline(topo))
 
 
 def _dp_group(topo):
@@ -277,14 +283,14 @@ def _dp_group(topo):
     return topo.group("dp")
 
 
-def _loss_parts(cfg: ErnieConfig, params, batch, tp, dp):
+def _loss_parts(cfg: ErnieConfig, params, batch, tp, dp, pp=None):
     """(total, mlm, nsp) of this rank's rows, each this rank's share of
     the global batch's value over the ``dp`` group: the masked MLM sum
     over the global count of labels, the NSP sum over the global
     rows."""
     seq, pooled = _forward(cfg, params, batch["input_ids"],
                            batch.get("token_type_ids"),
-                           batch.get("attention_mask"), tp)
+                           batch.get("attention_mask"), tp, pp)
     dev = seq.device
     if "masked_positions" in batch:
         pos = torch.as_tensor(batch["masked_positions"]).to(dev).long()
@@ -315,7 +321,7 @@ def _loss_parts(cfg: ErnieConfig, params, batch, tp, dp):
     counts = torch.stack([valid.sum(), torch.tensor(
         nsp_labels.shape[0], device=dev)]).float()
     if dp is not None:
-        dcoll.all_reduce(counts, group=dp)
+        dcoll._all_reduce(counts, group=dp)
     mlm = mlm_sum / counts[0].clamp_min(1)
     nsp = nsp_sum / counts[1]
     return mlm + nsp, mlm, nsp
@@ -331,12 +337,12 @@ def pretrain_loss(cfg: ErnieConfig, params, batch, *, topo=None):
     OR mlm_labels [B, S] (-1 on unpredicted positions).  The MLM term is
     the mean over the labels >= 0 (0 when there are none); -1 labels
     count nowhere.  Under a topology (``topo``, else ``init_mesh``'s)
-    with mp > 1 the params are this rank's blocks; with dp > 1 ``batch``
-    is this rank's rows and the values are its shares of the global
-    batch's (their sum over dp)."""
+    with mp or pp > 1 the params are this rank's blocks; with dp > 1
+    ``batch`` is this rank's rows and the values are its shares of the
+    global batch's (their sum over dp)."""
     total, mlm, nsp = _loss_parts(cfg, params, batch,
                                   _tensor_parallel(topo, None),
-                                  _dp_group(topo))
+                                  _dp_group(topo), _pipeline(topo))
     return total, {"mlm": mlm, "nsp": nsp}
 
 
@@ -350,32 +356,37 @@ def adamw(tensors):
 def build_pretrain_step(cfg: ErnieConfig, topo=None, optimizer=None, *,
                         device=None):
     """The pretrain step over the hybrid topology (``topo``, else
-    ``init_mesh``'s) at dp x mp, on ``device`` (the card unless the
-    caller names another).  Returns ``(step_fn, init_fn)``:
+    ``init_mesh``'s), on ``device`` (the card unless the caller names
+    another), with the reference's placement: mp splits the leaves by
+    ``param_specs``, pp splits the layer stack (each pp rank holds its
+    ``L/pp`` layers and their optimizer state, and the step gathers the
+    stack over pp before the forward), and the batch's rows split over
+    dp only; ``sharding`` and ``sp`` appear in no spec, so their ranks
+    hold the same leaves and rows (replicated), as the reference's
+    GSPMD step runs there.  Returns ``(step_fn, init_fn)``:
 
     - ``init_fn(seed=0, *, params=None)`` -> ``(params, opt_state)``:
       every rank draws the same full params (``init_params``) and keeps
       its blocks, or starts from ``params``, its blocks
       (``shard_params``); ``opt_state`` a ``ZeroOptimizer`` with whole
-      states (``zero=False``) whose step sums the gradients over dp.
+      states (``zero=False``) over this rank's blocks.
     - ``step_fn(params, opt_state, batch)`` -> ``(params, opt_state,
       {"loss", "mlm", "nsp"})`` (global-batch values, every rank):
-      ``batch`` is this rank's rows (``step_fn.shard_batch``), in either
-      format of ``pretrain_loss``; the params are updated in place.
+      ``batch`` is this rank's rows (``step_fn.shard_batch``: the dp
+      coordinate's block), in either format of ``pretrain_loss``; the
+      gradients are summed over dp, and the params updated in place.
 
     ``optimizer``: a factory from a list of tensors to a ``torch.optim``
-    optimizer (default ``adamw``).  The reference's v1 keeps the whole
-    stack on every device: pp > 1, sharding > 1 and sp > 1 raise."""
+    optimizer (default ``adamw``)."""
     if topo is None:
         topo = dmesh.get_topology()
-    for axis in ("pp", "sharding", "sp"):
-        if topo.dims[axis] > 1:
-            raise NotImplementedError(
-                f"ERNIE pretraining runs at dp x mp; {axis}={topo.dims[axis]}"
-                f" waits for the distributed API (ROADMAP A4)")
     _check_mp(cfg, topo.mp_degree)
+    if cfg.num_hidden_layers % topo.pp_degree:
+        raise ValueError(f"num_hidden_layers={cfg.num_hidden_layers} does "
+                         f"not split over pp={topo.pp_degree}")
     dev = resolve_device(device)
     tp = _tensor_parallel(topo, None)
+    pp = _pipeline(topo)
     dp = _dp_group(topo)
     specs = _paths(param_specs(cfg))
     make_optimizer = optimizer or adamw
@@ -391,17 +402,32 @@ def build_pretrain_step(cfg: ErnieConfig, topo=None, optimizer=None, *,
         return params, ZeroOptimizer(flat, specs, topo, make_optimizer,
                                      zero=False)
 
+    def shard_batch(batch):
+        """This rank's rows: the dp coordinate's block of every leaf."""
+        n, i = topo.dp_degree, topo.coords["dp"]
+        out = {}
+        for k, v in batch.items():
+            if v.shape[0] % n:
+                raise ValueError(f"batch of {v.shape[0]} rows does not "
+                                 f"split over dp={n}")
+            b = v.shape[0] // n
+            out[k] = v[i * b:(i + 1) * b]
+        return out
+
     def step_fn(params, opt_state, batch):
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        total, mlm, nsp = _loss_parts(cfg, params, batch, tp, dp)
+        total, mlm, nsp = _loss_parts(cfg, params, batch, tp, dp, pp)
         total.backward()
-        opt_state.step()
+        if dp is not None:
+            for t in _paths(params).values():
+                dcoll._all_reduce(t.grad, group=dp)
+        opt_state.step(reduced=True)
         out = torch.stack([total.detach(), mlm.detach(), nsp.detach()])
         if dp is not None:
-            dcoll.all_reduce(out, group=dp)
+            dcoll._all_reduce(out, group=dp)
         return params, opt_state, {"loss": out[0], "mlm": out[1],
                                    "nsp": out[2]}
 
     step_fn.topology = topo
-    step_fn.shard_batch = topo.shard_batch
+    step_fn.shard_batch = shard_batch
     return step_fn, init_fn

@@ -963,7 +963,7 @@ class _SeqMean(torch.autograd.Function):
     def forward(ctx, x, group):
         n, _ = dcoll.group_rank(group)
         ctx.n = n
-        return dcoll.all_reduce(x.clone(), op="avg", group=group)
+        return dcoll._all_reduce(x.clone(), op="avg", group=group)
 
     @staticmethod
     def backward(ctx, g):
@@ -1115,7 +1115,7 @@ def gather_params(cfg: LlamaConfig, params, topo=None, *,
         t = t.detach()
         for dim, axis in enumerate(spec):
             if axis:
-                t = dcoll.all_gather(t, topo.group(axis), dim=dim)
+                t = dcoll._all_gather(t, topo.group(axis), dim=dim)
                 n = topo.dims[axis]
                 if axis == "pp" and v > 1:
                     # position (d, c) holds global chunk c * pp + d
@@ -1278,7 +1278,7 @@ def build_train_step(cfg: LlamaConfig, topo=None, optimizer=None,
             for k in tail:
                 if params[k].grad is None:
                     params[k].grad = torch.zeros_like(params[k])
-                dcoll.all_reduce(params[k].grad, group=topo.group("pp"))
+                dcoll._all_reduce(params[k].grad, group=topo.group("pp"))
         return total, ce
 
     def step_fn(params, opt_state, batch):
@@ -1286,11 +1286,11 @@ def build_train_step(cfg: LlamaConfig, topo=None, optimizer=None,
         total, ce = loss_and_grads(params, batch)
         flat = _paths(params)
         for path in mp_partial:
-            dcoll.all_reduce(flat[path].grad, group=topo.group("mp"))
+            dcoll._all_reduce(flat[path].grad, group=topo.group("mp"))
         opt_state.step(reduced=overlap_dp)
         loss = torch.stack([total.detach(), ce.detach()])
         if n_batch > 1:
-            dcoll.all_reduce(loss, op="avg", group=topo.group(
+            dcoll._all_reduce(loss, op="avg", group=topo.group(
                 topo.batch_axes))
         return params, opt_state, {"loss": loss[0], "ce": loss[1]}
 

@@ -13,7 +13,7 @@ import torch
 
 import torch_dist_workers as workers
 from paddle_tpu_torch import bench as tbench
-from paddle_tpu_torch.distributed import spawn
+from paddle_tpu_torch.distributed.launch import spawn
 from paddle_tpu_torch.models import llama as tllama
 
 pytestmark = pytest.mark.cuda

@@ -22,8 +22,8 @@ import torch
 import torch_dist_workers as workers
 from paddle_tpu.distributed.plan import Plan as JPlan
 from paddle_tpu.models import llama as jllama
-from paddle_tpu_torch.distributed import (HybridTopology, ONE_RANK, TCPStore,
-                                          spawn)
+from paddle_tpu_torch.distributed import HybridTopology, ONE_RANK, TCPStore
+from paddle_tpu_torch.distributed.launch import spawn
 from paddle_tpu_torch.distributed import collective as C
 from paddle_tpu_torch.distributed import overlap
 from paddle_tpu_torch.distributed.plan import Plan, PlanError
@@ -65,8 +65,8 @@ def test_world_of_one_topology_needs_no_process_group():
     for axis in ("dp", "mp", ("dp", "sharding")):
         assert topo.group(axis) is ONE_RANK
     x = torch.arange(6.0)
-    assert C.all_reduce(x, group=topo.group("dp")) is x
-    assert C.all_gather(x, ONE_RANK) is x
+    assert C._all_reduce(x, group=topo.group("dp")) is x
+    assert C._all_gather(x, ONE_RANK) is x
     with pytest.raises(ValueError, match="needs 2 ranks"):
         HybridTopology(mp=2)
 
@@ -222,7 +222,7 @@ def test_zero_shard_dim_is_the_references_choice():
 
 def test_bucketed_psum_buckets_in_sorted_leaf_order(monkeypatch):
     sizes = []
-    monkeypatch.setattr(C, "all_reduce",
+    monkeypatch.setattr(C, "_all_reduce",
                         lambda t, group=None: sizes.append(t.numel()) or t)
     tree = {"norm_f": torch.ones(64), "embed": torch.ones(4 << 18),
             "lm_head": torch.full((3, 5), 2.0), "zz": {"a": torch.ones(7)}}

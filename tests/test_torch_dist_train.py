@@ -39,7 +39,7 @@ import torch_dist_workers as workers
 from paddle_tpu.distributed.mesh import HybridTopology as JTopology
 from paddle_tpu.models import llama as jllama
 from paddle_tpu_torch import bench as tbench
-from paddle_tpu_torch.distributed import spawn
+from paddle_tpu_torch.distributed.launch import spawn
 from paddle_tpu_torch.models import convert
 from paddle_tpu_torch.models import llama as tllama
 

@@ -11,9 +11,11 @@ zero, softmax ignoring a shift of a row's scores: both sides hold
 rounding noise of ~1e-12 there); three steps of ``build_pretrain_step`` at world size 1
 against the reference's step on one device, losses atol 1e-5 (torch's
 AdamW decays the parameter before adding the step, optax in one update:
-one f32 rounding apart); the same steps at dp2 x mp2 over four gloo
-ranks against the reference's single-device step, atol 1e-4 (the mp
-sums run in another order).
+one f32 rounding apart); the same steps over four gloo ranks at
+dp2 x mp2, pp2 x sp2 and dp2 x sharding2 (one world, in turn) against
+the reference's single-device step, atol 1e-4 (the mp sums run in
+another order; pp, sp and sharding run the reference's placement: the
+layer stack split over pp, sp and sharding replicated).
 """
 import concurrent.futures as cf
 
@@ -26,7 +28,8 @@ import torch
 import torch_dist_workers as workers
 from paddle_tpu.distributed.mesh import HybridTopology as JTopology
 from paddle_tpu.models import ernie as jernie
-from paddle_tpu_torch.distributed import HybridTopology, spawn
+from paddle_tpu_torch.distributed import HybridTopology
+from paddle_tpu_torch.distributed.launch import spawn
 from paddle_tpu_torch.models import convert
 from paddle_tpu_torch.models import ernie as ternie
 from paddle_tpu_torch.models import llama as tllama
@@ -35,6 +38,8 @@ FIELDS = dict(vocab_size=128, hidden_size=32, num_hidden_layers=2,
               num_attention_heads=4, intermediate_size=64,
               max_position_embeddings=64, type_vocab_size=2)
 B, S, P_SLOTS, STEPS = 4, 16, 8, 3
+# the topologies the 4-rank world runs, in turn
+CASES = (dict(dp=2, mp=2), dict(pp=2, sp=2), dict(dp=2, sharding=2))
 TIMEOUT = 240.0
 
 
@@ -173,8 +178,9 @@ def _jax_steps(jcfg, batches):
 @pytest.fixture(scope="module")
 def steps():
     """The reference's single-device step over three batches (gathered,
-    dense, gathered), the port at world size 1 in this process and at
-    dp2 x mp2 as four gloo ranks, all from the reference's init."""
+    dense, gathered), the port at world size 1 in this process and, as
+    four gloo ranks, at each topology of ``CASES``, all from the
+    reference's init."""
     jcfg = jernie.ErnieConfig(**FIELDS)
     batches = [_batch(10), _batch(11, dense=True), _batch(12)]
     batches[0] = _batch(10, dense=False)
@@ -182,7 +188,7 @@ def steps():
     start, ref = _jax_steps(jcfg, batches)
     with cf.ThreadPoolExecutor(1) as pool:
         fut = pool.submit(spawn, workers.ernie_steps, 4,
-                          (FIELDS, start, batches, dict(dp=2, mp=2)),
+                          (FIELDS, start, batches, CASES),
                           device="cpu", timeout=TIMEOUT)
         tcfg = ternie.ErnieConfig(**FIELDS)
         step, init = ternie.build_pretrain_step(tcfg, HybridTopology(),
@@ -194,7 +200,7 @@ def steps():
             params, opt, m = step(params, opt, _tb(b))
             ws1.append({k: v.item() for k, v in m.items()})
         ranks = fut.result(timeout=TIMEOUT + 30)
-    return {"ref": ref, "ws1": ws1, "ranks": ranks}
+    return {"ref": ref, "ws1": ws1, "ranks": ranks, "start": start}
 
 
 def test_pretrain_step_world_size_1_matches_jax(steps):
@@ -204,25 +210,67 @@ def test_pretrain_step_world_size_1_matches_jax(steps):
     assert steps["ws1"][-1]["loss"] != steps["ws1"][0]["loss"]
 
 
-def test_pretrain_step_dp2_mp2_matches_jax_single_device(steps):
-    coords = sorted((r["coords"]["dp"], r["coords"]["mp"])
-                    for r in steps["ranks"])
-    assert coords == [(0, 0), (0, 1), (1, 0), (1, 1)]
-    for r in steps["ranks"]:
+def _case(steps, i):
+    return [r[i] for r in steps["ranks"]]
+
+
+def _losses_match(ranks, ref):
+    for r in ranks:
         assert len(r["metrics"]) == STEPS
-        for got, ref in zip(r["metrics"], steps["ref"]):
+        for got, want in zip(r["metrics"], ref):
             for k in ("loss", "mlm", "nsp"):
-                assert abs(got[k] - ref[k]) <= 1e-4, (k, got, ref)
+                assert abs(got[k] - want[k]) <= 1e-4, (k, got, want)
 
 
-def test_param_specs_and_unsupported_axes():
+def test_pretrain_step_dp2_mp2_matches_jax_single_device(steps):
+    ranks = _case(steps, 0)
+    coords = sorted((r["coords"]["dp"], r["coords"]["mp"]) for r in ranks)
+    assert coords == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    _losses_match(ranks, steps["ref"])
+
+
+def test_pretrain_step_pp2_sp2_matches_jax_single_device(steps):
+    ranks = _case(steps, 1)
+    coords = sorted((r["coords"]["pp"], r["coords"]["sp"]) for r in ranks)
+    assert coords == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    _losses_match(ranks, steps["ref"])
+
+
+def test_pretrain_step_dp2_sharding2_matches_jax_single_device(steps):
+    ranks = _case(steps, 2)
+    coords = sorted((r["coords"]["dp"], r["coords"]["sharding"])
+                    for r in ranks)
+    assert coords == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    _losses_match(ranks, steps["ref"])
+
+
+def test_pp_slices_hold_the_reckoned_bytes(steps):
+    """At pp=2 a rank holds half of every stacked layer leaf and the
+    rest whole (float32), and AdamW's two moments of exactly those; at
+    dp x sharding every rank holds everything (no spec names
+    sharding)."""
+    flat = tllama._paths(steps["start"])
+    layers = sum(v.size * 4 for k, v in flat.items()
+                 if k.startswith("layers"))
+    rest = sum(v.size * 4 for k, v in flat.items()
+               if not k.startswith("layers"))
+    for r in _case(steps, 1):
+        assert r["weight_bytes"] == rest + layers // 2
+        assert r["state_bytes"] == 2 * r["weight_bytes"]
+    for r in _case(steps, 2):
+        assert r["weight_bytes"] == rest + layers
+        assert r["state_bytes"] == 2 * r["weight_bytes"]
+
+
+def test_param_specs_and_unsupported_axes(steps):
+    """The specs are the reference's, and pp, sp and sharding, which the
+    port refused before it ran the reference's placement, now train
+    (every rank of those topologies ran every step)."""
+    for i in (1, 2):
+        assert all(len(r["metrics"]) == STEPS for r in _case(steps, i))
     cfg = ternie.ErnieConfig(**FIELDS)
     jspecs = jernie.param_specs(jernie.ErnieConfig(**FIELDS))
     tspecs = ternie.param_specs(cfg)
     flat_j = tllama._paths(jax.tree_util.tree_map(
         tuple, jspecs, is_leaf=lambda x: not isinstance(x, dict)))
     assert tllama._paths(tspecs) == flat_j
-    topo = HybridTopology()
-    topo.dims["pp"] = 2          # what a pp=2 topology reports
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        ternie.build_pretrain_step(cfg, topo, device="cpu")

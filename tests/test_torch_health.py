@@ -153,21 +153,21 @@ def test_collectives_fire_the_beacon_and_the_chaos_point():
     m.set_step(4)
     assert thealth.current_step() == 4 and thealth.monitored()
     x = torch.ones(3)
-    assert C.all_reduce(x, group=ONE_RANK) is x
+    assert C._all_reduce(x, group=ONE_RANK) is x
     assert m.stats()["beats"] == 2 and m._coll is None
     payload = pickle.loads(store.get(f"{m.prefix}/hb/0"))
     assert payload["coll"] is None and payload["step"] == 4
     with tchaos.installed("raise@collective.all_reduce:step=4"):
         with pytest.raises(tchaos.ChaosError):
-            C.all_reduce(x, group=ONE_RANK)
+            C._all_reduce(x, group=ONE_RANK)
     assert m._coll is None          # the beacon closed on the way out
     with tchaos.installed("raise@collective.all_gather:step=4"):
         with pytest.raises(tchaos.ChaosError):
-            C.all_gather(x, ONE_RANK)
+            C._all_gather(x, ONE_RANK)
     thealth.uninstall()
     with tchaos.installed("raise@collective.all_reduce"):
         with pytest.raises(tchaos.ChaosError):   # no monitor: still fires
-            C.all_reduce(x, group=ONE_RANK)
+            C._all_reduce(x, group=ONE_RANK)
 
 
 def test_incident_sidecars_match_the_reference(tmp_path, monkeypatch):

@@ -71,7 +71,15 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
                 "quantization/qat.py", "quantization/quantized_layers.py",
                 "inference/__init__.py", "inference/convert.py",
                 "inference/capi.py", "onnx/__init__.py",
-                "examples/quantize_serve.py"):
+                "examples/quantize_serve.py", "distributed/collective.py",
+                "distributed/parallel.py", "distributed/random.py",
+                "distributed/recompute.py", "distributed/io.py",
+                "distributed/launch_utils.py", "distributed/__init__.py",
+                "distributed/fleet/__init__.py",
+                "distributed/fleet/mp_layers.py",
+                "distributed/fleet/gradient_merge.py",
+                "distributed/fleet/localsgd.py",
+                "distributed/fleet/utils.py"):
         assert REPO / "paddle_tpu_torch" / mod in files
     bad = []
     for path in files:

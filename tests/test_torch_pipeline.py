@@ -44,7 +44,7 @@ from paddle_tpu.distributed import pipeline as jpipe
 from paddle_tpu.distributed.mesh import HybridTopology as JTopology
 from paddle_tpu.distributed.overlap import schedule_events
 from paddle_tpu.models import llama as jllama
-from paddle_tpu_torch.distributed import spawn
+from paddle_tpu_torch.distributed.launch import spawn
 from paddle_tpu_torch.models import llama as tllama
 
 FIELDS = dict(vocab_size=128, hidden_size=32, intermediate_size=64,

@@ -25,7 +25,7 @@ import torch
 import torch_dist_workers as workers
 from paddle_tpu.distributed.plan import Plan as JPlan
 from paddle_tpu.models import llama as jllama
-from paddle_tpu_torch.distributed import spawn
+from paddle_tpu_torch.distributed.launch import spawn
 from paddle_tpu_torch.distributed.plan import Plan
 from paddle_tpu_torch.models import llama as tllama
 

@@ -19,7 +19,7 @@ import torch_ckpt_workers as workers
 from paddle_tpu.distributed import reshard as jreshard
 from paddle_tpu.models import llama as jllama
 from paddle_tpu_torch.distributed import reshard as treshard
-from paddle_tpu_torch.distributed import spawn
+from paddle_tpu_torch.distributed.launch import spawn
 from paddle_tpu_torch.distributed.mesh import HybridTopology
 from paddle_tpu_torch.models import llama as tllama
 

@@ -42,7 +42,7 @@ from test_torch_pipeline import jax_steps
 from paddle_tpu.distributed import sequence_parallel as jsp
 from paddle_tpu.distributed.mesh import HybridTopology as JTopology
 from paddle_tpu.models import llama as jllama
-from paddle_tpu_torch.distributed import spawn
+from paddle_tpu_torch.distributed.launch import spawn
 from paddle_tpu_torch.models import llama as tllama
 
 TIMEOUT = 300.0

@@ -75,7 +75,7 @@ def main():
             ys = torch.from_numpy(y[r * per:(r + 1) * per])
             res = xs @ w - ys
             acc = torch.cat([(2.0 * res) @ xs, (res @ res).reshape(1)])
-            C.all_reduce(acc)            # sums over the world: exact
+            C._all_reduce(acc)           # sums over the world: exact
             g, loss = acc[:DIM] / args.batch, acc[DIM] / args.batch
             # requantize to the dyadic grid: the pre-rounding value is
             # exact (order-independent), so the rounded weights are
